@@ -1,0 +1,16 @@
+"""cfnerf_torch — the PyTorch + CUDA (Hopper) port of cfnerf_tpu.
+
+Layout mirrors cfnerf_tpu so each module's counterpart is easy to find:
+
+  ops/          positional encoding, rays, z schedules, compositing, metrics
+  ops/kernels/  hand-written CUDA kernels for sm_90a, their wrappers, plain
+                PyTorch versions and the nvcc build (kernel sources: csrc/)
+  flows/        triangular Sylvester flow steps and their amortization
+  models/       NeRFFlows and the model factory
+  render/       ray-batch renderer and the tiled full-image renderer
+  convert.py    weights carried across from a cfnerf_tpu params pytree
+
+The package imports torch and never jax or cfnerf_tpu.  Entry points run on
+the CUDA device unless the caller passes device="cpu"; on the CPU every
+kernel wrapper runs its plain PyTorch version.
+"""

@@ -1,0 +1,59 @@
+"""Weights carried across from the JAX package.
+
+`nerf_flows_state_dict_from_jax` turns a cfnerf_tpu NeRFFlows params pytree
+(nested dicts of numpy arrays) into a state_dict for
+cfnerf_torch.models.nerf_flows.NeRFFlows.
+
+  * Dense layers: flax kernels are (in, out), torch weights (out, in).  The
+    JAX side computes the skip and views concatenations as split matmuls
+    over one kernel; the port concatenates the same parts in the same order
+    and applies one nn.Linear, so the kernel converts as it is.
+  * Base parameters alpha_mean/alpha_std/rgb_mean/rgb_std copy over.
+  * test_eps=(eps_a (K, 1), eps_r (K, 3)) fills the fixed test-mode eps
+    buffers (the JAX model's `_test_eps`, last draw already zeroed).  Without
+    it the dict holds no buffers; load it with strict=False to keep the
+    model's own.
+Reading an Orbax checkpoint from disk comes with the checkpoint slice.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+_HEADS = ("feature_linear", "views_linear", "h_alpha_linear", "h_rgb_linear")
+_AMOR = ("amor_d", "amor_diag1", "amor_diag2", "amor_b")
+_BASE = ("alpha_mean", "alpha_std", "rgb_mean", "rgb_std")
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
+
+
+def _dense(sd: Dict[str, torch.Tensor], prefix: str, p: Mapping[str, Any]) -> None:
+    sd[f"{prefix}.weight"] = _t(p["kernel"]).T.contiguous()
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def nerf_flows_state_dict_from_jax(
+    params: Mapping[str, Any],
+    test_eps: Optional[Tuple[Any, Any]] = None,
+) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    i = 0
+    while f"pts_linear_{i}" in params:
+        _dense(sd, f"pts_linears.{i}", params[f"pts_linear_{i}"])
+        i += 1
+    for name in _HEADS:
+        if name in params:
+            _dense(sd, name, params[name])
+    for fam in ("flows_alpha", "flows_rgb"):
+        for name in _AMOR:
+            _dense(sd, f"{fam}.{name}", params[fam][name])
+    for name in _BASE:
+        sd[name] = _t(params[name])
+    if test_eps is not None:
+        sd["test_eps_a"] = _t(test_eps[0])
+        sd["test_eps_r"] = _t(test_eps[1])
+    return sd

@@ -1,0 +1,108 @@
+"""Model factory — counterpart of cfnerf_tpu/models/factory.py (reference
+create_nerf, run_nerf_uncertainty_NF.py:317-341).
+
+Reads the same flag names as cfnerf_tpu/utils/config.py.  This slice builds
+the triangular NeRFFlows serving path; everything else raises
+NotImplementedError naming the slice that brings it.  Resuming from
+checkpoints comes with slice 4 (data, loop, checkpoints, CLI).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from cfnerf_torch.models.nerf_flows import NeRFFlows
+from cfnerf_torch.ops.embed import get_embedder
+from cfnerf_torch.render.renderer import RenderConfig
+from cfnerf_torch.utils.device import DeviceLike, resolve_device
+
+
+def _check_supported(args) -> None:
+    model_name = (getattr(args, "model", None) or "nerf_flows").lower()
+    if model_name != "nerf_flows":
+        raise NotImplementedError(
+            f"--model {model_name}: the baseline models come with slice 6"
+        )
+    if args.type_flows != "triangular":
+        raise NotImplementedError(
+            f"--type_flows {args.type_flows}: other flow families come with slice 6"
+        )
+    if getattr(args, "compute_dtype", "float32") != "float32":
+        raise NotImplementedError(
+            "--compute_dtype bfloat16 comes with slice 8 (trunk kernels); "
+            "this slice runs the trunk in float32"
+        )
+    if args.N_importance > 0:
+        raise NotImplementedError(
+            "--N_importance > 0 (hierarchical sampling) comes with slice 5"
+        )
+
+
+def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Draw every nn.Linear from torch.nn.Linear's default distribution,
+    U(+-1/sqrt(fan_in)) for weight and bias (the JAX package's TorchDense
+    matches it), from an explicit torch.Generator; base parameters go to
+    mean 0, std 1.  In place; returns the model."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Linear):
+                bound = 1.0 / m.in_features ** 0.5
+                w = torch.empty(m.weight.shape).uniform_(-bound, bound, generator=g)
+                b = torch.empty(m.bias.shape).uniform_(-bound, bound, generator=g)
+                m.weight.copy_(w)
+                m.bias.copy_(b)
+        if isinstance(model, NeRFFlows):
+            model.alpha_mean.zero_()
+            model.rgb_mean.zero_()
+            model.alpha_std.fill_(1.0)
+            model.rgb_std.fill_(1.0)
+    return model
+
+
+def build_model(
+    args, device: DeviceLike = None
+) -> Tuple[NeRFFlows, Optional[NeRFFlows], RenderConfig]:
+    """Build the flagship model + render config from the flag namespace.
+
+    Returns (model, model_fine, render_config); model_fine is None in this
+    slice.  Weights come from init_params(seed=args.seed).  The model lives
+    on the CUDA device unless device="cpu" is passed; with no CUDA device and
+    no explicit device this raises."""
+    dev = resolve_device(device)
+    _check_supported(args)
+    _, input_ch = get_embedder(args.multires, args.i_embed)
+    input_ch_views = 0
+    if args.use_viewdirs:
+        _, input_ch_views = get_embedder(args.multires_views, args.i_embed)
+
+    model = NeRFFlows(
+        net_depth=args.netdepth,
+        net_width=args.netwidth,
+        input_ch=input_ch,
+        input_ch_views=input_ch_views,
+        skips=(args.netdepth // 2,),  # reference: [netdepth/2] (:327)
+        h_alpha_size=args.h_alpha_size,
+        h_rgb_size=args.h_rgb_size,
+        n_flows=args.n_flows,
+        k_samples=args.K_samples,
+        use_viewdirs=args.use_viewdirs,
+        type_flows=args.type_flows,
+    )
+    init_params(model, getattr(args, "seed", 0))
+    render_config = RenderConfig(
+        n_samples=args.N_samples,
+        n_importance=args.N_importance,
+        perturb=args.perturb > 0,
+        lindisp=getattr(args, "lindisp", False),
+        use_viewdirs=args.use_viewdirs,
+        white_bkgd=args.white_bkgd,
+        raw_noise_std=args.raw_noise_std,
+        uniform=getattr(args, "uniformsample", False),
+        multires=args.multires,
+        multires_views=args.multires_views,
+        i_embed=args.i_embed,
+    )
+    return model.to(dev), None, render_config

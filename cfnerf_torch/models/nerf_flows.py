@@ -1,0 +1,234 @@
+"""NeRFFlows — the CF-NeRF probabilistic radiance field; counterpart of
+cfnerf_tpu/models/nerf_flows.py (reference model/models.py:13-291), for the
+triangular flow family.
+
+A D x W ReLU trunk with a skip concat after layer D//2 emits two
+conditioning vectors, h_alpha (density) and h_rgb (view-dependent rgb).
+Global learnable base parameters (alpha_mean/std, rgb_mean/std) define
+N(mu, sigma^2); K base draws z0 = mu + sigma * eps, with eps SHARED across
+all points (models.py:234,246), go through two amortized triangular-Sylvester
+stacks.  Outputs are pre-softplus density and pre-sigmoid rgb; their
+activation log-det corrections fold into the entropy term.
+
+Test mode uses fixed eps buffers with the LAST of the K draws zeroed (the
+mean sample) and skips the log-dets.  A fresh model draws its buffers from
+torch.Generator(test_eps_seed); torch cannot reproduce JAX's PRNG, so these
+differ from the JAX model's `_test_eps`.  Loading converted weights
+(cfnerf_torch.convert) carries the JAX buffers across.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from cfnerf_torch.flows.amortized import AmortizedTriangularSylvester
+from cfnerf_torch.flows.sylvester import triangular_sylvester_stack
+from cfnerf_torch.ops.compositing import softplus
+from cfnerf_torch.ops.kernels.render_core import fused_flow_composite
+
+Z_ALPHA = 1  # density latent dim
+Z_RGB = 3    # rgb latent dim
+
+Eps = Tuple[torch.Tensor, torch.Tensor]
+
+
+def _fixed_eps(k_samples: int, seed: int) -> Eps:
+    g = torch.Generator().manual_seed(seed)
+    eps_a = torch.randn(k_samples, Z_ALPHA, generator=g)
+    eps_r = torch.randn(k_samples, Z_RGB, generator=g)
+    eps_a[-1] = 0.0
+    eps_r[-1] = 0.0
+    return eps_a, eps_r
+
+
+class NeRFFlows(nn.Module):
+    def __init__(
+        self,
+        net_depth: int = 8,
+        net_width: int = 256,
+        input_ch: int = 63,
+        input_ch_views: int = 27,
+        skips: Sequence[int] = (4,),
+        h_alpha_size: int = 32,
+        h_rgb_size: int = 64,
+        n_flows: int = 4,
+        k_samples: int = 64,
+        use_viewdirs: bool = True,
+        type_flows: str = "triangular",
+        test_eps_seed: int = 0,
+    ):
+        super().__init__()
+        if type_flows != "triangular":
+            raise NotImplementedError(
+                f"type_flows={type_flows!r}: the port has the triangular family "
+                "only; the other flow families come with slice 6"
+            )
+        self.net_depth, self.net_width = net_depth, net_width
+        self.input_ch, self.input_ch_views = input_ch, input_ch_views
+        self.skips = tuple(skips)
+        self.k_samples = k_samples
+        self.use_viewdirs = use_viewdirs
+        self.type_flows = type_flows
+
+        W = net_width
+        layers, fan_in = [], input_ch
+        for i in range(net_depth):
+            layers.append(nn.Linear(fan_in, W))
+            fan_in = W + input_ch if i in self.skips else W
+        self.pts_linears = nn.ModuleList(layers)
+        if use_viewdirs:
+            self.feature_linear = nn.Linear(fan_in, W)
+            self.views_linear = nn.Linear(W + input_ch_views, W // 2)
+            self.h_alpha_linear = nn.Linear(fan_in, h_alpha_size)
+            self.h_rgb_linear = nn.Linear(W // 2, h_rgb_size)
+        else:
+            # the reference crashes here; the intended behaviour: both
+            # conditioning vectors from the trunk output
+            self.h_alpha_linear = nn.Linear(fan_in, h_alpha_size)
+            self.h_rgb_linear = nn.Linear(fan_in, h_rgb_size)
+
+        self.alpha_mean = nn.Parameter(torch.zeros(Z_ALPHA))
+        self.alpha_std = nn.Parameter(torch.ones(Z_ALPHA))
+        self.rgb_mean = nn.Parameter(torch.zeros(Z_RGB))
+        self.rgb_std = nn.Parameter(torch.ones(Z_RGB))
+
+        self.flows_alpha = AmortizedTriangularSylvester(h_alpha_size, Z_ALPHA, n_flows)
+        self.flows_rgb = AmortizedTriangularSylvester(h_rgb_size, Z_RGB, n_flows)
+
+        eps_a, eps_r = _fixed_eps(k_samples, test_eps_seed)
+        self.register_buffer("test_eps_a", eps_a)
+        self.register_buffer("test_eps_r", eps_r)
+
+    # ------------------------------------------------------------------ #
+
+    def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Trunk + heads (models.py:165-186).  x: (B, input_ch [+ views]).
+        Returns (h_alpha, h_rgb) in f32."""
+        input_pts = x[..., : self.input_ch]
+        input_views = x[..., self.input_ch:]
+        h = input_pts
+        for i, layer in enumerate(self.pts_linears):
+            h = torch.relu(layer(h))
+            if i in self.skips:
+                h = torch.cat([input_pts, h], -1)
+        if self.use_viewdirs:
+            h_alpha = self.h_alpha_linear(h)
+            feature = self.feature_linear(h)
+            hv = torch.relu(self.views_linear(torch.cat([feature, input_views], -1)))
+            h_rgb = self.h_rgb_linear(hv)
+        else:
+            h_alpha = self.h_alpha_linear(h)
+            h_rgb = self.h_rgb_linear(h)
+        return h_alpha.float(), h_rgb.float()
+
+    # ------------------------------------------------------------------ #
+
+    def _draw_eps(self, is_test: bool, generator: Optional[torch.Generator],
+                  eps: Optional[Eps]) -> Eps:
+        """Shared-K base draws for both forward paths: injected eps (test
+        mode still zeroes the last draw), the fixed test buffers, or fresh
+        training draws from `generator`."""
+        dev = self.alpha_mean.device
+        if eps is not None:
+            eps_a, eps_r = (torch.as_tensor(e, dtype=torch.float32, device=dev)
+                            for e in eps)
+            if is_test:
+                eps_a, eps_r = eps_a.clone(), eps_r.clone()
+                eps_a[-1] = 0.0
+                eps_r[-1] = 0.0
+            return eps_a, eps_r
+        if is_test:
+            return self.test_eps_a, self.test_eps_r
+        if generator is None:
+            raise ValueError("a training forward needs a torch.Generator")
+        K = self.k_samples
+        eps_a = torch.randn(K, Z_ALPHA, generator=generator, device=generator.device)
+        eps_r = torch.randn(K, Z_RGB, generator=generator, device=generator.device)
+        return eps_a.to(dev), eps_r.to(dev)
+
+    def _base_draws(self, eps_a, eps_r) -> Eps:
+        return (eps_a * self.alpha_std + self.alpha_mean,
+                eps_r * self.rgb_std + self.rgb_mean)
+
+    def _base_log_density_mean(self, z0_a, z0_r) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Elementwise base log-density means (no -0.5 log 2pi;
+        models.py:268,283) on the (K, Z) draws: eps is shared over points,
+        so this equals the reference's mean over the B-expanded tensor."""
+        base_a = -0.5 * (2.0 * torch.log(self.alpha_std)
+                         + (z0_a - self.alpha_mean) ** 2 / self.alpha_std ** 2)
+        base_r = -0.5 * (2.0 * torch.log(self.rgb_std)
+                         + (z0_r - self.rgb_mean) ** 2 / self.rgb_std ** 2)
+        return base_a.mean(), base_r.mean()
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        *,
+        is_test: bool = False,
+        generator: Optional[torch.Generator] = None,
+        eps: Optional[Eps] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Unfused forward (models.py:188-291), the oracle of the fused path.
+
+        Returns raw (B, K, 4): pre-sigmoid rgb then pre-softplus density,
+        and the entropy loss (0 in test mode)."""
+        h_alpha, h_rgb = self.encode(x)
+        B, K = h_alpha.shape[0], self.k_samples
+        z0_a, z0_r = self._base_draws(*self._draw_eps(is_test, generator, eps))
+        compute_ld = not is_test
+        z_alpha, ldj_alpha = triangular_sylvester_stack(
+            z0_a[None].expand(B, K, Z_ALPHA), *self.flows_alpha(h_alpha),
+            compute_log_det=compute_ld,
+        )
+        z_rgb, ldj_rgb = triangular_sylvester_stack(
+            z0_r[None].expand(B, K, Z_RGB), *self.flows_rgb(h_rgb),
+            compute_log_det=compute_ld,
+        )
+        raw = torch.cat([z_rgb, z_alpha], -1)
+        if is_test:
+            return raw, torch.zeros((), dtype=raw.dtype, device=raw.device)
+        # final-activation log-det corrections (models.py:261-278)
+        ldj_alpha = ldj_alpha + (z_alpha - softplus(z_alpha)).sum(-1)
+        ldj_rgb = ldj_rgb + (z_rgb - 2.0 * softplus(z_rgb)).sum(-1)
+        base_a, base_r = self._base_log_density_mean(z0_a, z0_r)
+        loss_entropy = base_a - ldj_alpha.mean() + base_r - ldj_rgb.mean()
+        return raw, loss_entropy
+
+    def forward_composited(
+        self,
+        x: torch.Tensor,
+        z_pts: torch.Tensor,
+        d_pts: torch.Tensor,
+        s_per_ray: int,
+        *,
+        is_test: bool = False,
+        generator: Optional[torch.Generator] = None,
+        eps: Optional[Eps] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Fused render forward: trunk + amortization here, then flows and
+        the K-sample composite in the render core (the CUDA kernel on the
+        card), so the (B, K, 4) raw tensor never exists.
+
+        x: (B, input_ch [+ views]), B = R * s_per_ray, sample minor;
+        z_pts (B,) sample depths; d_pts (B,) interval * |rays_d|.
+        Returns (rgb_map (R, 3, K), depth (R, K), acc (R, K), entropy)."""
+        h_alpha, h_rgb = self.encode(x)
+        B, K = h_alpha.shape[0], self.k_samples
+        z0_a, z0_r = self._base_draws(*self._draw_eps(is_test, generator, eps))
+        # the kernel reads contiguous arrays; r2 is built from a transpose
+        flat = [t.contiguous() for t in (
+            z0_a, *self.flows_alpha(h_alpha), z0_r, *self.flows_rgb(h_rgb),
+            z_pts, d_pts)]
+        rgb_map, depth, acc, ldj_ray = fused_flow_composite(
+            *flat, s_per_ray, not is_test)
+        if is_test:
+            return rgb_map, depth, acc, torch.zeros((), dtype=acc.dtype, device=acc.device)
+        # same normalisations as forward(): base terms mean over (K, Z),
+        # log-det terms mean over (B, K) (the core returns per-ray sums)
+        base_a, base_r = self._base_log_density_mean(z0_a, z0_r)
+        denom = B * K
+        loss_entropy = (base_a - ldj_ray[0].sum() / denom
+                        + base_r - ldj_ray[1].sum() / denom)
+        return rgb_map, depth, acc, loss_entropy

@@ -1,0 +1,51 @@
+"""Ray generation and NDC reparameterization; counterpart of cfnerf_tpu/ops/rays.py.
+
+Convention: pinhole camera looking down -z, x right, y up.  Pixel (i, j)
+(column i, row j) maps to camera-space direction
+[(i - W/2)/f, -(j - H/2)/f, -1], rotated into world space by c2w[:3,:3];
+all rays share origin c2w[:3,-1].
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def get_rays(
+    H: int, W: int, focal: float, c2w: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-image rays on c2w's device.  Returns (rays_o, rays_d), each (H, W, 3)."""
+    dev = c2w.device
+    j, i = torch.meshgrid(
+        torch.arange(H, dtype=torch.float32, device=dev),
+        torch.arange(W, dtype=torch.float32, device=dev),
+        indexing="ij",
+    )
+    dirs = torch.stack(
+        [(i - W * 0.5) / focal, -(j - H * 0.5) / focal, -torch.ones_like(i)], dim=-1
+    )  # (H, W, 3)
+    c2w = c2w.to(torch.float32)
+    # elementwise sum over c, as the reference's broadcast-multiply-sum
+    rays_d = (dirs[..., None, :] * c2w[:3, :3]).sum(-1)
+    rays_o = c2w[:3, -1].expand(rays_d.shape)
+    return rays_o, rays_d
+
+
+def ndc_rays(
+    H: int, W: int, focal: float, near: float, rays_o: torch.Tensor, rays_d: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reparameterize forward-facing rays into NDC space [-1, 1]^3: shift
+    origins to the near plane, then apply the projective map (LLFF)."""
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+
+    o0 = -1.0 / (W / (2.0 * focal)) * rays_o[..., 0] / rays_o[..., 2]
+    o1 = -1.0 / (H / (2.0 * focal)) * rays_o[..., 1] / rays_o[..., 2]
+    o2 = 1.0 + 2.0 * near / rays_o[..., 2]
+
+    d0 = -1.0 / (W / (2.0 * focal)) * (rays_d[..., 0] / rays_d[..., 2] - rays_o[..., 0] / rays_o[..., 2])
+    d1 = -1.0 / (H / (2.0 * focal)) * (rays_d[..., 1] / rays_d[..., 2] - rays_o[..., 1] / rays_o[..., 2])
+    d2 = -2.0 * near / rays_o[..., 2]
+
+    return torch.stack([o0, o1, o2], -1), torch.stack([d0, d1, d2], -1)

@@ -1,0 +1,70 @@
+"""Along-ray sample placement; counterpart of cfnerf_tpu/ops/sampling.py.
+
+  * the hardcoded 96+32 non-uniform z schedule (reference
+    run_nerf_uncertainty_NF.py:510-516);
+  * stratified jitter (:518-532), drawn from an explicit torch.Generator.
+
+sample_pdf (hierarchical sampling) comes with the hierarchical slice.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def cf_nerf_t_vals(
+    n_samples: int = 128, dtype=torch.float32, device=None
+) -> torch.Tensor:
+    """CF-NeRF's schedule: 96 points in [0, 0.5) + 32 in [0.5, 1] at
+    n_samples == 128; any other n_samples keeps the same 3:1 near/far split
+    on uniform sub-schedules."""
+    if n_samples == 128:
+        t = np.concatenate([np.linspace(0.0, 0.5, 97)[:-1], np.linspace(0.5, 1.0, 32)])
+    else:
+        n_near = (3 * n_samples) // 4
+        n_far = n_samples - n_near
+        t = np.concatenate(
+            [np.linspace(0.0, 0.5, n_near + 1)[:-1], np.linspace(0.5, 1.0, n_far)]
+        )
+    return torch.as_tensor(t, dtype=dtype, device=device)
+
+
+def sample_z_vals(
+    near: torch.Tensor,
+    far: torch.Tensor,
+    n_samples: int,
+    *,
+    lindisp: bool = False,
+    uniform: bool = False,
+) -> torch.Tensor:
+    """Map the t schedule into metric depths.  near/far: (R, 1) tensors.
+    Returns z_vals (R, n_samples); lindisp samples linearly in inverse depth."""
+    if uniform:
+        t_vals = torch.linspace(0.0, 1.0, n_samples, device=near.device)
+    else:
+        t_vals = cf_nerf_t_vals(n_samples, device=near.device)
+    if not lindisp:
+        return near * (1.0 - t_vals) + far * t_vals
+    return 1.0 / (1.0 / near * (1.0 - t_vals) + 1.0 / far * t_vals)
+
+
+def stratified_perturb(
+    z_vals: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    *,
+    t_rand: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Stratified jitter: one uniform draw inside each bin whose edges are
+    midpoints between adjacent samples (first/last edges clamped to the
+    endpoints).  `t_rand` injects the uniforms (tests feed both frameworks
+    the same numbers); otherwise they come from `generator`."""
+    mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+    upper = torch.cat([mids, z_vals[..., -1:]], -1)
+    lower = torch.cat([z_vals[..., :1], mids], -1)
+    if t_rand is None:
+        t_rand = torch.rand(
+            z_vals.shape, generator=generator, dtype=z_vals.dtype, device=z_vals.device
+        )
+    return lower + (upper - lower) * t_rand

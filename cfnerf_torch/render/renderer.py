@@ -1,0 +1,219 @@
+"""Volume renderer: ray batch -> K-sample rgb, disparity, depth, acc;
+counterpart of cfnerf_tpu/render/renderer.py (reference render_rays,
+run_nerf_uncertainty_NF.py:457-553, and render_path's single-pose render).
+
+The fused path sends flows + composite through the render core
+(cfnerf_torch/ops/kernels/render_core.py): the CUDA kernel on the card, its
+plain version on the CPU.  There is no shape gate: every ray batch takes
+it.  The unfused path (model forward + raw2outputs) is the oracle and the
+path that returns per-sample weights.  The reference's never-applied raw
+noise is kept (apply_noise=False).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from cfnerf_torch.ops.compositing import LAST_DIST, finalize_k_maps, raw2outputs
+from cfnerf_torch.ops.embed import Embedder
+from cfnerf_torch.ops.rays import get_rays, ndc_rays
+from cfnerf_torch.ops.sampling import sample_z_vals, stratified_perturb
+from cfnerf_torch.utils.device import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Static rendering configuration.  Unlike the JAX package there is no
+    `fused` field: the tensors' device decides between kernel and plain."""
+
+    n_samples: int = 128
+    n_importance: int = 0
+    perturb: bool = True
+    lindisp: bool = False
+    use_viewdirs: bool = True
+    white_bkgd: bool = False
+    raw_noise_std: float = 0.0
+    apply_noise: bool = False  # reference parity: noise is never applied
+    uniform: bool = False
+    multires: int = 10
+    multires_views: int = 4
+    i_embed: int = 0
+
+    def embedders(self) -> Tuple[Embedder, Optional[Embedder]]:
+        if self.i_embed == -1:
+            emb = Embedder(num_freqs=0)
+            emb_dirs = Embedder(num_freqs=0) if self.use_viewdirs else None
+        else:
+            emb = Embedder(num_freqs=self.multires, max_freq_log2=self.multires - 1)
+            emb_dirs = (
+                Embedder(num_freqs=self.multires_views,
+                         max_freq_log2=self.multires_views - 1)
+                if self.use_viewdirs else None
+            )
+        return emb, emb_dirs
+
+
+RenderRays = Callable[..., Dict[str, torch.Tensor]]
+
+
+def make_render_rays(model, config: RenderConfig, fused: bool = True) -> RenderRays:
+    """Build the per-batch renderer around a NeRFFlows `model`.
+
+    render_rays(rays_o (R,3), rays_d (R,3), viewdirs (R,3) or None,
+    near (R,1), far (R,1), generator=None, *, is_test):
+    z schedule -> stratified jitter (training, with a generator) ->
+    positional encoding -> model -> composite.  `fused=True` is the serving
+    path (render core); `fused=False` runs the unfused oracle."""
+    if config.n_importance > 0:
+        raise NotImplementedError(
+            "n_importance > 0 (hierarchical sampling) comes with slice 5"
+        )
+    if config.apply_noise and config.raw_noise_std > 0:
+        raise NotImplementedError(
+            "applied density noise comes with slice 5 (the unfused flow path)"
+        )
+    embedder, embedder_dirs = config.embedders()
+
+    def _embed(z_vals, rays_o, rays_d, viewdirs):
+        R, S = z_vals.shape
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+        emb = embedder(pts.reshape(R * S, 3))
+        if config.use_viewdirs and viewdirs is not None:
+            emb_dirs = embedder_dirs(viewdirs)  # (R, Dv)
+            emb_dirs = emb_dirs[:, None, :].expand(R, S, emb_dirs.shape[-1])
+            emb = torch.cat([emb, emb_dirs.reshape(R * S, -1)], -1)
+        return emb
+
+    def render_rays(
+        rays_o: torch.Tensor,
+        rays_d: torch.Tensor,
+        viewdirs: Optional[torch.Tensor],
+        near: torch.Tensor,
+        far: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        *,
+        is_test: bool,
+    ) -> Dict[str, torch.Tensor]:
+        R = rays_o.shape[0]
+        S = config.n_samples
+        z_vals = sample_z_vals(near, far, S, lindisp=config.lindisp,
+                               uniform=config.uniform).expand(R, S)
+        if config.perturb and not is_test and generator is not None:
+            z_vals = stratified_perturb(z_vals, generator)
+        emb = _embed(z_vals, rays_o, rays_d, viewdirs)
+
+        if fused:
+            dists = z_vals[..., 1:] - z_vals[..., :-1]
+            dists = torch.cat([dists, torch.full_like(dists[..., :1], LAST_DIST)], -1)
+            d_pts = dists * torch.linalg.norm(rays_d.float(), dim=-1, keepdim=True)
+            rgb_map, depth_map, acc_map, loss_entropy = model.forward_composited(
+                emb, z_vals.reshape(-1), d_pts.reshape(-1), S,
+                is_test=is_test, generator=generator,
+            )
+            rgb_map, disp_map = finalize_k_maps(
+                rgb_map, depth_map, acc_map, config.white_bkgd
+            )
+            return dict(rgb_map=rgb_map, disp_map=disp_map, depth_map=depth_map,
+                        acc_map=acc_map, loss_entropy=loss_entropy)
+
+        raw, loss_entropy = model(emb, is_test=is_test, generator=generator)
+        rgb_map, disp_map, acc_map, weights, depth_map = raw2outputs(
+            raw.reshape(R, S, -1, 4), z_vals, rays_d,
+            raw_noise_std=config.raw_noise_std,
+            white_bkgd=config.white_bkgd,
+            apply_noise=config.apply_noise,
+        )
+        out = dict(rgb_map=rgb_map, disp_map=disp_map, depth_map=depth_map,
+                   acc_map=acc_map, loss_entropy=loss_entropy)
+        if not is_test:
+            out["weights"] = weights
+        return out
+
+    return render_rays
+
+
+def prepare_rays(
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    *,
+    H: int,
+    W: int,
+    focal: float,
+    ndc: bool,
+    use_viewdirs: bool,
+    near: float,
+    far: float,
+):
+    """Flatten / NDC / viewdirs plumbing (reference render(), :129-158).
+    Returns (rays_o, rays_d, viewdirs or None, near (R,1), far (R,1))."""
+    if use_viewdirs:
+        viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        viewdirs = viewdirs.reshape(-1, 3)
+    else:
+        viewdirs = None
+    if ndc:
+        rays_o, rays_d = ndc_rays(H, W, focal, 1.0, rays_o, rays_d)
+    rays_o = rays_o.reshape(-1, 3)
+    rays_d = rays_d.reshape(-1, 3)
+    near_v = near * torch.ones_like(rays_d[..., :1])
+    far_v = far * torch.ones_like(rays_d[..., :1])
+    return rays_o, rays_d, viewdirs, near_v, far_v
+
+
+def render_image(
+    render_rays_fn: RenderRays,
+    c2w,
+    *,
+    H: int,
+    W: int,
+    focal: float,
+    ndc: bool,
+    use_viewdirs: bool,
+    near: float,
+    far: float,
+    tile: int = 4096,
+    device: DeviceLike = None,
+) -> Dict[str, torch.Tensor]:
+    """Full-image test-mode render, in tiles of `tile` rays.
+
+    Pads the ray count up to a tile multiple by repeating the last ray,
+    renders each tile in turn and strips the padding after.  Runs under
+    torch.inference_mode() on the CUDA device unless device="cpu".
+    Returns per-pixel maps: rgb_map (H, W, 3, K), disp/depth/acc (H, W, K)."""
+    dev = resolve_device(device)
+    with torch.inference_mode():
+        c2w = torch.as_tensor(c2w, dtype=torch.float32, device=dev)
+        rays_o, rays_d = get_rays(H, W, focal, c2w)
+        rays_o, rays_d, viewdirs, near_v, far_v = prepare_rays(
+            rays_o, rays_d, H=H, W=W, focal=focal, ndc=ndc,
+            use_viewdirs=use_viewdirs, near=near, far=far,
+        )
+        n = rays_o.shape[0]
+        n_pad = (-n) % tile
+
+        def pad(x):
+            return torch.cat([x, x[-1:].expand(n_pad, *x.shape[1:])], 0)
+
+        rays_o, rays_d, near_v, far_v = map(pad, (rays_o, rays_d, near_v, far_v))
+        if viewdirs is not None:
+            viewdirs = pad(viewdirs)
+
+        pieces: Dict[str, list] = {}
+        for start in range(0, n + n_pad, tile):
+            sl = slice(start, start + tile)
+            out = render_rays_fn(
+                rays_o[sl], rays_d[sl],
+                viewdirs[sl] if viewdirs is not None else None,
+                near_v[sl], far_v[sl], None, is_test=True,
+            )
+            for key, v in out.items():
+                # per-ray outputs only; scalars (loss_entropy) are dropped
+                if v.ndim >= 1 and v.shape[0] == tile:
+                    pieces.setdefault(key, []).append(v)
+        result = {}
+        for key, vs in pieces.items():
+            v = torch.cat(vs, 0)[:n]
+            result[key] = v.reshape(H, W, *v.shape[1:])
+        return result
