@@ -8,7 +8,10 @@ Layout mirrors cfnerf_tpu so each module's counterpart is easy to find:
   flows/        triangular Sylvester flow steps and their amortization
   models/       NeRFFlows and the model factory
   render/       ray-batch renderer and the tiled full-image renderer
-  convert.py    weights carried across from a cfnerf_tpu params pytree
+  train/        losses, Adam with the exponential schedule, the train step
+  data/         host-side ray precompute and batch samplers (numpy)
+  convert.py    weights (and gradients) carried across from a cfnerf_tpu
+                params pytree
 
 The package imports torch and never jax or cfnerf_tpu.  Entry points run on
 the CUDA device unless the caller passes device="cpu"; on the CPU every

@@ -2,7 +2,8 @@
 
 `nerf_flows_state_dict_from_jax` turns a cfnerf_tpu NeRFFlows params pytree
 (nested dicts of numpy arrays) into a state_dict for
-cfnerf_torch.models.nerf_flows.NeRFFlows.
+cfnerf_torch.models.nerf_flows.NeRFFlows.  A gradient pytree of the same
+layout maps the same way, onto the port's parameter names.
 
   * Dense layers: flax kernels are (in, out), torch weights (out, in).  The
     JAX side computes the skip and views concatenations as split matmuls

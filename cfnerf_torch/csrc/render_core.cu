@@ -32,34 +32,9 @@
 // deterministic).  Math is f32 throughout with the accurate libm functions.
 // Faster staging (cp.async / TMA, several rays per warp) is later work.
 
-#include <cuda_runtime.h>
+#include "render_core.cuh"
 
 namespace {
-
-constexpr int kWarpsPerBlock = 4;
-constexpr int kMaxChunk = 32;                 // points staged per warp per pass
-constexpr int kSmemBudget = 48 * 1024;        // bytes per block, static limit
-constexpr float kTransEps = 1e-10f;           // reference (1 - alpha + 1e-10)
-constexpr float kLogdetEps = 1e-8f;           // reference flows.py:255
-
-__device__ __forceinline__ float softplus_f(float x) {
-  // max(x, 0) + log1p(exp(-|x|)) == jax.nn.softplus
-  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-}
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-__device__ __forceinline__ float logdet_term(float t, float r1ii, float r2ii) {
-  const float dj = (1.f - t * t) * (r1ii * r2ii) + 1.f;
-  return logf(fabsf(dj) + kLogdetEps);
-}
-
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
-                                      int n, int lane) {
-  for (int i = lane; i < n; i += 32) dst[i] = __ldg(src + i);
-}
 
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 render_core_fwd_kernel(const float* __restrict__ z0a,
@@ -137,8 +112,7 @@ render_core_fwd_kernel(const float* __restrict__ z0a,
         float la_s = 0.f, lr_s = 0.f;
         float za = za0;
         for (int f = 0; f < F; ++f) {
-          const float t = tanhf(qba[f] + q2a[f] * za);
-          za = za + q1a[f] * t;
+          const float t = density_step(za, q1a, q2a, qba, f);
           if (cld) la_s += logdet_term(t, q1a[f], q2a[f]);
         }
 
@@ -148,31 +122,9 @@ render_core_fwd_kernel(const float* __restrict__ z0a,
         const float* qb = s_br + s * 3 * F;
         float z0 = zr0, z1 = zr1, z2 = zr2;
         for (int f = 0; f < F; ++f) {
-          const bool flip = (f & 1) != 0;
-          const float p0v = flip ? z2 : z0;  // permuted view zp
-          const float p1v = z1;
-          const float p2v = flip ? z0 : z2;
-          float pre0 = qb[0 * F + f];
-          pre0 = pre0 + q2[0 * F + f] * p0v;
-          pre0 = pre0 + q2[1 * F + f] * p1v;
-          pre0 = pre0 + q2[2 * F + f] * p2v;
-          float pre1 = qb[1 * F + f];
-          pre1 = pre1 + q2[4 * F + f] * p1v;
-          pre1 = pre1 + q2[5 * F + f] * p2v;
-          const float pre2 = qb[2 * F + f] + q2[8 * F + f] * p2v;
-          const float t0 = tanhf(pre0), t1 = tanhf(pre1), t2 = tanhf(pre2);
-          float u0 = q1[0 * F + f] * t0;
-          u0 = u0 + q1[1 * F + f] * t1;
-          u0 = u0 + q1[2 * F + f] * t2;
-          float u1 = q1[4 * F + f] * t1;
-          u1 = u1 + q1[5 * F + f] * t2;
-          const float u2 = q1[8 * F + f] * t2;
-          // the update is in permuted coordinates: row i lands on P(i)
-          if (flip) {
-            z2 = z2 + u0; z1 = z1 + u1; z0 = z0 + u2;
-          } else {
-            z0 = z0 + u0; z1 = z1 + u1; z2 = z2 + u2;
-          }
+          float t0, t1, t2;
+          rgb_tanh(q2, qb, f, F, z0, z1, z2, t0, t1, t2);
+          rgb_update(q1, f, F, t0, t1, t2, z0, z1, z2);
           if (cld) {
             lr_s += logdet_term(t0, q1[0 * F + f], q2[0 * F + f]);
             lr_s += logdet_term(t1, q1[4 * F + f], q2[4 * F + f]);
@@ -236,11 +188,9 @@ extern "C" int render_core_fwd(const float* z0a, const float* r1a,
                                int compute_log_det, void* stream) {
   if (R < 0 || S < 1 || K < 1 || F < 1) return (int)cudaErrorInvalidValue;
   if (R == 0) return 0;
-  const int per_point = (24 * F + 2) * (int)sizeof(float);
-  int chunk = kSmemBudget / (kWarpsPerBlock * per_point);
+  const int chunk = staging_chunk(S, F);
   if (chunk < 1) return (int)cudaErrorInvalidValue;  // F too large to stage
-  chunk = min(chunk, min(kMaxChunk, S));
-  const size_t smem = (size_t)kWarpsPerBlock * chunk * per_point;
+  const size_t smem = (size_t)kWarpsPerBlock * chunk * (24 * F + 2) * sizeof(float);
   const dim3 grid((R + kWarpsPerBlock - 1) / kWarpsPerBlock);
   render_core_fwd_kernel<<<grid, kWarpsPerBlock * 32, smem,
                            static_cast<cudaStream_t>(stream)>>>(

@@ -1,8 +1,8 @@
 """Model factory — counterpart of cfnerf_tpu/models/factory.py (reference
 create_nerf, run_nerf_uncertainty_NF.py:317-341).
 
-Reads the same flag names as cfnerf_tpu/utils/config.py.  This slice builds
-the triangular NeRFFlows serving path; everything else raises
+Reads the same flag names as cfnerf_tpu/utils/config.py.  It builds the
+triangular NeRFFlows that serves and trains; everything else raises
 NotImplementedError naming the slice that brings it.  Resuming from
 checkpoints comes with slice 4 (data, loop, checkpoints, CLI).
 """

@@ -1,20 +1,23 @@
-"""Fused flow stacks + K-sample alpha composite: the render-core forward.
+"""Fused flow stacks + K-sample alpha composite: the render core, forward
+and backward.
 
-Counterpart of cfnerf_tpu/ops/pallas/render_core.py:fused_flow_composite.
-On a CUDA tensor the wrapper launches the hand-written Hopper kernel
-(cfnerf_torch/csrc/render_core.cu) or raises; on a CPU tensor it runs
-`fused_flow_composite_plain`, the same function in eager PyTorch, which is
-also the kernel's oracle on the card.  There is no shape gate: any R, any
-S >= 1, any K and any F the kernel can stage.
+Counterpart of cfnerf_tpu/ops/pallas/render_core.py:fused_flow_composite
+and its custom VJP.  On CUDA tensors the wrappers launch the hand-written
+Hopper kernels (cfnerf_torch/csrc/render_core.cu, render_core_bwd.cu) or
+raise; on CPU tensors they run the plain versions, the same functions in
+eager PyTorch, which are also the kernels' oracles on the card.  There is
+no shape gate: any R, any S >= 1, any K and any F the kernels can stage.
 
-The backward kernel comes with slice 2 (training).  Until then the kernel
-refuses inputs that need a gradient; the plain version differentiates
-through autograd (cumprod, no closed-form division).
+Where a gradient is needed, the CUDA route goes through an autograd
+Function whose forward is the forward kernel and whose backward is the
+backward kernel.  The plain version differentiates through autograd
+(cumprod, no closed-form division).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -25,8 +28,12 @@ from cfnerf_torch.ops.kernels import _build
 NAME = "render_core"
 SOURCE = "cfnerf_torch/csrc/render_core.cu"
 REPLACES = "cfnerf_tpu/ops/pallas/render_core.py:322"  # _fwd_kernel
+NAME_BWD = "render_core_bwd"
+SOURCE_BWD = "cfnerf_torch/csrc/render_core_bwd.cu"
+REPLACES_BWD = "cfnerf_tpu/ops/pallas/render_core.py:378"  # _bwd_kernel
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+Grads = Tuple[torch.Tensor, ...]  # the 8 flow-input gradients, z0_a ... b_r
 
 
 def _shapes(z0_a, r1_a, r2_a, b_a, z0_r, r1_r, r2_r, b_r, z_pts, d_pts, s_per_ray):
@@ -99,13 +106,38 @@ def fused_flow_composite_plain(
     return rgb_map, depth, acc, ldj
 
 
+def fused_flow_composite_bwd_plain(
+    inputs: Sequence[torch.Tensor],
+    cotangents: Sequence[Optional[torch.Tensor]],
+    s_per_ray: int,
+    compute_log_det: bool,
+) -> Grads:
+    """The render-core backward in eager PyTorch: autograd through
+    `fused_flow_composite_plain`.  `inputs` are its 10 arguments, `cotangents`
+    the cotangents of (rgb, depth, acc, ldj), None for an unused output.
+    Returns the gradients of z0_a, r1_a, r2_a, b_a, z0_r, r1_r, r2_r, b_r;
+    z_pts and d_pts get none (the kernel's VJP treats them as constants)."""
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_() for t in inputs[:8]]
+        outs = fused_flow_composite_plain(
+            *xs, *(t.detach() for t in inputs[8:]), s_per_ray, compute_log_det)
+        # test mode's ldj is a constant: it has no graph to go back through
+        pairs = [(o, g) for o, g in zip(outs, cotangents)
+                 if g is not None and o.requires_grad]
+        grads = torch.autograd.grad([o for o, _ in pairs], xs,
+                                    [g for _, g in pairs], allow_unused=True)
+    return tuple(torch.zeros_like(x) if g is None else g for x, g in zip(xs, grads))
+
+
 def fused_flow_composite(
     z0_a, r1_a, r2_a, b_a, z0_r, r1_r, r2_r, b_r, z_pts, d_pts,
     s_per_ray: int, compute_log_det: bool,
 ) -> Outputs:
     """Render-core forward.  Arguments and outputs as in
-    `fused_flow_composite_plain`.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel (or raise); anything else raises."""
+    `fused_flow_composite_plain`.  CPU tensors take the plain version (and
+    autograd through it); CUDA tensors launch the kernel or raise, through
+    `_RenderCore` when a gradient is needed, so that the backward launches
+    the backward kernel; anything else raises."""
     args = (z0_a, r1_a, r2_a, b_a, z0_r, r1_r, r2_r, b_r, z_pts, d_pts)
     kinds = {t.device.type for t in args}
     if kinds == {"cpu"}:
@@ -115,19 +147,70 @@ def fused_flow_composite(
             f"render core: all inputs must be on one CUDA device or all on the "
             f"CPU (got {sorted(kinds)})"
         )
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _RenderCore.apply(s_per_ray, compute_log_det, *args)
     return _launch(args, s_per_ray, compute_log_det)
 
 
 fused_flow_composite.launches = 0  # kernel launches; the plain route never counts
 
 
-def _launch(args, s_per_ray: int, compute_log_det: bool) -> Outputs:
-    R, S, K, F = _shapes(*args, s_per_ray)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        raise NotImplementedError(
-            "the render-core kernel has no backward yet: the backward kernel "
-            "comes with slice 2 (training); serve under torch.inference_mode()"
+def fused_flow_composite_bwd(
+    inputs: Sequence[torch.Tensor],
+    cotangents: Sequence[Optional[torch.Tensor]],
+    s_per_ray: int,
+    compute_log_det: bool,
+) -> Grads:
+    """Render-core backward.  Arguments and gradients as in
+    `fused_flow_composite_bwd_plain`.  CPU tensors take the plain version;
+    CUDA tensors launch the backward kernel (or raise); anything else
+    raises.  Training reaches the kernel through autograd (`_RenderCore`);
+    this entry lets a caller hold the kernel against the plain version."""
+    kinds = {t.device.type for t in (*inputs, *cotangents) if t is not None}
+    if kinds == {"cpu"}:
+        return fused_flow_composite_bwd_plain(inputs, cotangents, s_per_ray,
+                                              compute_log_det)
+    if kinds != {"cuda"}:
+        raise ValueError(
+            f"render core backward: all tensors must be on one CUDA device or "
+            f"all on the CPU (got {sorted(kinds)})"
         )
+    return _launch_bwd(inputs, cotangents, s_per_ray, compute_log_det)
+
+
+fused_flow_composite_bwd.launches = 0  # backward kernel launches
+
+
+class _RenderCore(torch.autograd.Function):
+    """The CUDA route with a gradient: the forward kernel, then the backward
+    kernel on the saved inputs.  The backward returns the 8 flow-input
+    gradients and None for z_pts and d_pts: the JAX backward returns zeros
+    for those two (render_core.py:684-685), since the stratified depths and
+    the ray geometry carry no parameters upstream."""
+
+    @staticmethod
+    def forward(ctx, s_per_ray, compute_log_det, *args):
+        ctx.save_for_backward(*args)
+        ctx.s_per_ray, ctx.compute_log_det = s_per_ray, compute_log_det
+        ctx.set_materialize_grads(False)  # unused outputs arrive as None
+        return _launch(args, s_per_ray, compute_log_det)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *cotangents):
+        grads = _launch_bwd(ctx.saved_tensors, cotangents, ctx.s_per_ray,
+                            ctx.compute_log_det)
+        return (None, None, *grads, None, None)
+
+
+@contextlib.contextmanager
+def _on_device(dev: torch.device):
+    """The CUDA device of a launch, current; yields its current stream."""
+    with torch.cuda.device(dev):
+        yield torch.cuda.current_stream(dev).cuda_stream
+
+
+def _check_kernel_inputs(args) -> None:
     dev = args[0].device
     for t in args:
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
@@ -136,13 +219,18 @@ def _launch(args, s_per_ray: int, compute_log_det: bool) -> Outputs:
                 f"device (got {t.dtype} on {t.device}, contiguous="
                 f"{t.is_contiguous()})"
             )
+
+
+def _launch(args, s_per_ray: int, compute_log_det: bool) -> Outputs:
+    R, S, K, F = _shapes(*args, s_per_ray)
+    _check_kernel_inputs(args)
     fn = _entry()
-    with torch.cuda.device(dev):
-        rgb = torch.empty((R, 3, K), dtype=torch.float32, device=dev)
-        depth = torch.empty((R, K), dtype=torch.float32, device=dev)
-        acc = torch.empty((R, K), dtype=torch.float32, device=dev)
-        ldj = torch.empty((2, R), dtype=torch.float32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    like = args[0]  # outputs go where the inputs are
+    rgb = like.new_empty((R, 3, K))
+    depth = like.new_empty((R, K))
+    acc = like.new_empty((R, K))
+    ldj = like.new_empty((2, R))
+    with _on_device(like.device) as stream:
         err = fn(*(t.data_ptr() for t in args),
                  rgb.data_ptr(), depth.data_ptr(), acc.data_ptr(), ldj.data_ptr(),
                  R, S, K, F, int(bool(compute_log_det)), stream)
@@ -155,9 +243,48 @@ def _launch(args, s_per_ray: int, compute_log_det: bool) -> Outputs:
     return rgb, depth, acc, ldj
 
 
-def _entry():
-    fn = _build.load(NAME).render_core_fwd
+def _launch_bwd(inputs, cotangents, s_per_ray: int, compute_log_det: bool) -> Grads:
+    R, S, K, F = _shapes(*inputs, s_per_ray)
+    _check_kernel_inputs(inputs)
+    like = inputs[0]
+    cots = []
+    for name, g, shape in zip(("rgb", "depth", "acc", "ldj"), cotangents,
+                              ((R, 3, K), (R, K), (R, K), (2, R))):
+        if g is None:
+            g = like.new_zeros(shape)
+        elif tuple(g.shape) != shape or g.dtype != torch.float32:
+            raise ValueError(
+                f"cotangent of {name}: expected float32 {shape}, got "
+                f"{g.dtype} {tuple(g.shape)}"
+            )
+        cots.append(g.contiguous())  # autograd may hand over expanded views
+    fn = _entry_bwd()
+    grads = tuple(x.new_empty(x.shape) for x in inputs[:8])
+    trans = like.new_empty((R * S * K,))  # per-(point, draw) transmittance
+    z0_part = like.new_empty((R * 4 * K,))  # per-ray z0 gradient partials
+    with _on_device(like.device) as stream:
+        err = fn(*(t.data_ptr() for t in (*inputs, *cots, *grads, trans, z0_part)),
+                 R, S, K, F, int(bool(compute_log_det)), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"render_core_bwd launch failed: CUDA error {err} "
+            f"(R={R}, S={S}, K={K}, F={F})"
+        )
+    fused_flow_composite_bwd.launches += 1
+    return grads
+
+
+def _bind(name: str, symbol: str, n_ptrs: int):
+    fn = getattr(_build.load(name), symbol)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _entry():
+    return _bind(NAME, "render_core_fwd", 14)
+
+
+def _entry_bwd():
+    return _bind(NAME_BWD, "render_core_bwd", 24)

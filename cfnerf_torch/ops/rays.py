@@ -3,12 +3,14 @@
 Convention: pinhole camera looking down -z, x right, y up.  Pixel (i, j)
 (column i, row j) maps to camera-space direction
 [(i - W/2)/f, -(j - H/2)/f, -1], rotated into world space by c2w[:3,:3];
-all rays share origin c2w[:3,-1].
+all rays share origin c2w[:3,-1].  The numpy variants feed the host-side
+ray precompute of the batch sampler (cfnerf_torch/data/sampler.py).
 """
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -29,6 +31,28 @@ def get_rays(
     # elementwise sum over c, as the reference's broadcast-multiply-sum
     rays_d = (dirs[..., None, :] * c2w[:3, :3]).sum(-1)
     rays_o = c2w[:3, -1].expand(rays_d.shape)
+    return rays_o, rays_d
+
+
+def get_rays_np(H: int, W: int, focal: float, c2w: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side full-image rays (reference run_nerf_helpers.py:350-357)."""
+    i, j = np.meshgrid(np.arange(W, dtype=np.float32), np.arange(H, dtype=np.float32), indexing="xy")
+    dirs = np.stack([(i - W * 0.5) / focal, -(j - H * 0.5) / focal, -np.ones_like(i)], -1)
+    rays_d = np.einsum("hwc,rc->hwr", dirs, c2w[:3, :3])
+    rays_o = np.broadcast_to(c2w[:3, -1], rays_d.shape)
+    return rays_o, rays_d
+
+
+def get_rays_by_coord_np(
+    H: int, W: int, focal: float, c2w: np.ndarray, coords: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Rays through pixel coordinates (N, 2) = (x, y), for COLMAP sparse-depth
+    supervision (reference run_nerf_helpers.py:440-445)."""
+    i = (coords[:, 0] - W * 0.5) / focal
+    j = -(coords[:, 1] - H * 0.5) / focal
+    dirs = np.stack([i, j, -np.ones_like(i)], -1)
+    rays_d = np.einsum("nc,rc->nr", dirs, c2w[:3, :3])
+    rays_o = np.broadcast_to(c2w[:3, -1], rays_d.shape)
     return rays_o, rays_d
 
 

@@ -59,12 +59,15 @@ def stratified_perturb(
     """Stratified jitter: one uniform draw inside each bin whose edges are
     midpoints between adjacent samples (first/last edges clamped to the
     endpoints).  `t_rand` injects the uniforms (tests feed both frameworks
-    the same numbers); otherwise they come from `generator`."""
+    the same numbers); otherwise they come from `generator`, drawn on the
+    generator's device and moved to z_vals' device, so one generator on
+    either device drives every draw of a step."""
     mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
     upper = torch.cat([mids, z_vals[..., -1:]], -1)
     lower = torch.cat([z_vals[..., :1], mids], -1)
     if t_rand is None:
+        device = z_vals.device if generator is None else generator.device
         t_rand = torch.rand(
-            z_vals.shape, generator=generator, dtype=z_vals.dtype, device=z_vals.device
-        )
+            z_vals.shape, generator=generator, dtype=z_vals.dtype, device=device
+        ).to(z_vals)
     return lower + (upper - lower) * t_rand

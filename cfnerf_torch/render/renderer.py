@@ -62,10 +62,13 @@ def make_render_rays(model, config: RenderConfig, fused: bool = True) -> RenderR
     """Build the per-batch renderer around a NeRFFlows `model`.
 
     render_rays(rays_o (R,3), rays_d (R,3), viewdirs (R,3) or None,
-    near (R,1), far (R,1), generator=None, *, is_test):
+    near (R,1), far (R,1), generator=None, *, is_test, z_vals=None, eps=None):
     z schedule -> stratified jitter (training, with a generator) ->
-    positional encoding -> model -> composite.  `fused=True` is the serving
-    path (render core); `fused=False` runs the unfused oracle."""
+    positional encoding -> model -> composite.  `z_vals` (R, S) replaces the
+    schedule and its jitter, as in the JAX renderer; `eps` (eps_a (K,1),
+    eps_r (K,3)) replaces the model's base draws.  Tests use both to feed the
+    port JAX's own draws.  `fused=True` is the serving and training path
+    (render core); `fused=False` runs the unfused oracle."""
     if config.n_importance > 0:
         raise NotImplementedError(
             "n_importance > 0 (hierarchical sampling) comes with slice 5"
@@ -95,13 +98,17 @@ def make_render_rays(model, config: RenderConfig, fused: bool = True) -> RenderR
         generator: Optional[torch.Generator] = None,
         *,
         is_test: bool,
+        z_vals: Optional[torch.Tensor] = None,
+        eps=None,
     ) -> Dict[str, torch.Tensor]:
         R = rays_o.shape[0]
-        S = config.n_samples
-        z_vals = sample_z_vals(near, far, S, lindisp=config.lindisp,
-                               uniform=config.uniform).expand(R, S)
-        if config.perturb and not is_test and generator is not None:
-            z_vals = stratified_perturb(z_vals, generator)
+        if z_vals is None:
+            S = config.n_samples
+            z_vals = sample_z_vals(near, far, S, lindisp=config.lindisp,
+                                   uniform=config.uniform).expand(R, S)
+            if config.perturb and not is_test and generator is not None:
+                z_vals = stratified_perturb(z_vals, generator)
+        S = z_vals.shape[1]
         emb = _embed(z_vals, rays_o, rays_d, viewdirs)
 
         if fused:
@@ -110,7 +117,7 @@ def make_render_rays(model, config: RenderConfig, fused: bool = True) -> RenderR
             d_pts = dists * torch.linalg.norm(rays_d.float(), dim=-1, keepdim=True)
             rgb_map, depth_map, acc_map, loss_entropy = model.forward_composited(
                 emb, z_vals.reshape(-1), d_pts.reshape(-1), S,
-                is_test=is_test, generator=generator,
+                is_test=is_test, generator=generator, eps=eps,
             )
             rgb_map, disp_map = finalize_k_maps(
                 rgb_map, depth_map, acc_map, config.white_bkgd
@@ -118,7 +125,7 @@ def make_render_rays(model, config: RenderConfig, fused: bool = True) -> RenderR
             return dict(rgb_map=rgb_map, disp_map=disp_map, depth_map=depth_map,
                         acc_map=acc_map, loss_entropy=loss_entropy)
 
-        raw, loss_entropy = model(emb, is_test=is_test, generator=generator)
+        raw, loss_entropy = model(emb, is_test=is_test, generator=generator, eps=eps)
         rgb_map, disp_map, acc_map, weights, depth_map = raw2outputs(
             raw.reshape(R, S, -1, 4), z_vals, rays_d,
             raw_noise_std=config.raw_noise_std,

@@ -1,0 +1,201 @@
+"""The training step; counterpart of cfnerf_tpu/train/step.py (one iteration
+of the reference loop: render (run_nerf_uncertainty_NF.py:1014), loss block
+(:1026-1054), Adam step (:1065-1067), continuous exponential lr decay
+lr = lrate * 0.1^(step / (lrate_decay*1000)) (:1072-1077)).
+
+  * the COLMAP depth rays are concatenated to the rgb rays before the render
+    and split after, as in the reference (:1011, :1020-1024);
+  * the render is the fused train-mode path: the render core's forward
+    kernel on the card, its backward kernel through autograd;
+  * Adam (0.9, 0.999, eps 1e-8) with the JAX step's schedule, offset by
+    `start_step` (cfnerf_tpu/train/step.py:92-105);
+  * `remat` recomputes the train-mode model forward in the backward
+    (torch.utils.checkpoint, the counterpart of jax.checkpoint).
+
+PyTorch runs eagerly: there is no jit, and `make_train_loop` is a Python
+loop where the JAX package scans on the device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Mapping, Optional, Tuple
+
+import torch
+from torch.optim.lr_scheduler import LambdaLR
+from torch.utils.checkpoint import checkpoint
+
+from cfnerf_torch.ops.metrics import img2mse, mse2psnr
+from cfnerf_torch.render.renderer import RenderConfig, make_render_rays, prepare_rays
+from cfnerf_torch.train.loss import total_loss
+
+Metrics = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Static training hyperparameters, the fields of the JAX TrainConfig."""
+
+    H: int
+    W: int
+    focal: float
+    ndc: bool
+    near: float
+    far: float
+    k_samples: int
+    lrate: float = 5e-4
+    lrate_decay: int = 250  # in 1000s of steps
+    # global step the run (re)starts from: offsets the lr schedule
+    start_step: int = 0
+    beta1: float = 0.0
+    colmap_depth: bool = False
+    depth_lambda: float = 0.1
+    # 'kde' (CF-NeRF sample NLL) or 'mse' (MSE on the mean-over-K render)
+    loss_mode: str = "kde"
+    # recompute the train-mode model forward in the backward
+    remat: bool = False
+
+
+def make_optimizer(params, cfg: TrainConfig) -> Tuple[torch.optim.Adam, LambdaLR]:
+    """Adam (0.9, 0.999, eps 1e-8) and its schedule: update t (from 0) runs at
+    lrate * 0.1^((start_step + t) / (lrate_decay * 1000)), as optax's
+    exponential_decay counts.  Step the scheduler after each optimizer step."""
+    decay_steps = cfg.lrate_decay * 1000
+    optimizer = torch.optim.Adam(params, lr=cfg.lrate, betas=(0.9, 0.999), eps=1e-8)
+    scheduler = LambdaLR(
+        optimizer, lambda t: 0.1 ** ((cfg.start_step + t) / decay_steps))
+    return optimizer, scheduler
+
+
+class _Remat:
+    """The model's train-mode fused forward under activation checkpointing.
+    The base draws are made before the checkpoint, so the recompute in the
+    backward sees the same eps (checkpoint restores the default generators'
+    state, not an explicit torch.Generator's)."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def forward_composited(self, x, z_pts, d_pts, s_per_ray, *, is_test,
+                           generator=None, eps=None):
+        if is_test:
+            return self.model.forward_composited(x, z_pts, d_pts, s_per_ray,
+                                                 is_test=True, eps=eps)
+        eps = self.model._draw_eps(False, generator, eps)
+        return checkpoint(self.model.forward_composited, x, z_pts, d_pts, s_per_ray,
+                          is_test=False, eps=eps, use_reentrant=False)
+
+
+def make_train_step(
+    model,
+    render_config: RenderConfig,
+    cfg: TrainConfig,
+    mesh=None,
+    model_fine=None,
+    occ=None,
+) -> Tuple[Callable, torch.optim.Adam]:
+    """Returns (train_step, optimizer).
+
+    train_step(batch, generator, *, z_vals=None, eps=None) -> metrics takes
+    one step in place on `model`'s parameters.  batch holds numpy arrays or
+    tensors: rays_o, rays_d, target (R, 3) and, with colmap_depth,
+    depth_rays_o, depth_rays_d (D, 3), target_depth (D,).  The generator
+    draws the stratified jitter and the shared-K eps; z_vals (R+D, S) and
+    eps inject them instead.  Metrics: loss, loss_nll, loss_entropy,
+    [depth_loss], mse, psnr, detached, on the model's device.
+
+    The two halves are callable apart, so that the gradients can be read
+    before the update: train_step.loss_fn(batch, generator, *, z_vals,
+    eps) -> (loss, metrics) renders and scores; train_step.update() takes
+    the optimizer step on the gradients in .grad and advances the schedule.
+    """
+    if occ is not None:
+        raise NotImplementedError("proposal-placed training (occ) comes with slice 3")
+    if mesh is not None:
+        raise NotImplementedError("training over a device mesh comes with slice 7")
+    if model_fine is not None or render_config.n_importance > 0:
+        raise NotImplementedError(
+            "hierarchical training (N_importance, the rgb0 branch) comes with slice 5")
+    if cfg.loss_mode not in ("kde", "mse"):
+        raise ValueError(f"loss_mode must be 'kde' or 'mse', got {cfg.loss_mode!r}")
+
+    optimizer, scheduler = make_optimizer(model.parameters(), cfg)
+    render_rays = make_render_rays(_Remat(model) if cfg.remat else model, render_config)
+
+    def loss_fn(batch: Mapping, generator: Optional[torch.Generator] = None, *,
+                z_vals: Optional[torch.Tensor] = None, eps=None) -> Tuple[torch.Tensor, Metrics]:
+        dev = model.alpha_mean.device
+        b = {k: torch.as_tensor(v, dtype=torch.float32, device=dev) for k, v in batch.items()}
+        rays_o, rays_d = b["rays_o"], b["rays_d"]
+        n_rgb = rays_o.shape[0]
+        if cfg.colmap_depth:
+            rays_o = torch.cat([rays_o, b["depth_rays_o"]], 0)
+            rays_d = torch.cat([rays_d, b["depth_rays_d"]], 0)
+        rays_o, rays_d, viewdirs, near_v, far_v = prepare_rays(
+            rays_o, rays_d, H=cfg.H, W=cfg.W, focal=cfg.focal, ndc=cfg.ndc,
+            use_viewdirs=render_config.use_viewdirs, near=cfg.near, far=cfg.far)
+        out = render_rays(rays_o, rays_d, viewdirs, near_v, far_v, generator,
+                          is_test=False, z_vals=z_vals, eps=eps)
+
+        rgbs, depth = out["rgb_map"], out["depth_map"]  # (R+D, 3, K), (R+D, K)
+        depth_k = target_depth = None
+        if cfg.colmap_depth:
+            rgbs, depth_k = rgbs[:n_rgb], depth[n_rgb:]
+            target_depth = b["target_depth"]
+        entropy = out["loss_entropy"]
+
+        if cfg.loss_mode == "mse":
+            loss = img2mse(rgbs.mean(-1), b["target"])
+            metrics = {"loss_nll": torch.zeros((), device=dev), "loss_entropy": entropy}
+            if depth_k is not None:
+                d = img2mse(depth_k.mean(-1), target_depth)
+                loss = loss + cfg.depth_lambda * d
+                metrics["depth_loss"] = d
+            metrics["loss"] = loss
+        else:
+            loss, metrics = total_loss(
+                rgbs, b["target"], entropy, k_samples=cfg.k_samples, beta1=cfg.beta1,
+                depth_k=depth_k, target_depth=target_depth,
+                depth_lambda=cfg.depth_lambda)
+        mse = img2mse(rgbs.mean(-1), b["target"])
+        metrics["mse"] = mse
+        metrics["psnr"] = mse2psnr(mse)
+        return loss, metrics
+
+    def update() -> None:
+        optimizer.step()
+        scheduler.step()
+
+    def train_step(batch: Mapping, generator: Optional[torch.Generator], *,
+                   z_vals: Optional[torch.Tensor] = None, eps=None) -> Metrics:
+        optimizer.zero_grad(set_to_none=True)
+        loss, metrics = loss_fn(batch, generator, z_vals=z_vals, eps=eps)
+        loss.backward()
+        update()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    train_step.loss_fn = loss_fn
+    train_step.update = update
+    return train_step, optimizer
+
+
+def make_train_loop(
+    model,
+    render_config: RenderConfig,
+    cfg: TrainConfig,
+    mesh=None,
+    n_inner: int = 10,
+    model_fine=None,
+    occ=None,
+) -> Tuple[Callable, torch.optim.Adam]:
+    """Returns (train_loop, optimizer).  train_loop(batches, generator) takes
+    n_inner steps over batches stacked on a leading (n_inner, ...) axis and
+    returns the metrics stacked the same way."""
+    train_step, optimizer = make_train_step(model, render_config, cfg, mesh,
+                                            model_fine, occ)
+
+    def train_loop(batches: Mapping, generator: Optional[torch.Generator]) -> Metrics:
+        steps = [train_step({k: v[i] for k, v in batches.items()}, generator)
+                 for i in range(n_inner)]
+        return {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+
+    return train_loop, optimizer

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA H100 and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA H100
+and check them.
 
     python3 chip_smoke.py
 
@@ -7,17 +8,30 @@ Needs one CUDA device and nvcc (CUDA toolkit); exits non-zero without them.
 Phases, one JSON line each, any failed check raises (non-zero exit, no
 final line):
 
-  1. device   the card, its power limit, the software versions
-  2. build    nvcc builds every kernel of cfnerf_torch/csrc for sm_90a
-  3. kernel   each kernel against its plain PyTorch version on the card,
-              at the serving tile and at awkward shapes, both modes
-  4. serve    the flagship model (D8 W512 N128 K32 F4, random weights from
-              a seed) renders a 400x400 view in 8192-ray tiles through
-              build_model -> make_render_rays -> render_image; launch
-              counts, output checks, timing, kernel path vs plain path
-  5. golden   a tiny model's JAX render (tests/fixtures) against the
-              card's kernel path on the same weights
-  6. kernels  per-kernel launches, error, time, plain time and bound
+  1. device        the card, its power limit, the software versions
+  2. build         nvcc builds every kernel of cfnerf_torch/csrc for sm_90a,
+                   one process per source, all started together
+  3. kernel        each kernel against its plain PyTorch version on the card:
+                   the forward at the serving tile, the flagship train tile
+                   and awkward shapes, both modes; the backward at the
+                   flagship train tile, saturated, test mode, awkward shapes
+                   and K=40
+  4. kernel_time   each kernel's ms, plain ms, bytes, operations and bound
+                   (train-tile launches rotate over inputs larger than L2)
+  5. serve         the flagship model (D8 W512 N128 K32 F4, random weights from
+                   a seed) renders a 400x400 view in 8192-ray tiles through
+                   build_model -> make_render_rays -> render_image; launch
+                   counts, output checks, timing, kernel path vs plain path
+  6. golden        a tiny model's JAX render (tests/fixtures) against the
+                   card's kernel path on the same weights
+  7. train         flagship training steps (512 + 128 COLMAP depth rays) from
+                   RayBatcher / DepthRayBatcher over a synthetic scene through
+                   make_train_step: launch counts, finite metrics, every
+                   parameter moves, the loss falls on a fixed batch, step
+                   time, train rays/s, peak memory, a profiled step
+  8. train_golden  one JAX training step of a tiny model (tests/fixtures):
+                   the card's loss, gradients and updated weights against it
+  9. kernels       per-kernel launches, error, time, plain time and bound
 
 then the `nvidia-smi` name/power line and, last, the `ok` line.
 """
@@ -36,6 +50,13 @@ import numpy as np
 import torch
 
 from cfnerf_torch.convert import nerf_flows_state_dict_from_jax
+from cfnerf_torch.data.sampler import (
+    N_DEPTH,
+    DepthRayBatcher,
+    RayBatcher,
+    precompute_depth_rays,
+    precompute_rays,
+)
 from cfnerf_torch.models.factory import build_model
 from cfnerf_torch.models.nerf_flows import NeRFFlows
 from cfnerf_torch.ops.compositing import LAST_DIST
@@ -43,15 +64,18 @@ from cfnerf_torch.ops.kernels import _build
 from cfnerf_torch.ops.kernels import render_core
 from cfnerf_torch.ops.metrics import std_over_k
 from cfnerf_torch.ops.rays import get_rays
+from cfnerf_torch.ops.sampling import sample_z_vals, stratified_perturb
 from cfnerf_torch.render.renderer import (
     RenderConfig,
     make_render_rays,
     prepare_rays,
     render_image,
 )
+from cfnerf_torch.train.step import TrainConfig, make_train_step
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "fixtures" / "torch_port_golden.npz"
+TRAIN_GOLDEN = ROOT / "tests" / "fixtures" / "torch_port_train_golden.npz"
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -79,6 +103,26 @@ LDJ_RTOL = 2e-4
 # end to end, kernel path vs plain path and vs the JAX golden: the same
 # rule as the CPU tests' wide-trunk parity (different matmul summation)
 E2E_RTOL = E2E_ATOL = 1e-4
+# backward kernel vs plain.  A per-point gradient sums K per-draw terms of
+# magnitude up to ~1 in another order (a warp butterfly against autograd's
+# sum over the expanded axis): atol 1e-5 is ~80 f32 ulps of 1.  The z0
+# gradients sum ~2.6 M terms at the train tile: judged against 1e-4 of the
+# tensor's largest magnitude.
+BWD_RTOL, BWD_ATOL, Z0_REL = 1e-4, 1e-5, 1e-4
+# the card's training step vs JAX's (train golden): loss and metrics by the
+# end-to-end rule; gradients by the CPU tests' rule (rtol 1e-4, atol 1e-6);
+# weights after one Adam step within 1e-6 where |g| >= 1e-5, elsewhere
+# within one step's reach (2 lr), as tests/test_torch_train.py states
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
+ADAM_G_MIN, ADAM_ATOL = 1e-5, 1e-6
+
+# flagship training (scripts/train_NF.sh + configs/africa_ds.txt): 512 rgb
+# rays + 128 COLMAP depth rays per step, beta1 0.01, depth_lambda 0.01,
+# lrate 5e-4, decay 250k; the scene is synthetic (Blender-style poses)
+N_RAND = 512
+TRAIN_CFG = dict(lrate=5e-4, lrate_decay=250, beta1=0.01, colmap_depth=True,
+                 depth_lambda=0.01)
+TRAIN_STEPS, FIXED_STEPS = 10, 10
 
 
 def emit(phase: str, **fields) -> None:
@@ -98,15 +142,16 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip()
 
 
-def cuda_ms(fn, iters: int) -> float:
+def cuda_ms(fn, iters: int, arg_sets=((),)) -> float:
     """Median ms of `fn` over `iters` launches, CUDA-event timed, after one
-    warm-up call."""
-    fn()
+    warm-up call.  Launch i takes `arg_sets[i % len(arg_sets)]`: sets that
+    together exceed the 50 MB L2 keep each launch's inputs cold."""
+    fn(*arg_sets[0])
     times = []
-    for _ in range(iters):
+    for i in range(iters):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        fn(*arg_sets[i % len(arg_sets)])
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
@@ -155,6 +200,27 @@ def render_core_work(R, S, K, F, compute_log_det):
     return 4 * (in_floats + out_floats), B * K * per
 
 
+def render_core_bwd_work(R, S, K, F, compute_log_det):
+    """(bytes, operations) of the backward: the forward's inputs, the four
+    cotangents and the eight gradients, each read or written once; f32
+    operations per (point, draw), counted as in render_core_work:
+      forward values it needs   32 per flow step + 24 (softplus, alpha,
+                                transmittance, 3 sigmoids)
+      per flow step, reverse    89 (density 11 + rgb 60 + the 18 per-point
+                                sums over the draws)
+      composite reverse         42 (incl. sigmoid of the density and the z0
+                                accumulation)
+      train mode               +65 per step (log-det terms) and +15 (the
+                                final-activation corrections).
+    The kernel recomputes each step's input from z0 (O(F^2) steps): that is
+    its own overhead, not the function's work."""
+    B = R * S
+    in_floats = K * 4 + B * (24 * F + 2) + R * 3 * K + 2 * R * K + 2 * R
+    out_floats = K * 4 + B * 24 * F
+    per = 32 * F + 24 + 89 * F + 42 + ((65 * F + 15) if compute_log_det else 0)
+    return 4 * (in_floats + out_floats), B * K * per
+
+
 def bound_ms(nbytes, ops):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -185,15 +251,21 @@ def phase_kernel_checks():
         (8192, 128, 32, 4, False, False, "serving tile, test mode"),
         (8192, 128, 32, 4, True, False, "serving tile, train mode"),
         (8192, 128, 32, 4, True, True, "serving tile, saturated alpha"),
+        (N_RAND + N_DEPTH, 128, 32, 4, True, False, "flagship train tile, train mode"),
         (100, 20, 8, 2, True, False, "awkward R=100 S=20 K=8 F=2"),
         (100, 20, 8, 2, False, False, "awkward R=100 S=20 K=8 F=2"),
         (1024, 48, 32, 4, True, False, "S=48"),
         (1024, 96, 32, 4, True, False, "S=96"),
         (64, 48, 40, 3, True, True, "K=40 > one warp, saturated"),
+        # the model's diagonals are tanh-bounded: is the ldj gap above the
+        # ill-conditioning of log|1 + (1-t^2) r1 r2| at raw randn diagonals?
+        (8192, 128, 32, 4, True, True, "serving tile, saturated, tanh-bounded diagonals"),
     ]
     serving_err = None
     for i, (R, S, K, F, cld, sat, label) in enumerate(cases):
         x = render_core_inputs(R, S, K, F, seed=100 + i, saturate=sat)
+        if "tanh-bounded" in label:
+            x = bounded_diagonals(x)
         with torch.inference_mode():
             out = render_core.fused_flow_composite(*x, S, cld)
             ref = render_core.fused_flow_composite_plain(*x, S, cld)
@@ -220,6 +292,118 @@ def phase_kernel_checks():
          achieved_gb_per_s=nbytes / ms / 1e6)
     return dict(max_abs_err=serving_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by)
+
+
+GRAD_NAMES = ("z0_a", "r1_a", "r2_a", "b_a", "z0_r", "r1_r", "r2_r", "b_r")
+
+
+def bounded_diagonals(x):
+    """Model-like flow diagonals: the amortization bounds them with tanh, so
+    |1 + (1 - t^2) r1_ii r2_ii| stays away from 0.  Raw randn diagonals
+    bring it near 0 and make the log-det gradient ill-conditioned."""
+    x = list(x)
+    x[1], x[2] = torch.tanh(x[1]), torch.tanh(x[2])
+    diag = torch.eye(3, dtype=torch.bool, device="cuda")[None, :, :, None]
+    for i in (5, 6):
+        x[i] = torch.where(diag, torch.tanh(x[i]), x[i]).contiguous()
+    return x
+
+
+def render_core_cotangents(R, K, seed):
+    """Random cotangents of (rgb, depth, acc, ldj); the ldj one scaled by
+    1e-2, as training weights it by -beta1 / (B K)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    return [randn(R, 3, K), randn(R, K), randn(R, K), randn(2, R) * 1e-2]
+
+
+def compare_grads(out, ref):
+    """Max abs / rel error per gradient, and the names of those past the
+    tolerance or not finite."""
+    errs, bad = {}, []
+    for name, a, b in zip(GRAD_NAMES, out, ref):
+        check(tuple(a.shape) == tuple(b.shape), f"{name} shape {tuple(a.shape)}")
+        diff = (a - b).abs()
+        if name.startswith("z0"):
+            scale = float(b.abs().max())
+            ok = float(diff.max()) <= Z0_REL * scale
+            rel = float(diff.max()) / max(scale, 1e-30)
+        else:
+            ok = bool((diff <= BWD_ATOL + BWD_RTOL * b.abs()).all())
+            rel = float((diff / b.abs().clamp(min=1e-6)).max())
+        if not (ok and bool(torch.isfinite(a).all())):
+            bad.append(name)
+        errs[name] = {"max_abs": float(diff.max()), "max_rel": rel}
+    return errs, bad
+
+
+def phase_bwd_checks():
+    cases = [  # (R, S, K, F, compute_log_det, saturate, label)
+        (640, 128, 32, 4, True, False, "flagship train tile"),
+        (640, 128, 32, 4, True, True, "flagship train tile, saturated alpha"),
+        (640, 128, 32, 4, False, False, "flagship train tile, test mode"),
+        (100, 20, 8, 2, True, False, "awkward R=100 S=20 K=8 F=2"),
+        (64, 48, 40, 3, True, True, "K=40 > one warp, saturated"),
+        # the entropy term's gradient alone, at a unit cotangent per ray
+        (640, 128, 32, 4, True, True, "flagship train tile, saturated, ldj cotangent only"),
+    ]
+    train_err = None
+    for i, (R, S, K, F, cld, sat, label) in enumerate(cases):
+        x = bounded_diagonals(render_core_inputs(R, S, K, F, seed=200 + i, saturate=sat))
+        cots = render_core_cotangents(R, K, seed=300 + i)
+        if "ldj cotangent only" in label:
+            cots = [torch.zeros_like(c) for c in cots[:3]] + [torch.ones_like(cots[3])]
+        out = render_core.fused_flow_composite_bwd(x, cots, S, cld)
+        again = render_core.fused_flow_composite_bwd(x, cots, S, cld)
+        ref = render_core.fused_flow_composite_bwd_plain(x, cots, S, cld)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(out, again)),
+              f"backward is deterministic run to run ({label})")
+        lower = torch.tril(torch.ones(3, 3, dtype=torch.bool, device="cuda"), -1)
+        check(all(float(g[:, lower].abs().max()) == 0.0 for g in (out[5], out[6])),
+              "lower triangles of g_r1_r / g_r2_r are zero")
+        errs, bad = compare_grads(out, ref)
+        emit("kernel", kernel="render_core_bwd", case=label, R=R, S=S, K=K, F=F,
+             compute_log_det=cld, saturate=sat, errors=errs,
+             tolerance={"rtol": BWD_RTOL, "atol": BWD_ATOL, "z0_rel_to_max": Z0_REL})
+        check(not bad, f"render_core_bwd vs plain ({label}): {bad} past the tolerance")
+        if i == 0:
+            train_err = max(e["max_abs"] for e in errs.values())
+
+    # time at the flagship train tile, train mode.  One set of inputs and
+    # cotangents is ~32 MB and fits the 50 MB L2, so launches rotate over
+    # three sets (~97 MB): each launch reads its inputs cold, as the
+    # forward's serving-tile timing does by size
+    R, S, K, F = N_RAND + N_DEPTH, 128, 32, 4
+    sets = [(bounded_diagonals(render_core_inputs(R, S, K, F, seed=8 + 2 * i)),
+             render_core_cotangents(R, K, seed=9 + 2 * i)) for i in range(3)]
+    ms = cuda_ms(lambda x, c: render_core.fused_flow_composite_bwd(x, c, S, True), 21, sets)
+    plain_ms = cuda_ms(lambda x, c: render_core.fused_flow_composite_bwd_plain(x, c, S, True),
+                       5, sets)
+    nbytes, ops = render_core_bwd_work(R, S, K, F, True)
+    b_ms, b_by = bound_ms(nbytes, ops)
+    emit("kernel_time", kernel="render_core_bwd", R=R, S=S, K=K, F=F, ms=ms,
+         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops,
+         achieved_tflop_per_s=ops / ms / 1e9, input_sets_rotated=len(sets))
+    xs = [(x,) for x, _ in sets]
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda x: render_core.fused_flow_composite(*x, S, True), 21, xs)
+        fwd_plain_ms = cuda_ms(lambda x: render_core.fused_flow_composite_plain(*x, S, True),
+                               5, xs)
+        # the timed inputs' outputs against the plain version's
+        fwd_errs = compare(render_core.fused_flow_composite(*xs[0][0], S, True),
+                           render_core.fused_flow_composite_plain(*xs[0][0], S, True),
+                           MAP_RTOL, MAP_ATOL, LDJ_RTOL)
+    f_bytes, f_ops = render_core_work(R, S, K, F, True)
+    f_ms, f_by = bound_ms(f_bytes, f_ops)
+    emit("kernel_time", kernel="render_core_fwd", R=R, S=S, K=K, F=F, compute_log_det=True,
+         ms=fwd_ms, plain_ms=fwd_plain_ms, bound_ms=f_ms, bound_by=f_by, bytes=f_bytes,
+         ops=f_ops, input_sets_rotated=len(xs), errors=fwd_errs)
+    return dict(max_abs_err=train_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 # ---------------------------------------------------------------------- #
@@ -301,7 +485,13 @@ def phase_serve():
     rel = ((a["disp_map"] - b["disp_map"]).abs() / b["disp_map"].abs())[mask]
     errs["disp_map_rel_where_acc>1e-3"] = float(rel.max()) if rel.numel() else 0.0
 
-    breakdown = profile_tile(render_rays, [t[:TILE] for t in (rays_o, rays_d, vd, nv, fv)])
+    tile_rays = [t[:TILE] for t in (rays_o, rays_d, vd, nv, fv)]
+
+    def one_tile():
+        with torch.inference_mode():
+            render_rays(*tile_rays, None, is_test=True)
+
+    breakdown = profile_device(one_tile)
 
     emit("serve", H=H, W=W, K=K, tile=TILE, n_tiles=n_tiles,
          render_core_launches=launches, first_render_s=first_s,
@@ -314,21 +504,21 @@ def phase_serve():
     return launches
 
 
-def profile_tile(render_rays, tile_rays):
-    """Device time by kernel for one serving tile, from torch.profiler's
-    CUDA activity (CUPTI); kernels run on one stream, so their summed time
-    over the tile's wall time is the device's busy share."""
+def profile_device(fn):
+    """Device time by kernel for one call of `fn` (after one warm-up call),
+    from torch.profiler's CUDA activity (CUPTI); kernels run on one stream,
+    so their summed time over the call's wall time is the device's busy
+    share."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
-        render_rays(*tile_rays, None, is_test=True)  # warm
+    fn()  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
-            t0 = time.perf_counter()
-            render_rays(*tile_rays, None, is_test=True)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name = {}
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
@@ -340,8 +530,9 @@ def profile_tile(render_rays, tile_rays):
 
     def group(name):
         low = name.lower()
-        if "render_core" in low:
-            return "render_core"
+        for kernel in ("render_core_bwd", "render_core_fwd"):
+            if kernel in low:
+                return kernel
         if any(k in low for k in ("gemm", "xmma", "cutlass", "sm90")):
             return "matmul"
         return "other"
@@ -390,6 +581,182 @@ def phase_golden():
          max_abs_err_vs_jax=errs, tolerance={"rtol": E2E_RTOL, "atol": E2E_ATOL})
 
 
+# ---------------------------------------------------------------------- #
+# training
+# ---------------------------------------------------------------------- #
+
+
+def synthetic_scene(seed, n_images=4, n_points=2000):
+    """Random images at the serving camera (400x400, Blender half
+    resolution), Blender spherical poses around the origin, and per image
+    COLMAP-style sparse depth: pixel coordinates, depths in (near, far) and
+    reprojection weights.  Made from `seed`; nothing is downloaded."""
+    rng = np.random.RandomState(seed)
+    images = rng.rand(n_images, H, W, 3).astype(np.float32)
+    poses = np.stack([pose_spherical(360.0 * i / n_images, -30.0, 4.0)[:3, :4]
+                      for i in range(n_images)])
+    depth_gts = [{"coord": rng.uniform(0, [W, H], (n_points, 2)).astype(np.float32),
+                  "depth": rng.uniform(NEAR, FAR, n_points).astype(np.float32),
+                  "weight": rng.rand(n_points).astype(np.float32)}
+                 for _ in range(n_images)]
+    return images, poses, depth_gts
+
+
+def phase_train():
+    args = types.SimpleNamespace(**FLAGSHIP)
+    model, _, rc = build_model(args)  # the default device: the card
+    model.train()
+    K = args.K_samples
+    cfg = TrainConfig(H=H, W=W, focal=FOCAL, ndc=False, near=NEAR, far=FAR,
+                      k_samples=K, **TRAIN_CFG)
+    train_step, _ = make_train_step(model, rc, cfg)
+
+    images, poses, depth_gts = synthetic_scene(seed=0)
+    i_train = list(range(len(images)))
+    rays = RayBatcher(precompute_rays(images, poses, FOCAL, i_train, seed=0), N_RAND, seed=0)
+    depth_rays = DepthRayBatcher(
+        precompute_depth_rays(depth_gts, poses, H, W, FOCAL, i_train, seed=0), N_DEPTH, seed=0)
+
+    def next_batch():
+        batch = rays.next()
+        batch.update(depth_rays.next())
+        batch.pop("ray_weights")  # loaded but unused by the reference loss
+        return batch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    train_step(next_batch(), gen)  # warm-up
+    torch.cuda.synchronize()
+
+    # the main path, counted
+    render_core.fused_flow_composite.launches = 0
+    render_core.fused_flow_composite_bwd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = [], []
+    for _ in range(TRAIN_STEPS):
+        batch = next_batch()
+        t0 = time.perf_counter()
+        m = train_step(batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    fwd, bwd = (render_core.fused_flow_composite.launches,
+                render_core.fused_flow_composite_bwd.launches)
+    check(fwd == bwd == TRAIN_STEPS,
+          f"{TRAIN_STEPS} steps launched the forward {fwd} and the backward {bwd} times")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for m in metrics:
+        check(all(math.isfinite(v) for v in m.values()), f"finite metrics {m}")
+    check(set(metrics[0]) == {"loss", "loss_nll", "loss_entropy", "depth_loss", "mse", "psnr"},
+          f"metrics {sorted(metrics[0])}")
+    # every parameter moved, but for those with no gradient at all: the
+    # density flow's amor_d feeds only the strictly upper triangle of a
+    # 1x1 matrix, as in the JAX model
+    still = [n for n, p in model.named_parameters() if torch.equal(p.detach(), start[n])]
+    grads = dict(model.named_parameters())
+    check(all(grads[n].grad is not None and not grads[n].grad.any() for n in still),
+          f"parameters with a gradient that did not move: {still}")
+
+    # one fixed batch, the same draws every step: the loss falls
+    fixed = next_batch()
+    fixed_losses = [float(train_step(fixed, torch.Generator(device="cuda").manual_seed(1))["loss"])
+                    for _ in range(FIXED_STEPS)]
+    check(fixed_losses[-1] < fixed_losses[0], f"loss on a fixed batch did not fall: {fixed_losses}")
+
+    batch = next_batch()
+    breakdown = profile_device(lambda: train_step(batch, gen))
+    step_s = statistics.median(times)
+    emit("train", rays_per_step=N_RAND + N_DEPTH, rgb_rays=N_RAND, depth_rays=N_DEPTH,
+         samples=args.N_samples, K=K, steps=TRAIN_STEPS, render_core_fwd_launches=fwd,
+         render_core_bwd_launches=bwd, step_ms=1e3 * step_s,
+         step_ms_all=[1e3 * t for t in times],
+         train_rays_per_s=(N_RAND + N_DEPTH) / step_s, peak_mem_gb=peak_gb,
+         unmoved_zero_gradient=still, first_loss=metrics[0]["loss"],
+         last_metrics=metrics[-1],
+         fixed_batch_losses=fixed_losses)
+    emit("train_profile", rays_per_step=N_RAND + N_DEPTH, **breakdown)
+    return fwd, bwd
+
+
+def phase_train_golden():
+    with np.load(TRAIN_GOLDEN) as g:
+        D, Wd, K, F, ha, hr, S = (int(v) for v in g["config"])
+        h, w, focal, near, far, beta1, depth_lambda, lrate = (float(v) for v in g["train"])
+        params = {}
+        for key in g.files:
+            if key.startswith("p/"):
+                node = params
+                *parents, leaf = key[2:].split("/")
+                for p in parents:
+                    node = node.setdefault(p, {})
+                node[leaf] = g[key]
+        model = NeRFFlows(net_depth=D, net_width=Wd, skips=(D // 2,), h_alpha_size=ha,
+                          h_rgb_size=hr, n_flows=F, k_samples=K)
+        model.load_state_dict(nerf_flows_state_dict_from_jax(
+            params, (g["test_eps_a"], g["test_eps_r"])))
+        model = model.cuda()
+        cfg = TrainConfig(H=int(h), W=int(w), focal=focal, ndc=False, near=near, far=far,
+                          k_samples=K, lrate=lrate, beta1=beta1, colmap_depth=True,
+                          depth_lambda=depth_lambda)
+        step, _ = make_train_step(model, RenderConfig(n_samples=S), cfg)
+        batch = {k[6:]: g[k] for k in g.files if k.startswith("batch/")}
+        t_rand = torch.as_tensor(g["t_rand"], device="cuda")
+        R = t_rand.shape[0]
+        z_vals = stratified_perturb(
+            sample_z_vals(torch.full((R, 1), near, device="cuda"),
+                          torch.full((R, 1), far, device="cuda"), S).expand(R, S),
+            t_rand=t_rand)
+        eps = (g["eps_a"], g["eps_r"])
+        before = (render_core.fused_flow_composite.launches,
+                  render_core.fused_flow_composite_bwd.launches)
+        loss, metrics = step.loss_fn(batch, None, z_vals=z_vals, eps=eps)
+        loss.backward()
+        torch.cuda.synchronize()
+        check((render_core.fused_flow_composite.launches,
+               render_core.fused_flow_composite_bwd.launches) == (before[0] + 1, before[1] + 1),
+              "the golden step went through both kernels")
+        m_err, bad = {}, []
+        for k, v in metrics.items():
+            ref = float(g[f"jax/{k}"])
+            m_err[k] = abs(float(v.detach()) - ref)
+            if not m_err[k] <= E2E_ATOL + E2E_RTOL * abs(ref):
+                bad.append(k)
+        g_err, grads = {}, {}
+        for n, p in model.named_parameters():
+            ref = torch.as_tensor(g[f"grad/{n}"], device="cuda")
+            d = (p.grad - ref).abs()
+            if not bool((d <= GRAD_ATOL + GRAD_RTOL * ref.abs()).all()):
+                bad.append(f"grad/{n}")
+            g_err[n] = float(d.max())
+            grads[n] = ref.abs()
+        step.update()
+        p_err = {}
+        for n, p in model.named_parameters():
+            d = (p.detach() - torch.as_tensor(g[f"after/{n}"], device="cuda")).abs()
+            sel = d[grads[n] >= ADAM_G_MIN]
+            if not (bool((sel <= ADAM_ATOL).all()) and float(d.max()) <= 2 * lrate + ADAM_ATOL):
+                bad.append(f"after/{n}")
+            p_err[n] = float(sel.max()) if sel.numel() else 0.0
+    emit("train_golden", source=str(TRAIN_GOLDEN.relative_to(ROOT)), rays=R, S=S, K=K,
+         metrics_abs_err_vs_jax=m_err, grad_max_abs_err_vs_jax=max(g_err.values()),
+         weights_after_update_max_abs_err=max(p_err.values()),
+         tolerance={"metrics": {"rtol": E2E_RTOL, "atol": E2E_ATOL},
+                    "grads": {"rtol": GRAD_RTOL, "atol": GRAD_ATOL},
+                    "weights": {"atol": ADAM_ATOL, "where_abs_grad_ge": ADAM_G_MIN}})
+    check(not bad, f"train golden past the tolerance: {bad} (grads {g_err}, weights {p_err})")
+
+
+def kernel_entry(name, source, replaces, launches_by_path, stats):
+    """`launches` totals the per-path counts; `launches_by_path` keeps each
+    path's own count, reset just before that path and read just after."""
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(launches_by_path.values()),
+            "launches_by_path": launches_by_path,
+            "max_abs_err": stats["max_abs_err"], "ms": stats["ms"],
+            "plain_ms": stats["plain_ms"], "bound_ms": stats["bound_ms"],
+            "bound_by": stats["bound_by"], "library_ms": None}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -405,23 +772,21 @@ def main() -> int:
          ptxas=[ln.strip() for log in logs.values() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln])
 
-    rc_stats = phase_kernel_checks()
-    launches = phase_serve()
+    fwd_stats = phase_kernel_checks()
+    bwd_stats = phase_bwd_checks()
+    serve_launches = phase_serve()
     phase_golden()
+    train_fwd, train_bwd = phase_train()
+    phase_train_golden()
 
-    print(json.dumps({"kernels": [{
-        "name": "render_core_fwd",
-        "route": "cuda",
-        "source": render_core.SOURCE,
-        "replaces": render_core.REPLACES,
-        "launches": launches,
-        "max_abs_err": rc_stats["max_abs_err"],
-        "ms": rc_stats["ms"],
-        "plain_ms": rc_stats["plain_ms"],
-        "bound_ms": rc_stats["bound_ms"],
-        "bound_by": rc_stats["bound_by"],
-        "library_ms": None,
-    }]}), flush=True)
+    # serving: 20 forward launches a view; training: one forward and one
+    # backward a step
+    print(json.dumps({"kernels": [
+        kernel_entry("render_core_fwd", render_core.SOURCE, render_core.REPLACES,
+                     {"serve": serve_launches, "train": train_fwd}, fwd_stats),
+        kernel_entry("render_core_bwd", render_core.SOURCE_BWD, render_core.REPLACES_BWD,
+                     {"train": train_bwd}, bwd_stats),
+    ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -45,5 +45,6 @@ def test_port_modules_mirror_the_jax_layout():
             for p in (ROOT / "cfnerf_torch").rglob("*.py")}
     for mod in ("ops/embed.py", "ops/rays.py", "ops/sampling.py", "ops/compositing.py",
                 "ops/metrics.py", "flows/sylvester.py", "flows/amortized.py",
-                "models/nerf_flows.py", "models/factory.py", "render/renderer.py"):
+                "models/nerf_flows.py", "models/factory.py", "render/renderer.py",
+                "train/loss.py", "train/step.py", "data/sampler.py"):
         assert mod in port and (ROOT / "cfnerf_tpu" / mod).exists(), mod

@@ -5,6 +5,8 @@ JAX unfused pipeline; the wrapper's routing; the kernel build.
 The CUDA kernel itself cannot run here (no card, no nvcc): chip_smoke.py
 holds it against this plain version on the H100.
 """
+import contextlib
+import ctypes
 import os
 import stat
 
@@ -21,6 +23,8 @@ from cfnerf_torch.ops.kernels import _build
 from cfnerf_torch.ops.kernels import render_core
 from cfnerf_torch.ops.kernels.render_core import (
     fused_flow_composite,
+    fused_flow_composite_bwd,
+    fused_flow_composite_bwd_plain,
     fused_flow_composite_plain,
 )
 from tests.test_torch_common import dists_np, render_core_inputs, to_np
@@ -127,6 +131,55 @@ def test_plain_gradients_match_jax_and_stay_finite_at_saturation():
                                    err_msg=k)
 
 
+def _model_like(args):
+    """The amortized diagonals are tanh-bounded (flows/amortized.py), so
+    |1 + (1 - t^2) r1_ii r2_ii| stays away from 0; raw randn diagonals put
+    it near 0 and make the log-det gradient ill-conditioned."""
+    args = dict(args)
+    for k in ("r1_a", "r2_a"):
+        args[k] = np.tanh(args[k])
+    for k in ("r1_r", "r2_r"):
+        args[k] = args[k].copy()
+        for i in range(3):
+            args[k][:, i, i] = np.tanh(args[k][:, i, i])
+    return args
+
+
+def _cotangents(R, K, seed):
+    """Random cotangents of (rgb, depth, acc, ldj).  The ldj cotangent is
+    scaled by 1e-2: in training it is -beta1 / (B K) per ray."""
+    rng = np.random.RandomState(seed)
+    return [rng.randn(R, 3, K).astype(np.float32), rng.randn(R, K).astype(np.float32),
+            rng.randn(R, K).astype(np.float32), (rng.randn(2, R) * 1e-2).astype(np.float32)]
+
+
+@pytest.mark.parametrize("saturate", [False, True])
+@pytest.mark.parametrize("compute_log_det", [True, False])
+def test_plain_backward_matches_jax_vjp_of_the_kernel(saturate, compute_log_det):
+    """The backward kernel's oracle against jax.vjp of cfnerf_tpu's
+    fused_flow_composite, whose backward is the Pallas _bwd_kernel (run by
+    its interpreter).  JAX returns zeros for z_pts and d_pts; the port's
+    autograd Function returns None for them (test below)."""
+    R, S, K, F = 128, 64, 8, 2
+    args, z_vals, rays_d = render_core_inputs(R, S, K, F, seed=0, saturate=saturate)
+    args = _model_like(args)
+    inputs = [args[k] for k in ORDER] + [z_vals.ravel(), dists_np(z_vals, rays_d).ravel()]
+    cots = _cotangents(R, K, seed=9)
+    _, vjp = jax.vjp(lambda *a: jax_fused(*a, S, compute_log_det, True),
+                     *[jnp.asarray(a) for a in inputs])
+    ref = vjp(tuple(jnp.asarray(c) for c in cots))
+    out = fused_flow_composite_bwd_plain([torch.as_tensor(a) for a in inputs],
+                                         [torch.as_tensor(c) for c in cots], S,
+                                         compute_log_det)
+    assert len(out) == 8
+    for name, a, b in zip(ORDER, out, ref):
+        assert a.shape == b.shape, name
+        assert np.all(np.isfinite(to_np(a))), name
+        np.testing.assert_allclose(to_np(a), np.asarray(b), rtol=1e-4, atol=1e-6,
+                                   err_msg=name)
+    assert not np.any(np.asarray(ref[8])) and not np.any(np.asarray(ref[9]))
+
+
 # ---------------------------------------------------------------------- #
 # routing: CPU -> plain; CUDA -> kernel or raise; never a quiet fallback
 # ---------------------------------------------------------------------- #
@@ -148,13 +201,18 @@ def _small(R=4, S=5, K=3, F=2):
 
 def test_cpu_route_is_plain_and_counts_no_launch():
     x, S = _small()
-    before = fused_flow_composite.launches
+    cots = [torch.as_tensor(c) for c in _cotangents(4, 3, seed=2)]
+    before = fused_flow_composite.launches, fused_flow_composite_bwd.launches
     for cld in (True, False):
         out = fused_flow_composite(*x, S, cld)
         ref = fused_flow_composite_plain(*x, S, cld)
         for a, b in zip(out, ref):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert fused_flow_composite.launches == before
+        out = fused_flow_composite_bwd(x, cots, S, cld)
+        ref = fused_flow_composite_bwd_plain(x, cots, S, cld)
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (fused_flow_composite.launches, fused_flow_composite_bwd.launches) == before
 
 
 def test_cuda_route_raises_instead_of_falling_back(monkeypatch):
@@ -174,12 +232,101 @@ def test_cuda_route_raises_instead_of_falling_back(monkeypatch):
     assert fused_flow_composite.launches == before
 
 
-def test_cuda_route_refuses_gradients_until_the_backward_kernel():
+class _Entry:
+    """A stand-in for a ctypes kernel entry: records each call's arguments
+    and runs `body` on them; returns 0 (no CUDA error)."""
+
+    argtypes = None
+    restype = None
+
+    def __init__(self, body):
+        self.calls, self.body = [], body
+
+    def __call__(self, *a):
+        self.calls.append(a)
+        self.body(*a)
+        return 0
+
+
+class _Lib:
+    def __init__(self, **entries):
+        self.__dict__.update(entries)
+
+
+def _floats(ptr, n):
+    """The n float32 values at a host address, as a writable numpy view."""
+    return np.ctypeslib.as_array((ctypes.c_float * n).from_address(ptr))
+
+
+@contextlib.contextmanager
+def _no_cuda_context():
+    yield 0  # stream handle
+
+
+def test_cuda_route_with_gradients_goes_through_both_kernels(monkeypatch):
+    R, S, K, F = 4, 5, 3, 2
+    seen = {}
+
+    def fwd(*a):  # outputs: zeros, so the test's loss is well defined
+        for ptr, n in zip(a[10:14], (R * 3 * K, R * K, R * K, 2 * R)):
+            _floats(ptr, n)[:] = 0.0
+
+    def bwd(*a):
+        # cotangents arrive contiguous: rgb and depth from expanded views,
+        # acc and ldj (unused) as zeros
+        seen["g_rgb"] = _floats(a[10], R * 3 * K).copy()
+        seen["g_depth"] = _floats(a[11], R * K).copy()
+        seen["g_acc"] = _floats(a[12], R * K).copy()
+        seen["g_ldj"] = _floats(a[13], 2 * R).copy()
+        seen["ints"] = a[24:29]
+        for ptr, x in zip(a[14:22], x_grad):
+            _floats(ptr, x.numel())[:] = 7.0
+
+    def no_plain(*a, **k):
+        raise AssertionError("a plain version ran for a CUDA tensor")
+
+    entries = {"render_core": _Lib(render_core_fwd=_Entry(fwd)),
+               "render_core_bwd": _Lib(render_core_bwd=_Entry(bwd))}
+    monkeypatch.setattr(_build, "load", lambda name: entries[name])
+    monkeypatch.setattr(render_core, "_on_device", lambda dev: _no_cuda_context())
+    monkeypatch.setattr(render_core, "fused_flow_composite_plain", no_plain)
+    monkeypatch.setattr(render_core, "fused_flow_composite_bwd_plain", no_plain)
+
+    x, _ = _small(R, S, K, F)
+    x_grad = x[:8]
+    on_cuda = [t.as_subclass(_OnCuda).requires_grad_(i < 8 or i == 8)
+               for i, t in enumerate(x)]
+    before = fused_flow_composite.launches, fused_flow_composite_bwd.launches
+    rgb, depth, acc, ldj = fused_flow_composite(*on_cuda, S, True)
+    (rgb.mean(-1).sum() + 2.0 * depth.sum()).backward()
+
+    assert fused_flow_composite.launches == before[0] + 1
+    assert fused_flow_composite_bwd.launches == before[1] + 1
+    assert len(entries["render_core_bwd"].render_core_bwd.calls) == 1
+    np.testing.assert_array_equal(seen["g_rgb"], np.full(R * 3 * K, 1.0 / K, np.float32))
+    np.testing.assert_array_equal(seen["g_depth"], np.full(R * K, 2.0, np.float32))
+    assert not seen["g_acc"].any() and not seen["g_ldj"].any()
+    assert seen["ints"] == (R, S, K, F, 1)
+    for t in on_cuda[:8]:
+        assert t.grad is not None and bool((t.grad == 7.0).all())
+    assert on_cuda[8].grad is None  # z_pts: a constant to the kernel's VJP
+
+
+def test_failed_build_of_the_backward_raises(monkeypatch):
+    def load(name):
+        if name == "render_core":
+            return _Lib(render_core_fwd=_Entry(lambda *a: None))
+        raise RuntimeError("kernel build failed: simulated")
+
+    monkeypatch.setattr(_build, "load", load)
+    monkeypatch.setattr(render_core, "_on_device", lambda dev: _no_cuda_context())
     x, S = _small()
-    on_cuda = [t.as_subclass(_OnCuda) for t in x]
-    on_cuda[1].requires_grad_()
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        fused_flow_composite(*on_cuda, S, True)
+    on_cuda = [t.as_subclass(_OnCuda).requires_grad_(i == 1) for i, t in enumerate(x)]
+    before = fused_flow_composite_bwd.launches
+    rgb, _, _, _ = fused_flow_composite(*on_cuda, S, True)
+    with pytest.raises(RuntimeError, match="build failed"):
+        rgb.sum().backward()
+    assert fused_flow_composite_bwd.launches == before
 
 
 def test_other_devices_and_mixed_devices_raise():
@@ -267,3 +414,7 @@ def test_kernel_source_is_for_hopper():
     src = (_build.CSRC / "render_core.cu").read_text()
     assert 'extern "C" int render_core_fwd' in src
     assert "cfnerf_tpu/ops/pallas/render_core.py:_fwd_kernel" in src
+    assert _build.KERNELS == ("render_core", "render_core_bwd")
+    src = (_build.CSRC / "render_core_bwd.cu").read_text()
+    assert 'extern "C" int render_core_bwd' in src
+    assert "cfnerf_tpu/ops/pallas/render_core.py:_bwd_kernel" in src
