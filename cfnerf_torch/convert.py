@@ -14,6 +14,10 @@ layout maps the same way, onto the port's parameter names.
     buffers (the JAX model's `_test_eps`, last draw already zeroed).  Without
     it the dict holds no buffers; load it with strict=False to keep the
     model's own.
+
+`nerf_flows_pair_state_dicts_from_jax` does the same for a hierarchical
+{"coarse", "fine"} params pair (cfnerf_tpu/models/factory.py:create_nerf),
+giving the state dicts of the coarse and the fine network.
 Reading an Orbax checkpoint from disk comes with the checkpoint slice.
 """
 from __future__ import annotations
@@ -58,3 +62,14 @@ def nerf_flows_state_dict_from_jax(
         sd["test_eps_a"] = _t(test_eps[0])
         sd["test_eps_r"] = _t(test_eps[1])
     return sd
+
+
+def nerf_flows_pair_state_dicts_from_jax(
+    params: Mapping[str, Any],
+    test_eps: Optional[Tuple[Any, Any]] = None,
+    test_eps_fine: Optional[Tuple[Any, Any]] = None,
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """(coarse, fine) state dicts from a {"coarse", "fine"} pytree; each
+    network's test eps as in `nerf_flows_state_dict_from_jax`."""
+    return (nerf_flows_state_dict_from_jax(params["coarse"], test_eps),
+            nerf_flows_state_dict_from_jax(params["fine"], test_eps_fine))

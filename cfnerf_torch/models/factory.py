@@ -2,9 +2,10 @@
 create_nerf, run_nerf_uncertainty_NF.py:317-341).
 
 Reads the same flag names as cfnerf_tpu/utils/config.py.  It builds the
-triangular NeRFFlows that serves and trains; everything else raises
-NotImplementedError naming the slice that brings it.  Resuming from
-checkpoints comes with slice 4 (data, loop, checkpoints, CLI).
+triangular NeRFFlows that serves and trains, and with --N_importance > 0 its
+fine network; everything else raises NotImplementedError naming the slice
+that brings it.  Resuming from checkpoints comes with slice 6 (data, loop,
+checkpoints, CLI).
 """
 from __future__ import annotations
 
@@ -23,20 +24,16 @@ def _check_supported(args) -> None:
     model_name = (getattr(args, "model", None) or "nerf_flows").lower()
     if model_name != "nerf_flows":
         raise NotImplementedError(
-            f"--model {model_name}: the baseline models come with slice 6"
+            f"--model {model_name}: the baseline models come with slice 7"
         )
     if args.type_flows != "triangular":
         raise NotImplementedError(
-            f"--type_flows {args.type_flows}: other flow families come with slice 6"
+            f"--type_flows {args.type_flows}: other flow families come with slice 7"
         )
     if getattr(args, "compute_dtype", "float32") != "float32":
         raise NotImplementedError(
-            "--compute_dtype bfloat16 comes with slice 8 (trunk kernels); "
-            "this slice runs the trunk in float32"
-        )
-    if args.N_importance > 0:
-        raise NotImplementedError(
-            "--N_importance > 0 (hierarchical sampling) comes with slice 5"
+            "--compute_dtype bfloat16 comes with slice 4 (trunk kernels); "
+            "the port runs the trunk in float32"
         )
 
 
@@ -67,31 +64,41 @@ def build_model(
 ) -> Tuple[NeRFFlows, Optional[NeRFFlows], RenderConfig]:
     """Build the flagship model + render config from the flag namespace.
 
-    Returns (model, model_fine, render_config); model_fine is None in this
-    slice.  Weights come from init_params(seed=args.seed).  The model lives
-    on the CUDA device unless device="cpu" is passed; with no CUDA device and
-    no explicit device this raises."""
+    Returns (model, model_fine, render_config).  With --N_importance > 0,
+    model_fine is the hierarchical fine network at --netdepth_fine /
+    --netwidth_fine (cfnerf_tpu/models/factory.py:93-97), else None.
+    Weights come from init_params(seed=args.seed), the fine network's from
+    seed + 1, as create_nerf seeds them.  The models live on the CUDA device
+    unless device="cpu" is passed; with no CUDA device and no explicit
+    device this raises."""
     dev = resolve_device(device)
     _check_supported(args)
     _, input_ch = get_embedder(args.multires, args.i_embed)
     input_ch_views = 0
     if args.use_viewdirs:
         _, input_ch_views = get_embedder(args.multires_views, args.i_embed)
+    seed = getattr(args, "seed", 0)
 
-    model = NeRFFlows(
-        net_depth=args.netdepth,
-        net_width=args.netwidth,
-        input_ch=input_ch,
-        input_ch_views=input_ch_views,
-        skips=(args.netdepth // 2,),  # reference: [netdepth/2] (:327)
-        h_alpha_size=args.h_alpha_size,
-        h_rgb_size=args.h_rgb_size,
-        n_flows=args.n_flows,
-        k_samples=args.K_samples,
-        use_viewdirs=args.use_viewdirs,
-        type_flows=args.type_flows,
-    )
-    init_params(model, getattr(args, "seed", 0))
+    def make(depth: int, width: int, seed: int) -> NeRFFlows:
+        model = NeRFFlows(
+            net_depth=depth,
+            net_width=width,
+            input_ch=input_ch,
+            input_ch_views=input_ch_views,
+            skips=(depth // 2,),  # reference: [netdepth/2] (:327)
+            h_alpha_size=args.h_alpha_size,
+            h_rgb_size=args.h_rgb_size,
+            n_flows=args.n_flows,
+            k_samples=args.K_samples,
+            use_viewdirs=args.use_viewdirs,
+            type_flows=args.type_flows,
+        )
+        return init_params(model, seed).to(dev)
+
+    model = make(args.netdepth, args.netwidth, seed)
+    model_fine = None
+    if args.N_importance > 0:
+        model_fine = make(args.netdepth_fine, args.netwidth_fine, seed + 1)
     render_config = RenderConfig(
         n_samples=args.N_samples,
         n_importance=args.N_importance,
@@ -105,4 +112,4 @@ def build_model(
         multires_views=args.multires_views,
         i_embed=args.i_embed,
     )
-    return model.to(dev), None, render_config
+    return model, model_fine, render_config

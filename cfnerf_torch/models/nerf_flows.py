@@ -24,8 +24,8 @@ import torch
 from torch import nn
 
 from cfnerf_torch.flows.amortized import AmortizedTriangularSylvester
-from cfnerf_torch.flows.sylvester import triangular_sylvester_stack
 from cfnerf_torch.ops.compositing import softplus
+from cfnerf_torch.ops.kernels.flow_stack import fused_flow_stack
 from cfnerf_torch.ops.kernels.render_core import fused_flow_composite
 
 Z_ALPHA = 1  # density latent dim
@@ -63,7 +63,7 @@ class NeRFFlows(nn.Module):
         if type_flows != "triangular":
             raise NotImplementedError(
                 f"type_flows={type_flows!r}: the port has the triangular family "
-                "only; the other flow families come with slice 6"
+                "only; the other flow families come with slice 7"
             )
         self.net_depth, self.net_width = net_depth, net_width
         self.input_ch, self.input_ch_views = input_ch, input_ch_views
@@ -170,7 +170,10 @@ class NeRFFlows(nn.Module):
         generator: Optional[torch.Generator] = None,
         eps: Optional[Eps] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Unfused forward (models.py:188-291), the oracle of the fused path.
+        """Unfused forward (models.py:188-291): the path of hierarchical
+        sampling and applied density noise, and the oracle of the fused path.
+        Both flow stacks run through `fused_flow_stack` (the flow-stack
+        kernels on the card, as flow_impl="pallas" on the TPU).
 
         Returns raw (B, K, 4): pre-sigmoid rgb then pre-softplus density,
         and the entropy loss (0 in test mode)."""
@@ -178,14 +181,15 @@ class NeRFFlows(nn.Module):
         B, K = h_alpha.shape[0], self.k_samples
         z0_a, z0_r = self._base_draws(*self._draw_eps(is_test, generator, eps))
         compute_ld = not is_test
-        z_alpha, ldj_alpha = triangular_sylvester_stack(
-            z0_a[None].expand(B, K, Z_ALPHA), *self.flows_alpha(h_alpha),
-            compute_log_det=compute_ld,
-        )
-        z_rgb, ldj_rgb = triangular_sylvester_stack(
-            z0_r[None].expand(B, K, Z_RGB), *self.flows_rgb(h_rgb),
-            compute_log_det=compute_ld,
-        )
+        # the shared draws go in expanded (the kernel reads them through a
+        # zero point stride); the kernel reads the parameters contiguous, and
+        # r2 is built from a transpose
+        z_alpha, ldj_alpha = fused_flow_stack(
+            z0_a[None].expand(B, K, Z_ALPHA),
+            *(t.contiguous() for t in self.flows_alpha(h_alpha)), compute_ld)
+        z_rgb, ldj_rgb = fused_flow_stack(
+            z0_r[None].expand(B, K, Z_RGB),
+            *(t.contiguous() for t in self.flows_rgb(h_rgb)), compute_ld)
         raw = torch.cat([z_rgb, z_alpha], -1)
         if is_test:
             return raw, torch.zeros((), dtype=raw.dtype, device=raw.device)

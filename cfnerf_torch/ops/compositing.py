@@ -10,8 +10,8 @@ CF-NeRF specifics kept:
   * transmittance is the exclusive cumprod of (1 - alpha + 1e-10);
   * white background: rgb += (1 - acc);
   * the reference computes density noise and never adds it; that is kept
-    (apply_noise=False), and apply_noise=True is the intended behaviour,
-    which comes with the hierarchical slice.
+    (apply_noise=False), and apply_noise=True is the intended behaviour:
+    N(0, 1) * raw_noise_std added to the density before the softplus.
 
 This is the oracle side of the fused render core.  Its gradient flows
 through cumprod, which is division-free (a closed-form VJP divides by
@@ -19,7 +19,7 @@ through cumprod, which is division-free (a closed-form VJP divides by
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -61,6 +61,8 @@ def raw2outputs(
     raw_noise_std: float = 0.0,
     white_bkgd: bool = False,
     apply_noise: bool = False,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Composite K radiance-field draws along each ray.
 
@@ -69,15 +71,15 @@ def raw2outputs(
               density.
       z_vals: (R, S) sample depths.
       rays_d: (R, 3) unnormalized ray directions.
+      apply_noise, raw_noise_std: with both set, noise * raw_noise_std is
+              added to the density, `noise` (R, S, K) standard normal draws
+              when given (tests inject JAX's), else drawn from `generator` on
+              its device; with neither there is no noise, as JAX's
+              raw2outputs adds none without a key.
 
     Returns (rgb_map (R,3,K), disp_map (R,K), acc_map (R,K),
              weights (R,S,K), depth_map (R,K)).
     """
-    if apply_noise and raw_noise_std > 0.0:
-        raise NotImplementedError(
-            "applied density noise (apply_noise with raw_noise_std > 0) comes "
-            "with slice 5 (hierarchical sampling)"
-        )
     raw = raw.to(torch.float32)
     z_vals = z_vals.to(torch.float32)
 
@@ -86,7 +88,14 @@ def raw2outputs(
     dists = dists * torch.linalg.norm(rays_d, dim=-1, keepdim=True)  # (R, S)
 
     rgb = torch.sigmoid(raw[..., :3])  # (R, S, K, 3)
-    alpha = 1.0 - torch.exp(-softplus(raw[..., 3]) * dists[..., None])  # (R, S, K)
+    density = raw[..., 3]  # (R, S, K)
+    if apply_noise and raw_noise_std > 0.0:
+        if noise is None and generator is not None:
+            noise = torch.randn(density.shape, generator=generator,
+                                device=generator.device).to(density)
+        if noise is not None:
+            density = density + noise.to(density) * raw_noise_std
+    alpha = 1.0 - torch.exp(-softplus(density) * dists[..., None])  # (R, S, K)
     weights = composite_weights(alpha)
 
     rgb_map = torch.sum(weights[..., None] * rgb, dim=-3).transpose(-1, -2)  # (R, 3, K)

@@ -2,9 +2,9 @@
 
   * the hardcoded 96+32 non-uniform z schedule (reference
     run_nerf_uncertainty_NF.py:510-516);
-  * stratified jitter (:518-532), drawn from an explicit torch.Generator.
-
-sample_pdf (hierarchical sampling) comes with the hierarchical slice.
+  * stratified jitter (:518-532), drawn from an explicit torch.Generator;
+  * sample_pdf, the inverse-CDF resampling of hierarchical sampling
+    (nerf-pytorch semantics, cfnerf_tpu/ops/sampling.py:73-124).
 """
 from __future__ import annotations
 
@@ -71,3 +71,51 @@ def stratified_perturb(
             z_vals.shape, generator=generator, dtype=z_vals.dtype, device=device
         ).to(z_vals)
     return lower + (upper - lower) * t_rand
+
+
+def sample_pdf(
+    bins: torch.Tensor,
+    weights: torch.Tensor,
+    n_samples: int,
+    generator: Optional[torch.Generator] = None,
+    *,
+    det: bool,
+    u: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Inverse-CDF sampling of n_samples depths from a piecewise-constant
+    pdf over `bins`.  bins: (R, M+1) increasing edges; weights: (R, M)
+    unnormalized densities.  Returns (R, n_samples).
+
+    The uniforms are linspace(0, 1) when `det` (or with neither `u` nor a
+    generator), else `u` (R, n_samples) when given (tests inject JAX's
+    draws), else drawn from `generator` on its device.  The JAX package's
+    semantics, computed as a GPU does it: the cdf by cumsum where the TPU
+    multiplies by a triangular ones matrix, and searchsorted where it takes
+    masked max/min reductions.  The two pick the same bins: "below" is the
+    last edge whose cdf <= u, "above" the first whose cdf > u, clipped to
+    the top edge when u reaches it, and the interval is 1 where the cdf step
+    is < 1e-5."""
+    weights = weights + 1e-5  # prevent NaNs from empty rays
+    pdf = weights / torch.sum(weights, -1, keepdim=True)
+    cdf = torch.cumsum(pdf, -1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)  # (R, M+1)
+    shape = (*cdf.shape[:-1], n_samples)
+    if det or (u is None and generator is None):
+        u = torch.linspace(0.0, 1.0, n_samples, dtype=cdf.dtype,
+                           device=cdf.device).expand(shape)
+    elif u is None:
+        u = torch.rand(shape, generator=generator, dtype=cdf.dtype,
+                       device=generator.device).to(cdf)
+    u = u.to(cdf).contiguous()
+
+    m = cdf.shape[-1] - 1
+    above = torch.searchsorted(cdf.contiguous(), u, right=True)  # first cdf > u
+    below = above - 1  # cdf[0] = 0 <= u
+    above = torch.clamp(above, max=m)
+    cdf_below, cdf_above = torch.gather(cdf, -1, below), torch.gather(cdf, -1, above)
+    bins_below, bins_above = torch.gather(bins, -1, below), torch.gather(bins, -1, above)
+
+    denom = cdf_above - cdf_below
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    t = (u - cdf_below) / denom
+    return bins_below + t * (bins_above - bins_below)

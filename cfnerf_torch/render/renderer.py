@@ -4,22 +4,24 @@ run_nerf_uncertainty_NF.py:457-553, and render_path's single-pose render).
 
 The fused path sends flows + composite through the render core
 (cfnerf_torch/ops/kernels/render_core.py): the CUDA kernel on the card, its
-plain version on the CPU.  There is no shape gate: every ray batch takes
-it.  The unfused path (model forward + raw2outputs) is the oracle and the
-path that returns per-sample weights.  The reference's never-applied raw
-noise is kept (apply_noise=False).
+plain version on the CPU.  There is no shape gate: every ray batch without a
+fine pass or applied noise takes it.  The unfused path (model forward, its
+flow stacks in the flow-stack kernels, then raw2outputs) returns per-sample
+weights; it serves hierarchical sampling (coarse + fine pass, nerf-pytorch
+semantics) and applied density noise, and is the fused path's oracle.  The
+reference's never-applied raw noise is kept (apply_noise=False).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from cfnerf_torch.ops.compositing import LAST_DIST, finalize_k_maps, raw2outputs
 from cfnerf_torch.ops.embed import Embedder
 from cfnerf_torch.ops.rays import get_rays, ndc_rays
-from cfnerf_torch.ops.sampling import sample_z_vals, stratified_perturb
+from cfnerf_torch.ops.sampling import sample_pdf, sample_z_vals, stratified_perturb
 from cfnerf_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -58,26 +60,37 @@ class RenderConfig:
 RenderRays = Callable[..., Dict[str, torch.Tensor]]
 
 
-def make_render_rays(model, config: RenderConfig, fused: bool = True) -> RenderRays:
+def make_render_rays(model, config: RenderConfig, fused: bool = True,
+                     model_fine=None) -> RenderRays:
     """Build the per-batch renderer around a NeRFFlows `model`.
 
     render_rays(rays_o (R,3), rays_d (R,3), viewdirs (R,3) or None,
-    near (R,1), far (R,1), generator=None, *, is_test, z_vals=None, eps=None):
+    near (R,1), far (R,1), generator=None, *, is_test, z_vals=None, eps=None,
+    eps_fine=None, pdf_u=None, noise=None):
     z schedule -> stratified jitter (training, with a generator) ->
     positional encoding -> model -> composite.  `z_vals` (R, S) replaces the
     schedule and its jitter, as in the JAX renderer; `eps` (eps_a (K,1),
-    eps_r (K,3)) replaces the model's base draws.  Tests use both to feed the
-    port JAX's own draws.  `fused=True` is the serving and training path
-    (render core); `fused=False` runs the unfused oracle."""
-    if config.n_importance > 0:
-        raise NotImplementedError(
-            "n_importance > 0 (hierarchical sampling) comes with slice 5"
-        )
-    if config.apply_noise and config.raw_noise_std > 0:
-        raise NotImplementedError(
-            "applied density noise comes with slice 5 (the unfused flow path)"
-        )
+    eps_r (K,3)) replaces the model's base draws.  `fused=True` is the
+    serving and training path (render core); `fused=False` runs the unfused
+    oracle.
+
+    With config.n_importance > 0 the render is hierarchical
+    (cfnerf_tpu/render/renderer.py:221-278): the coarse pass, then
+    n_importance depths resampled by `sample_pdf` from its gradient-stopped
+    mean-over-K weights, then the fine pass on the sorted union through
+    `model_fine`, or through `model` itself without one (the eval-only
+    importance placement, --N_importance_eval).  The coarse maps come back
+    as rgb0/disp0/depth0/loss_entropy0.  Hierarchical sampling and applied
+    noise take the unfused path, as in the JAX package.
+
+    The other seams feed the port JAX's draws in the tests: `eps_fine`
+    replaces the fine pass's base draws, `pdf_u` (R, n_importance) the
+    uniforms of a perturbed train-mode resample, `noise` the density noise,
+    one (R, S_pass, K) tensor per pass in order.  Without them every draw
+    comes from `generator`, one after another."""
     embedder, embedder_dirs = config.embedders()
+    noisy = config.apply_noise and config.raw_noise_std > 0
+    unfused = not fused or config.n_importance > 0 or noisy
 
     def _embed(z_vals, rays_o, rays_d, viewdirs):
         R, S = z_vals.shape
@@ -88,6 +101,20 @@ def make_render_rays(model, config: RenderConfig, fused: bool = True) -> RenderR
             emb_dirs = emb_dirs[:, None, :].expand(R, S, emb_dirs.shape[-1])
             emb = torch.cat([emb, emb_dirs.reshape(R * S, -1)], -1)
         return emb
+
+    def _pass(net, z_vals, rays_o, rays_d, viewdirs, generator, is_test, eps, noise):
+        """One unfused query + composite: (maps..., weights, entropy)."""
+        R, S = z_vals.shape
+        raw, loss_entropy = net(_embed(z_vals, rays_o, rays_d, viewdirs),
+                                is_test=is_test, generator=generator, eps=eps)
+        rgb_map, disp_map, acc_map, weights, depth_map = raw2outputs(
+            raw.reshape(R, S, -1, 4), z_vals, rays_d,
+            raw_noise_std=config.raw_noise_std,
+            white_bkgd=config.white_bkgd,
+            apply_noise=config.apply_noise,
+            generator=generator, noise=noise,
+        )
+        return rgb_map, disp_map, acc_map, depth_map, weights, loss_entropy
 
     def render_rays(
         rays_o: torch.Tensor,
@@ -100,6 +127,9 @@ def make_render_rays(model, config: RenderConfig, fused: bool = True) -> RenderR
         is_test: bool,
         z_vals: Optional[torch.Tensor] = None,
         eps=None,
+        eps_fine=None,
+        pdf_u: Optional[torch.Tensor] = None,
+        noise: Optional[Sequence[torch.Tensor]] = None,
     ) -> Dict[str, torch.Tensor]:
         R = rays_o.shape[0]
         if z_vals is None:
@@ -109,15 +139,14 @@ def make_render_rays(model, config: RenderConfig, fused: bool = True) -> RenderR
             if config.perturb and not is_test and generator is not None:
                 z_vals = stratified_perturb(z_vals, generator)
         S = z_vals.shape[1]
-        emb = _embed(z_vals, rays_o, rays_d, viewdirs)
 
-        if fused:
+        if not unfused:
             dists = z_vals[..., 1:] - z_vals[..., :-1]
             dists = torch.cat([dists, torch.full_like(dists[..., :1], LAST_DIST)], -1)
             d_pts = dists * torch.linalg.norm(rays_d.float(), dim=-1, keepdim=True)
             rgb_map, depth_map, acc_map, loss_entropy = model.forward_composited(
-                emb, z_vals.reshape(-1), d_pts.reshape(-1), S,
-                is_test=is_test, generator=generator, eps=eps,
+                _embed(z_vals, rays_o, rays_d, viewdirs), z_vals.reshape(-1),
+                d_pts.reshape(-1), S, is_test=is_test, generator=generator, eps=eps,
             )
             rgb_map, disp_map = finalize_k_maps(
                 rgb_map, depth_map, acc_map, config.white_bkgd
@@ -125,14 +154,27 @@ def make_render_rays(model, config: RenderConfig, fused: bool = True) -> RenderR
             return dict(rgb_map=rgb_map, disp_map=disp_map, depth_map=depth_map,
                         acc_map=acc_map, loss_entropy=loss_entropy)
 
-        raw, loss_entropy = model(emb, is_test=is_test, generator=generator, eps=eps)
-        rgb_map, disp_map, acc_map, weights, depth_map = raw2outputs(
-            raw.reshape(R, S, -1, 4), z_vals, rays_d,
-            raw_noise_std=config.raw_noise_std,
-            white_bkgd=config.white_bkgd,
-            apply_noise=config.apply_noise,
-        )
-        out = dict(rgb_map=rgb_map, disp_map=disp_map, depth_map=depth_map,
+        noise = (None, None) if noise is None else tuple(noise) + (None,)
+        rgb_map, disp_map, acc_map, depth_map, weights, loss_entropy = _pass(
+            model, z_vals, rays_o, rays_d, viewdirs, generator, is_test, eps, noise[0])
+        out: Dict[str, torch.Tensor] = {}
+        if config.n_importance > 0:
+            out.update(rgb0=rgb_map, disp0=disp_map, depth0=depth_map,
+                       loss_entropy0=loss_entropy)
+            # importance-resample from the coarse density (mean over K)
+            w_mean = weights.detach().mean(-1)  # (R, S)
+            z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+            z_samples = sample_pdf(
+                z_mid, w_mean[..., 1:-1], config.n_importance, generator,
+                det=(not config.perturb) or is_test, u=pdf_u,
+            ).detach()
+            z_vals = torch.sort(torch.cat([z_vals, z_samples], -1), -1).values
+            net = model if model_fine is None else model_fine
+            rgb_map, disp_map, acc_map, depth_map, weights, loss_entropy = _pass(
+                net, z_vals, rays_o, rays_d, viewdirs, generator, is_test,
+                eps_fine, noise[1])
+
+        out.update(rgb_map=rgb_map, disp_map=disp_map, depth_map=depth_map,
                    acc_map=acc_map, loss_entropy=loss_entropy)
         if not is_test:
             out["weights"] = weights

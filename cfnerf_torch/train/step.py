@@ -5,8 +5,11 @@ lr = lrate * 0.1^(step / (lrate_decay*1000)) (:1072-1077)).
 
   * the COLMAP depth rays are concatenated to the rgb rays before the render
     and split after, as in the reference (:1011, :1020-1024);
-  * the render is the fused train-mode path: the render core's forward
-    kernel on the card, its backward kernel through autograd;
+  * the render is the fused train-mode path (the render core's forward
+    kernel on the card, its backward kernel through autograd) or, with
+    N_importance > 0, the hierarchical coarse + fine render, whose flow
+    stacks run through the flow-stack kernels; its coarse loss is added as
+    in cfnerf_tpu/train/step.py:290-304;
   * Adam (0.9, 0.999, eps 1e-8) with the JAX step's schedule, offset by
     `start_step` (cfnerf_tpu/train/step.py:92-105);
   * `remat` recomputes the train-mode model forward in the backward
@@ -18,7 +21,7 @@ loop where the JAX package scans on the device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple
 
 import torch
 from torch.optim.lr_scheduler import LambdaLR
@@ -26,7 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from cfnerf_torch.ops.metrics import img2mse, mse2psnr
 from cfnerf_torch.render.renderer import RenderConfig, make_render_rays, prepare_rays
-from cfnerf_torch.train.loss import total_loss
+from cfnerf_torch.train.loss import kde_nll, total_loss
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -55,7 +58,7 @@ class TrainConfig:
     remat: bool = False
 
 
-def make_optimizer(params, cfg: TrainConfig) -> Tuple[torch.optim.Adam, LambdaLR]:
+def make_optimizer(params: Iterable, cfg: TrainConfig) -> Tuple[torch.optim.Adam, LambdaLR]:
     """Adam (0.9, 0.999, eps 1e-8) and its schedule: update t (from 0) runs at
     lrate * 0.1^((start_step + t) / (lrate_decay * 1000)), as optax's
     exponential_decay counts.  Step the scheduler after each optimizer step."""
@@ -67,13 +70,19 @@ def make_optimizer(params, cfg: TrainConfig) -> Tuple[torch.optim.Adam, LambdaLR
 
 
 class _Remat:
-    """The model's train-mode fused forward under activation checkpointing.
-    The base draws are made before the checkpoint, so the recompute in the
-    backward sees the same eps (checkpoint restores the default generators'
-    state, not an explicit torch.Generator's)."""
+    """The model's train-mode forwards, fused and unfused, under activation
+    checkpointing.  The base draws are made before the checkpoint, so the
+    recompute in the backward sees the same eps (checkpoint restores the
+    default generators' state, not an explicit torch.Generator's)."""
 
     def __init__(self, model):
         self.model = model
+
+    def __call__(self, x, *, is_test, generator=None, eps=None):
+        if is_test:
+            return self.model(x, is_test=True, eps=eps)
+        eps = self.model._draw_eps(False, generator, eps)
+        return checkpoint(self.model, x, is_test=False, eps=eps, use_reentrant=False)
 
     def forward_composited(self, x, z_pts, d_pts, s_per_ray, *, is_test,
                            generator=None, eps=None):
@@ -95,34 +104,47 @@ def make_train_step(
 ) -> Tuple[Callable, torch.optim.Adam]:
     """Returns (train_step, optimizer).
 
-    train_step(batch, generator, *, z_vals=None, eps=None) -> metrics takes
-    one step in place on `model`'s parameters.  batch holds numpy arrays or
+    train_step(batch, generator, *, z_vals=None, eps=None, eps_fine=None,
+    pdf_u=None, noise=None) -> metrics takes one step in place on the
+    parameters of `model` and `model_fine`.  batch holds numpy arrays or
     tensors: rays_o, rays_d, target (R, 3) and, with colmap_depth,
     depth_rays_o, depth_rays_d (D, 3), target_depth (D,).  The generator
-    draws the stratified jitter and the shared-K eps; z_vals (R+D, S) and
-    eps inject them instead.  Metrics: loss, loss_nll, loss_entropy,
-    [depth_loss], mse, psnr, detached, on the model's device.
+    makes every draw of the step; the keywords inject them instead, as
+    `make_render_rays` describes.  Metrics: loss, loss_nll, loss_entropy,
+    [depth_loss], [loss_nll0], mse, psnr, detached, on the model's device.
+
+    With render_config.n_importance > 0 the step is hierarchical (nerf-
+    pytorch semantics, cfnerf_tpu/train/step.py:262-304): the fine pass
+    runs through `model_fine` (or `model` without one), the entropy sums
+    both passes, and the coarse render's loss `loss_nll0` (KDE NLL, or MSE
+    in 'mse' mode) is added to the loss.  Adam updates both networks.
 
     The two halves are callable apart, so that the gradients can be read
-    before the update: train_step.loss_fn(batch, generator, *, z_vals,
-    eps) -> (loss, metrics) renders and scores; train_step.update() takes
-    the optimizer step on the gradients in .grad and advances the schedule.
+    before the update: train_step.loss_fn(batch, generator, *, z_vals, eps,
+    eps_fine, pdf_u, noise) -> (loss, metrics) renders and scores;
+    train_step.update() takes the optimizer step on the gradients in .grad
+    and advances the schedule.
     """
     if occ is not None:
-        raise NotImplementedError("proposal-placed training (occ) comes with slice 3")
+        raise NotImplementedError("proposal-placed training (occ) comes with slice 5")
     if mesh is not None:
-        raise NotImplementedError("training over a device mesh comes with slice 7")
-    if model_fine is not None or render_config.n_importance > 0:
-        raise NotImplementedError(
-            "hierarchical training (N_importance, the rgb0 branch) comes with slice 5")
+        raise NotImplementedError("training over a device mesh comes with slice 8")
+    if model_fine is not None and render_config.n_importance == 0:
+        raise ValueError("a fine network needs render_config.n_importance > 0")
     if cfg.loss_mode not in ("kde", "mse"):
         raise ValueError(f"loss_mode must be 'kde' or 'mse', got {cfg.loss_mode!r}")
 
-    optimizer, scheduler = make_optimizer(model.parameters(), cfg)
-    render_rays = make_render_rays(_Remat(model) if cfg.remat else model, render_config)
+    nets = [model] if model_fine is None else [model, model_fine]
+    optimizer, scheduler = make_optimizer(
+        [p for net in nets for p in net.parameters()], cfg)
+    wrap = _Remat if cfg.remat else (lambda net: net)
+    render_rays = make_render_rays(
+        wrap(model), render_config,
+        model_fine=None if model_fine is None else wrap(model_fine))
 
     def loss_fn(batch: Mapping, generator: Optional[torch.Generator] = None, *,
-                z_vals: Optional[torch.Tensor] = None, eps=None) -> Tuple[torch.Tensor, Metrics]:
+                z_vals=None, eps=None, eps_fine=None, pdf_u=None,
+                noise=None) -> Tuple[torch.Tensor, Metrics]:
         dev = model.alpha_mean.device
         b = {k: torch.as_tensor(v, dtype=torch.float32, device=dev) for k, v in batch.items()}
         rays_o, rays_d = b["rays_o"], b["rays_d"]
@@ -134,7 +156,8 @@ def make_train_step(
             rays_o, rays_d, H=cfg.H, W=cfg.W, focal=cfg.focal, ndc=cfg.ndc,
             use_viewdirs=render_config.use_viewdirs, near=cfg.near, far=cfg.far)
         out = render_rays(rays_o, rays_d, viewdirs, near_v, far_v, generator,
-                          is_test=False, z_vals=z_vals, eps=eps)
+                          is_test=False, z_vals=z_vals, eps=eps, eps_fine=eps_fine,
+                          pdf_u=pdf_u, noise=noise)
 
         rgbs, depth = out["rgb_map"], out["depth_map"]  # (R+D, 3, K), (R+D, K)
         depth_k = target_depth = None
@@ -142,6 +165,8 @@ def make_train_step(
             rgbs, depth_k = rgbs[:n_rgb], depth[n_rgb:]
             target_depth = b["target_depth"]
         entropy = out["loss_entropy"]
+        if "loss_entropy0" in out:
+            entropy = entropy + out["loss_entropy0"]
 
         if cfg.loss_mode == "mse":
             loss = img2mse(rgbs.mean(-1), b["target"])
@@ -156,6 +181,16 @@ def make_train_step(
                 rgbs, b["target"], entropy, k_samples=cfg.k_samples, beta1=cfg.beta1,
                 depth_k=depth_k, target_depth=target_depth,
                 depth_lambda=cfg.depth_lambda)
+        if "rgb0" in out:
+            # the coarse loss, in the family of the fine one
+            rgbs0 = out["rgb0"][:n_rgb]
+            if cfg.loss_mode == "mse":
+                loss0 = img2mse(rgbs0.mean(-1), b["target"])
+            else:
+                loss0 = kde_nll(rgbs0, b["target"], cfg.k_samples)
+            loss = loss + loss0
+            metrics["loss_nll0"] = loss0
+            metrics["loss"] = loss
         mse = img2mse(rgbs.mean(-1), b["target"])
         metrics["mse"] = mse
         metrics["psnr"] = mse2psnr(mse)
@@ -166,9 +201,11 @@ def make_train_step(
         scheduler.step()
 
     def train_step(batch: Mapping, generator: Optional[torch.Generator], *,
-                   z_vals: Optional[torch.Tensor] = None, eps=None) -> Metrics:
+                   z_vals=None, eps=None, eps_fine=None, pdf_u=None,
+                   noise=None) -> Metrics:
         optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(batch, generator, z_vals=z_vals, eps=eps)
+        loss, metrics = loss_fn(batch, generator, z_vals=z_vals, eps=eps,
+                                eps_fine=eps_fine, pdf_u=pdf_u, noise=noise)
         loss.backward()
         update()
         return {k: v.detach() for k, v in metrics.items()}

@@ -12,16 +12,19 @@ final line):
   2. build         nvcc builds every kernel of cfnerf_torch/csrc for sm_90a,
                    one process per source, all started together
   3. kernel        each kernel against its plain PyTorch version on the card:
-                   the forward at the serving tile, the flagship train tile
-                   and awkward shapes, both modes; the backward at the
-                   flagship train tile, saturated, test mode, awkward shapes
-                   and K=40
+                   the render-core forward at the serving tile, the flagship
+                   train tile and awkward shapes, both modes; its backward at
+                   the flagship train tile, saturated, test mode, awkward
+                   shapes and K=40; the flow-stack forward (Z = 1 and 3, both
+                   modes) at the hierarchical serving and training fine
+                   passes, awkward shapes, K=40, expanded and contiguous z0;
+                   its backward at the hierarchical training passes
   4. kernel_time   each kernel's ms, plain ms, bytes, operations and bound
                    (train-tile launches rotate over inputs larger than L2)
   5. serve         the flagship model (D8 W512 N128 K32 F4, random weights from
                    a seed) renders a 400x400 view in 8192-ray tiles through
                    build_model -> make_render_rays -> render_image; launch
-                   counts, output checks, timing, kernel path vs plain path
+                   counts, output checks, timing, fused path vs unfused path
   6. golden        a tiny model's JAX render (tests/fixtures) against the
                    card's kernel path on the same weights
   7. train         flagship training steps (512 + 128 COLMAP depth rays) from
@@ -31,12 +34,24 @@ final line):
                    time, train rays/s, peak memory, a profiled step
   8. train_golden  one JAX training step of a tiny model (tests/fixtures):
                    the card's loss, gradients and updated weights against it
-  9. kernels       per-kernel launches, error, time, plain time and bound
+  9. hier_serve    the flagship coarse + fine pair (64 + 128 samples, fine
+                   net D8 W512) renders the 400x400 view hierarchically:
+                   flow-stack launches, output checks, timing, a profiled
+                   tile, 64 rays against the CPU's plain path, and the
+                   shared-net mode (128 + 32 samples) against the pair mode
+ 10. hier_golden   a tiny JAX pair's hierarchical render and training step
+                   (tests/fixtures) against the card's kernel path
+ 11. hier_train    flagship hierarchical training steps (512 + 128 rays):
+                   launch counts, finite metrics, both nets move, the loss
+                   falls on a fixed batch, step time, rays/s, a profiled step
+ 12. kernels       per-kernel launches, error, time, plain time and bound
 
 then the `nvidia-smi` name/power line and, last, the `ok` line.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import math
 import statistics
@@ -49,7 +64,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from cfnerf_torch.convert import nerf_flows_state_dict_from_jax
+from cfnerf_torch.convert import (
+    nerf_flows_pair_state_dicts_from_jax,
+    nerf_flows_state_dict_from_jax,
+)
 from cfnerf_torch.data.sampler import (
     N_DEPTH,
     DepthRayBatcher,
@@ -61,7 +79,7 @@ from cfnerf_torch.models.factory import build_model
 from cfnerf_torch.models.nerf_flows import NeRFFlows
 from cfnerf_torch.ops.compositing import LAST_DIST
 from cfnerf_torch.ops.kernels import _build
-from cfnerf_torch.ops.kernels import render_core
+from cfnerf_torch.ops.kernels import flow_stack, render_core
 from cfnerf_torch.ops.metrics import std_over_k
 from cfnerf_torch.ops.rays import get_rays
 from cfnerf_torch.ops.sampling import sample_z_vals, stratified_perturb
@@ -76,6 +94,7 @@ from cfnerf_torch.train.step import TrainConfig, make_train_step
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "fixtures" / "torch_port_golden.npz"
 TRAIN_GOLDEN = ROOT / "tests" / "fixtures" / "torch_port_train_golden.npz"
+HIER_GOLDEN = ROOT / "tests" / "fixtures" / "torch_port_hier_golden.npz"
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -123,6 +142,29 @@ N_RAND = 512
 TRAIN_CFG = dict(lrate=5e-4, lrate_decay=250, beta1=0.01, colmap_depth=True,
                  depth_lambda=0.01)
 TRAIN_STEPS, FIXED_STEPS = 10, 10
+
+# hierarchical sampling at the flagship widths: nerf-pytorch's published
+# Blender setting (configs/lego.txt upstream: N_samples 64, N_importance
+# 128) with a fine net as wide as the coarse one (D8 W512)
+HIER = dict(FLAGSHIP, N_samples=64, N_importance=128, netdepth_fine=8,
+            netwidth_fine=512)
+# eval-only importance placement on one net (EVAL_r05: 128 + 32 samples)
+SHARED_EVAL = dict(n_samples=128, n_importance=32)
+HIER_TIMED_RENDERS = 2
+# flow-stack kernel vs plain: z and ldj are F steps of the same f32
+# arithmetic, contracted into FMAs by nvcc: rtol = atol = 1e-5, the rule of
+# tests/test_pallas_flow.py.  The backward's per-point gradients sum K
+# draws in another order (a warp butterfly against autograd's sum over the
+# expanded axis): BWD_RTOL / BWD_ATOL; g_z0 against Z0_REL of its largest
+# magnitude, as the render-core backward judges it.  The inputs are shaped
+# as the amortization gives them (tanh-bounded diagonals): with raw randn
+# diagonals |1 + (1-t^2) r1 r2| comes near 0 and log-det's conditioning,
+# not the kernel, sets the error (PERF.md, PR 2).
+FLOW_RTOL = FLOW_ATOL = 1e-5
+# the shared-net mode against the pair mode with the coarse net as the fine
+# one: the same computation on the same inputs
+SHARED_TOL = 1e-6
+HIER_MAPS = ("rgb_map", "depth_map", "acc_map", "rgb0", "depth0")
 
 
 def emit(phase: str, **fields) -> None:
@@ -407,6 +449,241 @@ def phase_bwd_checks():
 
 
 # ---------------------------------------------------------------------- #
+# flow stack: inputs, work model, checks, times
+# ---------------------------------------------------------------------- #
+
+SERVE_COARSE_PTS = TILE * HIER["N_samples"]  # points of one hierarchical tile
+SERVE_FINE_PTS = TILE * (HIER["N_samples"] + HIER["N_importance"])
+TRAIN_COARSE_PTS = (N_RAND + N_DEPTH) * HIER["N_samples"]
+TRAIN_FINE_PTS = (N_RAND + N_DEPTH) * (HIER["N_samples"] + HIER["N_importance"])
+
+
+def flow_stack_inputs(B, K, Z, F, seed, shared_z0=True):
+    """Device-made inputs shaped as the amortization gives them: upper
+    triangles of 0.5 randn with tanh-bounded diagonals, contiguous; z0 the
+    shared (K, Z) draws expanded over the points (the model's case) or a
+    contiguous (B, K, Z) tensor."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    triu = torch.triu(torch.ones(Z, Z, device="cuda"), 1)[None, :, :, None]
+    eye = torch.eye(Z, device="cuda")[None, :, :, None]
+    full = randn(B, Z, Z, F) * 0.5
+    r1 = (full * triu + eye * torch.tanh(randn(B, Z, F))[:, :, None, :]).contiguous()
+    r2 = (full.transpose(1, 2) * triu
+          + eye * torch.tanh(randn(B, Z, F))[:, :, None, :]).contiguous()
+    b = randn(B, Z, F) * 0.5
+    z0 = randn(K, Z)[None].expand(B, K, Z) if shared_z0 else randn(B, K, Z)
+    return [z0, r1, r2, b]
+
+
+def flow_stack_work(B, K, Z, F, compute_log_det, shared_z0=True):
+    """(bytes, operations) of the forward: each input read once (z0 as the
+    (K, Z) draws when shared), z and ldj written once; f32 operations per
+    (point, draw), counted as in render_core_work: per step Z(Z+1) for the
+    pre-activations, Z tanh, Z(Z+1) for the update, and 9Z for the log-dets
+    in train mode."""
+    params = B * (2 * Z * Z * F + Z * F)
+    in_floats = (K * Z if shared_z0 else B * K * Z) + params
+    out_floats = B * K * Z + B * K
+    per = F * (2 * Z * (Z + 1) + Z + (9 * Z if compute_log_det else 0))
+    return 4 * (in_floats + out_floats), B * K * per
+
+
+def flow_stack_bwd_work(B, K, Z, F, compute_log_det, shared_z0=True):
+    """(bytes, operations) of the backward: the forward's inputs and the
+    cotangents (g_ldj only in train mode) read once, g_z0 and the parameter
+    gradients written once; f32 operations per (point, draw): the forward
+    values it needs, F (2Z(Z+1) + Z), and per step in reverse 5Z(Z+1) + 5Z
+    (the r1 and r2 terms, tanh', the flip, the per-point sums over the
+    draws), + 16Z for the log-det terms in train mode.  The kernel
+    recomputes each step's input from z0 (O(F^2) steps): that is its own
+    overhead, not the function's work."""
+    params = B * (2 * Z * Z * F + Z * F)
+    z0 = K * Z if shared_z0 else B * K * Z
+    in_floats = z0 + params + B * K * Z + (B * K if compute_log_det else 0)
+    out_floats = B * K * Z + params
+    per = (F * (2 * Z * (Z + 1) + Z)
+           + F * (5 * Z * (Z + 1) + 5 * Z + (16 * Z if compute_log_det else 0)))
+    return 4 * (in_floats + out_floats), B * K * per
+
+
+def compare_flow(out, ref):
+    """Max abs / rel error of (z, ldj); raises past the tolerance."""
+    errs = {}
+    for name, a, b in zip(("z", "ldj"), out, ref):
+        diff = (a - b).abs()
+        check(bool(torch.isfinite(a).all()), f"{name} finite")
+        check(bool((diff <= FLOW_ATOL + FLOW_RTOL * b.abs()).all()),
+              f"flow stack {name}: max abs err {float(diff.max())}")
+        errs[name] = {"max_abs": float(diff.max()),
+                      "max_rel": float((diff / b.abs().clamp(min=1e-6)).max())}
+    return errs
+
+
+FLOW_GRAD_NAMES = ("g_z0", "g_r1", "g_r2", "g_b")
+
+
+def compare_flow_grads(out, ref):
+    """Max abs / rel error per gradient, and the names of those past the
+    tolerance or not finite."""
+    errs, bad = {}, []
+    for name, a, b in zip(FLOW_GRAD_NAMES, out, ref):
+        check(tuple(a.shape) == tuple(b.shape), f"{name} shape {tuple(a.shape)}")
+        diff = (a - b).abs()
+        if name == "g_z0":
+            scale = float(b.abs().max())
+            ok = float(diff.max()) <= Z0_REL * scale
+        else:
+            ok = bool((diff <= BWD_ATOL + BWD_RTOL * b.abs()).all())
+        if not (ok and bool(torch.isfinite(a).all())):
+            bad.append(name)
+        errs[name] = {"max_abs": float(diff.max()),
+                      "max_rel": float((diff / b.abs().clamp(min=1e-6)).max())}
+    return errs, bad
+
+
+def phase_flow_stack_checks():
+    """The forward at the hierarchical path's shapes and awkward ones, for
+    both chains and both modes; then the backward at the training passes."""
+    cases = [  # (B, K, F, shared z0, label)
+        (SERVE_FINE_PTS, 32, 4, True, "hierarchical serving fine pass"),
+        (TRAIN_FINE_PTS, 32, 4, True, "hierarchical training fine pass"),
+        (TRAIN_COARSE_PTS, 32, 4, False, "training coarse pass, contiguous z0"),
+        (1000, 8, 2, False, "awkward B=1000 K=8 F=2, contiguous z0"),
+        (4096, 40, 3, True, "K=40 > one warp"),
+    ]
+    serving_err = None
+    for i, (B, K, F, shared, label) in enumerate(cases):
+        for Z in (1, 3):
+            x = flow_stack_inputs(B, K, Z, F, seed=400 + 4 * i + Z, shared_z0=shared)
+            for cld in (False, True):
+                with torch.inference_mode():
+                    out = flow_stack.fused_flow_stack(*x, cld)
+                    ref = flow_stack.fused_flow_stack_plain(*x, cld)
+                torch.cuda.synchronize()
+                if not cld:
+                    check(float(out[1].abs().max()) == 0.0, "test-mode ldj is zero")
+                errs = compare_flow(out, ref)
+                emit("kernel", kernel="flow_stack_fwd", case=label, B=B, K=K, Z=Z, F=F,
+                     compute_log_det=cld, z0="expanded" if shared else "contiguous",
+                     errors=errs, tolerance={"rtol": FLOW_RTOL, "atol": FLOW_ATOL})
+                if i == 0 and Z == 3 and not cld:
+                    serving_err = max(e["max_abs"] for e in errs.values())
+                del out, ref
+            del x
+    torch.cuda.empty_cache()
+
+    cases = [  # (B, K, F, shared z0, label)
+        (TRAIN_FINE_PTS, 32, 4, True, "hierarchical training fine pass"),
+        (TRAIN_COARSE_PTS, 32, 4, True, "hierarchical training coarse pass"),
+        (1000, 8, 2, False, "awkward B=1000 K=8 F=2, contiguous z0"),
+        (4096, 40, 3, True, "K=40 > one warp"),
+    ]
+    train_err = None
+    for i, (B, K, F, shared, label) in enumerate(cases):
+        for Z in (1, 3):
+            x = flow_stack_inputs(B, K, Z, F, seed=500 + 4 * i + Z, shared_z0=shared)
+            g = torch.Generator(device="cuda").manual_seed(600 + 4 * i + Z)
+            # the ldj cotangent scaled by 1e-2, as training weights it by
+            # -beta1 / (B K)
+            cots = [torch.randn(B, K, Z, generator=g, device="cuda"),
+                    torch.randn(B, K, generator=g, device="cuda") * 1e-2]
+            for cld in (True, False):
+                out = flow_stack.fused_flow_stack_bwd(x, cots, cld)
+                again = flow_stack.fused_flow_stack_bwd(x, cots, cld)
+                ref = flow_stack.fused_flow_stack_bwd_plain(x, cots, cld)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(out, again)),
+                      f"flow-stack backward is deterministic run to run ({label})")
+                lower = torch.tril(torch.ones(Z, Z, dtype=torch.bool, device="cuda"), -1)
+                check(all(not bool(gr[:, lower].any()) for gr in out[1:3]),
+                      "lower triangles of g_r1 / g_r2 are zero")
+                errs, bad = compare_flow_grads(out, ref)
+                emit("kernel", kernel="flow_stack_bwd", case=label, B=B, K=K, Z=Z, F=F,
+                     compute_log_det=cld, z0="expanded" if shared else "contiguous",
+                     errors=errs,
+                     tolerance={"rtol": BWD_RTOL, "atol": BWD_ATOL, "z0_rel_to_max": Z0_REL})
+                check(not bad, f"flow_stack_bwd vs plain ({label}, Z={Z}): {bad} "
+                               "past the tolerance")
+                if i == 0 and Z == 3 and cld:
+                    train_err = max(e["max_abs"] for e in errs.values())
+                del out, again, ref
+            del x, cots
+    torch.cuda.empty_cache()
+    return serving_err, train_err
+
+
+def phase_flow_stack_time(serving_err, train_err):
+    """Each launch of the hierarchical paths at its own shape: the four
+    forward launches of a serving tile (test mode), and the training fine
+    pass's forward and backward (train mode).  Launches rotate over three
+    input sets, so every launch reads its inputs cold from HBM.  Returns
+    the stats of the kernels line: the forward at the serving fine pass's
+    rgb launch, the backward at the training fine pass's."""
+    K, F = HIER["K_samples"], HIER["n_flows"]
+    stats = {}
+
+    def time_fwd(label, B, Z, cld, iters):
+        sets = [(flow_stack_inputs(B, K, Z, F, seed=700 + 7 * j + Z),) for j in range(3)]
+        with torch.inference_mode():
+            ms = cuda_ms(lambda x: flow_stack.fused_flow_stack(*x, cld), iters, sets)
+            plain_ms = cuda_ms(lambda x: flow_stack.fused_flow_stack_plain(*x, cld), 3, sets)
+        nbytes, ops = flow_stack_work(B, K, Z, F, cld)
+        b_ms, b_by = bound_ms(nbytes, ops)
+        emit("kernel_time", kernel="flow_stack_fwd", launch=label, B=B, K=K, Z=Z, F=F,
+             compute_log_det=cld, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+             bytes=nbytes, ops=ops, achieved_gb_per_s=nbytes / ms / 1e6,
+             input_sets_rotated=len(sets))
+        del sets
+        torch.cuda.empty_cache()
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+    tile = {}
+    for label, B in (("serving coarse pass", SERVE_COARSE_PTS),
+                     ("serving fine pass", SERVE_FINE_PTS)):
+        for Z in (1, 3):
+            tile[(label, Z)] = time_fwd(label, B, Z, False, 20)
+    emit("kernel_time", kernel="flow_stack_fwd", launch="one hierarchical serving tile",
+         launches=4, ms=sum(t["ms"] for t in tile.values()),
+         plain_ms=sum(t["plain_ms"] for t in tile.values()),
+         bound_ms=sum(t["bound_ms"] for t in tile.values()))
+    stats["fwd"] = dict(tile[("serving fine pass", 3)], max_abs_err=serving_err,
+                        shape=f"B={SERVE_FINE_PTS} K={K} Z=3 F={F}, test mode, "
+                              "the serving fine pass's rgb launch")
+    for Z in (1, 3):
+        time_fwd("training fine pass", TRAIN_FINE_PTS, Z, True, 21)
+
+    B = TRAIN_FINE_PTS
+    for Z in (1, 3):
+        sets = []
+        for j in range(3):
+            g = torch.Generator(device="cuda").manual_seed(800 + 7 * j + Z)
+            sets.append((flow_stack_inputs(B, K, Z, F, seed=900 + 7 * j + Z),
+                         [torch.randn(B, K, Z, generator=g, device="cuda"),
+                          torch.randn(B, K, generator=g, device="cuda") * 1e-2]))
+        ms = cuda_ms(lambda x, c: flow_stack.fused_flow_stack_bwd(x, c, True), 21, sets)
+        plain_ms = cuda_ms(lambda x, c: flow_stack.fused_flow_stack_bwd_plain(x, c, True),
+                           3, sets)
+        nbytes, ops = flow_stack_bwd_work(B, K, Z, F, True)
+        b_ms, b_by = bound_ms(nbytes, ops)
+        emit("kernel_time", kernel="flow_stack_bwd", launch="training fine pass", B=B, K=K,
+             Z=Z, F=F, compute_log_det=True, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+             bound_by=b_by, bytes=nbytes, ops=ops, achieved_gb_per_s=nbytes / ms / 1e6,
+             input_sets_rotated=len(sets))
+        if Z == 3:
+            stats["bwd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                max_abs_err=train_err,
+                                shape=f"B={B} K={K} Z=3 F={F}, train mode, "
+                                      "the training fine pass's rgb launch")
+        del sets
+        torch.cuda.empty_cache()
+    return stats
+
+
+# ---------------------------------------------------------------------- #
 # serving
 # ---------------------------------------------------------------------- #
 
@@ -463,23 +740,25 @@ def phase_serve():
         times.append(time.perf_counter() - t0)
     image_s = statistics.median(times)
 
-    # one 1024-ray tile: kernel path against the plain (unfused) path
-    rays_o, rays_d = get_rays(H, W, FOCAL, torch.as_tensor(c2w, device="cuda"))
-    rays_o, rays_d, vd, nv, fv = prepare_rays(
-        rays_o, rays_d, H=H, W=W, focal=FOCAL, ndc=False, use_viewdirs=True,
-        near=NEAR, far=FAR)
+    # 1024 rays: the fused path against the unfused one (model forward, its
+    # flow stacks through the flow-stack kernel, then raw2outputs)
+    rays_o, rays_d, vd, nv, fv = view_rays(c2w)
     pick = torch.randperm(H * W, generator=torch.Generator().manual_seed(1))[:1024].cuda()
     sub = [t[pick] for t in (rays_o, rays_d, vd, nv, fv)]
-    plain_rays = make_render_rays(model, rc, fused=False)
+    unfused_rays = make_render_rays(model, rc, fused=False)
     with torch.inference_mode():
         a = render_rays(*sub, None, is_test=True)
-        b = plain_rays(*sub, None, is_test=True)
-    torch.cuda.synchronize()
+        flow_stack.fused_flow_stack.launches = 0
+        b = unfused_rays(*sub, None, is_test=True)
+        torch.cuda.synchronize()
+        unfused_launches = flow_stack.fused_flow_stack.launches
+    check(unfused_launches == 2, f"the unfused check launched the flow stack "
+                                 f"{unfused_launches} times, want 2")
     errs = {}
     for k in ("rgb_map", "depth_map", "acc_map"):
         d = (a[k] - b[k]).abs()
         check(bool((d <= E2E_ATOL + E2E_RTOL * b[k].abs()).all()),
-              f"kernel vs plain path {k}: {float(d.max())}")
+              f"fused vs unfused path {k}: {float(d.max())}")
         errs[k] = float(d.max())
     mask = b["acc_map"] > 1e-3
     rel = ((a["disp_map"] - b["disp_map"]).abs() / b["disp_map"].abs())[mask]
@@ -498,10 +777,18 @@ def phase_serve():
          image_s=image_s, image_s_all=times, rays_per_s=H * W / image_s,
          peak_mem_gb=peak_gb, mean_std_over_k=float(std.mean()),
          mean_acc=float(out["acc_map"].mean()),
-         kernel_vs_plain_1024_rays=errs,
+         fused_vs_unfused_1024_rays=errs, unfused_flow_stack_launches=unfused_launches,
          tolerance={"rtol": E2E_RTOL, "atol": E2E_ATOL})
     emit("profile", tile_rays=TILE, **breakdown)
-    return launches
+    return launches, unfused_launches
+
+
+def view_rays(c2w):
+    """The serving view's rays on the card: (rays_o, rays_d, viewdirs, near,
+    far), one row per pixel."""
+    rays_o, rays_d = get_rays(H, W, FOCAL, torch.as_tensor(c2w, device="cuda"))
+    return prepare_rays(rays_o, rays_d, H=H, W=W, focal=FOCAL, ndc=False,
+                        use_viewdirs=True, near=NEAR, far=FAR)
 
 
 def profile_device(fn):
@@ -530,7 +817,8 @@ def profile_device(fn):
 
     def group(name):
         low = name.lower()
-        for kernel in ("render_core_bwd", "render_core_fwd"):
+        for kernel in ("render_core_bwd", "render_core_fwd", "flow_stack_bwd",
+                       "flow_stack_fwd"):
             if kernel in low:
                 return kernel
         if any(k in low for k in ("gemm", "xmma", "cutlass", "sm90")):
@@ -547,18 +835,24 @@ def profile_device(fn):
             "top_kernels": [{"name": n[:90], "count": c, "ms": ms} for n, (c, ms) in top]}
 
 
+def nested_params(g):
+    """The JAX params pytree stored flat in a golden file ("p/a/b" keys)."""
+    params = {}
+    for key in g.keys():
+        if key.startswith("p/"):
+            node = params
+            *parents, leaf = key[2:].split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = g[key]
+    return params
+
+
 def phase_golden():
     with np.load(GOLDEN) as g:
         D, Wd, K, F, ha, hr, n_samples, h, w = (int(v) for v in g["config"])
         focal, near, far = (float(v) for v in g["view"])
-        params = {}
-        for key in g.files:
-            if key.startswith("p/"):
-                node = params
-                *parents, leaf = key[2:].split("/")
-                for p in parents:
-                    node = node.setdefault(p, {})
-                node[leaf] = g[key]
+        params = nested_params(g)
         model = NeRFFlows(net_depth=D, net_width=Wd, skips=(D // 2,), h_alpha_size=ha,
                           h_rgb_size=hr, n_flows=F, k_samples=K)
         model.load_state_dict(nerf_flows_state_dict_from_jax(
@@ -602,15 +896,10 @@ def synthetic_scene(seed, n_images=4, n_points=2000):
     return images, poses, depth_gts
 
 
-def phase_train():
-    args = types.SimpleNamespace(**FLAGSHIP)
-    model, _, rc = build_model(args)  # the default device: the card
-    model.train()
-    K = args.K_samples
-    cfg = TrainConfig(H=H, W=W, focal=FOCAL, ndc=False, near=NEAR, far=FAR,
-                      k_samples=K, **TRAIN_CFG)
-    train_step, _ = make_train_step(model, rc, cfg)
-
+def flagship_batches():
+    """next_batch() -> one flagship training batch: N_RAND rgb rays from
+    RayBatcher and N_DEPTH depth rays from DepthRayBatcher over the
+    synthetic scene."""
     images, poses, depth_gts = synthetic_scene(seed=0)
     i_train = list(range(len(images)))
     rays = RayBatcher(precompute_rays(images, poses, FOCAL, i_train, seed=0), N_RAND, seed=0)
@@ -622,6 +911,19 @@ def phase_train():
         batch.update(depth_rays.next())
         batch.pop("ray_weights")  # loaded but unused by the reference loss
         return batch
+
+    return next_batch
+
+
+def phase_train():
+    args = types.SimpleNamespace(**FLAGSHIP)
+    model, _, rc = build_model(args)  # the default device: the card
+    model.train()
+    K = args.K_samples
+    cfg = TrainConfig(H=H, W=W, focal=FOCAL, ndc=False, near=NEAR, far=FAR,
+                      k_samples=K, **TRAIN_CFG)
+    train_step, _ = make_train_step(model, rc, cfg)
+    next_batch = flagship_batches()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -682,14 +984,7 @@ def phase_train_golden():
     with np.load(TRAIN_GOLDEN) as g:
         D, Wd, K, F, ha, hr, S = (int(v) for v in g["config"])
         h, w, focal, near, far, beta1, depth_lambda, lrate = (float(v) for v in g["train"])
-        params = {}
-        for key in g.files:
-            if key.startswith("p/"):
-                node = params
-                *parents, leaf = key[2:].split("/")
-                for p in parents:
-                    node = node.setdefault(p, {})
-                node[leaf] = g[key]
+        params = nested_params(g)
         model = NeRFFlows(net_depth=D, net_width=Wd, skips=(D // 2,), h_alpha_size=ha,
                           h_rgb_size=hr, n_flows=F, k_samples=K)
         model.load_state_dict(nerf_flows_state_dict_from_jax(
@@ -746,15 +1041,278 @@ def phase_train_golden():
     check(not bad, f"train golden past the tolerance: {bad} (grads {g_err}, weights {p_err})")
 
 
+# ---------------------------------------------------------------------- #
+# hierarchical sampling
+# ---------------------------------------------------------------------- #
+
+
+def compare_maps(a, b, keys, rtol, atol, what):
+    """Max abs error per map; raises past the tolerance."""
+    errs = {}
+    for k in keys:
+        d = (a[k].float().cpu() - b[k].float().cpu()).abs()
+        ref = b[k].float().cpu().abs()
+        check(bool(torch.isfinite(a[k]).all()), f"{what} {k} finite")
+        check(bool((d <= atol + rtol * ref).all()), f"{what} {k}: {float(d.max())}")
+        errs[k] = float(d.max())
+    return errs
+
+
+def phase_hier_serve():
+    args = types.SimpleNamespace(**HIER)
+    model, model_fine, rc = build_model(args)  # the default device: the card
+    render_rays = make_render_rays(model, rc, model_fine=model_fine)
+    c2w = pose_spherical(30.0, -30.0, 4.0)
+    view = dict(H=H, W=W, focal=FOCAL, ndc=False, use_viewdirs=True,
+                near=NEAR, far=FAR, tile=TILE)
+    n_tiles = -(-H * W // TILE)
+
+    # the main path, counted
+    flow_stack.fused_flow_stack.launches = 0
+    render_core.fused_flow_composite.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = render_image(render_rays, c2w, **view)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = flow_stack.fused_flow_stack.launches
+    check(launches == 4 * n_tiles,
+          f"flow stack launched {launches} times, want 4 x {n_tiles} tiles")
+    check(render_core.fused_flow_composite.launches == 0,
+          "the hierarchical path does not launch the render core")
+
+    K = args.K_samples
+    for k in ("rgb_map", "rgb0"):
+        check(tuple(out[k].shape) == (H, W, 3, K), f"{k} {tuple(out[k].shape)}")
+    for k in ("depth_map", "disp_map", "acc_map", "depth0", "disp0"):
+        check(tuple(out[k].shape) == (H, W, K), f"{k} {tuple(out[k].shape)}")
+    for k, v in out.items():
+        check(bool(torch.isfinite(v).all()), f"{k} finite")
+    std = std_over_k(out["rgb_map"])
+    check(float(std.max()) > 0.0, "std over K is positive somewhere")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fine_vs_coarse = float((out["rgb_map"] - out["rgb0"]).abs().max())
+    del out
+
+    times = []
+    for _ in range(HIER_TIMED_RENDERS):
+        t0 = time.perf_counter()
+        render_image(render_rays, c2w, **view)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    image_s = statistics.median(times)
+
+    # 64 rays on the CPU through the plain versions, the same weights
+    rays = view_rays(c2w)
+    pick = torch.randperm(H * W, generator=torch.Generator().manual_seed(2))[:64].cuda()
+    sub = [t[pick] for t in rays]
+    cpu_rays = make_render_rays(copy.deepcopy(model).cpu(), rc,
+                                model_fine=copy.deepcopy(model_fine).cpu())
+    with torch.inference_mode():
+        a = render_rays(*sub, None, is_test=True)
+        b = cpu_rays(*[t.cpu() for t in sub], None, is_test=True)
+    torch.cuda.synchronize()
+    cpu_errs = compare_maps(a, b, HIER_MAPS, E2E_RTOL, E2E_ATOL, "card vs CPU plain path")
+
+    # the shared-net mode (eval-only importance placement) on one tile
+    tile_rays = [t[:TILE] for t in rays]
+    rc_shared = dataclasses.replace(rc, **SHARED_EVAL)
+    with torch.inference_mode():
+        shared = make_render_rays(model, rc_shared)(*tile_rays, None, is_test=True)
+        pair = make_render_rays(model, rc_shared, model_fine=model)(
+            *tile_rays, None, is_test=True)
+    torch.cuda.synchronize()
+    shared_errs = compare_maps(shared, pair, HIER_MAPS, 0.0, SHARED_TOL,
+                               "shared vs pair mode")
+    del shared, pair
+
+    def one_tile():
+        with torch.inference_mode():
+            render_rays(*tile_rays, None, is_test=True)
+
+    breakdown = profile_device(one_tile)
+    emit("hier_serve", H=H, W=W, K=K, tile=TILE, n_tiles=n_tiles,
+         samples={"coarse": args.N_samples, "importance": args.N_importance},
+         fine_net={"depth": args.netdepth_fine, "width": args.netwidth_fine},
+         flow_stack_launches=launches, first_render_s=first_s, image_s=image_s,
+         image_s_all=times, rays_per_s=H * W / image_s, peak_mem_gb=peak_gb,
+         mean_std_over_k=float(std.mean()), max_fine_vs_coarse=fine_vs_coarse,
+         card_vs_cpu_plain_64_rays=cpu_errs,
+         shared_vs_pair_one_tile={"samples": SHARED_EVAL, "max_abs": shared_errs},
+         tolerance={"cpu": {"rtol": E2E_RTOL, "atol": E2E_ATOL}, "shared": SHARED_TOL})
+    emit("hier_profile", tile_rays=TILE, **breakdown)
+    return launches
+
+
+def phase_hier_golden():
+    with np.load(HIER_GOLDEN) as f:
+        g = {k: f[k] for k in f.files}
+    D, Wd, Df, Wf, K, F, ha, hr, S, NI = (int(v) for v in g["config"])
+    h, w, focal, near, far, beta1, depth_lambda, lrate = (float(v) for v in g["train"])
+    sd, sd_fine = nerf_flows_pair_state_dicts_from_jax(
+        nested_params(g), (g["test_eps_a"], g["test_eps_r"]),
+        (g["test_eps_fine_a"], g["test_eps_fine_r"]))
+
+    def nets():
+        out = []
+        for (d, width), state in (((D, Wd), sd), ((Df, Wf), sd_fine)):
+            m = NeRFFlows(net_depth=d, net_width=width, skips=(d // 2,), h_alpha_size=ha,
+                          h_rgb_size=hr, n_flows=F, k_samples=K)
+            m.load_state_dict(state)
+            out.append(m.cuda())
+        return out
+
+    def dev(x):
+        return torch.as_tensor(x, device="cuda")
+
+    # a test-mode render
+    model, model_fine = nets()
+    rays = [dev(g[f"rays/{k}"]) for k in ("rays_o", "rays_d", "viewdirs", "near", "far")]
+    before = flow_stack.fused_flow_stack.launches
+    with torch.inference_mode():
+        out = make_render_rays(model, RenderConfig(n_samples=S, n_importance=NI, perturb=False),
+                               model_fine=model_fine)(*rays, None, is_test=True)
+    torch.cuda.synchronize()
+    check(flow_stack.fused_flow_stack.launches == before + 4,
+          "the golden render went through the flow-stack kernel")
+    r_err = compare_maps(out, {k: torch.as_tensor(g[f"jax/render/{k}"]) for k in HIER_MAPS},
+                         HIER_MAPS, E2E_RTOL, E2E_ATOL, "hier golden render")
+
+    # one training step with JAX's draws
+    models = nets()
+    cfg = TrainConfig(H=int(h), W=int(w), focal=focal, ndc=False, near=near, far=far,
+                      k_samples=K, lrate=lrate, beta1=beta1, colmap_depth=True,
+                      depth_lambda=depth_lambda)
+    step, _ = make_train_step(models[0], RenderConfig(n_samples=S, n_importance=NI), cfg,
+                              model_fine=models[1])
+    batch = {k[6:]: v for k, v in g.items() if k.startswith("batch/")}
+    t_rand = dev(g["t_rand"])
+    R = t_rand.shape[0]
+    z_vals = stratified_perturb(
+        sample_z_vals(torch.full((R, 1), near, device="cuda"),
+                      torch.full((R, 1), far, device="cuda"), S).expand(R, S),
+        t_rand=t_rand)
+    before = (flow_stack.fused_flow_stack.launches, flow_stack.fused_flow_stack_bwd.launches)
+    loss, metrics = step.loss_fn(batch, None, z_vals=z_vals, eps=(g["eps_a"], g["eps_r"]),
+                                 eps_fine=(g["eps_fine_a"], g["eps_fine_r"]),
+                                 pdf_u=dev(g["pdf_u"]))
+    loss.backward()
+    torch.cuda.synchronize()
+    check((flow_stack.fused_flow_stack.launches, flow_stack.fused_flow_stack_bwd.launches)
+          == (before[0] + 4, before[1] + 4), "the golden step went through both kernels")
+    m_err, bad = {}, []
+    for k, v in metrics.items():
+        ref = float(g[f"jax/{k}"])
+        m_err[k] = abs(float(v.detach()) - ref)
+        if not m_err[k] <= E2E_ATOL + E2E_RTOL * abs(ref):
+            bad.append(k)
+    g_err, grads = {}, {}
+    for side, model in zip(("coarse", "fine"), models):
+        for n, p in model.named_parameters():
+            ref = dev(g[f"grad/{side}/{n}"])
+            d = (p.grad - ref).abs()
+            if not bool((d <= GRAD_ATOL + GRAD_RTOL * ref.abs()).all()):
+                bad.append(f"grad/{side}/{n}")
+            g_err[f"{side}/{n}"] = float(d.max())
+            grads[f"{side}/{n}"] = ref.abs()
+    step.update()
+    p_err = {}
+    for side, model in zip(("coarse", "fine"), models):
+        for n, p in model.named_parameters():
+            d = (p.detach() - dev(g[f"after/{side}/{n}"])).abs()
+            sel = d[grads[f"{side}/{n}"] >= ADAM_G_MIN]
+            if not (bool((sel <= ADAM_ATOL).all()) and float(d.max()) <= 2 * lrate + ADAM_ATOL):
+                bad.append(f"after/{side}/{n}")
+            p_err[f"{side}/{n}"] = float(sel.max()) if sel.numel() else 0.0
+    emit("hier_golden", source=str(HIER_GOLDEN.relative_to(ROOT)), rays=R, S=S, NI=NI, K=K,
+         render_max_abs_err_vs_jax=r_err, metrics_abs_err_vs_jax=m_err,
+         grad_max_abs_err_vs_jax=max(g_err.values()),
+         weights_after_update_max_abs_err=max(p_err.values()),
+         tolerance={"render_and_metrics": {"rtol": E2E_RTOL, "atol": E2E_ATOL},
+                    "grads": {"rtol": GRAD_RTOL, "atol": GRAD_ATOL},
+                    "weights": {"atol": ADAM_ATOL, "where_abs_grad_ge": ADAM_G_MIN}})
+    check(not bad, f"hier golden past the tolerance: {bad} (grads {g_err}, weights {p_err})")
+
+
+def phase_hier_train():
+    args = types.SimpleNamespace(**HIER)
+    model, model_fine, rc = build_model(args)  # the default device: the card
+    K = args.K_samples
+    cfg = TrainConfig(H=H, W=W, focal=FOCAL, ndc=False, near=NEAR, far=FAR,
+                      k_samples=K, **TRAIN_CFG)
+    train_step, _ = make_train_step(model, rc, cfg, model_fine=model_fine)
+    next_batch = flagship_batches()
+    nets = {"coarse": model, "fine": model_fine}
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    start = {(side, n): p.detach().clone() for side, m in nets.items()
+             for n, p in m.named_parameters()}
+    train_step(next_batch(), gen)  # warm-up
+    torch.cuda.synchronize()
+
+    # the main path, counted
+    flow_stack.fused_flow_stack.launches = 0
+    flow_stack.fused_flow_stack_bwd.launches = 0
+    render_core.fused_flow_composite.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = [], []
+    for _ in range(TRAIN_STEPS):
+        batch = next_batch()
+        t0 = time.perf_counter()
+        m = train_step(batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    fwd, bwd = flow_stack.fused_flow_stack.launches, flow_stack.fused_flow_stack_bwd.launches
+    check(fwd == bwd == 4 * TRAIN_STEPS,
+          f"{TRAIN_STEPS} steps launched the flow-stack forward {fwd} and the backward "
+          f"{bwd} times, want {4 * TRAIN_STEPS} each")
+    check(render_core.fused_flow_composite.launches == 0,
+          "hierarchical training does not launch the render core")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for m in metrics:
+        check(all(math.isfinite(v) for v in m.values()), f"finite metrics {m}")
+    check(set(metrics[0]) == {"loss", "loss_nll", "loss_entropy", "depth_loss", "loss_nll0",
+                              "mse", "psnr"}, f"metrics {sorted(metrics[0])}")
+    # every parameter of both nets moved, but for those with no gradient at
+    # all (the density flow's amor_d, as in phase_train)
+    still = [f"{side}/{n}" for side, m in nets.items() for n, p in m.named_parameters()
+             if torch.equal(p.detach(), start[(side, n)])]
+    params = {f"{side}/{n}": p for side, m in nets.items() for n, p in m.named_parameters()}
+    check(all(params[n].grad is not None and not params[n].grad.any() for n in still),
+          f"parameters with a gradient that did not move: {still}")
+
+    fixed = next_batch()
+    fixed_losses = [float(train_step(fixed, torch.Generator(device="cuda").manual_seed(1))["loss"])
+                    for _ in range(FIXED_STEPS)]
+    check(fixed_losses[-1] < fixed_losses[0], f"loss on a fixed batch did not fall: {fixed_losses}")
+
+    batch = next_batch()
+    breakdown = profile_device(lambda: train_step(batch, gen))
+    step_s = statistics.median(times)
+    emit("hier_train", rays_per_step=N_RAND + N_DEPTH, rgb_rays=N_RAND, depth_rays=N_DEPTH,
+         samples={"coarse": args.N_samples, "importance": args.N_importance}, K=K,
+         steps=TRAIN_STEPS, flow_stack_fwd_launches=fwd, flow_stack_bwd_launches=bwd,
+         step_ms=1e3 * step_s, step_ms_all=[1e3 * t for t in times],
+         train_rays_per_s=(N_RAND + N_DEPTH) / step_s, peak_mem_gb=peak_gb,
+         unmoved_zero_gradient=still, first_loss=metrics[0]["loss"],
+         last_metrics=metrics[-1], fixed_batch_losses=fixed_losses)
+    emit("hier_train_profile", rays_per_step=N_RAND + N_DEPTH, **breakdown)
+    return fwd, bwd
+
+
 def kernel_entry(name, source, replaces, launches_by_path, stats):
     """`launches` totals the per-path counts; `launches_by_path` keeps each
     path's own count, reset just before that path and read just after."""
-    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(launches_by_path.values()),
-            "launches_by_path": launches_by_path,
-            "max_abs_err": stats["max_abs_err"], "ms": stats["ms"],
-            "plain_ms": stats["plain_ms"], "bound_ms": stats["bound_ms"],
-            "bound_by": stats["bound_by"], "library_ms": None}
+    entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": sum(launches_by_path.values()),
+             "launches_by_path": launches_by_path,
+             "max_abs_err": stats["max_abs_err"], "ms": stats["ms"],
+             "plain_ms": stats["plain_ms"], "bound_ms": stats["bound_ms"],
+             "bound_by": stats["bound_by"], "library_ms": None}
+    if "shape" in stats:
+        entry["timed_at"] = stats["shape"]
+    return entry
 
 
 def main() -> int:
@@ -774,18 +1332,28 @@ def main() -> int:
 
     fwd_stats = phase_kernel_checks()
     bwd_stats = phase_bwd_checks()
-    serve_launches = phase_serve()
+    flow_stats = phase_flow_stack_time(*phase_flow_stack_checks())
+    serve_launches, unfused_launches = phase_serve()
     phase_golden()
     train_fwd, train_bwd = phase_train()
     phase_train_golden()
+    hier_serve_launches = phase_hier_serve()
+    phase_hier_golden()
+    hier_fwd, hier_bwd = phase_hier_train()
 
-    # serving: 20 forward launches a view; training: one forward and one
-    # backward a step
+    # serving: 20 render-core launches a view; training: one render-core
+    # forward and backward a step; hierarchical: 4 flow-stack launches (two
+    # chains, two passes) a tile or a step, and 4 backward launches a step
     print(json.dumps({"kernels": [
         kernel_entry("render_core_fwd", render_core.SOURCE, render_core.REPLACES,
                      {"serve": serve_launches, "train": train_fwd}, fwd_stats),
         kernel_entry("render_core_bwd", render_core.SOURCE_BWD, render_core.REPLACES_BWD,
                      {"train": train_bwd}, bwd_stats),
+        kernel_entry("flow_stack_fwd", flow_stack.SOURCE, flow_stack.REPLACES,
+                     {"hier_serve": hier_serve_launches, "hier_train": hier_fwd,
+                      "serve_unfused_check": unfused_launches}, flow_stats["fwd"]),
+        kernel_entry("flow_stack_bwd", flow_stack.SOURCE_BWD, flow_stack.REPLACES_BWD,
+                     {"hier_train": hier_bwd}, flow_stats["bwd"]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -216,11 +216,18 @@ def test_init_params_uses_the_linear_default_bound():
 
 
 @pytest.mark.parametrize("over,slice_no", [
-    (dict(type_flows="planar"), "slice 6"),
-    (dict(model="nerf"), "slice 6"),
-    (dict(compute_dtype="bfloat16"), "slice 8"),
-    (dict(N_importance=64), "slice 5"),
+    (dict(type_flows="planar"), "slice 7"),
+    (dict(model="nerf"), "slice 7"),
+    (dict(compute_dtype="bfloat16"), "slice 4"),
 ])
 def test_configurations_of_later_slices_raise(over, slice_no):
     with pytest.raises(NotImplementedError, match=slice_no):
         build_model(_args(**over), device="cpu")
+
+
+def test_build_model_with_n_importance_on_cpu():
+    model, model_fine, rc = build_model(
+        _args(N_importance=64, netdepth_fine=2, netwidth_fine=16), device="cpu")
+    assert rc.n_importance == 64
+    assert (model_fine.net_depth, model_fine.net_width, model_fine.skips) == (2, 16, (1,))
+    assert next(model_fine.parameters()).device.type == "cpu"

@@ -114,11 +114,24 @@ def test_raw2outputs_matches(white_bkgd, saturate):
                                    err_msg=name)
 
 
-def test_raw2outputs_applied_noise_is_a_later_slice():
-    raw = torch.zeros(2, 3, 4, 4)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        compositing.raw2outputs(raw, torch.ones(2, 3), torch.ones(2, 3),
-                                raw_noise_std=1.0, apply_noise=True)
+def test_raw2outputs_applied_noise_matches_jax():
+    """JAX's noise, drawn from its key (compositing.py:99-100), injected."""
+    rng = np.random.RandomState(8)
+    R, S, K = 6, 10, 4
+    raw = rng.randn(R, S, K, 4).astype(np.float32)
+    z = (np.sort(rng.rand(R, S), -1) * 4 + 2).astype(np.float32)
+    rd = rng.randn(R, 3).astype(np.float32)
+    key = jax.random.PRNGKey(3)
+    j = jcomp.raw2outputs(jnp.asarray(raw), jnp.asarray(z), jnp.asarray(rd),
+                          raw_noise_std=0.5, rng=key, apply_noise=True)
+    noise = T(np.array(jax.random.normal(key, (R, S, K))))
+    t = compositing.raw2outputs(T(raw), T(z), T(rd), raw_noise_std=0.5,
+                                apply_noise=True, noise=noise)
+    quiet = compositing.raw2outputs(T(raw), T(z), T(rd), raw_noise_std=0.5)
+    for name, a, b in zip(("rgb", "disp", "acc", "weights", "depth"), t, j):
+        np.testing.assert_allclose(to_np(a), np.asarray(b), rtol=1e-5, atol=1e-6,
+                                   err_msg=name)
+    assert float((t[3] - quiet[3]).abs().max()) > 1e-3  # the noise was applied
 
 
 def test_softplus_has_no_threshold_cut():

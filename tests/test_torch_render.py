@@ -129,12 +129,28 @@ def test_train_mode_fused_and_unfused_agree_on_one_generator():
 
 
 @pytest.mark.parametrize("over", [dict(n_importance=8),
-                                  dict(apply_noise=True, raw_noise_std=1.0)])
-def test_hierarchical_and_applied_noise_are_slice_5(over):
+                                  dict(apply_noise=True, raw_noise_std=1.0)],
+                         ids=["hierarchical", "applied_noise"])
+def test_hierarchical_and_applied_noise_take_the_unfused_path(over, monkeypatch):
+    """As in the JAX renderer (renderer.py:188-192): the render core is not
+    called, the model's unfused forward (its flow stacks in the flow-stack
+    kernels on the card) is, and train mode returns the weights."""
     _, params, test_eps = jax_nerf_flows(CFG)
     model = port_nerf_flows(CFG, params, test_eps)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        make_render_rays(model, RenderConfig(**over))
+    monkeypatch.setattr(model, "forward_composited",
+                        lambda *a, **k: pytest.fail("the render core was called"))
+    rng = np.random.RandomState(4)
+    rays_o = torch.as_tensor((rng.randn(6, 3) * 0.1 + [0, 0, 4]).astype(np.float32))
+    rays_d = torch.as_tensor(np.concatenate([rng.randn(6, 2) * 0.1, -np.ones((6, 1))],
+                                            -1).astype(np.float32))
+    vd = rays_d / rays_d.norm(dim=-1, keepdim=True)
+    near, far = torch.full((6, 1), 2.0), torch.full((6, 1), 6.0)
+    out = make_render_rays(model, RenderConfig(n_samples=N_SAMPLES, **over))(
+        rays_o, rays_d, vd, near, far, torch.Generator().manual_seed(1), is_test=False)
+    S = N_SAMPLES + over.get("n_importance", 0)
+    assert tuple(out["weights"].shape) == (6, S, CFG.k)
+    assert ("rgb0" in out) == ("n_importance" in over)
+    assert all(bool(torch.isfinite(v).all()) for v in out.values())
 
 
 # ---------------------------------------------------------------------- #

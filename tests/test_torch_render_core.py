@@ -414,7 +414,7 @@ def test_kernel_source_is_for_hopper():
     src = (_build.CSRC / "render_core.cu").read_text()
     assert 'extern "C" int render_core_fwd' in src
     assert "cfnerf_tpu/ops/pallas/render_core.py:_fwd_kernel" in src
-    assert _build.KERNELS == ("render_core", "render_core_bwd")
+    assert _build.KERNELS[:2] == ("render_core", "render_core_bwd")
     src = (_build.CSRC / "render_core_bwd.cu").read_text()
     assert 'extern "C" int render_core_bwd' in src
     assert "cfnerf_tpu/ops/pallas/render_core.py:_bwd_kernel" in src

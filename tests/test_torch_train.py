@@ -323,14 +323,31 @@ def _port_model():
 
 
 @pytest.mark.parametrize("render_config,kw,slice_no", [
-    (RenderConfig(n_samples=13), dict(occ=object()), "slice 3"),
-    (RenderConfig(n_samples=13), dict(mesh=object()), "slice 7"),
-    (RenderConfig(n_samples=13), dict(model_fine=object()), "slice 5"),
-    (RenderConfig(n_importance=8), {}, "slice 5"),
-], ids=["occ", "mesh", "model_fine", "N_importance"])
+    (RenderConfig(n_samples=13), dict(occ=object()), "slice 5"),
+    (RenderConfig(n_samples=13), dict(mesh=object()), "slice 8"),
+], ids=["occ", "mesh"])
 def test_later_slices_raise(render_config, kw, slice_no):
     with pytest.raises(NotImplementedError, match=slice_no):
         make_train_step(_port_model(), render_config, TrainConfig(**TRAIN_KW), **kw)
+
+
+def test_a_fine_net_without_a_fine_pass_is_refused():
+    with pytest.raises(ValueError, match="n_importance"):
+        make_train_step(_port_model(), RenderConfig(n_samples=13), TrainConfig(**TRAIN_KW),
+                        model_fine=_port_model())
+
+
+def test_shared_net_hierarchical_step_trains_the_one_net():
+    """N_importance without a fine net: both passes through the model, the
+    coarse loss added (the JAX step's shared-net case)."""
+    model = _port_model()
+    step, optimizer = make_train_step(model, RenderConfig(n_samples=8, n_importance=4),
+                                      TrainConfig(**TRAIN_KW))
+    start = [p.detach().clone() for p in model.parameters()]
+    metrics = step(make_batch(12, 4, seed=5), torch.Generator().manual_seed(2))
+    assert "loss_nll0" in metrics and all(torch.isfinite(v) for v in metrics.values())
+    assert len(optimizer.param_groups[0]["params"]) == len(start)
+    assert any(not torch.equal(a, p) for a, p in zip(start, model.parameters()))
 
 
 class _OnCuda(torch.Tensor):
