@@ -1,0 +1,299 @@
+// NeRF trunk forward for Hopper (sm_90a): the D-layer ReLU MLP with its skip
+// layer, then the density head, the feature layer, the views layer and the
+// rgb head, on bf16 tensor cores with f32 accumulators.
+//
+// Replaces: cfnerf_tpu/ops/pallas/trunk.py:_fwd_kernel (with _fwd_mlp,
+// launched by pallas_encode).  Same arithmetic: the inputs and every
+// activation are rounded to bf16, every product is bf16 x bf16 summed in
+// f32, the f32 bias is added, then relu (not on the feature layer and the
+// heads), then the next activation is rounded to bf16.  The skip layer sums
+// x Wsx + h Wsh and the views layer f Wvf + v Wvv into the same
+// accumulators before the bias.  h_alpha and h_rgb come out in f32.
+//
+// Inputs, as cfnerf_torch/ops/kernels/trunk.py:pack_trunk_weights lays them
+// out: the f32 embedding (B, input_ch + views_ch) read through its row
+// stride; one bf16 buffer holding every weight matrix in nn.Linear's
+// (out, in) layout (K-major: each tensor-core fragment's pair along k is one
+// 32-bit load), the odd input widths zero-padded to the k-step of 16, in the
+// order w0, w1.., [wsx, wsh] at layer D/2 + 1, .., wha, wf, wvf, wvv, whr;
+// one f32 buffer with the biases b0..b{D-1}, bha, bf, bv, bhr.
+//
+// What bounds it on an H100: operations.  At D8/W512 a point costs
+// 2,348,800 multiply-adds; a flat serving tile (8192 rays x 128 samples =
+// 1,048,576 points) is 4.93 TFLOP, 4.98 ms at the 989 TFLOP/s bf16 dense
+// peak, and moves ~0.92 GB (0.27 ms at 3.35 TB/s): the embedding in and the
+// two heads out (chip_smoke.py:trunk_work counts both).
+//
+// What the design does about it, simply: one CTA of 16 warps per tile of 64
+// rows.  The tile's activation ping-pongs between two bf16 buffers in shared
+// memory (2 x 65 KB at W=512) beside the bf16 x and v tiles, so no
+// activation touches device memory.  Each warp owns 64 rows x 32 output
+// columns of a layer: per k-step of 16 it loads two weight fragments
+// straight from global memory (all weights, ~4.7 MB, stay in the 50 MB L2)
+// and four activation fragments from shared memory, and runs eight
+// nvcuda::wmma 16x16x16 bf16 products.  The epilogue goes through a per-warp
+// 16x16 f32 staging tile (the accumulator layout is opaque): bias, relu,
+// round to bf16, write to the next buffer, or f32 to the heads' outputs at
+// their true widths.  The embedding is rounded to bf16 while it is staged,
+// padded columns and the ragged last tile's rows are zero-filled there.
+// Depth, width and the head widths are runtime values.
+//
+// What a later PR would change: wgmma on 64-row warpgroup tiles instead of
+// mma.sync, weights staged through shared memory by TMA (each CTA now reads
+// every weight from L2 once per tile: ~77 GB of L2 traffic a flat serving
+// tile), and a persistent grid so that one tile's epilogue overlaps the
+// next one's products.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+namespace {
+
+using namespace nvcuda;
+using bf16 = __nv_bfloat16;
+
+constexpr int kRows = 64;              // rows (points) per CTA
+constexpr int kRowTiles = kRows / 16;  // 16-row tiles a warp covers
+constexpr int kColTiles = 2;           // 16-column tiles a warp unit covers
+constexpr int kWarps = 16;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kPad = 8;        // bf16 row padding in shared memory (16 bytes)
+constexpr int kMaxSmem = 232448;  // a block's dynamic shared memory on sm_90
+
+using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
+using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
+using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+__host__ __device__ inline int round16(int n) { return (n + 15) / 16 * 16; }
+
+// Shared memory: two activation buffers (kRows x (width + kPad)), the x and
+// v tiles, then one 16x16 f32 staging tile per warp.  Every piece is
+// kRows * 2 * (a multiple of 8) bytes: 128-byte aligned.
+struct Smem {
+  int ldh, ldx, ldv;
+  int off_buf1, off_x, off_v, off_stage, bytes;
+  __host__ __device__ Smem(int width, int in_pad, int v_pad) {
+    ldh = width + kPad;
+    ldx = in_pad + kPad;
+    ldv = v_pad + kPad;
+    off_buf1 = kRows * ldh * 2;
+    off_x = 2 * off_buf1;
+    off_v = off_x + kRows * ldx * 2;
+    off_stage = off_v + kRows * ldv * 2;
+    bytes = off_stage + kWarps * 256 * 4;
+  }
+};
+
+// One operand of a layer: A (kRows x k, bf16, row-major in shared memory,
+// leading dimension lda) times the weights' (n x k) K-major matrix in
+// global memory.  k = 0 marks an absent second operand.
+struct Operand {
+  const bf16* a;
+  int lda;
+  int k;
+  const bf16* w;
+};
+
+enum Epilogue { kRelu, kLinear, kGlobal };
+
+// out = epilogue(A0 W0^T [+ A1 W1^T] + bias), n output columns.  kRelu and
+// kLinear write bf16 to `out_s` (leading dimension ldo); kGlobal writes f32
+// rows < rows_valid to `out_g` (leading dimension n).  Called by every warp
+// of the CTA; no barrier inside.
+__device__ __forceinline__ void layer(Operand op0, Operand op1, int n,
+                                      const float* __restrict__ bias, Epilogue epi,
+                                      bf16* out_s, int ldo, float* out_g, int rows_valid,
+                                      float* stage) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n_tiles = n / 16;
+  const int n_units = (n_tiles + kColTiles - 1) / kColTiles;
+  for (int u = warp; u < n_units; u += kWarps) {
+    const int t0 = u * kColTiles;
+    const int nt = min(kColTiles, n_tiles - t0);
+    FragC acc[kRowTiles][kColTiles];
+#pragma unroll
+    for (int i = 0; i < kRowTiles; ++i)
+#pragma unroll
+      for (int j = 0; j < kColTiles; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+#pragma unroll
+    for (int o = 0; o < 2; ++o) {
+      const Operand op = o == 0 ? op0 : op1;
+      for (int k0 = 0; k0 < op.k; k0 += 16) {
+        FragB b[kColTiles];
+#pragma unroll
+        for (int j = 0; j < kColTiles; ++j)
+          if (j < nt)
+            wmma::load_matrix_sync(b[j], op.w + (size_t)(t0 + j) * 16 * op.k + k0, op.k);
+#pragma unroll
+        for (int i = 0; i < kRowTiles; ++i) {
+          FragA a;
+          wmma::load_matrix_sync(a, op.a + i * 16 * op.lda + k0, op.lda);
+#pragma unroll
+          for (int j = 0; j < kColTiles; ++j)
+            if (j < nt) wmma::mma_sync(acc[i][j], a, b[j], acc[i][j]);
+        }
+      }
+    }
+
+    // epilogue: lane l takes row l/2, columns (l%2)*8 .. +8 of each tile
+    const int r = lane >> 1;
+    const int c = (lane & 1) * 8;
+#pragma unroll
+    for (int j = 0; j < kColTiles; ++j) {
+      if (j >= nt) continue;
+      const int col = (t0 + j) * 16 + c;
+      const float4 b0 = *reinterpret_cast<const float4*>(bias + col);
+      const float4 b1 = *reinterpret_cast<const float4*>(bias + col + 4);
+#pragma unroll
+      for (int i = 0; i < kRowTiles; ++i) {
+        wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
+        __syncwarp();
+        const float4 s0 = *reinterpret_cast<const float4*>(stage + r * 16 + c);
+        const float4 s1 = *reinterpret_cast<const float4*>(stage + r * 16 + c + 4);
+        float v[8] = {s0.x + b0.x, s0.y + b0.y, s0.z + b0.z, s0.w + b0.w,
+                      s1.x + b1.x, s1.y + b1.y, s1.z + b1.z, s1.w + b1.w};
+        const int row = i * 16 + r;
+        if (epi == kGlobal) {
+          if (row < rows_valid) {
+            float4* dst = reinterpret_cast<float4*>(out_g + (size_t)row * n + col);
+            dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+            dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+          }
+        } else {
+          if (epi == kRelu) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) v[e] = fmaxf(v[e], 0.f);
+          }
+          uint4 packed;
+          __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p2[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+          *reinterpret_cast<uint4*>(out_s + row * ldo + col) = packed;
+        }
+        __syncwarp();
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+trunk_fwd_kernel(const float* __restrict__ emb, int emb_stride, int B,
+                 const bf16* __restrict__ w, const float* __restrict__ bias,
+                 float* __restrict__ h_alpha, float* __restrict__ h_rgb,
+                 int depth, int width, int input_ch, int views_ch, int ha, int hr) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int in_pad = round16(input_ch);
+  const int v_pad = round16(views_ch);
+  const Smem L(width, in_pad, v_pad);
+  bf16* cur = reinterpret_cast<bf16*>(smem);
+  bf16* nxt = reinterpret_cast<bf16*>(smem + L.off_buf1);
+  bf16* xs = reinterpret_cast<bf16*>(smem + L.off_x);
+  bf16* vs = reinterpret_cast<bf16*>(smem + L.off_v);
+  float* stage = reinterpret_cast<float*>(smem + L.off_stage) + (threadIdx.x >> 5) * 256;
+
+  const long long row0 = (long long)blockIdx.x * kRows;
+  const int rows_valid = (int)min((long long)kRows, (long long)B - row0);
+
+  // stage the embedding as bf16, zero-filling padded columns and the rows
+  // past the end of the batch
+  const float* src = emb + row0 * emb_stride;
+  for (int idx = threadIdx.x; idx < kRows * in_pad; idx += kThreads) {
+    const int r = idx / in_pad, c = idx - r * in_pad;
+    const float val = (r < rows_valid && c < input_ch) ? src[(size_t)r * emb_stride + c] : 0.f;
+    xs[r * L.ldx + c] = __float2bfloat16(val);
+  }
+  for (int idx = threadIdx.x; idx < kRows * v_pad; idx += kThreads) {
+    const int r = idx / v_pad, c = idx - r * v_pad;
+    const float val =
+        (r < rows_valid && c < views_ch) ? src[(size_t)r * emb_stride + input_ch + c] : 0.f;
+    vs[r * L.ldv + c] = __float2bfloat16(val);
+  }
+  __syncthreads();
+
+  const Operand none{nullptr, 0, 0, nullptr};
+  const bf16* pw = w;
+  const float* pb = bias;
+  auto take = [&pw](int rows, int cols) {
+    const bf16* m = pw;
+    pw += (size_t)rows * cols;
+    return m;
+  };
+
+  const int skip = depth / 2;
+  const int half = width / 2;
+  layer(Operand{xs, L.ldx, in_pad, take(width, in_pad)}, none, width, pb, kRelu,
+        cur, L.ldh, nullptr, 0, stage);
+  pb += width;
+  __syncthreads();
+  for (int i = 1; i < depth; ++i) {
+    if (i == skip + 1) {
+      const bf16* wsx = take(width, in_pad);
+      const bf16* wsh = take(width, width);
+      layer(Operand{xs, L.ldx, in_pad, wsx}, Operand{cur, L.ldh, width, wsh}, width, pb,
+            kRelu, nxt, L.ldh, nullptr, 0, stage);
+    } else {
+      layer(Operand{cur, L.ldh, width, take(width, width)}, none, width, pb, kRelu,
+            nxt, L.ldh, nullptr, 0, stage);
+    }
+    pb += width;
+    __syncthreads();
+    bf16* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+
+  // heads: cur holds the trunk output h
+  const bf16* wha = take(ha, width);
+  const bf16* wf = take(width, width);
+  const bf16* wvf = take(half, width);
+  const bf16* wvv = take(half, v_pad);
+  const bf16* whr = take(hr, half);
+  const float* bha = pb;
+  const float* bf = bha + ha;
+  const float* bv = bf + width;
+  const float* bhr = bv + half;
+  layer(Operand{cur, L.ldh, width, wha}, none, ha, bha, kGlobal, nullptr, 0,
+        h_alpha + row0 * ha, rows_valid, stage);
+  layer(Operand{cur, L.ldh, width, wf}, none, width, bf, kLinear, nxt, L.ldh, nullptr, 0,
+        stage);
+  __syncthreads();
+  layer(Operand{nxt, L.ldh, width, wvf}, Operand{vs, L.ldv, v_pad, wvv}, half, bv, kRelu,
+        cur, L.ldh, nullptr, 0, stage);
+  __syncthreads();
+  layer(Operand{cur, L.ldh, half, whr}, none, hr, bhr, kGlobal, nullptr, 0,
+        h_rgb + row0 * hr, rows_valid, stage);
+}
+
+}  // namespace
+
+// C entry point (bound with ctypes).  emb: device f32 (B, input_ch +
+// views_ch) with row stride `emb_stride` floats, columns contiguous; w:
+// device bf16 weights and bias: device f32 biases, as laid out above;
+// h_alpha (B, ha) and h_rgb (B, hr): device f32, contiguous.  The caller
+// checks shapes and types; this checks what the kernel's layout needs.
+// Launches on `stream` and returns the CUDA error of the launch (0 on
+// success); it never synchronises.
+extern "C" int trunk_fwd(const float* emb, int emb_stride, const void* w,
+                         const float* bias, float* h_alpha, float* h_rgb, int B,
+                         int depth, int width, int input_ch, int views_ch, int ha,
+                         int hr, void* stream) {
+  if (B < 0 || depth < 3 || width < 32 || width % 32 != 0 || input_ch < 1 ||
+      views_ch < 1 || emb_stride < input_ch + views_ch || ha < 16 || ha % 16 != 0 ||
+      hr < 16 || hr % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Smem L(width, round16(input_ch), round16(views_ch));
+  if (L.bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      trunk_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((unsigned)((B + kRows - 1) / kRows));
+  trunk_fwd_kernel<<<grid, kThreads, L.bytes, static_cast<cudaStream_t>(stream)>>>(
+      emb, emb_stride, B, static_cast<const bf16*>(w), bias, h_alpha, h_rgb, depth,
+      width, input_ch, views_ch, ha, hr);
+  return (int)cudaGetLastError();
+}

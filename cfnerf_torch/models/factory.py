@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from cfnerf_torch.models.nerf_flows import NeRFFlows
+from cfnerf_torch.models.nerf_flows import TRUNK_IMPLS, NeRFFlows
 from cfnerf_torch.ops.embed import get_embedder
 from cfnerf_torch.render.renderer import RenderConfig
 from cfnerf_torch.utils.device import DeviceLike, resolve_device
@@ -32,9 +32,14 @@ def _check_supported(args) -> None:
         )
     if getattr(args, "compute_dtype", "float32") != "float32":
         raise NotImplementedError(
-            "--compute_dtype bfloat16 comes with slice 4 (trunk kernels); "
-            "the port runs the trunk in float32"
+            "--compute_dtype bfloat16 comes with slice 4b (the bf16 nn.Linear "
+            "trunk, with the trunk backward kernels); the port runs the xla trunk "
+            "in float32, and --trunk_impl pallas runs the trunk kernel's bf16 "
+            "products"
         )
+    trunk_impl = getattr(args, "trunk_impl", "xla")
+    if trunk_impl not in TRUNK_IMPLS:
+        raise ValueError(f"--trunk_impl must be one of {TRUNK_IMPLS}, got {trunk_impl!r}")
 
 
 def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
@@ -67,6 +72,8 @@ def build_model(
     Returns (model, model_fine, render_config).  With --N_importance > 0,
     model_fine is the hierarchical fine network at --netdepth_fine /
     --netwidth_fine (cfnerf_tpu/models/factory.py:93-97), else None.
+    --trunk_impl (xla, pallas or interpret; default xla) goes to both nets,
+    as cfnerf_tpu/models/factory.py:89 passes it.
     Weights come from init_params(seed=args.seed), the fine network's from
     seed + 1, as create_nerf seeds them.  The models live on the CUDA device
     unless device="cpu" is passed; with no CUDA device and no explicit
@@ -92,6 +99,7 @@ def build_model(
             k_samples=args.K_samples,
             use_viewdirs=args.use_viewdirs,
             type_flows=args.type_flows,
+            trunk_impl=getattr(args, "trunk_impl", "xla"),
         )
         return init_params(model, seed).to(dev)
 

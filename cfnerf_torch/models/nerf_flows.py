@@ -10,6 +10,10 @@ all points (models.py:234,246), go through two amortized triangular-Sylvester
 stacks.  Outputs are pre-softplus density and pre-sigmoid rgb; their
 activation log-det corrections fold into the entropy term.
 
+The trunk runs as f32 nn.Linear layers (trunk_impl="xla", the default, as
+in the JAX package) or, with trunk_impl="pallas", through the trunk
+kernel's bf16 products (cfnerf_torch/ops/kernels/trunk.py; forward only).
+
 Test mode uses fixed eps buffers with the LAST of the K draws zeroed (the
 mean sample) and skips the log-dets.  A fresh model draws its buffers from
 torch.Generator(test_eps_seed); torch cannot reproduce JAX's PRNG, so these
@@ -27,9 +31,17 @@ from cfnerf_torch.flows.amortized import AmortizedTriangularSylvester
 from cfnerf_torch.ops.compositing import softplus
 from cfnerf_torch.ops.kernels.flow_stack import fused_flow_stack
 from cfnerf_torch.ops.kernels.render_core import fused_flow_composite
+from cfnerf_torch.ops.kernels.trunk import (
+    MAX_WIDTH,
+    pack_trunk_weights,
+    trunk_encode,
+    trunk_encode_plain,
+)
+from cfnerf_torch.ops.kernels.trunk import supported as trunk_supported
 
 Z_ALPHA = 1  # density latent dim
 Z_RGB = 3    # rgb latent dim
+TRUNK_IMPLS = ("xla", "pallas", "interpret")
 
 Eps = Tuple[torch.Tensor, torch.Tensor]
 
@@ -58,6 +70,7 @@ class NeRFFlows(nn.Module):
         use_viewdirs: bool = True,
         type_flows: str = "triangular",
         test_eps_seed: int = 0,
+        trunk_impl: str = "xla",
     ):
         super().__init__()
         if type_flows != "triangular":
@@ -65,12 +78,27 @@ class NeRFFlows(nn.Module):
                 f"type_flows={type_flows!r}: the port has the triangular family "
                 "only; the other flow families come with slice 7"
             )
+        if trunk_impl not in TRUNK_IMPLS:
+            raise ValueError(f"trunk_impl must be one of {TRUNK_IMPLS}, got {trunk_impl!r}")
+        if trunk_impl != "xla" and not trunk_supported(
+                net_depth, net_width, use_viewdirs, skips, h_alpha_size, h_rgb_size,
+                input_ch, input_ch_views):
+            # never silently ignore an explicit implementation choice
+            raise ValueError(
+                f"trunk_impl={trunk_impl!r} requires use_viewdirs, skips == "
+                f"(depth//2,), depth >= 3, width % 32 == 0 and <= {MAX_WIDTH}, and "
+                f"head widths % 16 == 0; got depth={net_depth}, width={net_width}, "
+                f"skips={tuple(skips)}, use_viewdirs={use_viewdirs}, heads="
+                f"({h_alpha_size}, {h_rgb_size}). Use trunk_impl='xla' for this "
+                "configuration."
+            )
         self.net_depth, self.net_width = net_depth, net_width
         self.input_ch, self.input_ch_views = input_ch, input_ch_views
         self.skips = tuple(skips)
         self.k_samples = k_samples
         self.use_viewdirs = use_viewdirs
         self.type_flows = type_flows
+        self.trunk_impl = trunk_impl
 
         W = net_width
         layers, fan_in = [], input_ch
@@ -105,7 +133,20 @@ class NeRFFlows(nn.Module):
 
     def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Trunk + heads (models.py:165-186).  x: (B, input_ch [+ views]).
-        Returns (h_alpha, h_rgb) in f32."""
+        Returns (h_alpha, h_rgb) in f32.
+
+        trunk_impl "xla" runs the nn.Linear layers in f32; "pallas" the
+        trunk kernel (its plain version for CPU tensors) on bf16 products;
+        "interpret" the kernel's plain version on any device, as JAX's
+        interpret mode runs the Pallas kernel's arithmetic without the
+        kernel."""
+        if self.trunk_impl != "xla":
+            packed = pack_trunk_weights(self)
+            lead = x.shape[:-1]
+            x2 = x.reshape(-1, x.shape[-1])
+            fn = trunk_encode if self.trunk_impl == "pallas" else trunk_encode_plain
+            h_alpha, h_rgb = fn(packed, x2)
+            return h_alpha.reshape(*lead, -1), h_rgb.reshape(*lead, -1)
         input_pts = x[..., : self.input_ch]
         input_views = x[..., self.input_ch:]
         h = input_pts

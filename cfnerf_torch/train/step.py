@@ -135,6 +135,12 @@ def make_train_step(
         raise ValueError(f"loss_mode must be 'kde' or 'mse', got {cfg.loss_mode!r}")
 
     nets = [model] if model_fine is None else [model, model_fine]
+    for net in nets:
+        if net.trunk_impl != "xla":
+            raise NotImplementedError(
+                f"training with trunk_impl={net.trunk_impl!r}: the trunk backward "
+                "kernels come with slice 4b; train with trunk_impl='xla'"
+            )
     optimizer, scheduler = make_optimizer(
         [p for net in nets for p in net.parameters()], cfg)
     wrap = _Remat if cfg.remat else (lambda net: net)

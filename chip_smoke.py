@@ -18,9 +18,14 @@ final line):
                    shapes and K=40; the flow-stack forward (Z = 1 and 3, both
                    modes) at the hierarchical serving and training fine
                    passes, awkward shapes, K=40, expanded and contiguous z0;
-                   its backward at the hierarchical training passes
+                   its backward at the hierarchical training passes; the
+                   trunk forward (bf16 tensor cores) at the flat serving
+                   tile, the hierarchical fine and coarse passes, D4/W256, a
+                   ragged B and strided rows
   4. kernel_time   each kernel's ms, plain ms, bytes, operations and bound
-                   (train-tile launches rotate over inputs larger than L2)
+                   (train-tile launches rotate over inputs larger than L2);
+                   the trunk's also beside two yardsticks, the f32 nn.Linear
+                   encode and its layer chain in bf16 through torch.matmul
   5. serve         the flagship model (D8 W512 N128 K32 F4, random weights from
                    a seed) renders a 400x400 view in 8192-ray tiles through
                    build_model -> make_render_rays -> render_image; launch
@@ -44,7 +49,14 @@ final line):
  11. hier_train    flagship hierarchical training steps (512 + 128 rays):
                    launch counts, finite metrics, both nets move, the loss
                    falls on a fixed batch, step time, rays/s, a profiled step
- 12. kernels       per-kernel launches, error, time, plain time and bound
+ 12. trunk_serve   both views again with trunk_impl="pallas": the flat one
+                   (20 trunk + 20 render-core launches) and the hierarchical
+                   pair (40 trunk + 80 flow-stack launches); output checks,
+                   64 rays against trunk_impl="interpret" on the card (and
+                   the f32 trunk, reported), one timed render, a profiled tile
+ 13. trunk_golden  the card's trunk kernel against JAX's pallas_encode on a
+                   D4/W256 trunk (tests/fixtures)
+ 14. kernels       per-kernel launches, error, time, plain time and bound
 
 then the `nvidia-smi` name/power line and, last, the `ok` line.
 """
@@ -79,7 +91,8 @@ from cfnerf_torch.models.factory import build_model
 from cfnerf_torch.models.nerf_flows import NeRFFlows
 from cfnerf_torch.ops.compositing import LAST_DIST
 from cfnerf_torch.ops.kernels import _build
-from cfnerf_torch.ops.kernels import flow_stack, render_core
+from cfnerf_torch.ops.kernels import flow_stack, render_core, trunk
+from cfnerf_torch.ops.kernels.trunk import pack_trunk_weights
 from cfnerf_torch.ops.metrics import std_over_k
 from cfnerf_torch.ops.rays import get_rays
 from cfnerf_torch.ops.sampling import sample_z_vals, stratified_perturb
@@ -99,6 +112,7 @@ HIER_GOLDEN = ROOT / "tests" / "fixtures" / "torch_port_hier_golden.npz"
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # bf16 dense, tensor cores
 
 # flagship serving configuration (scripts/train_NF.sh widths; Blender
 # half-resolution camera: 400x400, camera_angle_x 0.6911112, near 2, far 6)
@@ -165,6 +179,19 @@ FLOW_RTOL = FLOW_ATOL = 1e-5
 # one: the same computation on the same inputs
 SHARED_TOL = 1e-6
 HIER_MAPS = ("rgb_map", "depth_map", "acc_map", "rgb0", "depth0")
+
+# the trunk kernel (trunk_impl="pallas") vs its plain version, and vs the
+# JAX trunk golden: both round the same values to bf16 and sum f32 products
+# in another order, so an activation sometimes lands on the neighbouring
+# bf16 value (2^-8 relative): atol 1e-3 / rtol 1e-2, the rule of
+# tests/test_torch_trunk.py (measured there 9e-8 to 4.0e-4 against JAX).
+# Renders through the kernel vs through trunk_impl="interpret" (the plain
+# version on the card) carry such flips through the flows and the
+# composite: maps rtol = atol = 1e-3
+TRUNK_RTOL, TRUNK_ATOL = 1e-2, 1e-3
+TRUNK_MAP_RTOL = TRUNK_MAP_ATOL = 1e-3
+TRUNK_GOLDEN = ROOT / "tests" / "fixtures" / "torch_port_trunk_golden.npz"
+SERVE_FLAT_PTS = TILE * FLAGSHIP["N_samples"]  # points of one flagship serving tile
 
 
 def emit(phase: str, **fields) -> None:
@@ -263,8 +290,8 @@ def render_core_bwd_work(R, S, K, F, compute_log_det):
     return 4 * (in_floats + out_floats), B * K * per
 
 
-def bound_ms(nbytes, ops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+def bound_ms(nbytes, ops, ops_per_s=F32_OPS_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -684,6 +711,152 @@ def phase_flow_stack_time(serving_err, train_err):
 
 
 # ---------------------------------------------------------------------- #
+# trunk: inputs, work model, checks, times
+# ---------------------------------------------------------------------- #
+
+
+def trunk_work(B, depth, width, in_ch, v_ch, ha, hr):
+    """(bytes, operations) of the trunk forward at true widths: the f32
+    embedding read once, the bf16 weights and f32 biases read once, h_alpha
+    and h_rgb written once in f32; two operations per multiply-add of the
+    layers: x -> W, D-2 W -> W, the skip layer (in + W) -> W, feature W -> W,
+    the density head W -> ha, views (W + v) -> W/2, the rgb head W/2 -> hr."""
+    half = width // 2
+    macs = (in_ch * width + (depth - 2) * width * width + (in_ch + width) * width
+            + width * width + width * ha + (width + v_ch) * half + half * hr)
+    biases = depth * width + width + ha + half + hr
+    nbytes = 4 * B * (in_ch + v_ch) + 2 * macs + 4 * biases + 4 * B * (ha + hr)
+    return nbytes, 2 * macs * B
+
+
+def trunk_args(depth=8, width=512, trunk_impl="pallas"):
+    """The flagship flags with the trunk at (depth, width)."""
+    return types.SimpleNamespace(**dict(FLAGSHIP, netdepth=depth, netwidth=width,
+                                        trunk_impl=trunk_impl))
+
+
+def trunk_inputs(B, seed, width=90):
+    """A (B, 90) f32 embedding on the card, as the renderer hands it over
+    (points' sin/cos features lie in [-1, 1]); with width > 90 the first 90
+    columns of a wider tensor, so rows are strided."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand(B, width, generator=g, device="cuda") * 2.0 - 1.0
+    return x[:, :90]
+
+
+def trunk_bf16_matmul(packed, x):
+    """Yardstick, not used by the port: the kernel's layer chain in bf16
+    through torch.matmul (cuBLAS, bf16 in and out, f32 sums inside)."""
+    m = packed.matrices()
+    b = {k: v.bfloat16() for k, v in packed.biases().items()}
+    in_ch, skip = packed.input_ch, packed.depth // 2
+    xb = torch.nn.functional.pad(x[:, :in_ch], (0, m["w0"].shape[1] - in_ch)).bfloat16()
+    vb = torch.nn.functional.pad(x[:, in_ch:], (0, m["wvv"].shape[1] - packed.views_ch)).bfloat16()
+    h = torch.relu(torch.matmul(xb, m["w0"].t()) + b["b0"])
+    for i in range(1, packed.depth):
+        if i == skip + 1:
+            z = torch.matmul(xb, m["wsx"].t()) + torch.matmul(h, m["wsh"].t())
+        else:
+            z = torch.matmul(h, m[f"w{i}"].t())
+        h = torch.relu(z + b[f"b{i}"])
+    ha = torch.matmul(h, m["wha"].t()) + b["bha"]
+    f = torch.matmul(h, m["wf"].t()) + b["bf"]
+    hv = torch.relu(torch.matmul(f, m["wvf"].t()) + torch.matmul(vb, m["wvv"].t()) + b["bv"])
+    return ha.float(), (torch.matmul(hv, m["whr"].t()) + b["bhr"]).float()
+
+
+def compare_trunk(out, ref, what="trunk kernel vs plain"):
+    """Max abs / rel error of (h_alpha, h_rgb); raises past the tolerance."""
+    errs = {}
+    for name, a, b in zip(("h_alpha", "h_rgb"), out, ref):
+        check(tuple(a.shape) == tuple(b.shape), f"{what} {name} shape {tuple(a.shape)}")
+        diff = (a - b).abs()
+        check(bool(torch.isfinite(a).all()), f"{what} {name} finite")
+        check(bool((diff <= TRUNK_ATOL + TRUNK_RTOL * b.abs()).all()),
+              f"{what} {name}: max abs err {float(diff.max())}")
+        errs[name] = {"max_abs": float(diff.max()),
+                      "max_rel": float((diff / b.abs().clamp(min=1e-6)).max())}
+    return errs
+
+
+def phase_trunk_checks():
+    """The trunk kernel against its plain version at the serving paths'
+    shapes (flat tile, hierarchical fine and coarse passes), D4/W256, a
+    ragged B and strided rows.  Returns the flat tile's max abs error."""
+    cases = [  # (B, depth, width, x row stride, label)
+        (SERVE_FLAT_PTS, 8, 512, 90, "flat serving tile"),
+        (SERVE_FINE_PTS, 8, 512, 90, "hierarchical serving fine pass"),
+        (SERVE_COARSE_PTS, 8, 512, 90, "hierarchical serving coarse pass"),
+        (65536, 4, 256, 90, "D4/W256"),
+        (1000, 8, 512, 90, "ragged B=1000"),
+        (4099, 8, 512, 96, "ragged B=4099, row stride 96"),
+    ]
+    models = {}
+    flat_err = None
+    for i, (B, depth, width, stride, label) in enumerate(cases):
+        if (depth, width) not in models:
+            models[(depth, width)] = build_model(trunk_args(depth, width))[0]
+        model = models[(depth, width)]
+        x = trunk_inputs(B, seed=1000 + i, width=stride)
+        with torch.inference_mode():
+            packed = pack_trunk_weights(model)
+            out = trunk.trunk_encode(packed, x)
+            ref = trunk.trunk_encode_plain(packed, x)
+        torch.cuda.synchronize()
+        errs = compare_trunk(out, ref)
+        emit("kernel", kernel="trunk_fwd", case=label, B=B, depth=depth, width=width,
+             x_row_stride=stride, errors=errs,
+             tolerance={"rtol": TRUNK_RTOL, "atol": TRUNK_ATOL})
+        if i == 0:
+            flat_err = max(e["max_abs"] for e in errs.values())
+        del x, out, ref
+    torch.cuda.empty_cache()
+    return flat_err
+
+
+def phase_trunk_time(flat_err):
+    """One trunk launch at each serving shape, CUDA-event timed after a
+    warm-up, beside its bound at the bf16 peak, the plain version and two
+    yardsticks on the same weights and inputs: the port's own f32 encode
+    (trunk_impl="xla", nn.Linear) and the same layer chain in bf16 through
+    torch.matmul.  Returns the stats of the kernels line (the flat tile)."""
+    model = build_model(trunk_args())[0]
+    model_xla = build_model(trunk_args(trunk_impl="xla"))[0]  # the same seed: same weights
+    D, Wd = model.net_depth, model.net_width
+    shape = (D, Wd, model.input_ch, model.input_ch_views, FLAGSHIP["h_alpha_size"],
+             FLAGSHIP["h_rgb_size"])
+    stats = None
+    for i, (label, B) in enumerate((("flat serving tile", SERVE_FLAT_PTS),
+                                    ("hierarchical serving fine pass", SERVE_FINE_PTS),
+                                    ("hierarchical serving coarse pass", SERVE_COARSE_PTS))):
+        x = trunk_inputs(B, seed=1100 + i)
+        with torch.inference_mode():
+            pack_ms = cuda_ms(lambda: pack_trunk_weights(model), 5)
+            packed = pack_trunk_weights(model)
+            ms = cuda_ms(lambda: trunk.trunk_encode(packed, x), 10)
+            plain_ms = cuda_ms(lambda: trunk.trunk_encode_plain(packed, x), 3)
+            xla_ms = cuda_ms(lambda: model_xla.encode(x), 3)
+            bf16_ms = cuda_ms(lambda: trunk_bf16_matmul(packed, x), 5)
+            # not gated: the yardstick rounds its sums to bf16 between layers
+            bf16_errs = [float((a - b).abs().max()) for a, b in zip(
+                trunk_bf16_matmul(packed, x), trunk.trunk_encode_plain(packed, x))]
+        nbytes, ops = trunk_work(B, *shape)
+        b_ms, b_by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
+        emit("kernel_time", kernel="trunk_fwd", launch=label, B=B, depth=D, width=Wd, ms=ms,
+             plain_ms=plain_ms, xla_f32_ms=xla_ms, bf16_matmul_ms=bf16_ms, pack_ms=pack_ms,
+             bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops,
+             achieved_tflop_per_s=ops / ms / 1e9,
+             bf16_matmul_max_abs_vs_plain={"h_alpha": bf16_errs[0], "h_rgb": bf16_errs[1]})
+        if i == 0:
+            stats = dict(max_abs_err=flat_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, xla_f32_ms=xla_ms, bf16_matmul_ms=bf16_ms,
+                         shape=f"B={B} D{D} W{Wd}, the flat serving tile")
+        del x, packed
+        torch.cuda.empty_cache()
+    return stats
+
+
+# ---------------------------------------------------------------------- #
 # serving
 # ---------------------------------------------------------------------- #
 
@@ -818,7 +991,7 @@ def profile_device(fn):
     def group(name):
         low = name.lower()
         for kernel in ("render_core_bwd", "render_core_fwd", "flow_stack_bwd",
-                       "flow_stack_fwd"):
+                       "flow_stack_fwd", "trunk_fwd"):
             if kernel in low:
                 return kernel
         if any(k in low for k in ("gemm", "xmma", "cutlass", "sm90")):
@@ -1301,6 +1474,115 @@ def phase_hier_train():
     return fwd, bwd
 
 
+# ---------------------------------------------------------------------- #
+# serving through the trunk kernel (trunk_impl="pallas")
+# ---------------------------------------------------------------------- #
+
+
+def trunk_view(config, label, counters, want):
+    """Render the 400x400 view with trunk_impl="pallas" models: counted
+    (each counter in `counters` reset just before, read just after, and held
+    to `want`), then one timed render; 64 rays against the same weights with
+    trunk_impl="interpret" (gated) and "xla" (reported); a profiled tile."""
+    nets = {}
+    for impl in ("pallas", "interpret", "xla"):
+        model, model_fine, rc = build_model(types.SimpleNamespace(**config, trunk_impl=impl))
+        nets[impl] = make_render_rays(model.eval(), rc, model_fine=model_fine)
+    render_rays = nets["pallas"]
+    c2w = pose_spherical(30.0, -30.0, 4.0)
+    view = dict(H=H, W=W, focal=FOCAL, ndc=False, use_viewdirs=True,
+                near=NEAR, far=FAR, tile=TILE)
+
+    # the main path, counted
+    for counter in counters:
+        counter.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = render_image(render_rays, c2w, **view)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    launches = {counter.__name__: counter.launches for counter in counters}
+    for counter, n in zip(counters, want):
+        check(counter.launches == n,
+              f"{label}: {counter.__name__} launched {counter.launches} times, want {n}")
+    K = config["K_samples"]
+    check(tuple(out["rgb_map"].shape) == (H, W, 3, K), f"{label} rgb_map shape")
+    for k, v in out.items():
+        check(bool(torch.isfinite(v).all()), f"{label} {k} finite")
+    std = std_over_k(out["rgb_map"])
+    check(float(std.max()) > 0.0, f"{label}: std over K is positive somewhere")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del out
+
+    t0 = time.perf_counter()
+    render_image(render_rays, c2w, **view)
+    torch.cuda.synchronize()
+    image_s = time.perf_counter() - t0
+
+    rays = view_rays(c2w)
+    pick = torch.randperm(H * W, generator=torch.Generator().manual_seed(3))[:64].cuda()
+    sub = [t[pick] for t in rays]
+    with torch.inference_mode():
+        maps = {impl: fn(*sub, None, is_test=True) for impl, fn in nets.items()}
+    torch.cuda.synchronize()
+    keys = HIER_MAPS if "rgb0" in maps["pallas"] else ("rgb_map", "depth_map", "acc_map")
+    vs_interpret = compare_maps(maps["pallas"], maps["interpret"], keys, TRUNK_MAP_RTOL,
+                                TRUNK_MAP_ATOL, f"{label}: pallas vs interpret trunk")
+    vs_xla = {k: float((maps["pallas"][k] - maps["xla"][k]).abs().max()) for k in keys}
+
+    tile_rays = [t[:TILE] for t in rays]
+
+    def one_tile():
+        with torch.inference_mode():
+            render_rays(*tile_rays, None, is_test=True)
+
+    breakdown = profile_device(one_tile)
+    emit("trunk_serve", view=label, H=H, W=W, K=K, tile=TILE, launches=launches,
+         counted_render_s=counted_s, image_s=image_s, rays_per_s=H * W / image_s,
+         peak_mem_gb=peak_gb, mean_std_over_k=float(std.mean()),
+         pallas_vs_interpret_64_rays=vs_interpret,
+         pallas_vs_xla_f32_64_rays_not_gated=vs_xla,
+         tolerance={"rtol": TRUNK_MAP_RTOL, "atol": TRUNK_MAP_ATOL})
+    emit("trunk_profile", view=label, tile_rays=TILE, **breakdown)
+    return launches[trunk.trunk_encode.__name__]
+
+
+def phase_trunk_serve():
+    """Both flagship views through the trunk kernel: the flat render (a
+    trunk and a render-core launch a tile) and the hierarchical pair (two
+    trunk launches and four flow-stack launches a tile)."""
+    n_tiles = -(-H * W // TILE)
+    flat = trunk_view(FLAGSHIP, "flagship flat", (trunk.trunk_encode,
+                      render_core.fused_flow_composite), (n_tiles, n_tiles))
+    hier = trunk_view(HIER, "hierarchical pair",
+                      (trunk.trunk_encode, flow_stack.fused_flow_stack,
+                       render_core.fused_flow_composite), (2 * n_tiles, 4 * n_tiles, 0))
+    return flat, hier
+
+
+def phase_trunk_golden():
+    """The card's trunk kernel on a D4/W256 trunk against JAX's
+    pallas_encode (interpreted on the CPU; tests/fixtures)."""
+    with np.load(TRUNK_GOLDEN) as g:
+        D, Wd, K, F, ha, hr = (int(v) for v in g["config"])
+        model = NeRFFlows(net_depth=D, net_width=Wd, skips=(D // 2,), h_alpha_size=ha,
+                          h_rgb_size=hr, n_flows=F, k_samples=K, trunk_impl="pallas")
+        model.load_state_dict(nerf_flows_state_dict_from_jax(
+            nested_params(g), (g["test_eps_a"], g["test_eps_r"])))
+        model = model.cuda()
+        before = trunk.trunk_encode.launches
+        with torch.inference_mode():
+            out = model.encode(torch.as_tensor(g["x"], device="cuda"))
+        torch.cuda.synchronize()
+        check(trunk.trunk_encode.launches == before + 1, "the trunk golden went through the kernel")
+        errs = compare_trunk(out, [torch.as_tensor(g[f"jax/{k}"], device="cuda")
+                                   for k in ("h_alpha", "h_rgb")], what="trunk golden")
+        rows = int(g["x"].shape[0])
+    emit("trunk_golden", source=str(TRUNK_GOLDEN.relative_to(ROOT)), rows=rows, depth=D,
+         width=Wd, max_abs_err_vs_jax=errs,
+         tolerance={"rtol": TRUNK_RTOL, "atol": TRUNK_ATOL})
+
+
 def kernel_entry(name, source, replaces, launches_by_path, stats):
     """`launches` totals the per-path counts; `launches_by_path` keeps each
     path's own count, reset just before that path and read just after."""
@@ -1312,6 +1594,9 @@ def kernel_entry(name, source, replaces, launches_by_path, stats):
              "bound_by": stats["bound_by"], "library_ms": None}
     if "shape" in stats:
         entry["timed_at"] = stats["shape"]
+    for yardstick in ("xla_f32_ms", "bf16_matmul_ms"):
+        if yardstick in stats:
+            entry[yardstick] = stats[yardstick]
     return entry
 
 
@@ -1333,6 +1618,7 @@ def main() -> int:
     fwd_stats = phase_kernel_checks()
     bwd_stats = phase_bwd_checks()
     flow_stats = phase_flow_stack_time(*phase_flow_stack_checks())
+    trunk_stats = phase_trunk_time(phase_trunk_checks())
     serve_launches, unfused_launches = phase_serve()
     phase_golden()
     train_fwd, train_bwd = phase_train()
@@ -1340,10 +1626,14 @@ def main() -> int:
     hier_serve_launches = phase_hier_serve()
     phase_hier_golden()
     hier_fwd, hier_bwd = phase_hier_train()
+    trunk_flat, trunk_hier = phase_trunk_serve()
+    phase_trunk_golden()
 
     # serving: 20 render-core launches a view; training: one render-core
     # forward and backward a step; hierarchical: 4 flow-stack launches (two
-    # chains, two passes) a tile or a step, and 4 backward launches a step
+    # chains, two passes) a tile or a step, and 4 backward launches a step;
+    # trunk_impl="pallas": a trunk launch per pass, 20 a flat view and 40 a
+    # hierarchical one
     print(json.dumps({"kernels": [
         kernel_entry("render_core_fwd", render_core.SOURCE, render_core.REPLACES,
                      {"serve": serve_launches, "train": train_fwd}, fwd_stats),
@@ -1354,6 +1644,8 @@ def main() -> int:
                       "serve_unfused_check": unfused_launches}, flow_stats["fwd"]),
         kernel_entry("flow_stack_bwd", flow_stack.SOURCE_BWD, flow_stack.REPLACES_BWD,
                      {"hier_train": hier_bwd}, flow_stats["bwd"]),
+        kernel_entry("trunk_fwd", trunk.SOURCE, trunk.REPLACES,
+                     {"trunk_serve": trunk_flat, "trunk_hier_serve": trunk_hier}, trunk_stats),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

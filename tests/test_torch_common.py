@@ -43,17 +43,19 @@ def to_np(x):
     return np.asarray(x)
 
 
-def jax_nerf_flows(cfg: Tiny = Tiny(), seed: int = 0, flow_impl: str = "xla"):
+def jax_nerf_flows(cfg: Tiny = Tiny(), seed: int = 0, flow_impl: str = "xla",
+                   trunk_impl: str = "xla"):
     """(JAX model, params as nested numpy dicts, JAX test eps).  The base
     parameters are moved off their 0/1 init so they are exercised.
     flow_impl="interpret" runs the model's flow stacks through the Pallas
-    kernel's interpreter, as flow_impl="pallas" runs them on a TPU."""
+    kernel's interpreter, as flow_impl="pallas" runs them on a TPU;
+    trunk_impl="interpret" its trunk likewise."""
     model = JaxNeRFFlows(
         net_depth=cfg.depth, net_width=cfg.width, input_ch=63,
         input_ch_views=cfg.views_ch, skips=(cfg.depth // 2,),
         h_alpha_size=cfg.h_alpha, h_rgb_size=cfg.h_rgb, n_flows=cfg.flows,
         k_samples=cfg.k, use_viewdirs=cfg.use_viewdirs, type_flows="triangular",
-        flow_impl=flow_impl,
+        flow_impl=flow_impl, trunk_impl=trunk_impl,
     )
     x = jnp.zeros((2, 63 + cfg.views_ch), jnp.float32)
     params = model.init(jax.random.PRNGKey(seed), x, is_test=True)["params"]
@@ -67,12 +69,12 @@ def jax_nerf_flows(cfg: Tiny = Tiny(), seed: int = 0, flow_impl: str = "xla"):
     return model, params, tuple(np.asarray(e) for e in eps)
 
 
-def port_nerf_flows(cfg: Tiny, params, test_eps) -> NeRFFlows:
+def port_nerf_flows(cfg: Tiny, params, test_eps, trunk_impl: str = "xla") -> NeRFFlows:
     model = NeRFFlows(
         net_depth=cfg.depth, net_width=cfg.width, input_ch=63,
         input_ch_views=cfg.views_ch, skips=(cfg.depth // 2,),
         h_alpha_size=cfg.h_alpha, h_rgb_size=cfg.h_rgb, n_flows=cfg.flows,
-        k_samples=cfg.k, use_viewdirs=cfg.use_viewdirs,
+        k_samples=cfg.k, use_viewdirs=cfg.use_viewdirs, trunk_impl=trunk_impl,
     )
     model.load_state_dict(nerf_flows_state_dict_from_jax(params, test_eps))
     return model

@@ -49,6 +49,6 @@ def test_port_modules_mirror_the_jax_layout():
                 "train/loss.py", "train/step.py", "data/sampler.py"):
         assert mod in port and (ROOT / "cfnerf_tpu" / mod).exists(), mod
     # each Pallas kernel module has its wrapper under ops/kernels/
-    for mod in ("render_core.py", "flow_stack.py"):
+    for mod in ("render_core.py", "flow_stack.py", "trunk.py"):
         assert f"ops/kernels/{mod}" in port, mod
         assert (ROOT / "cfnerf_tpu" / "ops" / "pallas" / mod).exists(), mod
