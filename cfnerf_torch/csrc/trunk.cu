@@ -44,28 +44,9 @@
 // tile), and a persistent grid so that one tile's epilogue overlaps the
 // next one's products.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
+#include "trunk.cuh"
 
 namespace {
-
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
-
-constexpr int kRows = 64;              // rows (points) per CTA
-constexpr int kRowTiles = kRows / 16;  // 16-row tiles a warp covers
-constexpr int kColTiles = 2;           // 16-column tiles a warp unit covers
-constexpr int kWarps = 16;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kPad = 8;        // bf16 row padding in shared memory (16 bytes)
-constexpr int kMaxSmem = 232448;  // a block's dynamic shared memory on sm_90
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-__host__ __device__ inline int round16(int n) { return (n + 15) / 16 * 16; }
 
 // Shared memory: two activation buffers (kRows x (width + kPad)), the x and
 // v tiles, then one 16x16 f32 staging tile per warp.  Every piece is
@@ -81,102 +62,53 @@ struct Smem {
     off_x = 2 * off_buf1;
     off_v = off_x + kRows * ldx * 2;
     off_stage = off_v + kRows * ldv * 2;
-    bytes = off_stage + kWarps * 256 * 4;
+    bytes = off_stage + kStageBytes;
   }
-};
-
-// One operand of a layer: A (kRows x k, bf16, row-major in shared memory,
-// leading dimension lda) times the weights' (n x k) K-major matrix in
-// global memory.  k = 0 marks an absent second operand.
-struct Operand {
-  const bf16* a;
-  int lda;
-  int k;
-  const bf16* w;
 };
 
 enum Epilogue { kRelu, kLinear, kGlobal };
 
-// out = epilogue(A0 W0^T [+ A1 W1^T] + bias), n output columns.  kRelu and
-// kLinear write bf16 to `out_s` (leading dimension ldo); kGlobal writes f32
-// rows < rows_valid to `out_g` (leading dimension n).  Called by every warp
-// of the CTA; no barrier inside.
-__device__ __forceinline__ void layer(Operand op0, Operand op1, int n,
-                                      const float* __restrict__ bias, Epilogue epi,
-                                      bf16* out_s, int ldo, float* out_g, int rows_valid,
-                                      float* stage) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int n_tiles = n / 16;
-  const int n_units = (n_tiles + kColTiles - 1) / kColTiles;
-  for (int u = warp; u < n_units; u += kWarps) {
-    const int t0 = u * kColTiles;
-    const int nt = min(kColTiles, n_tiles - t0);
-    FragC acc[kRowTiles][kColTiles];
-#pragma unroll
-    for (int i = 0; i < kRowTiles; ++i)
-#pragma unroll
-      for (int j = 0; j < kColTiles; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+// The forward's epilogue: + bias, then kRelu and kLinear write bf16 to
+// `out_s` (leading dimension ldo); kGlobal writes f32 rows < rows_valid to
+// `out_g` (leading dimension n).
+struct FwdEpi {
+  const float* bias;
+  Epilogue kind;
+  bf16* out_s;
+  int ldo;
+  float* out_g;
+  int n;
+  int rows_valid;
 
-#pragma unroll
-    for (int o = 0; o < 2; ++o) {
-      const Operand op = o == 0 ? op0 : op1;
-      for (int k0 = 0; k0 < op.k; k0 += 16) {
-        FragB b[kColTiles];
-#pragma unroll
-        for (int j = 0; j < kColTiles; ++j)
-          if (j < nt)
-            wmma::load_matrix_sync(b[j], op.w + (size_t)(t0 + j) * 16 * op.k + k0, op.k);
-#pragma unroll
-        for (int i = 0; i < kRowTiles; ++i) {
-          FragA a;
-          wmma::load_matrix_sync(a, op.a + i * 16 * op.lda + k0, op.lda);
-#pragma unroll
-          for (int j = 0; j < kColTiles; ++j)
-            if (j < nt) wmma::mma_sync(acc[i][j], a, b[j], acc[i][j]);
-        }
+  __device__ __forceinline__ void apply(int row, int col, float (&v)[8]) const {
+    const float4 b0 = *reinterpret_cast<const float4*>(bias + col);
+    const float4 b1 = *reinterpret_cast<const float4*>(bias + col + 4);
+    v[0] += b0.x; v[1] += b0.y; v[2] += b0.z; v[3] += b0.w;
+    v[4] += b1.x; v[5] += b1.y; v[6] += b1.z; v[7] += b1.w;
+    if (kind == kGlobal) {
+      if (row < rows_valid) {
+        float4* dst = reinterpret_cast<float4*>(out_g + (size_t)row * n + col);
+        dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+        dst[1] = make_float4(v[4], v[5], v[6], v[7]);
       }
+      return;
     }
-
-    // epilogue: lane l takes row l/2, columns (l%2)*8 .. +8 of each tile
-    const int r = lane >> 1;
-    const int c = (lane & 1) * 8;
+    if (kind == kRelu) {
 #pragma unroll
-    for (int j = 0; j < kColTiles; ++j) {
-      if (j >= nt) continue;
-      const int col = (t0 + j) * 16 + c;
-      const float4 b0 = *reinterpret_cast<const float4*>(bias + col);
-      const float4 b1 = *reinterpret_cast<const float4*>(bias + col + 4);
-#pragma unroll
-      for (int i = 0; i < kRowTiles; ++i) {
-        wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-        __syncwarp();
-        const float4 s0 = *reinterpret_cast<const float4*>(stage + r * 16 + c);
-        const float4 s1 = *reinterpret_cast<const float4*>(stage + r * 16 + c + 4);
-        float v[8] = {s0.x + b0.x, s0.y + b0.y, s0.z + b0.z, s0.w + b0.w,
-                      s1.x + b1.x, s1.y + b1.y, s1.z + b1.z, s1.w + b1.w};
-        const int row = i * 16 + r;
-        if (epi == kGlobal) {
-          if (row < rows_valid) {
-            float4* dst = reinterpret_cast<float4*>(out_g + (size_t)row * n + col);
-            dst[0] = make_float4(v[0], v[1], v[2], v[3]);
-            dst[1] = make_float4(v[4], v[5], v[6], v[7]);
-          }
-        } else {
-          if (epi == kRelu) {
-#pragma unroll
-            for (int e = 0; e < 8; ++e) v[e] = fmaxf(v[e], 0.f);
-          }
-          uint4 packed;
-          __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&packed);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) p2[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
-          *reinterpret_cast<uint4*>(out_s + row * ldo + col) = packed;
-        }
-        __syncwarp();
-      }
+      for (int e = 0; e < 8; ++e) v[e] = fmaxf(v[e], 0.f);
     }
+    *reinterpret_cast<uint4*>(out_s + row * ldo + col) = pack_bf16x8(v);
   }
+  __device__ __forceinline__ void finish(int) const {}
+};
+
+// out = epilogue(A0 W0^T [+ A1 W1^T] + bias), n output columns.
+__device__ __forceinline__ void fwd_layer(Operand op0, Operand op1, int n,
+                                          const float* __restrict__ bias, Epilogue kind,
+                                          bf16* out_s, int ldo, float* out_g, int rows_valid,
+                                          float* stage) {
+  FwdEpi epi{bias, kind, out_s, ldo, out_g, n, rows_valid};
+  layer<true>(op0, op1, n, stage, epi);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -197,20 +129,7 @@ trunk_fwd_kernel(const float* __restrict__ emb, int emb_stride, int B,
   const long long row0 = (long long)blockIdx.x * kRows;
   const int rows_valid = (int)min((long long)kRows, (long long)B - row0);
 
-  // stage the embedding as bf16, zero-filling padded columns and the rows
-  // past the end of the batch
-  const float* src = emb + row0 * emb_stride;
-  for (int idx = threadIdx.x; idx < kRows * in_pad; idx += kThreads) {
-    const int r = idx / in_pad, c = idx - r * in_pad;
-    const float val = (r < rows_valid && c < input_ch) ? src[(size_t)r * emb_stride + c] : 0.f;
-    xs[r * L.ldx + c] = __float2bfloat16(val);
-  }
-  for (int idx = threadIdx.x; idx < kRows * v_pad; idx += kThreads) {
-    const int r = idx / v_pad, c = idx - r * v_pad;
-    const float val =
-        (r < rows_valid && c < views_ch) ? src[(size_t)r * emb_stride + input_ch + c] : 0.f;
-    vs[r * L.ldv + c] = __float2bfloat16(val);
-  }
+  stage_inputs(emb, emb_stride, row0, rows_valid, input_ch, views_ch, xs, L.ldx, vs, L.ldv);
   __syncthreads();
 
   const Operand none{nullptr, 0, 0, nullptr};
@@ -224,7 +143,7 @@ trunk_fwd_kernel(const float* __restrict__ emb, int emb_stride, int B,
 
   const int skip = depth / 2;
   const int half = width / 2;
-  layer(Operand{xs, L.ldx, in_pad, take(width, in_pad)}, none, width, pb, kRelu,
+  fwd_layer(Operand{xs, L.ldx, in_pad, take(width, in_pad)}, none, width, pb, kRelu,
         cur, L.ldh, nullptr, 0, stage);
   pb += width;
   __syncthreads();
@@ -232,10 +151,10 @@ trunk_fwd_kernel(const float* __restrict__ emb, int emb_stride, int B,
     if (i == skip + 1) {
       const bf16* wsx = take(width, in_pad);
       const bf16* wsh = take(width, width);
-      layer(Operand{xs, L.ldx, in_pad, wsx}, Operand{cur, L.ldh, width, wsh}, width, pb,
+      fwd_layer(Operand{xs, L.ldx, in_pad, wsx}, Operand{cur, L.ldh, width, wsh}, width, pb,
             kRelu, nxt, L.ldh, nullptr, 0, stage);
     } else {
-      layer(Operand{cur, L.ldh, width, take(width, width)}, none, width, pb, kRelu,
+      fwd_layer(Operand{cur, L.ldh, width, take(width, width)}, none, width, pb, kRelu,
             nxt, L.ldh, nullptr, 0, stage);
     }
     pb += width;
@@ -255,15 +174,15 @@ trunk_fwd_kernel(const float* __restrict__ emb, int emb_stride, int B,
   const float* bf = bha + ha;
   const float* bv = bf + width;
   const float* bhr = bv + half;
-  layer(Operand{cur, L.ldh, width, wha}, none, ha, bha, kGlobal, nullptr, 0,
+  fwd_layer(Operand{cur, L.ldh, width, wha}, none, ha, bha, kGlobal, nullptr, 0,
         h_alpha + row0 * ha, rows_valid, stage);
-  layer(Operand{cur, L.ldh, width, wf}, none, width, bf, kLinear, nxt, L.ldh, nullptr, 0,
+  fwd_layer(Operand{cur, L.ldh, width, wf}, none, width, bf, kLinear, nxt, L.ldh, nullptr, 0,
         stage);
   __syncthreads();
-  layer(Operand{nxt, L.ldh, width, wvf}, Operand{vs, L.ldv, v_pad, wvv}, half, bv, kRelu,
+  fwd_layer(Operand{nxt, L.ldh, width, wvf}, Operand{vs, L.ldv, v_pad, wvv}, half, bv, kRelu,
         cur, L.ldh, nullptr, 0, stage);
   __syncthreads();
-  layer(Operand{cur, L.ldh, half, whr}, none, hr, bhr, kGlobal, nullptr, 0,
+  fwd_layer(Operand{cur, L.ldh, half, whr}, none, hr, bhr, kGlobal, nullptr, 0,
         h_rgb + row0 * hr, rows_valid, stage);
 }
 

@@ -14,9 +14,9 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from cfnerf_torch.models.nerf_flows import TRUNK_IMPLS, NeRFFlows
+from cfnerf_torch.models.nerf_flows import FLOW_IMPLS, TRUNK_IMPLS, NeRFFlows
 from cfnerf_torch.ops.embed import get_embedder
-from cfnerf_torch.render.renderer import RenderConfig
+from cfnerf_torch.render.renderer import FUSED_MODES, RenderConfig
 from cfnerf_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -32,14 +32,22 @@ def _check_supported(args) -> None:
         )
     if getattr(args, "compute_dtype", "float32") != "float32":
         raise NotImplementedError(
-            "--compute_dtype bfloat16 comes with slice 4b (the bf16 nn.Linear "
-            "trunk, with the trunk backward kernels); the port runs the xla trunk "
-            "in float32, and --trunk_impl pallas runs the trunk kernel's bf16 "
+            "--compute_dtype bfloat16 (the nn.Linear trunk cast to bf16, held to "
+            "JAX's bf16 flax path) is not ported yet: it is an item of its own in "
+            "ROADMAP.md Queue 1, after slice 4; the port runs the xla trunk in "
+            "float32, and --trunk_impl pallas runs the trunk kernels' bf16 "
             "products"
         )
     trunk_impl = getattr(args, "trunk_impl", "xla")
     if trunk_impl not in TRUNK_IMPLS:
         raise ValueError(f"--trunk_impl must be one of {TRUNK_IMPLS}, got {trunk_impl!r}")
+    flow_impl = getattr(args, "flow_impl", "auto")
+    if flow_impl not in FLOW_IMPLS:
+        raise ValueError(f"--flow_impl must be one of {FLOW_IMPLS}, got {flow_impl!r}")
+    fused = getattr(args, "fused_render", "auto")
+    if fused not in ("auto",) + FUSED_MODES:
+        raise ValueError(f"--fused_render must be one of {('auto',) + FUSED_MODES}, "
+                         f"got {fused!r}")
 
 
 def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
@@ -72,8 +80,13 @@ def build_model(
     Returns (model, model_fine, render_config).  With --N_importance > 0,
     model_fine is the hierarchical fine network at --netdepth_fine /
     --netwidth_fine (cfnerf_tpu/models/factory.py:93-97), else None.
-    --trunk_impl (xla, pallas or interpret; default xla) goes to both nets,
-    as cfnerf_tpu/models/factory.py:89 passes it.
+    --trunk_impl (xla, pallas or interpret; default xla) and --flow_impl
+    (auto, xla, pallas or interpret; default auto, the flow-stack kernel) go
+    to both nets, as cfnerf_tpu/models/factory.py:88-89 passes them.
+    --fused_render (auto, on, off or interpret; default auto) becomes
+    RenderConfig.fused, auto resolving to 'on': the render core, the kernel
+    on the card, as JAX's factory resolves it to its kernel on a TPU.  An
+    unknown value of any of them raises.
     Weights come from init_params(seed=args.seed), the fine network's from
     seed + 1, as create_nerf seeds them.  The models live on the CUDA device
     unless device="cpu" is passed; with no CUDA device and no explicit
@@ -85,6 +98,7 @@ def build_model(
     if args.use_viewdirs:
         _, input_ch_views = get_embedder(args.multires_views, args.i_embed)
     seed = getattr(args, "seed", 0)
+    fused_render = getattr(args, "fused_render", "auto")
 
     def make(depth: int, width: int, seed: int) -> NeRFFlows:
         model = NeRFFlows(
@@ -100,6 +114,7 @@ def build_model(
             use_viewdirs=args.use_viewdirs,
             type_flows=args.type_flows,
             trunk_impl=getattr(args, "trunk_impl", "xla"),
+            flow_impl=getattr(args, "flow_impl", "auto"),
         )
         return init_params(model, seed).to(dev)
 
@@ -119,5 +134,6 @@ def build_model(
         multires=args.multires,
         multires_views=args.multires_views,
         i_embed=args.i_embed,
+        fused="on" if fused_render == "auto" else fused_render,
     )
     return model, model_fine, render_config

@@ -12,7 +12,11 @@ activation log-det corrections fold into the entropy term.
 
 The trunk runs as f32 nn.Linear layers (trunk_impl="xla", the default, as
 in the JAX package) or, with trunk_impl="pallas", through the trunk
-kernel's bf16 products (cfnerf_torch/ops/kernels/trunk.py; forward only).
+kernels' bf16 products (cfnerf_torch/ops/kernels/trunk.py), forward and
+backward.  The unfused forward's flow stacks run through the flow-stack
+kernel (flow_impl "auto" or "pallas") or its plain version ("xla" or
+"interpret"); the fused forward's render core through its kernel or, with
+interpret=True, its plain version.
 
 Test mode uses fixed eps buffers with the LAST of the K draws zeroed (the
 mean sample) and skips the log-dets.  A fresh model draws its buffers from
@@ -29,19 +33,20 @@ from torch import nn
 
 from cfnerf_torch.flows.amortized import AmortizedTriangularSylvester
 from cfnerf_torch.ops.compositing import softplus
-from cfnerf_torch.ops.kernels.flow_stack import fused_flow_stack
-from cfnerf_torch.ops.kernels.render_core import fused_flow_composite
-from cfnerf_torch.ops.kernels.trunk import (
-    MAX_WIDTH,
-    pack_trunk_weights,
-    trunk_encode,
-    trunk_encode_plain,
+from cfnerf_torch.ops.kernels.flow_stack import fused_flow_stack, fused_flow_stack_plain
+from cfnerf_torch.ops.kernels.render_core import (
+    fused_flow_composite,
+    fused_flow_composite_plain,
 )
+from cfnerf_torch.ops.kernels.trunk import MAX_WIDTH, pack_trunk_weights, trunk_encode
 from cfnerf_torch.ops.kernels.trunk import supported as trunk_supported
 
 Z_ALPHA = 1  # density latent dim
 Z_RGB = 3    # rgb latent dim
 TRUNK_IMPLS = ("xla", "pallas", "interpret")
+# the flow-stack kernel ("auto", "pallas") or its plain version ("xla",
+# "interpret"), as cfnerf_tpu's --flow_impl picks the Pallas kernel or XLA
+FLOW_IMPLS = ("auto", "xla", "pallas", "interpret")
 
 Eps = Tuple[torch.Tensor, torch.Tensor]
 
@@ -71,6 +76,7 @@ class NeRFFlows(nn.Module):
         type_flows: str = "triangular",
         test_eps_seed: int = 0,
         trunk_impl: str = "xla",
+        flow_impl: str = "auto",
     ):
         super().__init__()
         if type_flows != "triangular":
@@ -80,14 +86,17 @@ class NeRFFlows(nn.Module):
             )
         if trunk_impl not in TRUNK_IMPLS:
             raise ValueError(f"trunk_impl must be one of {TRUNK_IMPLS}, got {trunk_impl!r}")
+        if flow_impl not in FLOW_IMPLS:
+            raise ValueError(f"flow_impl must be one of {FLOW_IMPLS}, got {flow_impl!r}")
         if trunk_impl != "xla" and not trunk_supported(
                 net_depth, net_width, use_viewdirs, skips, h_alpha_size, h_rgb_size,
                 input_ch, input_ch_views):
             # never silently ignore an explicit implementation choice
             raise ValueError(
                 f"trunk_impl={trunk_impl!r} requires use_viewdirs, skips == "
-                f"(depth//2,), depth >= 3, width % 32 == 0 and <= {MAX_WIDTH}, and "
-                f"head widths % 16 == 0; got depth={net_depth}, width={net_width}, "
+                f"(depth//2,), 3 <= depth <= 32, width % 32 == 0 and <= {MAX_WIDTH}, "
+                f"and head widths % 16 == 0 and <= width; got depth={net_depth}, "
+                f"width={net_width}, "
                 f"skips={tuple(skips)}, use_viewdirs={use_viewdirs}, heads="
                 f"({h_alpha_size}, {h_rgb_size}). Use trunk_impl='xla' for this "
                 "configuration."
@@ -99,6 +108,7 @@ class NeRFFlows(nn.Module):
         self.use_viewdirs = use_viewdirs
         self.type_flows = type_flows
         self.trunk_impl = trunk_impl
+        self.flow_impl = flow_impl
 
         W = net_width
         layers, fan_in = [], input_ch
@@ -136,16 +146,16 @@ class NeRFFlows(nn.Module):
         Returns (h_alpha, h_rgb) in f32.
 
         trunk_impl "xla" runs the nn.Linear layers in f32; "pallas" the
-        trunk kernel (its plain version for CPU tensors) on bf16 products;
-        "interpret" the kernel's plain version on any device, as JAX's
-        interpret mode runs the Pallas kernel's arithmetic without the
-        kernel."""
+        trunk kernels (their plain versions for CPU tensors) on bf16
+        products; "interpret" the kernels' plain versions on any device, as
+        JAX's interpret mode runs the Pallas kernels' arithmetic without the
+        kernels.  Both differentiate as JAX's custom VJP does."""
         if self.trunk_impl != "xla":
             packed = pack_trunk_weights(self)
             lead = x.shape[:-1]
             x2 = x.reshape(-1, x.shape[-1])
-            fn = trunk_encode if self.trunk_impl == "pallas" else trunk_encode_plain
-            h_alpha, h_rgb = fn(packed, x2)
+            h_alpha, h_rgb = trunk_encode(packed, x2,
+                                          interpret=self.trunk_impl == "interpret")
             return h_alpha.reshape(*lead, -1), h_rgb.reshape(*lead, -1)
         input_pts = x[..., : self.input_ch]
         input_views = x[..., self.input_ch:]
@@ -214,7 +224,8 @@ class NeRFFlows(nn.Module):
         """Unfused forward (models.py:188-291): the path of hierarchical
         sampling and applied density noise, and the oracle of the fused path.
         Both flow stacks run through `fused_flow_stack` (the flow-stack
-        kernels on the card, as flow_impl="pallas" on the TPU).
+        kernels on the card, as flow_impl="pallas" on the TPU) or, with
+        flow_impl "xla" or "interpret", its plain version.
 
         Returns raw (B, K, 4): pre-sigmoid rgb then pre-softplus density,
         and the entropy loss (0 in test mode)."""
@@ -222,13 +233,15 @@ class NeRFFlows(nn.Module):
         B, K = h_alpha.shape[0], self.k_samples
         z0_a, z0_r = self._base_draws(*self._draw_eps(is_test, generator, eps))
         compute_ld = not is_test
+        stack = (fused_flow_stack if self.flow_impl in ("auto", "pallas")
+                 else fused_flow_stack_plain)
         # the shared draws go in expanded (the kernel reads them through a
         # zero point stride); the kernel reads the parameters contiguous, and
         # r2 is built from a transpose
-        z_alpha, ldj_alpha = fused_flow_stack(
+        z_alpha, ldj_alpha = stack(
             z0_a[None].expand(B, K, Z_ALPHA),
             *(t.contiguous() for t in self.flows_alpha(h_alpha)), compute_ld)
-        z_rgb, ldj_rgb = fused_flow_stack(
+        z_rgb, ldj_rgb = stack(
             z0_r[None].expand(B, K, Z_RGB),
             *(t.contiguous() for t in self.flows_rgb(h_rgb)), compute_ld)
         raw = torch.cat([z_rgb, z_alpha], -1)
@@ -251,10 +264,13 @@ class NeRFFlows(nn.Module):
         is_test: bool = False,
         generator: Optional[torch.Generator] = None,
         eps: Optional[Eps] = None,
+        interpret: bool = False,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         """Fused render forward: trunk + amortization here, then flows and
         the K-sample composite in the render core (the CUDA kernel on the
-        card), so the (B, K, 4) raw tensor never exists.
+        card; with interpret=True its plain version on any device, as
+        --fused_render interpret runs JAX's kernel in its interpreter), so
+        the (B, K, 4) raw tensor never exists.
 
         x: (B, input_ch [+ views]), B = R * s_per_ray, sample minor;
         z_pts (B,) sample depths; d_pts (B,) interval * |rays_d|.
@@ -266,8 +282,8 @@ class NeRFFlows(nn.Module):
         flat = [t.contiguous() for t in (
             z0_a, *self.flows_alpha(h_alpha), z0_r, *self.flows_rgb(h_rgb),
             z_pts, d_pts)]
-        rgb_map, depth, acc, ldj_ray = fused_flow_composite(
-            *flat, s_per_ray, not is_test)
+        core = fused_flow_composite_plain if interpret else fused_flow_composite
+        rgb_map, depth, acc, ldj_ray = core(*flat, s_per_ray, not is_test)
         if is_test:
             return rgb_map, depth, acc, torch.zeros((), dtype=acc.dtype, device=acc.device)
         # same normalisations as forward(): base terms mean over (K, Z),

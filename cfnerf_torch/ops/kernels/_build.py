@@ -21,7 +21,8 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 
-KERNELS = ("render_core", "render_core_bwd", "flow_stack", "flow_stack_bwd", "trunk")
+KERNELS = ("render_core", "render_core_bwd", "flow_stack", "flow_stack_bwd", "trunk",
+           "trunk_bwd")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,31 +1,40 @@
-"""The NeRF trunk forward (MLP + skip + heads) in bf16 products.
+"""The NeRF trunk (MLP + skip + heads) in bf16 products, forward and backward.
 
-Counterpart of cfnerf_tpu/ops/pallas/trunk.py:pallas_encode, forward only.
-On CUDA tensors `trunk_encode` launches the hand-written Hopper kernel
-(cfnerf_torch/csrc/trunk.cu) or raises; on CPU tensors it runs
+Counterpart of cfnerf_tpu/ops/pallas/trunk.py:pallas_encode and its custom
+VJP (_trunk_bwd).  On CUDA tensors `trunk_encode` launches the hand-written
+Hopper kernel (cfnerf_torch/csrc/trunk.cu) or raises; on CPU tensors it runs
 `trunk_encode_plain`, the same arithmetic in eager PyTorch, which is also
-the kernel's oracle on the card.  Its backward is not ported yet: either
-route raises where a gradient is required.
+the kernel's oracle on the card.  Where a gradient is needed either route
+goes through `_Trunk`, an autograd Function whose backward is the backward
+kernel (cfnerf_torch/csrc/trunk_bwd.cu) on the card and
+`trunk_encode_bwd_plain` on the CPU, so that both compute _trunk_bwd's
+arithmetic.
 
-The arithmetic is `_fwd_mlp`'s: inputs and every activation rounded to
-bf16, every product bf16 x bf16 summed in f32, the f32 bias added, then
+The forward arithmetic is `_fwd_mlp`'s: inputs and every activation rounded
+to bf16, every product bf16 x bf16 summed in f32, the f32 bias added, then
 relu (not on the feature layer and the heads), then the activation rounded
 to bf16; the skip layer and the views layer each sum two products
 (x Wsx + h Wsh, f Wvf + v Wvv) before the bias; h_alpha and h_rgb come out
-in f32.
+in f32.  The backward's is `_trunk_bwd`'s: both operands of every product
+rounded to bf16 (the cotangents too), f32 sums, the relu mask taken from
+the bf16 activation, bias gradients summed from the f32 gradient, and no
+gradient for the input (it is data).
 
 `pack_trunk_weights` turns a NeRFFlows' nn.Linear weights into the two flat
-buffers the kernel reads, once per call as pallas_encode packs (~4.7 MB at
-D8/W512).  Each matrix keeps nn.Linear's (out, in) layout, K-major, so that
-no transpose is needed and each tensor-core fragment's pair along k is one
-32-bit load; the odd input widths (63, 27) are zero-padded to the kernel's
-k-step of 16.
+f32 buffers the kernels read, once per call as pallas_encode packs (~9.4 MB
+at D8/W512).  Each matrix keeps nn.Linear's (out, in) layout, K-major, so
+that no transpose is needed and each tensor-core fragment's pair along k is
+one 32-bit load; the odd input widths (63, 27) are zero-padded to the
+kernel's k-step of 16.  The weights stay f32 up to the Function and are
+rounded to bf16 inside it, as _trunk_fwd_impl casts them inside the custom
+VJP: so the weight gradients reach the nn.Linear leaves in f32 (autograd
+would round a gradient to the dtype of the tensor it belongs to).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,10 +45,15 @@ from cfnerf_torch.ops.kernels.render_core import _on_device
 NAME = "trunk"
 SOURCE = "cfnerf_torch/csrc/trunk.cu"
 REPLACES = "cfnerf_tpu/ops/pallas/trunk.py:160"  # _fwd_kernel (with _fwd_mlp :132)
+NAME_BWD = "trunk_bwd"
+SOURCE_BWD = "cfnerf_torch/csrc/trunk_bwd.cu"
+# _bwd_top_kernel and _bwd_bottom_kernel, both launched by _trunk_bwd (:330)
+REPLACES_BWD = ("cfnerf_tpu/ops/pallas/trunk.py:170", "cfnerf_tpu/ops/pallas/trunk.py:229")
 
 K_STEP = 16  # the kernel's k-step: input widths are padded to it
-MAX_WIDTH = 512  # two (64, W) bf16 activation buffers in a block's shared memory
+MAX_WIDTH = 512  # three (64, W) bf16 activation buffers in a block's shared memory
 MAX_INPUT = 128  # x and v widths the kernel stages beside them
+MAX_DEPTH = 32  # the backward's weight-gradient job table
 
 Outputs = Tuple[torch.Tensor, torch.Tensor]
 
@@ -50,13 +64,16 @@ def _round(n: int) -> int:
 
 def supported(depth: int, width: int, use_viewdirs: bool, skips: Sequence[int],
               h_alpha: int, h_rgb: int, input_ch: int, views_ch: int) -> bool:
-    """The kernel's own rules: the viewdirs topology with one skip after
-    layer depth // 2, depth >= 3 (a skip + 1 layer exists), a width that
-    splits into 16-column tiles at W and W/2 and fits shared memory, head
-    widths in whole 16-column tiles, input widths it can stage."""
-    return (use_viewdirs and tuple(skips) == (depth // 2,) and depth >= 3
+    """The kernels' own rules: the viewdirs topology with one skip after
+    layer depth // 2, 3 <= depth <= MAX_DEPTH (a skip + 1 layer exists), a
+    width that splits into 16-column tiles at W and W/2 and fits shared
+    memory, head widths in whole 16-column tiles no wider than the trunk
+    (the backward stages their cotangents in an activation buffer), input
+    widths they can stage."""
+    return (use_viewdirs and tuple(skips) == (depth // 2,) and 3 <= depth <= MAX_DEPTH
             and width % 32 == 0 and 32 <= width <= MAX_WIDTH
-            and h_alpha % 16 == 0 and h_alpha >= 16 and h_rgb % 16 == 0 and h_rgb >= 16
+            and h_alpha % 16 == 0 and 16 <= h_alpha <= width
+            and h_rgb % 16 == 0 and 16 <= h_rgb <= width
             and 1 <= input_ch <= MAX_INPUT and 1 <= views_ch <= MAX_INPUT)
 
 
@@ -79,7 +96,7 @@ def _layout(depth, width, input_ch, views_ch, h_alpha, h_rgb):
 
 @dataclasses.dataclass(frozen=True)
 class TrunkWeights:
-    """The packed trunk: `w` the bf16 matrices, `b` the f32 biases, each one
+    """The packed trunk: `w` the f32 matrices, `b` the f32 biases, each one
     flat buffer in `_layout` order; the ints are the trunk's shape."""
 
     depth: int
@@ -96,12 +113,8 @@ class TrunkWeights:
                 self.h_rgb)
 
     def matrices(self) -> Dict[str, torch.Tensor]:
-        """Views of `w`: name -> (out, in_padded) bf16."""
-        out, at = {}, 0
-        for name, rows, cols in _layout(*self._shape())[0]:
-            out[name] = self.w[at:at + rows * cols].view(rows, cols)
-            at += rows * cols
-        return out
+        """Views of `w`: name -> (out, in_padded) f32."""
+        return _split_mats(self.w, self._shape())
 
     def biases(self) -> Dict[str, torch.Tensor]:
         """Views of `b`: name -> (size,) f32."""
@@ -112,14 +125,23 @@ class TrunkWeights:
         return out
 
 
+def _split_mats(flat: torch.Tensor, shape) -> Dict[str, torch.Tensor]:
+    out, at = {}, 0
+    for name, rows, cols in _layout(*shape)[0]:
+        out[name] = flat[at:at + rows * cols].view(rows, cols)
+        at += rows * cols
+    return out
+
+
 def pack_trunk_weights(model) -> TrunkWeights:
     """The trunk of a NeRFFlows (its pts_linears, feature_linear,
-    views_linear, h_alpha_linear, h_rgb_linear) as the kernel reads it.  The
+    views_linear, h_alpha_linear, h_rgb_linear) as the kernels read it.  The
     skip layer's weight splits into its x part (the first input_ch input
     columns, as the model concatenates [input_pts, h]) and its h part;
     views_linear's into its feature part (the first W columns) and its views
     part.  Made with differentiable ops, so the result requires grad where
-    the model's weights do and grad mode is on."""
+    the model's weights do and grad mode is on, and the gradients of the
+    packed buffers flow back through the splits and pads to the weights."""
     D, W = model.net_depth, model.net_width
     in_ch, v_ch = model.input_ch, model.input_ch_views
     in_pad, v_pad = _round(in_ch), _round(v_ch)
@@ -150,14 +172,21 @@ def pack_trunk_weights(model) -> TrunkWeights:
         if tuple(mats[name].shape) != (rows, cols):
             raise ValueError(f"trunk weight {name}: expected {(rows, cols)}, "
                              f"got {tuple(mats[name].shape)}")
-    w = torch.cat([mats[name].reshape(-1) for name, _, _ in mat_layout]).to(torch.bfloat16)
+    w = torch.cat([mats[name].reshape(-1) for name, _, _ in mat_layout]).float()
     b = torch.cat([biases[name].reshape(-1) for name, _ in bias_layout]).float()
     return TrunkWeights(*shape, w=w, b=b)
 
 
+def _bf(t: torch.Tensor) -> torch.Tensor:
+    """t's values rounded to bf16, held in f32: products of two such values
+    are exact in f32, so an f32 product of them is a bf16 x bf16 product
+    summed in f32."""
+    return t.bfloat16().float()
+
+
 def _dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B, k) x (out, k) -> (B, out): bf16 values, f32 products and sums."""
-    return a.bfloat16().float() @ w.float().t()
+    return _bf(a) @ _bf(w).t()
 
 
 def _check_x(packed: TrunkWeights, x: torch.Tensor) -> int:
@@ -167,77 +196,190 @@ def _check_x(packed: TrunkWeights, x: torch.Tensor) -> int:
     return x.shape[0]
 
 
+def _inputs(packed: TrunkWeights, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x split into its point and view columns, each zero-padded to the
+    k-step and rounded to bf16 (held in f32)."""
+    n = packed.input_ch
+    xb = F.pad(x[:, :n], (0, _round(n) - n))
+    vb = F.pad(x[:, n:], (0, _round(packed.views_ch) - packed.views_ch))
+    return _bf(xb), _bf(vb)
+
+
+def _forward(packed: TrunkWeights, x: torch.Tensor):
+    """The forward's trunk activations (bf16 values in f32): (xb, vb, hs,
+    f, hv) with hs the D post-relu layer outputs."""
+    m, b = packed.matrices(), packed.biases()
+    skip = packed.depth // 2
+    xb, vb = _inputs(packed, x)
+    hs = [_bf(torch.relu(_dot(xb, m["w0"]) + b["b0"]))]
+    for i in range(1, packed.depth):
+        if i == skip + 1:
+            z = _dot(xb, m["wsx"]) + _dot(hs[-1], m["wsh"]) + b[f"b{i}"]
+        else:
+            z = _dot(hs[-1], m[f"w{i}"]) + b[f"b{i}"]
+        hs.append(_bf(torch.relu(z)))
+    f = _bf(_dot(hs[-1], m["wf"]) + b["bf"])
+    hv = _bf(torch.relu(_dot(f, m["wvf"]) + _dot(vb, m["wvv"]) + b["bv"]))
+    return xb, vb, hs, f, hv
+
+
 def trunk_encode_plain(packed: TrunkWeights, x: torch.Tensor) -> Outputs:
     """The trunk forward in eager PyTorch, with the kernel's arithmetic.
     x (B, input_ch + views_ch) f32 -> (h_alpha (B, h_alpha), h_rgb (B,
-    h_rgb)) f32.  Differentiable through autograd."""
+    h_rgb)) f32.  Differentiable by autograd, but autograd rounds the weight
+    gradients to bf16 and takes its products in f32: `_Trunk` differentiates
+    it with `trunk_encode_bwd_plain` instead."""
     _check_x(packed, x)
     m, b = packed.matrices(), packed.biases()
-    skip = packed.depth // 2
-    xb = F.pad(x[:, :packed.input_ch], (0, _round(packed.input_ch) - packed.input_ch))
-    vb = F.pad(x[:, packed.input_ch:], (0, _round(packed.views_ch) - packed.views_ch))
-    xb, vb = xb.bfloat16(), vb.bfloat16()
-
-    h = torch.relu(_dot(xb, m["w0"]) + b["b0"]).bfloat16()
-    for i in range(1, packed.depth):
-        if i == skip + 1:
-            z = _dot(xb, m["wsx"]) + _dot(h, m["wsh"]) + b[f"b{i}"]
-        else:
-            z = _dot(h, m[f"w{i}"]) + b[f"b{i}"]
-        h = torch.relu(z).bfloat16()
-    h_alpha = _dot(h, m["wha"]) + b["bha"]
-    f = (_dot(h, m["wf"]) + b["bf"]).bfloat16()
-    hv = torch.relu(_dot(f, m["wvf"]) + _dot(vb, m["wvv"]) + b["bv"]).bfloat16()
-    h_rgb = _dot(hv, m["whr"]) + b["bhr"]
-    return h_alpha, h_rgb
+    _, _, hs, _, hv = _forward(packed, x)
+    return _dot(hs[-1], m["wha"]) + b["bha"], _dot(hv, m["whr"]) + b["bhr"]
 
 
-def trunk_encode(packed: TrunkWeights, x: torch.Tensor) -> Outputs:
-    """Trunk forward.  Arguments and outputs as in `trunk_encode_plain`.
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise; anything else raises.  Raises where a gradient is required."""
-    _check_x(packed, x)
-    args = (x, packed.w, packed.b)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        raise NotImplementedError(
-            "the trunk kernel has no backward yet: the trunk backward kernels come "
-            "with slice 4b; train with trunk_impl='xla', or run the forward under "
-            "torch.no_grad() / torch.inference_mode()"
-        )
-    kinds = {t.device.type for t in args}
-    if kinds == {"cpu"}:
-        return trunk_encode_plain(packed, x)
-    if kinds != {"cuda"}:
+def trunk_encode_bwd_plain(packed: TrunkWeights, x: torch.Tensor,
+                           g_h_alpha: Optional[torch.Tensor],
+                           g_h_rgb: Optional[torch.Tensor]) -> Outputs:
+    """The trunk backward in eager PyTorch, with _trunk_bwd's arithmetic
+    (cfnerf_tpu/ops/pallas/trunk.py:170-262): the forward recomputed, then
+    the heads and layers in reverse.  g_h_alpha (B, h_alpha), g_h_rgb (B,
+    h_rgb) f32, None for an unused head.  Returns (dw, db), f32, laid out as
+    `packed.w` and `packed.b`; x gets no gradient."""
+    B = _check_x(packed, x)
+    with torch.no_grad():
+        m, b = packed.matrices(), packed.biases()
+        skip = packed.depth // 2
+        xb, vb, hs, f, hv = _forward(packed, x)
+        g_ha = x.new_zeros(B, packed.h_alpha) if g_h_alpha is None else g_h_alpha.float()
+        g_hr = x.new_zeros(B, packed.h_rgb) if g_h_rgb is None else g_h_rgb.float()
+        dw: Dict[str, torch.Tensor] = {}
+        db: Dict[str, torch.Tensor] = {}
+
+        def outer(g, h):  # (B, out) x (B, in) -> (out, in): the weight gradient
+            return _bf(g).t() @ h
+
+        def back(g, w):  # (B, out) x (out, in) -> (B, in): the input gradient
+            return _bf(g) @ _bf(w)
+
+        db["bhr"], dw["whr"] = g_hr.sum(0), outer(g_hr, hv)
+        g_hv = back(g_hr, m["whr"]) * (hv > 0)
+        db["bv"], dw["wvf"], dw["wvv"] = g_hv.sum(0), outer(g_hv, f), outer(g_hv, vb)
+        g_f = back(g_hv, m["wvf"])
+        db["bf"], dw["wf"] = g_f.sum(0), outer(g_f, hs[-1])
+        db["bha"], dw["wha"] = g_ha.sum(0), outer(g_ha, hs[-1])
+        g = back(g_f, m["wf"]) + back(g_ha, m["wha"])
+        for i in range(packed.depth - 1, -1, -1):
+            g = g * (hs[i] > 0)
+            db[f"b{i}"] = g.sum(0)
+            if i == skip + 1:
+                dw["wsh"], dw["wsx"] = outer(g, hs[i - 1]), outer(g, xb)
+                g = back(g, m["wsh"])
+            elif i == 0:
+                dw["w0"] = outer(g, xb)
+            else:
+                dw[f"w{i}"] = outer(g, hs[i - 1])
+                g = back(g, m[f"w{i}"])
+        mats, biases = _layout(*packed._shape())
+        return (torch.cat([dw[name].reshape(-1) for name, _, _ in mats]),
+                torch.cat([db[name] for name, _ in biases]))
+
+
+def _devices(what: str, tensors) -> str:
+    """'cpu' or 'cuda' for tensors all on the CPU or all on CUDA; raises
+    otherwise."""
+    kinds = {t.device.type for t in tensors if t is not None}
+    if kinds not in ({"cpu"}, {"cuda"}):
         raise ValueError(
-            f"trunk: all inputs must be on one CUDA device or all on the CPU "
+            f"{what}: all inputs must be on one CUDA device or all on the CPU "
             f"(got {sorted(kinds)})"
         )
+    return kinds.pop()
+
+
+def trunk_encode(packed: TrunkWeights, x: torch.Tensor, *, interpret: bool = False) -> Outputs:
+    """Trunk forward.  Arguments and outputs as in `trunk_encode_plain`.
+    CPU tensors, and with interpret=True tensors on either device, take the
+    plain version; CUDA tensors launch the kernel or raise; anything else
+    raises.  Where a gradient is required the call goes through `_Trunk`,
+    whose backward is the backward kernel or, on the plain route,
+    `trunk_encode_bwd_plain`."""
+    _check_x(packed, x)
+    args = (x, packed.w, packed.b)
+    plain = _devices("trunk", args) == "cpu" or interpret
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _Trunk.apply(packed._shape(), plain, *args)
+    if plain:
+        return trunk_encode_plain(packed, x)
     return _launch(packed, x)
 
 
 trunk_encode.launches = 0  # kernel launches; the plain route never counts
 
 
-def _launch(packed: TrunkWeights, x: torch.Tensor) -> Outputs:
+def trunk_encode_bwd(packed: TrunkWeights, x: torch.Tensor,
+                     g_h_alpha: Optional[torch.Tensor],
+                     g_h_rgb: Optional[torch.Tensor]) -> Outputs:
+    """Trunk backward.  Arguments and gradients as in
+    `trunk_encode_bwd_plain`.  CPU tensors take the plain version; CUDA
+    tensors launch the backward kernels (or raise); anything else raises.
+    Training reaches the kernels through autograd (`_Trunk`); this entry
+    lets a caller hold them against the plain version."""
+    _check_x(packed, x)
+    if _devices("trunk backward", (x, packed.w, packed.b, g_h_alpha, g_h_rgb)) == "cpu":
+        return trunk_encode_bwd_plain(packed, x, g_h_alpha, g_h_rgb)
+    return _launch_bwd(packed, x, g_h_alpha, g_h_rgb)
+
+
+trunk_encode_bwd.launches = 0  # backward launches (one entry call, its three kernels)
+
+
+class _Trunk(torch.autograd.Function):
+    """The trunk with a gradient: forward and backward kernels on the card,
+    or (`plain`) the plain versions.  Takes the f32 packed weights, so that
+    the weight gradients it returns stay f32; x gets none."""
+
+    @staticmethod
+    def forward(ctx, shape, plain, x, w, b):
+        ctx.save_for_backward(x, w, b)
+        ctx.shape, ctx.plain = shape, plain
+        ctx.set_materialize_grads(False)  # an unused head's cotangent arrives as None
+        packed = TrunkWeights(*shape, w=w, b=b)
+        return trunk_encode_plain(packed, x) if plain else _launch(packed, x)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_h_alpha, g_h_rgb):
+        x, w, b = ctx.saved_tensors
+        packed = TrunkWeights(*ctx.shape, w=w, b=b)
+        bwd = trunk_encode_bwd_plain if ctx.plain else _launch_bwd
+        dw, db = bwd(packed, x, g_h_alpha, g_h_rgb)
+        return None, None, None, dw, db
+
+
+def _kernel_args(packed: TrunkWeights, x: torch.Tensor, what: str):
+    """Checks what the kernels take; returns (B, the bf16 weights, x's row
+    stride)."""
     B = _check_x(packed, x)
     dev = x.device
-    for name, t, dtype in (("x", x, torch.float32), ("w", packed.w, torch.bfloat16),
-                           ("b", packed.b, torch.float32)):
-        if t.device != dev or t.dtype != dtype:
-            raise ValueError(f"trunk kernel: {name} must be {dtype} on {dev}, "
+    for name, t in (("x", x), ("w", packed.w), ("b", packed.b)):
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(f"{what}: {name} must be float32 on {dev}, "
                              f"got {t.dtype} on {t.device}")
     if not (packed.w.is_contiguous() and packed.b.is_contiguous() and x.stride(1) == 1):
-        raise ValueError("trunk kernel takes contiguous weights and x with contiguous "
+        raise ValueError(f"{what} takes contiguous weights and x with contiguous "
                          f"rows (got x strides {x.stride()})")
     if not supported(packed.depth, packed.width, True, (packed.depth // 2,), packed.h_alpha,
                      packed.h_rgb, packed.input_ch, packed.views_ch):
-        raise ValueError(f"trunk kernel: unsupported shape {packed._shape()}")
+        raise ValueError(f"{what}: unsupported shape {packed._shape()}")
+    row_stride = x.stride(0) if B > 1 else x.shape[1]  # a single row's stride is arbitrary
+    return B, packed.w.to(torch.bfloat16), row_stride
+
+
+def _launch(packed: TrunkWeights, x: torch.Tensor) -> Outputs:
+    B, w16, row_stride = _kernel_args(packed, x, "trunk kernel")
     fn = _entry()
     h_alpha = x.new_empty((B, packed.h_alpha))
     h_rgb = x.new_empty((B, packed.h_rgb))
-    row_stride = x.stride(0) if B > 1 else x.shape[1]  # a single row's stride is arbitrary
-    with _on_device(dev) as stream:
-        err = fn(x.data_ptr(), row_stride, packed.w.data_ptr(), packed.b.data_ptr(),
+    with _on_device(x.device) as stream:
+        err = fn(x.data_ptr(), row_stride, w16.data_ptr(), packed.b.data_ptr(),
                  h_alpha.data_ptr(), h_rgb.data_ptr(), B, *packed._shape(), stream)
     if err != 0:
         raise RuntimeError(
@@ -245,6 +387,34 @@ def _launch(packed: TrunkWeights, x: torch.Tensor) -> Outputs:
         )
     trunk_encode.launches += 1
     return h_alpha, h_rgb
+
+
+def _launch_bwd(packed: TrunkWeights, x: torch.Tensor, g_h_alpha: Optional[torch.Tensor],
+                g_h_rgb: Optional[torch.Tensor]) -> Outputs:
+    B, w16, row_stride = _kernel_args(packed, x, "trunk backward kernel")
+    cots = []
+    for name, g, cols in (("h_alpha", g_h_alpha, packed.h_alpha),
+                          ("h_rgb", g_h_rgb, packed.h_rgb)):
+        if g is None:
+            g = x.new_zeros((B, cols))
+        elif tuple(g.shape) != (B, cols) or g.dtype != torch.float32 or g.device != x.device:
+            raise ValueError(f"cotangent of {name}: expected float32 {(B, cols)} on "
+                             f"{x.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
+        cots.append(g.contiguous())  # autograd may hand over expanded views
+    fn, workspace_bytes = _entry_bwd()
+    workspace = x.new_empty((workspace_bytes(B, *packed._shape()),), dtype=torch.uint8)
+    dw = torch.empty_like(packed.w)
+    db = torch.empty_like(packed.b)
+    with _on_device(x.device) as stream:
+        err = fn(x.data_ptr(), row_stride, w16.data_ptr(), packed.b.data_ptr(),
+                 cots[0].data_ptr(), cots[1].data_ptr(), dw.data_ptr(), db.data_ptr(),
+                 workspace.data_ptr(), workspace.numel(), B, *packed._shape(), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"trunk_bwd launch failed: CUDA error {err} (B={B}, shape {packed._shape()})"
+        )
+    trunk_encode_bwd.launches += 1
+    return dw, db
 
 
 def _entry():
@@ -256,3 +426,21 @@ def _entry():
                        + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _entry_bwd():
+    """The ctypes entries of the backward: trunk_bwd (emb, its row stride,
+    w, b, g_h_alpha, g_h_rgb, dw, db, the workspace and its bytes, then B,
+    depth, width, input_ch, views_ch, h_alpha, h_rgb and the stream) and
+    trunk_bwd_workspace (B and the six shape ints -> the bytes of scratch
+    trunk_bwd needs)."""
+    lib = _build.load(NAME_BWD)
+    fn, size = lib.trunk_bwd, lib.trunk_bwd_workspace
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
+                       + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    if size.argtypes is None:
+        size.argtypes = [ctypes.c_int] * 7
+        size.restype = ctypes.c_longlong
+    return fn, size

@@ -4,12 +4,14 @@ run_nerf_uncertainty_NF.py:457-553, and render_path's single-pose render).
 
 The fused path sends flows + composite through the render core
 (cfnerf_torch/ops/kernels/render_core.py): the CUDA kernel on the card, its
-plain version on the CPU.  There is no shape gate: every ray batch without a
-fine pass or applied noise takes it.  The unfused path (model forward, its
-flow stacks in the flow-stack kernels, then raw2outputs) returns per-sample
-weights; it serves hierarchical sampling (coarse + fine pass, nerf-pytorch
-semantics) and applied density noise, and is the fused path's oracle.  The
-reference's never-applied raw noise is kept (apply_noise=False).
+plain version on the CPU, or with RenderConfig.fused == "interpret" its plain
+version on either.  There is no shape gate: every ray batch without a fine
+pass or applied noise takes it, unless RenderConfig.fused is "off".  The
+unfused path (model forward, its flow stacks in the flow-stack kernels, then
+raw2outputs) returns per-sample weights; it serves hierarchical sampling
+(coarse + fine pass, nerf-pytorch semantics) and applied density noise, and
+is the fused path's oracle.  The reference's never-applied raw noise is kept
+(apply_noise=False).
 """
 from __future__ import annotations
 
@@ -25,10 +27,17 @@ from cfnerf_torch.ops.sampling import sample_pdf, sample_z_vals, stratified_pert
 from cfnerf_torch.utils.device import DeviceLike, resolve_device
 
 
+FUSED_MODES = ("on", "off", "interpret")
+
+
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Static rendering configuration.  Unlike the JAX package there is no
-    `fused` field: the tensors' device decides between kernel and plain."""
+    """Static rendering configuration.  `fused` is the render-core choice of
+    cfnerf_tpu's RenderConfig ('on' | 'off' | 'interpret'; the factory
+    resolves --fused_render auto to 'on'): 'on' takes the render core, whose
+    tensors' device decides between kernel and plain version; 'off' the
+    unfused path; 'interpret' the render core's plain version on any
+    device."""
 
     n_samples: int = 128
     n_importance: int = 0
@@ -42,6 +51,7 @@ class RenderConfig:
     multires: int = 10
     multires_views: int = 4
     i_embed: int = 0
+    fused: str = "on"
 
     def embedders(self) -> Tuple[Embedder, Optional[Embedder]]:
         if self.i_embed == -1:
@@ -60,8 +70,7 @@ class RenderConfig:
 RenderRays = Callable[..., Dict[str, torch.Tensor]]
 
 
-def make_render_rays(model, config: RenderConfig, fused: bool = True,
-                     model_fine=None) -> RenderRays:
+def make_render_rays(model, config: RenderConfig, model_fine=None) -> RenderRays:
     """Build the per-batch renderer around a NeRFFlows `model`.
 
     render_rays(rays_o (R,3), rays_d (R,3), viewdirs (R,3) or None,
@@ -70,9 +79,9 @@ def make_render_rays(model, config: RenderConfig, fused: bool = True,
     z schedule -> stratified jitter (training, with a generator) ->
     positional encoding -> model -> composite.  `z_vals` (R, S) replaces the
     schedule and its jitter, as in the JAX renderer; `eps` (eps_a (K,1),
-    eps_r (K,3)) replaces the model's base draws.  `fused=True` is the
-    serving and training path (render core); `fused=False` runs the unfused
-    oracle.
+    eps_r (K,3)) replaces the model's base draws.  config.fused picks the
+    render core ('on', the serving and training path, or 'interpret') or
+    the unfused oracle ('off').
 
     With config.n_importance > 0 the render is hierarchical
     (cfnerf_tpu/render/renderer.py:221-278): the coarse pass, then
@@ -88,9 +97,12 @@ def make_render_rays(model, config: RenderConfig, fused: bool = True,
     uniforms of a perturbed train-mode resample, `noise` the density noise,
     one (R, S_pass, K) tensor per pass in order.  Without them every draw
     comes from `generator`, one after another."""
+    if config.fused not in FUSED_MODES:
+        raise ValueError(f"RenderConfig.fused must be one of {FUSED_MODES}, "
+                         f"got {config.fused!r}")
     embedder, embedder_dirs = config.embedders()
     noisy = config.apply_noise and config.raw_noise_std > 0
-    unfused = not fused or config.n_importance > 0 or noisy
+    unfused = config.fused == "off" or config.n_importance > 0 or noisy
 
     def _embed(z_vals, rays_o, rays_d, viewdirs):
         R, S = z_vals.shape
@@ -147,6 +159,7 @@ def make_render_rays(model, config: RenderConfig, fused: bool = True,
             rgb_map, depth_map, acc_map, loss_entropy = model.forward_composited(
                 _embed(z_vals, rays_o, rays_d, viewdirs), z_vals.reshape(-1),
                 d_pts.reshape(-1), S, is_test=is_test, generator=generator, eps=eps,
+                interpret=config.fused == "interpret",
             )
             rgb_map, disp_map = finalize_k_maps(
                 rgb_map, depth_map, acc_map, config.white_bkgd

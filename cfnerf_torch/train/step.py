@@ -10,6 +10,9 @@ lr = lrate * 0.1^(step / (lrate_decay*1000)) (:1072-1077)).
     N_importance > 0, the hierarchical coarse + fine render, whose flow
     stacks run through the flow-stack kernels; its coarse loss is added as
     in cfnerf_tpu/train/step.py:290-304;
+  * a trunk_impl="pallas" net's trunk runs through the trunk kernels, its
+    backward kernel through autograd, as the JAX step differentiates
+    pallas_encode's custom VJP;
   * Adam (0.9, 0.999, eps 1e-8) with the JAX step's schedule, offset by
     `start_step` (cfnerf_tpu/train/step.py:92-105);
   * `remat` recomputes the train-mode model forward in the backward
@@ -85,13 +88,13 @@ class _Remat:
         return checkpoint(self.model, x, is_test=False, eps=eps, use_reentrant=False)
 
     def forward_composited(self, x, z_pts, d_pts, s_per_ray, *, is_test,
-                           generator=None, eps=None):
+                           generator=None, eps=None, interpret=False):
         if is_test:
             return self.model.forward_composited(x, z_pts, d_pts, s_per_ray,
-                                                 is_test=True, eps=eps)
+                                                 is_test=True, eps=eps, interpret=interpret)
         eps = self.model._draw_eps(False, generator, eps)
         return checkpoint(self.model.forward_composited, x, z_pts, d_pts, s_per_ray,
-                          is_test=False, eps=eps, use_reentrant=False)
+                          is_test=False, eps=eps, use_reentrant=False, interpret=interpret)
 
 
 def make_train_step(
@@ -135,12 +138,6 @@ def make_train_step(
         raise ValueError(f"loss_mode must be 'kde' or 'mse', got {cfg.loss_mode!r}")
 
     nets = [model] if model_fine is None else [model, model_fine]
-    for net in nets:
-        if net.trunk_impl != "xla":
-            raise NotImplementedError(
-                f"training with trunk_impl={net.trunk_impl!r}: the trunk backward "
-                "kernels come with slice 4b; train with trunk_impl='xla'"
-            )
     optimizer, scheduler = make_optimizer(
         [p for net in nets for p in net.parameters()], cfg)
     wrap = _Remat if cfg.remat else (lambda net: net)

@@ -21,11 +21,15 @@ final line):
                    its backward at the hierarchical training passes; the
                    trunk forward (bf16 tensor cores) at the flat serving
                    tile, the hierarchical fine and coarse passes, D4/W256, a
-                   ragged B and strided rows
+                   ragged B and strided rows; the trunk backward at the
+                   three training shapes, D4/W256, a ragged B, strided rows
+                   and exact (dyadic) arithmetic, bitwise deterministic
   4. kernel_time   each kernel's ms, plain ms, bytes, operations and bound
                    (train-tile launches rotate over inputs larger than L2);
-                   the trunk's also beside two yardsticks, the f32 nn.Linear
-                   encode and its layer chain in bf16 through torch.matmul
+                   the trunk forward's also beside two yardsticks, the f32
+                   nn.Linear encode and its layer chain in bf16 through
+                   torch.matmul; the trunk backward's beside autograd of
+                   that bf16 chain
   5. serve         the flagship model (D8 W512 N128 K32 F4, random weights from
                    a seed) renders a 400x400 view in 8192-ray tiles through
                    build_model -> make_render_rays -> render_image; launch
@@ -56,7 +60,16 @@ final line):
                    the f32 trunk, reported), one timed render, a profiled tile
  13. trunk_golden  the card's trunk kernel against JAX's pallas_encode on a
                    D4/W256 trunk (tests/fixtures)
- 14. kernels       per-kernel launches, error, time, plain time and bound
+ 14. trunk_train   flagship training steps with trunk_impl="pallas" nets,
+     trunk_hier_train  flat and hierarchical: launch counts (trunk forward
+                   and backward kernels beside the render-core or flow-stack
+                   ones), finite metrics, every parameter moves, the loss
+                   falls on a fixed batch, step time, rays/s, peak memory, a
+                   profiled step, one step's gradients against the same
+                   step through trunk_impl="interpret"
+ 15. trunk_grad_golden  the card's trunk backward kernels against JAX's
+                   _trunk_bwd gradients on the D4/W256 trunk (tests/fixtures)
+ 16. kernels       per-kernel launches, error, time, plain time and bound
 
 then the `nvidia-smi` name/power line and, last, the `ok` line.
 """
@@ -156,6 +169,8 @@ N_RAND = 512
 TRAIN_CFG = dict(lrate=5e-4, lrate_decay=250, beta1=0.01, colmap_depth=True,
                  depth_lambda=0.01)
 TRAIN_STEPS, FIXED_STEPS = 10, 10
+FLAT_METRICS = ("loss", "loss_nll", "loss_entropy", "depth_loss", "mse", "psnr")
+HIER_METRICS = FLAT_METRICS + ("loss_nll0",)
 
 # hierarchical sampling at the flagship widths: nerf-pytorch's published
 # Blender setting (configs/lego.txt upstream: N_samples 64, N_importance
@@ -191,7 +206,31 @@ HIER_MAPS = ("rgb_map", "depth_map", "acc_map", "rgb0", "depth0")
 TRUNK_RTOL, TRUNK_ATOL = 1e-2, 1e-3
 TRUNK_MAP_RTOL = TRUNK_MAP_ATOL = 1e-3
 TRUNK_GOLDEN = ROOT / "tests" / "fixtures" / "torch_port_trunk_golden.npz"
+TRUNK_GRAD_GOLDEN = ROOT / "tests" / "fixtures" / "torch_port_trunk_grad_golden.npz"
 SERVE_FLAT_PTS = TILE * FLAGSHIP["N_samples"]  # points of one flagship serving tile
+# the trunk backward kernels vs their plain version, per gradient leaf (a
+# weight matrix or a bias), as tests/test_pallas_trunk.py judges JAX's
+# kernel: relative RMS error and cosine.  Both sides round the same f32 sums
+# to bf16, taken in another order, so an activation or a gradient now and
+# then lands on the neighbouring bf16 value (2^-8 relative) and a relu input
+# within one rounding of 0 takes the other branch; through D8's layers that
+# compounds: measured on the card up to 1.09e-2 / 0.99994 (D8/W512, randn
+# cotangents; 1.3e-3 at D4/W256), so 2e-2 / 0.9998.  The JAX golden
+# (D4/W256) sums in XLA's order on the CPU: the same gate.  With dyadic
+# weights, inputs and cotangents every sum before a bf16 rounding or a
+# relu is exact, so only the order of the final f32 sums over the rows
+# differs: measured 1.03e-5 for w0 (4099 rows, values up to ~3e3), so
+# 1e-4 / 0.999999, a hundred times below the randn cases' spread.
+TRUNK_BWD_REL_RMS, TRUNK_BWD_MIN_COS = 2e-2, 0.9998
+TRUNK_EXACT_REL_RMS, TRUNK_EXACT_MIN_COS = 1e-4, 0.999999
+# one training step's gradients through trunk_impl="pallas" vs
+# trunk_impl="interpret" on the card (same weights, batch and draws): the
+# two forwards differ as above, the loss's gradient at the trunk differs by
+# that, and each bf16 rounding on the way down turns such a difference
+# into whole bf16 steps.  Measured on the card 5.0e-3 flat and 8.0e-3
+# hierarchically (worst leaf, relative RMS), so 2.5e-2 / 0.9995
+TRUNK_STEP_REL_RMS, TRUNK_STEP_MIN_COS = 2.5e-2, 0.9995
+TRAIN_FLAT_PTS = (N_RAND + N_DEPTH) * FLAGSHIP["N_samples"]  # points of a training step
 
 
 def emit(phase: str, **fields) -> None:
@@ -747,7 +786,7 @@ def trunk_inputs(B, seed, width=90):
 def trunk_bf16_matmul(packed, x):
     """Yardstick, not used by the port: the kernel's layer chain in bf16
     through torch.matmul (cuBLAS, bf16 in and out, f32 sums inside)."""
-    m = packed.matrices()
+    m = {k: v.bfloat16() for k, v in packed.matrices().items()}
     b = {k: v.bfloat16() for k, v in packed.biases().items()}
     in_ch, skip = packed.input_ch, packed.depth // 2
     xb = torch.nn.functional.pad(x[:, :in_ch], (0, m["w0"].shape[1] - in_ch)).bfloat16()
@@ -856,6 +895,186 @@ def phase_trunk_time(flat_err):
     return stats
 
 
+def trunk_bwd_work(B, depth, width, in_ch, v_ch, ha, hr):
+    """(bytes, operations) of the trunk backward at true widths: the f32
+    embedding and the two heads' f32 cotangents read once, the bf16 weights
+    and f32 biases read once, dW and db written once in f32; two operations
+    per multiply-add of the weight gradient of every matrix (the forward's
+    multiply-adds) and of the gradient through every layer but the x and
+    view inputs (they are data).  The recompute of the forward is the
+    kernel's own cost, not counted."""
+    _, fwd_ops = trunk_work(B, depth, width, in_ch, v_ch, ha, hr)
+    half = width // 2
+    wgrad = fwd_ops // (2 * B)
+    dgrad = wgrad - 2 * in_ch * width - v_ch * half
+    biases = depth * width + width + ha + half + hr
+    nbytes = (4 * B * (in_ch + v_ch + ha + hr) + 2 * wgrad + 4 * biases
+              + 4 * wgrad + 4 * biases)
+    return nbytes, 2 * (wgrad + dgrad) * B
+
+
+def trunk_cotangents(B, seed, ha=64, hr=64):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(B, ha, generator=g, device="cuda"),
+            torch.randn(B, hr, generator=g, device="cuda"))
+
+
+def trunk_leaves(packed, dw, db):
+    """name -> tensor: the packed gradient buffers cut into their weight
+    matrices and biases."""
+    out = dict(trunk._split_mats(dw, packed._shape()))
+    at = 0
+    for name, size in trunk._layout(*packed._shape())[1]:
+        out[name] = db[at:at + size]
+        at += size
+    return out
+
+
+def leaf_errors(out, ref):
+    """name -> {rel_rms, cos, max_abs} for two dicts of same-named tensors."""
+    errs = {}
+    for name, b in ref.items():
+        a = out[name].double()
+        b = b.double()
+        d = a - b
+        norm = float(b.norm())
+        errs[name] = {"rel_rms": float(d.norm()) / max(norm, 1e-30),
+                      "cos": float((a * b).sum()) / max(float(a.norm()) * norm, 1e-30),
+                      "max_abs": float(d.abs().max()) if d.numel() else 0.0}
+    return errs
+
+
+def gate_leaves(errs, rel_rms, min_cos, what):
+    """Raises if a leaf is not finite or past (rel_rms, min_cos); a leaf
+    that is zero on both sides (the density flow's amor_d) passes and is
+    left out of the worst values returned."""
+    zero = {n for n, e in errs.items() if e["max_abs"] == e["cos"] == 0.0}
+    bad = [n for n, e in errs.items()
+           if not (math.isfinite(e["rel_rms"]) and e["rel_rms"] <= rel_rms
+                   and (e["cos"] >= min_cos or n in zero))]
+    check(not bad, f"{what}: {bad} past rel RMS {rel_rms} / cos {min_cos} "
+                   f"({ {n: errs[n] for n in bad} })")
+    rest = [e for n, e in errs.items() if n not in zero]
+    return {"worst_rel_rms": max(e["rel_rms"] for e in rest),
+            "min_cos": min(e["cos"] for e in rest),
+            "max_abs": max(e["max_abs"] for e in rest), "zero_on_both_sides": sorted(zero)}
+
+
+def dyadic_trunk(model, x_shape, seed):
+    """The model's linear layers, x and the cotangents set to small dyadic
+    values (weights k/16, |k| <= 2; x k/2; cotangents k/4): every sum before
+    a bf16 rounding or a relu is exact in f32, in any order."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def dyadic(shape, k, den):
+        return torch.randint(-k, k + 1, shape, generator=g, device="cuda").float() / den
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Linear):
+                m.weight.copy_(dyadic(m.weight.shape, 2, 16))
+                m.bias.copy_(dyadic(m.bias.shape, 2, 16))
+    B = x_shape[0]
+    return dyadic(x_shape, 2, 2), dyadic((B, 64), 4, 4), dyadic((B, 64), 4, 4)
+
+
+def phase_trunk_bwd_checks():
+    """The trunk backward kernels against their plain version at the
+    training paths' shapes (flat step, hierarchical fine and coarse passes),
+    D4/W256, a ragged B, strided rows, and on dyadic values; two launches
+    give the same bits.  Returns the flat step's max abs error."""
+    cases = [  # (B, depth, width, x row stride, dyadic, label)
+        (TRAIN_FLAT_PTS, 8, 512, 90, False, "flat training step"),
+        (TRAIN_FINE_PTS, 8, 512, 90, False, "hierarchical training fine pass"),
+        (TRAIN_COARSE_PTS, 8, 512, 90, False, "hierarchical training coarse pass"),
+        (65536, 4, 256, 90, False, "D4/W256"),
+        (1000, 8, 512, 90, False, "ragged B=1000"),
+        (4099, 8, 512, 96, False, "ragged B=4099, row stride 96"),
+        (4099, 8, 512, 90, True, "dyadic values, exact sums"),
+    ]
+    flat_err = None
+    for i, (B, depth, width, stride, dyadic, label) in enumerate(cases):
+        model = build_model(trunk_args(depth, width))[0]
+        x = trunk_inputs(B, seed=1200 + i, width=stride)
+        g_ha, g_hr = trunk_cotangents(B, seed=1300 + i)
+        if dyadic:
+            x, g_ha, g_hr = dyadic_trunk(model, (B, 90), seed=1400 + i)
+        with torch.no_grad():
+            packed = pack_trunk_weights(model)
+            out = trunk.trunk_encode_bwd(packed, x, g_ha, g_hr)
+            again = trunk.trunk_encode_bwd(packed, x, g_ha, g_hr)
+            ref = trunk.trunk_encode_bwd_plain(packed, x, g_ha, g_hr)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(out, again)),
+              f"trunk backward is deterministic run to run ({label})")
+        rel, cos = ((TRUNK_EXACT_REL_RMS, TRUNK_EXACT_MIN_COS) if dyadic
+                    else (TRUNK_BWD_REL_RMS, TRUNK_BWD_MIN_COS))
+        errs = leaf_errors(trunk_leaves(packed, *out), trunk_leaves(packed, *ref))
+        worst = gate_leaves(errs, rel, cos, f"trunk_bwd vs plain ({label})")
+        emit("kernel", kernel="trunk_bwd", case=label, B=B, depth=depth, width=width,
+             x_row_stride=stride, errors=worst,
+             tolerance={"rel_rms": rel, "min_cos": cos, "per": "weight or bias leaf"})
+        if i == 0:
+            flat_err = worst["max_abs"]
+        del x, out, again, ref, model
+        torch.cuda.empty_cache()
+    return flat_err
+
+
+def trunk_bf16_matmul_bwd(packed):
+    """Yardstick, not used by the port: autograd of trunk_bf16_matmul with
+    bf16 leaves.  Returns fn(x, g_ha, g_hr) -> the weight and bias
+    gradients after one forward."""
+    w16 = packed.w.detach().bfloat16().requires_grad_()
+    b32 = packed.b.detach().requires_grad_()
+    leaf = dataclasses.replace(packed, w=w16, b=b32)
+
+    def fn(x, g_ha, g_hr):
+        with torch.enable_grad():
+            outs = trunk_bf16_matmul(leaf, x)
+            return torch.autograd.grad(outs, [w16, b32], [g_ha, g_hr])
+    return fn
+
+
+def phase_trunk_bwd_time(flat_err):
+    """The backward at each training shape, CUDA-event timed after a
+    warm-up, launches rotating over three input sets, beside its bound at
+    the bf16 peak, the plain version and autograd of the bf16 torch.matmul
+    chain (forward and backward: autograd has no backward alone).  Returns
+    the stats of the kernels line (the flat step)."""
+    model = build_model(trunk_args())[0]
+    D, Wd = model.net_depth, model.net_width
+    shape = (D, Wd, model.input_ch, model.input_ch_views, FLAGSHIP["h_alpha_size"],
+             FLAGSHIP["h_rgb_size"])
+    with torch.no_grad():
+        packed = pack_trunk_weights(model)
+    yard = trunk_bf16_matmul_bwd(packed)
+    stats = None
+    for i, (label, B) in enumerate((("flat training step", TRAIN_FLAT_PTS),
+                                    ("hierarchical training fine pass", TRAIN_FINE_PTS),
+                                    ("hierarchical training coarse pass", TRAIN_COARSE_PTS))):
+        sets = [(trunk_inputs(B, seed=1500 + 7 * i + j), *trunk_cotangents(B, 1600 + 7 * i + j))
+                for j in range(3)]
+        with torch.no_grad():
+            ms = cuda_ms(lambda x, a, b: trunk.trunk_encode_bwd(packed, x, a, b), 10, sets)
+            plain_ms = cuda_ms(lambda x, a, b: trunk.trunk_encode_bwd_plain(packed, x, a, b),
+                               3, sets)
+        yard_ms = cuda_ms(yard, 3, sets)
+        nbytes, ops = trunk_bwd_work(B, *shape)
+        b_ms, b_by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
+        emit("kernel_time", kernel="trunk_bwd", launch=label, B=B, depth=D, width=Wd, ms=ms,
+             plain_ms=plain_ms, bf16_matmul_autograd_ms=yard_ms, bound_ms=b_ms, bound_by=b_by,
+             bytes=nbytes, ops=ops, achieved_tflop_per_s=ops / ms / 1e9,
+             input_sets_rotated=len(sets))
+        if i == 0:
+            stats = dict(max_abs_err=flat_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, bf16_matmul_autograd_ms=yard_ms,
+                         shape=f"B={B} D{D} W{Wd}, the flat training step")
+        del sets
+        torch.cuda.empty_cache()
+    return stats
+
+
 # ---------------------------------------------------------------------- #
 # serving
 # ---------------------------------------------------------------------- #
@@ -918,7 +1137,7 @@ def phase_serve():
     rays_o, rays_d, vd, nv, fv = view_rays(c2w)
     pick = torch.randperm(H * W, generator=torch.Generator().manual_seed(1))[:1024].cuda()
     sub = [t[pick] for t in (rays_o, rays_d, vd, nv, fv)]
-    unfused_rays = make_render_rays(model, rc, fused=False)
+    unfused_rays = make_render_rays(model, dataclasses.replace(rc, fused="off"))
     with torch.inference_mode():
         a = render_rays(*sub, None, is_test=True)
         flow_stack.fused_flow_stack.launches = 0
@@ -991,7 +1210,7 @@ def profile_device(fn):
     def group(name):
         low = name.lower()
         for kernel in ("render_core_bwd", "render_core_fwd", "flow_stack_bwd",
-                       "flow_stack_fwd", "trunk_fwd"):
+                       "flow_stack_fwd", "trunk_fwd", "trunk_bwd"):
             if kernel in low:
                 return kernel
         if any(k in low for k in ("gemm", "xmma", "cutlass", "sm90")):
@@ -1088,24 +1307,36 @@ def flagship_batches():
     return next_batch
 
 
-def phase_train():
-    args = types.SimpleNamespace(**FLAGSHIP)
-    model, _, rc = build_model(args)  # the default device: the card
-    model.train()
-    K = args.K_samples
-    cfg = TrainConfig(H=H, W=W, focal=FOCAL, ndc=False, near=NEAR, far=FAR,
-                      k_samples=K, **TRAIN_CFG)
-    train_step, _ = make_train_step(model, rc, cfg)
-    next_batch = flagship_batches()
+def train_run(config, label, counters, want_per_step, metric_keys, trunk_impl="xla"):
+    """Training steps of `config`'s nets (the flagship model, or with
+    N_importance the hierarchical pair) on flagship batches of the
+    synthetic scene: 1 warm-up, then TRAIN_STEPS timed steps, the main path,
+    counted (each counter in `counters` reset just before and held to
+    want_per_step * TRAIN_STEPS just after); finite metrics with the keys
+    `metric_keys`; every parameter with a gradient moves; the loss falls
+    over FIXED_STEPS steps on a fixed batch; a profiled step.  With
+    trunk_impl="pallas", also one step's gradients against the same step
+    through trunk_impl="interpret" nets.  Returns the counts."""
+    def nets(impl):
+        model, model_fine, rc = build_model(types.SimpleNamespace(**config, trunk_impl=impl))
+        cfg = TrainConfig(H=H, W=W, focal=FOCAL, ndc=False, near=NEAR, far=FAR,
+                          k_samples=config["K_samples"], **TRAIN_CFG)
+        step, _ = make_train_step(model, rc, cfg, model_fine=model_fine)
+        named = {"coarse": model} if model_fine is None else {"coarse": model,
+                                                              "fine": model_fine}
+        return step, named
 
+    train_step, named = nets(trunk_impl)
+    next_batch = flagship_batches()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    start = {(side, n): p.detach().clone() for side, m in named.items()
+             for n, p in m.named_parameters()}
     train_step(next_batch(), gen)  # warm-up
     torch.cuda.synchronize()
 
     # the main path, counted
-    render_core.fused_flow_composite.launches = 0
-    render_core.fused_flow_composite_bwd.launches = 0
+    for counter in counters:
+        counter.launches = 0
     torch.cuda.reset_peak_memory_stats()
     times, metrics = [], []
     for _ in range(TRAIN_STEPS):
@@ -1115,42 +1346,74 @@ def phase_train():
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         metrics.append({k: float(v) for k, v in m.items()})
-    fwd, bwd = (render_core.fused_flow_composite.launches,
-                render_core.fused_flow_composite_bwd.launches)
-    check(fwd == bwd == TRAIN_STEPS,
-          f"{TRAIN_STEPS} steps launched the forward {fwd} and the backward {bwd} times")
+    launches = {counter.__name__: counter.launches for counter in counters}
+    for counter, n in zip(counters, want_per_step):
+        check(counter.launches == n * TRAIN_STEPS,
+              f"{label}: {TRAIN_STEPS} steps launched {counter.__name__} "
+              f"{counter.launches} times, want {n * TRAIN_STEPS}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for m in metrics:
-        check(all(math.isfinite(v) for v in m.values()), f"finite metrics {m}")
-    check(set(metrics[0]) == {"loss", "loss_nll", "loss_entropy", "depth_loss", "mse", "psnr"},
-          f"metrics {sorted(metrics[0])}")
+        check(all(math.isfinite(v) for v in m.values()), f"{label}: finite metrics {m}")
+    check(set(metrics[0]) == set(metric_keys), f"{label}: metrics {sorted(metrics[0])}")
     # every parameter moved, but for those with no gradient at all: the
     # density flow's amor_d feeds only the strictly upper triangle of a
     # 1x1 matrix, as in the JAX model
-    still = [n for n, p in model.named_parameters() if torch.equal(p.detach(), start[n])]
-    grads = dict(model.named_parameters())
-    check(all(grads[n].grad is not None and not grads[n].grad.any() for n in still),
-          f"parameters with a gradient that did not move: {still}")
-
-    # one fixed batch, the same draws every step: the loss falls
+    params = {(side, n): p for side, m in named.items() for n, p in m.named_parameters()}
+    still = [f"{side}/{n}" for (side, n), p in params.items()
+             if torch.equal(p.detach(), start[(side, n)])]
+    check(all(params[tuple(k.split("/", 1))].grad is not None
+              and not params[tuple(k.split("/", 1))].grad.any() for k in still),
+          f"{label}: parameters with a gradient that did not move: {still}")
     fixed = next_batch()
     fixed_losses = [float(train_step(fixed, torch.Generator(device="cuda").manual_seed(1))["loss"])
                     for _ in range(FIXED_STEPS)]
-    check(fixed_losses[-1] < fixed_losses[0], f"loss on a fixed batch did not fall: {fixed_losses}")
-
+    check(fixed_losses[-1] < fixed_losses[0],
+          f"{label}: loss on a fixed batch did not fall: {fixed_losses}")
     batch = next_batch()
     breakdown = profile_device(lambda: train_step(batch, gen))
+    del train_step, named, params, start
+    torch.cuda.empty_cache()
+
+    vs_interpret = None
+    if trunk_impl == "pallas":
+        # one step from fresh nets, through the kernels and through the plain
+        # versions: the same weights (the seed), batch and draws
+        grads = {}
+        for impl in ("pallas", "interpret"):
+            step, fresh = nets(impl)
+            loss, _ = step.loss_fn(batch, torch.Generator(device="cuda").manual_seed(2))
+            loss.backward()
+            grads[impl] = {f"{side}/{n}": p.grad.detach().clone()
+                           for side, m in fresh.items() for n, p in m.named_parameters()
+                           if p.grad is not None}
+            del step, fresh, loss
+        check(set(grads["pallas"]) == set(grads["interpret"]),
+              f"{label}: the same leaves get gradients")
+        vs_interpret = gate_leaves(leaf_errors(grads["pallas"], grads["interpret"]),
+                                   TRUNK_STEP_REL_RMS, TRUNK_STEP_MIN_COS,
+                                   f"{label}: pallas vs interpret step gradients")
+        del grads
+        torch.cuda.empty_cache()
+
     step_s = statistics.median(times)
-    emit("train", rays_per_step=N_RAND + N_DEPTH, rgb_rays=N_RAND, depth_rays=N_DEPTH,
-         samples=args.N_samples, K=K, steps=TRAIN_STEPS, render_core_fwd_launches=fwd,
-         render_core_bwd_launches=bwd, step_ms=1e3 * step_s,
-         step_ms_all=[1e3 * t for t in times],
-         train_rays_per_s=(N_RAND + N_DEPTH) / step_s, peak_mem_gb=peak_gb,
-         unmoved_zero_gradient=still, first_loss=metrics[0]["loss"],
-         last_metrics=metrics[-1],
-         fixed_batch_losses=fixed_losses)
-    emit("train_profile", rays_per_step=N_RAND + N_DEPTH, **breakdown)
-    return fwd, bwd
+    emit(label, rays_per_step=N_RAND + N_DEPTH, rgb_rays=N_RAND, depth_rays=N_DEPTH,
+         samples={"coarse": config["N_samples"], "importance": config["N_importance"]},
+         K=config["K_samples"], steps=TRAIN_STEPS, launches=launches, step_ms=1e3 * step_s,
+         step_ms_all=[1e3 * t for t in times], train_rays_per_s=(N_RAND + N_DEPTH) / step_s,
+         peak_mem_gb=peak_gb, unmoved_zero_gradient=still, first_loss=metrics[0]["loss"],
+         last_metrics=metrics[-1], fixed_batch_losses=fixed_losses,
+         **({} if vs_interpret is None else dict(
+             pallas_vs_interpret_step_grads=vs_interpret,
+             tolerance={"rel_rms": TRUNK_STEP_REL_RMS, "min_cos": TRUNK_STEP_MIN_COS})))
+    emit(f"{label}_profile", rays_per_step=N_RAND + N_DEPTH, **breakdown)
+    return launches
+
+
+def phase_train():
+    """Flagship training: a render-core forward and backward a step."""
+    return train_run(FLAGSHIP, "train",
+                     (render_core.fused_flow_composite, render_core.fused_flow_composite_bwd),
+                     (1, 1), FLAT_METRICS)
 
 
 def phase_train_golden():
@@ -1408,70 +1671,11 @@ def phase_hier_golden():
 
 
 def phase_hier_train():
-    args = types.SimpleNamespace(**HIER)
-    model, model_fine, rc = build_model(args)  # the default device: the card
-    K = args.K_samples
-    cfg = TrainConfig(H=H, W=W, focal=FOCAL, ndc=False, near=NEAR, far=FAR,
-                      k_samples=K, **TRAIN_CFG)
-    train_step, _ = make_train_step(model, rc, cfg, model_fine=model_fine)
-    next_batch = flagship_batches()
-    nets = {"coarse": model, "fine": model_fine}
-
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    start = {(side, n): p.detach().clone() for side, m in nets.items()
-             for n, p in m.named_parameters()}
-    train_step(next_batch(), gen)  # warm-up
-    torch.cuda.synchronize()
-
-    # the main path, counted
-    flow_stack.fused_flow_stack.launches = 0
-    flow_stack.fused_flow_stack_bwd.launches = 0
-    render_core.fused_flow_composite.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    times, metrics = [], []
-    for _ in range(TRAIN_STEPS):
-        batch = next_batch()
-        t0 = time.perf_counter()
-        m = train_step(batch, gen)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        metrics.append({k: float(v) for k, v in m.items()})
-    fwd, bwd = flow_stack.fused_flow_stack.launches, flow_stack.fused_flow_stack_bwd.launches
-    check(fwd == bwd == 4 * TRAIN_STEPS,
-          f"{TRAIN_STEPS} steps launched the flow-stack forward {fwd} and the backward "
-          f"{bwd} times, want {4 * TRAIN_STEPS} each")
-    check(render_core.fused_flow_composite.launches == 0,
-          "hierarchical training does not launch the render core")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for m in metrics:
-        check(all(math.isfinite(v) for v in m.values()), f"finite metrics {m}")
-    check(set(metrics[0]) == {"loss", "loss_nll", "loss_entropy", "depth_loss", "loss_nll0",
-                              "mse", "psnr"}, f"metrics {sorted(metrics[0])}")
-    # every parameter of both nets moved, but for those with no gradient at
-    # all (the density flow's amor_d, as in phase_train)
-    still = [f"{side}/{n}" for side, m in nets.items() for n, p in m.named_parameters()
-             if torch.equal(p.detach(), start[(side, n)])]
-    params = {f"{side}/{n}": p for side, m in nets.items() for n, p in m.named_parameters()}
-    check(all(params[n].grad is not None and not params[n].grad.any() for n in still),
-          f"parameters with a gradient that did not move: {still}")
-
-    fixed = next_batch()
-    fixed_losses = [float(train_step(fixed, torch.Generator(device="cuda").manual_seed(1))["loss"])
-                    for _ in range(FIXED_STEPS)]
-    check(fixed_losses[-1] < fixed_losses[0], f"loss on a fixed batch did not fall: {fixed_losses}")
-
-    batch = next_batch()
-    breakdown = profile_device(lambda: train_step(batch, gen))
-    step_s = statistics.median(times)
-    emit("hier_train", rays_per_step=N_RAND + N_DEPTH, rgb_rays=N_RAND, depth_rays=N_DEPTH,
-         samples={"coarse": args.N_samples, "importance": args.N_importance}, K=K,
-         steps=TRAIN_STEPS, flow_stack_fwd_launches=fwd, flow_stack_bwd_launches=bwd,
-         step_ms=1e3 * step_s, step_ms_all=[1e3 * t for t in times],
-         train_rays_per_s=(N_RAND + N_DEPTH) / step_s, peak_mem_gb=peak_gb,
-         unmoved_zero_gradient=still, first_loss=metrics[0]["loss"],
-         last_metrics=metrics[-1], fixed_batch_losses=fixed_losses)
-    emit("hier_train_profile", rays_per_step=N_RAND + N_DEPTH, **breakdown)
-    return fwd, bwd
+    """Hierarchical training: four flow-stack forwards and backwards (two
+    chains, two passes) a step, no render core."""
+    return train_run(HIER, "hier_train",
+                     (flow_stack.fused_flow_stack, flow_stack.fused_flow_stack_bwd,
+                      render_core.fused_flow_composite), (4, 4, 0), HIER_METRICS)
 
 
 # ---------------------------------------------------------------------- #
@@ -1583,6 +1787,60 @@ def phase_trunk_golden():
          tolerance={"rtol": TRUNK_RTOL, "atol": TRUNK_ATOL})
 
 
+# ---------------------------------------------------------------------- #
+# training through the trunk kernels (trunk_impl="pallas")
+# ---------------------------------------------------------------------- #
+
+
+def phase_trunk_train():
+    """Flat training with a trunk_impl="pallas" net (a trunk forward and
+    backward and a render-core forward and backward a step), then the
+    hierarchical pair (two trunk forwards and backwards, four flow-stack
+    forwards and backwards a step, no render core)."""
+    flat = train_run(
+        FLAGSHIP, "trunk_train",
+        (trunk.trunk_encode, trunk.trunk_encode_bwd, render_core.fused_flow_composite,
+         render_core.fused_flow_composite_bwd), (1, 1, 1, 1), FLAT_METRICS, "pallas")
+    hier = train_run(
+        HIER, "trunk_hier_train",
+        (trunk.trunk_encode, trunk.trunk_encode_bwd, flow_stack.fused_flow_stack,
+         flow_stack.fused_flow_stack_bwd, render_core.fused_flow_composite), (2, 2, 4, 4, 0),
+        HIER_METRICS, "pallas")
+    return flat, hier
+
+
+def phase_trunk_grad_golden():
+    """The card's trunk backward kernels on the D4/W256 trunk golden's
+    weights and x, with the cotangents of tests/fixtures, against JAX's
+    _trunk_bwd gradients (jax.vjp of pallas_encode, interpreted on the
+    CPU)."""
+    with np.load(TRUNK_GOLDEN) as g, np.load(TRUNK_GRAD_GOLDEN) as gg:
+        D, Wd, K, F, ha, hr = (int(v) for v in g["config"])
+        model = NeRFFlows(net_depth=D, net_width=Wd, skips=(D // 2,), h_alpha_size=ha,
+                          h_rgb_size=hr, n_flows=F, k_samples=K, trunk_impl="pallas")
+        model.load_state_dict(nerf_flows_state_dict_from_jax(
+            nested_params(g), (g["test_eps_a"], g["test_eps_r"])))
+        model = model.cuda()
+        before = trunk.trunk_encode_bwd.launches
+        out = model.encode(torch.as_tensor(g["x"], device="cuda"))
+        torch.autograd.backward(out, [torch.as_tensor(gg[f"g/{k}"], device="cuda")
+                                      for k in ("h_alpha", "h_rgb")])
+        torch.cuda.synchronize()
+        check(trunk.trunk_encode_bwd.launches == before + 1,
+              "the trunk grad golden went through the backward kernels")
+        ref = {k[len("jax/grad/"):]: torch.as_tensor(gg[k], device="cuda")
+               for k in gg.files if k.startswith("jax/grad/")}
+        grads = {n: p.grad for n, p in model.named_parameters() if n in ref}
+        check(set(grads) == set(ref) and all(v is not None for v in grads.values()),
+              "the trunk grad golden's leaves get gradients")
+        worst = gate_leaves(leaf_errors(grads, ref), TRUNK_BWD_REL_RMS,
+                            TRUNK_BWD_MIN_COS, "trunk grad golden")
+        rows = int(g["x"].shape[0])
+    emit("trunk_grad_golden", source=str(TRUNK_GRAD_GOLDEN.relative_to(ROOT)), rows=rows,
+         depth=D, width=Wd, errors_vs_jax=worst,
+         tolerance={"rel_rms": TRUNK_BWD_REL_RMS, "min_cos": TRUNK_BWD_MIN_COS})
+
+
 def kernel_entry(name, source, replaces, launches_by_path, stats):
     """`launches` totals the per-path counts; `launches_by_path` keeps each
     path's own count, reset just before that path and read just after."""
@@ -1594,7 +1852,7 @@ def kernel_entry(name, source, replaces, launches_by_path, stats):
              "bound_by": stats["bound_by"], "library_ms": None}
     if "shape" in stats:
         entry["timed_at"] = stats["shape"]
-    for yardstick in ("xla_f32_ms", "bf16_matmul_ms"):
+    for yardstick in ("xla_f32_ms", "bf16_matmul_ms", "bf16_matmul_autograd_ms"):
         if yardstick in stats:
             entry[yardstick] = stats[yardstick]
     return entry
@@ -1619,33 +1877,51 @@ def main() -> int:
     bwd_stats = phase_bwd_checks()
     flow_stats = phase_flow_stack_time(*phase_flow_stack_checks())
     trunk_stats = phase_trunk_time(phase_trunk_checks())
+    trunk_bwd_stats = phase_trunk_bwd_time(phase_trunk_bwd_checks())
     serve_launches, unfused_launches = phase_serve()
     phase_golden()
-    train_fwd, train_bwd = phase_train()
+    train = phase_train()
     phase_train_golden()
     hier_serve_launches = phase_hier_serve()
     phase_hier_golden()
-    hier_fwd, hier_bwd = phase_hier_train()
+    hier_train = phase_hier_train()
     trunk_flat, trunk_hier = phase_trunk_serve()
     phase_trunk_golden()
+    trunk_train, trunk_hier_train = phase_trunk_train()
+    phase_trunk_grad_golden()
 
     # serving: 20 render-core launches a view; training: one render-core
     # forward and backward a step; hierarchical: 4 flow-stack launches (two
     # chains, two passes) a tile or a step, and 4 backward launches a step;
     # trunk_impl="pallas": a trunk launch per pass, 20 a flat view and 40 a
-    # hierarchical one
+    # hierarchical one; training, a trunk forward and backward per pass (the
+    # backward's four kernels count as one launch), beside the render core's
+    # (flat) or the flow stack's (hierarchical)
     print(json.dumps({"kernels": [
         kernel_entry("render_core_fwd", render_core.SOURCE, render_core.REPLACES,
-                     {"serve": serve_launches, "train": train_fwd}, fwd_stats),
+                     {"serve": serve_launches, "train": train["fused_flow_composite"],
+                      "trunk_train": trunk_train["fused_flow_composite"]}, fwd_stats),
         kernel_entry("render_core_bwd", render_core.SOURCE_BWD, render_core.REPLACES_BWD,
-                     {"train": train_bwd}, bwd_stats),
+                     {"train": train["fused_flow_composite_bwd"],
+                      "trunk_train": trunk_train["fused_flow_composite_bwd"]}, bwd_stats),
         kernel_entry("flow_stack_fwd", flow_stack.SOURCE, flow_stack.REPLACES,
-                     {"hier_serve": hier_serve_launches, "hier_train": hier_fwd,
-                      "serve_unfused_check": unfused_launches}, flow_stats["fwd"]),
+                     {"hier_serve": hier_serve_launches,
+                      "hier_train": hier_train["fused_flow_stack"],
+                      "serve_unfused_check": unfused_launches,
+                      "trunk_hier_train": trunk_hier_train["fused_flow_stack"]},
+                     flow_stats["fwd"]),
         kernel_entry("flow_stack_bwd", flow_stack.SOURCE_BWD, flow_stack.REPLACES_BWD,
-                     {"hier_train": hier_bwd}, flow_stats["bwd"]),
+                     {"hier_train": hier_train["fused_flow_stack_bwd"],
+                      "trunk_hier_train": trunk_hier_train["fused_flow_stack_bwd"]},
+                     flow_stats["bwd"]),
         kernel_entry("trunk_fwd", trunk.SOURCE, trunk.REPLACES,
-                     {"trunk_serve": trunk_flat, "trunk_hier_serve": trunk_hier}, trunk_stats),
+                     {"trunk_serve": trunk_flat, "trunk_hier_serve": trunk_hier,
+                      "trunk_train": trunk_train["trunk_encode"],
+                      "trunk_hier_train": trunk_hier_train["trunk_encode"]}, trunk_stats),
+        kernel_entry("trunk_bwd", trunk.SOURCE_BWD, ", ".join(trunk.REPLACES_BWD),
+                     {"trunk_train": trunk_train["trunk_encode_bwd"],
+                      "trunk_hier_train": trunk_hier_train["trunk_encode_bwd"]},
+                     trunk_bwd_stats),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,7 @@ carried across with the weights.  Tolerances: rtol/atol 2e-5 at D=4/W=64;
 rtol 1e-4 / atol 2e-5 at the flagship widths, where XLA's and PyTorch's CPU
 matmuls sum 512-wide products in different orders through eight layers.
 """
+import dataclasses
 import types
 
 import jax.numpy as jnp
@@ -16,6 +17,7 @@ from cfnerf_tpu.models.nerf_flows import NeRFFlows as JaxNeRFFlows
 from cfnerf_tpu.ops.compositing import raw2outputs as jax_raw2outputs
 from cfnerf_torch.models.factory import build_model, init_params
 from cfnerf_torch.models.nerf_flows import NeRFFlows
+from cfnerf_torch.render.renderer import RenderConfig, make_render_rays
 from tests.test_torch_common import (
     FLAGSHIP,
     Tiny,
@@ -231,3 +233,88 @@ def test_build_model_with_n_importance_on_cpu():
     assert rc.n_importance == 64
     assert (model_fine.net_depth, model_fine.net_width, model_fine.skips) == (2, 16, (1,))
     assert next(model_fine.parameters()).device.type == "cpu"
+
+
+# ---------------------------------------------------------------------- #
+# --fused_render and --flow_impl: each value reaches its path, or raises
+# ---------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("flag,fused", [
+    ("auto", "on"), ("on", "on"), ("off", "off"), ("interpret", "interpret"),
+])
+def test_factory_resolves_fused_render(flag, fused):
+    """auto resolves to the render core (the kernel on the card), as JAX's
+    factory resolves it to its kernel on a TPU."""
+    _, _, rc = build_model(_args(fused_render=flag), device="cpu")
+    assert rc.fused == fused
+
+
+@pytest.mark.parametrize("flag", ["auto", "xla", "pallas", "interpret"])
+def test_factory_passes_flow_impl_to_both_nets(flag):
+    model, fine, _ = build_model(_args(flow_impl=flag, N_importance=8, netdepth_fine=2,
+                                       netwidth_fine=16), device="cpu")
+    assert model.flow_impl == fine.flow_impl == flag
+
+
+@pytest.mark.parametrize("over", [dict(fused_render="yes"), dict(flow_impl="triton")],
+                         ids=["fused_render", "flow_impl"])
+def test_unknown_implementation_choices_raise(over):
+    with pytest.raises(ValueError, match=next(iter(over))):
+        build_model(_args(**over), device="cpu")
+    with pytest.raises(ValueError, match="must be one of"):
+        if "flow_impl" in over:
+            NeRFFlows(net_depth=2, net_width=16, skips=(1,), **over)
+        else:
+            make_render_rays(NeRFFlows(net_depth=2, net_width=16, skips=(1,)),
+                             RenderConfig(fused=over["fused_render"]))
+
+
+def _render(model, rc, seed=0):
+    rng = np.random.RandomState(seed)
+    o = (rng.randn(6, 3) * 0.3 + [0.0, 0.0, 4.0]).astype(np.float32)
+    d = -o / np.linalg.norm(o, axis=-1, keepdims=True)
+    vd = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    near, far = np.full((6, 1), 2.0, np.float32), np.full((6, 1), 6.0, np.float32)
+    return make_render_rays(model, rc)(*map(T, (o, d, vd, near, far)),
+                                       torch.Generator().manual_seed(1), is_test=False)
+
+
+def _raises(*a, **k):
+    raise AssertionError("the kernel entry was called")
+
+
+@pytest.mark.parametrize("fused", ["on", "off", "interpret"])
+def test_fused_render_value_picks_its_path(monkeypatch, fused):
+    """'on' calls the render core's entry (the kernel on the card); 'off'
+    takes the unfused path, whose train-mode render returns the per-sample
+    weights; 'interpret' the render core's plain version, never the entry.
+    All three render the same rays alike."""
+    from cfnerf_torch.models import nerf_flows as nf
+
+    model, _, rc = build_model(_args(fused_render=fused), device="cpu")
+    ref = _render(model, dataclasses.replace(rc, fused="off"))
+    calls = []
+    real = nf.fused_flow_composite
+    monkeypatch.setattr(nf, "fused_flow_composite",
+                        lambda *a: calls.append(1) or real(*a))
+    out = _render(model, rc)
+    assert len(calls) == (1 if fused == "on" else 0)
+    assert ("weights" in out) == (fused == "off")
+    for k in ("rgb_map", "depth_map", "acc_map"):
+        np.testing.assert_allclose(to_np(out[k]), to_np(ref[k]), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("flow_impl", ["auto", "xla", "pallas", "interpret"])
+def test_flow_impl_value_picks_its_path(monkeypatch, flow_impl):
+    """'auto' and 'pallas' call the flow-stack entry (the kernel on the
+    card); 'xla' and 'interpret' its plain version, never the entry."""
+    from cfnerf_torch.models import nerf_flows as nf
+
+    model, _, rc = build_model(_args(flow_impl=flow_impl, fused_render="off"), device="cpu")
+    calls = []
+    real = nf.fused_flow_stack
+    monkeypatch.setattr(nf, "fused_flow_stack", lambda *a: calls.append(1) or real(*a))
+    out = _render(model, rc)
+    assert len(calls) == (2 if flow_impl in ("auto", "pallas") else 0)
+    assert bool(torch.isfinite(out["rgb_map"]).all())

@@ -6,6 +6,7 @@ Regenerate the golden after an intended change with
     JAX_PLATFORMS=cpu python -m tests.test_torch_render
 (test_golden_is_current fails while the committed file is stale).
 """
+import dataclasses
 from pathlib import Path
 
 import jax
@@ -53,8 +54,8 @@ def _jax_render(params, tile=64):
 
 def _port_render(model, fused, tile=64):
     rc = RenderConfig(n_samples=N_SAMPLES, perturb=False, use_viewdirs=True,
-                      white_bkgd=True)
-    out = render_image(make_render_rays(model, rc, fused=fused), _c2w(),
+                      white_bkgd=True, fused="on" if fused else "off")
+    out = render_image(make_render_rays(model, rc), _c2w(),
                        tile=tile, device="cpu", **VIEW)
     return {k: to_np(out[k]) for k in MAPS}
 
@@ -119,9 +120,9 @@ def test_train_mode_fused_and_unfused_agree_on_one_generator():
                                             -1).astype(np.float32))
     vd = rays_d / rays_d.norm(dim=-1, keepdim=True)
     near, far = torch.full((20, 1), 0.5), torch.full((20, 1), 4.0)
-    outs = [make_render_rays(model, rc, fused=f)(
+    outs = [make_render_rays(model, dataclasses.replace(rc, fused=f))(
         rays_o, rays_d, vd, near, far, torch.Generator().manual_seed(5), is_test=False)
-        for f in (True, False)]
+        for f in ("on", "off")]
     for k in ("rgb_map", "depth_map", "acc_map", "disp_map", "loss_entropy"):
         torch.testing.assert_close(outs[0][k], outs[1][k], rtol=2e-5, atol=2e-5)
     assert "weights" in outs[1] and tuple(outs[1]["weights"].shape) == (20, N_SAMPLES, CFG.k)

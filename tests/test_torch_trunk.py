@@ -1,6 +1,6 @@
 """The trunk kernel's plain version against cfnerf_tpu's pallas_encode (the
 Pallas kernel run through its interpreter on the CPU); the model's
-trunk_impl dispatch, the factory and the train step's refusal; the slice
+trunk_impl dispatch, the factory and the train step with a kernel trunk; the slice
 end to end (the flat and the hierarchical render with trunk_impl="interpret"
 models against JAX's); the wrapper's routing, with stand-in kernel entries;
 and the golden file that lets chip_smoke.py hold the card's kernel against
@@ -135,15 +135,18 @@ def test_converted_model_encodes_as_pallas_encode(trunk_impl):
 
 
 def test_interpret_mode_differentiates_through_the_plain_version():
-    """trunk_impl="interpret" is the kernel's arithmetic in eager PyTorch:
-    autograd reaches every trunk weight, as JAX's interpret mode is
-    differentiable."""
+    """trunk_impl="interpret" is the kernels' arithmetic in eager PyTorch:
+    the gradient reaches every trunk weight, as JAX's interpret mode is
+    differentiable, and none reaches x (JAX's custom VJP returns zeros for
+    it: the embedded points are data)."""
     model = _model(SMALL, "interpret")
-    ha, hr = model.encode(T(_x(32, seed=4)))
+    x = T(_x(32, seed=4)).requires_grad_()
+    ha, hr = model.encode(x)
     (ha.sum() + hr.square().sum()).backward()
     for layer in (*model.pts_linears, model.feature_linear, model.views_linear,
                   model.h_alpha_linear, model.h_rgb_linear):
         assert layer.weight.grad is not None and bool(layer.weight.grad.any())
+    assert x.grad is None or not bool(x.grad.any())
 
 
 # ---------------------------------------------------------------------- #
@@ -156,12 +159,14 @@ def test_pack_splits_and_pads_the_weights():
     packed = pack_trunk_weights(model)
     m, b = packed.matrices(), packed.biases()
     D, W = SMALL.depth, SMALL.width
-    assert packed.w.dtype == torch.bfloat16 and packed.b.dtype == torch.float32
+    # f32: the kernels round the weights to bf16 themselves, so that the
+    # weight gradients stay f32 (see test_torch_trunk_bwd.py)
+    assert packed.w.dtype == torch.float32 and packed.b.dtype == torch.float32
     assert packed.w.numel() == sum(t.numel() for t in m.values())
     assert packed.b.numel() == sum(t.numel() for t in b.values())
 
     def same(a, ref):
-        torch.testing.assert_close(a, ref.detach().to(torch.bfloat16), rtol=0, atol=0)
+        torch.testing.assert_close(a, ref.detach(), rtol=0, atol=0)
 
     same(m["w0"][:, :IN_CH], model.pts_linears[0].weight)
     skip = model.pts_linears[D // 2 + 1].weight  # (W, 63 + W): [input_pts, h]
@@ -233,14 +238,26 @@ def test_factory_passes_trunk_impl_to_both_nets():
 
 
 @pytest.mark.parametrize("which", ["model", "model_fine"])
-def test_make_train_step_refuses_a_trunk_kernel_model(which):
+def test_make_train_step_trains_a_trunk_kernel_model(which):
+    """A hierarchical step with a trunk_impl="pallas" net as either net (on
+    the CPU: `_Trunk` on the plain route): its trunk weights get gradients
+    and move, as the f32 net's do."""
     hier = dict(N_importance=8, netdepth_fine=4, netwidth_fine=256)
     model, fine, rc = build_model(_args(**hier), device="cpu")
     kernel_net, _, _ = build_model(_args(trunk_impl="pallas"), device="cpu")
     nets = {"model": model, "model_fine": fine, which: kernel_net}
     cfg = TrainConfig(H=8, W=8, focal=10.0, ndc=False, near=2.0, far=6.0, k_samples=4)
-    with pytest.raises(NotImplementedError, match="slice 4b"):
-        make_train_step(nets["model"], rc, cfg, model_fine=nets["model_fine"])
+    step, _ = make_train_step(nets["model"], rc, cfg, model_fine=nets["model_fine"])
+    rng = np.random.RandomState(1)
+    o = (rng.randn(8, 3) * 0.3 + [0.0, 0.0, 4.0]).astype(np.float32)
+    batch = dict(rays_o=o, rays_d=(-o / np.linalg.norm(o, axis=-1, keepdims=True)),
+                 target=rng.rand(8, 3).astype(np.float32))
+    before = [p.detach().clone() for p in kernel_net.pts_linears.parameters()]
+    metrics = step(batch, torch.Generator().manual_seed(0))
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    for p, b in zip(kernel_net.pts_linears.parameters(), before):
+        assert p.grad is not None and p.grad.dtype == torch.float32
+        assert not torch.equal(p.detach(), b)
 
 
 # ---------------------------------------------------------------------- #
@@ -322,19 +339,19 @@ class _OnCuda(torch.Tensor):
 
 
 class _Entry:
-    """A stand-in for the ctypes kernel entry: records each call and runs
-    `body` on its arguments; returns 0 (no CUDA error)."""
+    """A stand-in for a ctypes kernel entry: records each call and runs
+    `body` on its arguments; returns `ret` (0: no CUDA error)."""
 
     argtypes = None
     restype = None
 
-    def __init__(self, body):
-        self.calls, self.body = [], body
+    def __init__(self, body, ret=0):
+        self.calls, self.body, self.ret = [], body, ret
 
     def __call__(self, *a):
         self.calls.append(a)
         self.body(*a)
-        return 0
+        return self.ret
 
 
 @contextlib.contextmanager
@@ -391,17 +408,27 @@ def test_cuda_route_launches_the_kernel(monkeypatch):
     assert tuple(ha.shape) == (10, 64) and bool((ha == 1.5).all()) and bool((hr == 1.5).all())
 
 
-def test_a_required_gradient_raises_on_both_routes(monkeypatch):
+@pytest.mark.parametrize("trunk_impl", ["pallas", "interpret"])
+def test_a_required_gradient_goes_through_the_function(monkeypatch, trunk_impl):
+    """On CPU tensors a required gradient takes `_Trunk` with the plain
+    versions (no launch, no build); without one the plain forward runs
+    alone.  Both give the plain forward's values."""
     monkeypatch.setattr(_build, "load", lambda name: pytest.fail("no launch expected"))
-    model = _model(SMALL, "pallas")
+    model = _model(SMALL, trunk_impl)
     x = T(_x(8, seed=9))
-    with pytest.raises(NotImplementedError, match="slice 4b"):
-        model.encode(x)  # CPU: the weights require grad
-    packed = _on_cuda(pack_trunk_weights(model))
-    with pytest.raises(NotImplementedError, match="slice 4b"):
-        trunk_encode(packed, x.as_subclass(_OnCuda))
+    ha, hr = model.encode(x)
+    # encode reshapes the Function's output to x's leading dimensions
+    assert type(ha.grad_fn.next_functions[0][0]).__name__ == "_TrunkBackward"
     with torch.no_grad():
-        model.encode(x)
+        ref = trunk_encode_plain(pack_trunk_weights(model), x)
+        ha0, _ = model.encode(x)
+    assert ha0.grad_fn is None
+    torch.testing.assert_close(ha.detach(), ref[0], rtol=0, atol=0)
+    torch.testing.assert_close(hr.detach(), ref[1], rtol=0, atol=0)
+    before = trunk.trunk_encode_bwd.launches
+    (ha.sum() + hr.sum()).backward()
+    assert trunk.trunk_encode_bwd.launches == before
+    assert model.pts_linears[0].weight.grad is not None
 
 
 def test_cuda_route_raises_instead_of_falling_back(monkeypatch):
@@ -444,7 +471,10 @@ def test_kernel_source_is_built_for_hopper():
     src = (_build.CSRC / "trunk.cu").read_text()
     assert 'extern "C" int trunk_fwd' in src
     assert "cfnerf_tpu/ops/pallas/trunk.py:_fwd_kernel" in src
-    assert "#include <mma.h>" in src and "wmma::mma_sync" in src
+    # the layer routine it shares with the backward lives in the header
+    assert '#include "trunk.cuh"' in src
+    header = (_build.CSRC / "trunk.cuh").read_text()
+    assert "#include <mma.h>" in header and "wmma::mma_sync" in header
     assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
     assert trunk.REPLACES == "cfnerf_tpu/ops/pallas/trunk.py:160"
 
