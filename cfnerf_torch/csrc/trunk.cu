@@ -38,6 +38,17 @@
 // padded columns and the ragged last tile's rows are zero-filled there.
 // Depth, width and the head widths are runtime values.
 //
+// Training: the kernel is a template on kSave.  The serving entry
+// (trunk_fwd) runs kSave = false, the code path above.  The training entry
+// (trunk_fwd_save) runs kSave = true: the same products and epilogues, and
+// every bf16 activation also goes to a workspace (x, v, h_0..h_{D-1}, f,
+// hv; trunk.cuh's ActPlan, whose bytes trunk_fwd_workspace returns), which
+// trunk_bwd.cu reads instead of recomputing the forward.  That adds ~9.9 KB a row of writes at D8/W512
+// (0.81 GB at the flat training step's 81,920 rows, ~0.24 ms at 3.35 TB/s)
+// and no arithmetic: each activation is copied out of shared memory once a
+// barrier has completed it, coalesced, while the next layer runs; the
+// values are the ones the backward used to recompute, bit for bit.
+//
 // What a later PR would change: wgmma on 64-row warpgroup tiles instead of
 // mma.sync, weights staged through shared memory by TMA (each CTA now reads
 // every weight from L2 once per tile: ~77 GB of L2 traffic a flat serving
@@ -99,7 +110,6 @@ struct FwdEpi {
     }
     *reinterpret_cast<uint4*>(out_s + row * ldo + col) = pack_bf16x8(v);
   }
-  __device__ __forceinline__ void finish(int) const {}
 };
 
 // out = epilogue(A0 W0^T [+ A1 W1^T] + bias), n output columns.
@@ -108,13 +118,21 @@ __device__ __forceinline__ void fwd_layer(Operand op0, Operand op1, int n,
                                           bf16* out_s, int ldo, float* out_g, int rows_valid,
                                           float* stage) {
   FwdEpi epi{bias, kind, out_s, ldo, out_g, n, rows_valid};
-  layer<true>(op0, op1, n, stage, epi);
+  layer(op0, op1, n, stage, epi);
 }
 
+// The saved activations' base pointers (ActPlan's layout); unused when
+// kSave is false.
+struct Acts {
+  bf16 *x, *v, *h, *f, *hv;
+  long long rows_pad;
+};
+
+template <bool kSave>
 __global__ void __launch_bounds__(kThreads, 1)
 trunk_fwd_kernel(const float* __restrict__ emb, int emb_stride, int B,
                  const bf16* __restrict__ w, const float* __restrict__ bias,
-                 float* __restrict__ h_alpha, float* __restrict__ h_rgb,
+                 float* __restrict__ h_alpha, float* __restrict__ h_rgb, Acts A,
                  int depth, int width, int input_ch, int views_ch, int ha, int hr) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int in_pad = round16(input_ch);
@@ -131,6 +149,18 @@ trunk_fwd_kernel(const float* __restrict__ emb, int emb_stride, int B,
 
   stage_inputs(emb, emb_stride, row0, rows_valid, input_ch, views_ch, xs, L.ldx, vs, L.ldv);
   __syncthreads();
+  // kSave: each bf16 activation, once a barrier has completed it in shared
+  // memory, is copied out to this tile's rows of the workspace, 16 bytes a
+  // thread; the next layer only reads that buffer, so no barrier waits for
+  // the copy
+  auto save = [&](const bf16* src, bf16* base, int cols) {
+    if constexpr (kSave) copy_out(src, L.ldh, base + row0 * cols, cols);
+  };
+  auto h_of = [&](int i) { return A.h + (long long)i * A.rows_pad * width; };
+  if constexpr (kSave) {
+    copy_out(xs, L.ldx, A.x + row0 * in_pad, in_pad);
+    copy_out(vs, L.ldv, A.v + row0 * v_pad, v_pad);
+  }
 
   const Operand none{nullptr, 0, 0, nullptr};
   const bf16* pw = w;
@@ -147,6 +177,7 @@ trunk_fwd_kernel(const float* __restrict__ emb, int emb_stride, int B,
         cur, L.ldh, nullptr, 0, stage);
   pb += width;
   __syncthreads();
+  save(cur, h_of(0), width);
   for (int i = 1; i < depth; ++i) {
     if (i == skip + 1) {
       const bf16* wsx = take(width, in_pad);
@@ -162,6 +193,7 @@ trunk_fwd_kernel(const float* __restrict__ emb, int emb_stride, int B,
     bf16* t = cur;
     cur = nxt;
     nxt = t;
+    save(cur, h_of(i), width);
   }
 
   // heads: cur holds the trunk output h
@@ -179,40 +211,84 @@ trunk_fwd_kernel(const float* __restrict__ emb, int emb_stride, int B,
   fwd_layer(Operand{cur, L.ldh, width, wf}, none, width, bf, kLinear, nxt, L.ldh, nullptr, 0,
         stage);
   __syncthreads();
+  save(nxt, A.f, width);
   fwd_layer(Operand{nxt, L.ldh, width, wvf}, Operand{vs, L.ldv, v_pad, wvv}, half, bv, kRelu,
         cur, L.ldh, nullptr, 0, stage);
   __syncthreads();
+  save(cur, A.hv, half);
   fwd_layer(Operand{cur, L.ldh, half, whr}, none, hr, bhr, kGlobal, nullptr, 0,
         h_rgb + row0 * hr, rows_valid, stage);
 }
 
-}  // namespace
+bool shape_ok(int B, int depth, int width, int input_ch, int views_ch, int ha, int hr) {
+  return B >= 0 && depth >= 3 && width >= 32 && width % 32 == 0 && input_ch >= 1 &&
+         views_ch >= 1 && ha >= 16 && ha % 16 == 0 && hr >= 16 && hr % 16 == 0;
+}
 
-// C entry point (bound with ctypes).  emb: device f32 (B, input_ch +
-// views_ch) with row stride `emb_stride` floats, columns contiguous; w:
-// device bf16 weights and bias: device f32 biases, as laid out above;
-// h_alpha (B, ha) and h_rgb (B, hr): device f32, contiguous.  The caller
-// checks shapes and types; this checks what the kernel's layout needs.
-// Launches on `stream` and returns the CUDA error of the launch (0 on
-// success); it never synchronises.
-extern "C" int trunk_fwd(const float* emb, int emb_stride, const void* w,
-                         const float* bias, float* h_alpha, float* h_rgb, int B,
-                         int depth, int width, int input_ch, int views_ch, int ha,
-                         int hr, void* stream) {
-  if (B < 0 || depth < 3 || width < 32 || width % 32 != 0 || input_ch < 1 ||
-      views_ch < 1 || emb_stride < input_ch + views_ch || ha < 16 || ha % 16 != 0 ||
-      hr < 16 || hr % 16 != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
+template <bool kSave>
+int launch(const float* emb, int emb_stride, const void* w, const float* bias, float* h_alpha,
+           float* h_rgb, Acts A, int B, int depth, int width, int input_ch, int views_ch,
+           int ha, int hr, void* stream) {
   const Smem L(width, round16(input_ch), round16(views_ch));
   if (L.bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const cudaError_t attr = cudaFuncSetAttribute(
-      trunk_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+      trunk_fwd_kernel<kSave>, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((unsigned)((B + kRows - 1) / kRows));
-  trunk_fwd_kernel<<<grid, kThreads, L.bytes, static_cast<cudaStream_t>(stream)>>>(
-      emb, emb_stride, B, static_cast<const bf16*>(w), bias, h_alpha, h_rgb, depth,
-      width, input_ch, views_ch, ha, hr);
+  trunk_fwd_kernel<kSave><<<grid, kThreads, L.bytes, static_cast<cudaStream_t>(stream)>>>(
+      emb, emb_stride, B, static_cast<const bf16*>(w), bias, h_alpha, h_rgb, A, depth, width,
+      input_ch, views_ch, ha, hr);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry points (bound with ctypes).  emb: device f32 (B, input_ch +
+// views_ch) with row stride `emb_stride` floats, columns contiguous; w:
+// device bf16 weights and bias: device f32 biases, as laid out above;
+// h_alpha (B, ha) and h_rgb (B, hr): device f32, contiguous.  The caller
+// checks shapes and types; these check what the kernel's layout needs.
+// Each launches on `stream` and returns the CUDA error of the launch (0 on
+// success); none synchronises.
+
+// The serving forward: h_alpha and h_rgb only.
+extern "C" int trunk_fwd(const float* emb, int emb_stride, const void* w,
+                         const float* bias, float* h_alpha, float* h_rgb, int B,
+                         int depth, int width, int input_ch, int views_ch, int ha,
+                         int hr, void* stream) {
+  if (!shape_ok(B, depth, width, input_ch, views_ch, ha, hr) ||
+      emb_stride < input_ch + views_ch) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch<false>(emb, emb_stride, w, bias, h_alpha, h_rgb, Acts{}, B, depth, width,
+                       input_ch, views_ch, ha, hr, stream);
+}
+
+// The bytes of activations trunk_fwd_save writes for B rows of this trunk
+// (ActPlan); -1 for a shape it does not take.
+extern "C" long long trunk_fwd_workspace(int B, int depth, int width, int input_ch,
+                                         int views_ch) {
+  if (!shape_ok(B, depth, width, input_ch, views_ch, 16, 16)) return -1;
+  return ActPlan(B, depth, width, round16(input_ch), round16(views_ch)).bytes;
+}
+
+// The training forward: as trunk_fwd, and every bf16 activation into
+// `acts` (device memory of trunk_fwd_workspace's bytes, ActPlan's layout),
+// which trunk_bwd reads.
+extern "C" int trunk_fwd_save(const float* emb, int emb_stride, const void* w,
+                              const float* bias, float* h_alpha, float* h_rgb, void* acts,
+                              long long acts_bytes, int B, int depth, int width,
+                              int input_ch, int views_ch, int ha, int hr, void* stream) {
+  if (!shape_ok(B, depth, width, input_ch, views_ch, ha, hr) ||
+      emb_stride < input_ch + views_ch) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const ActPlan P(B, depth, width, round16(input_ch), round16(views_ch));
+  if (acts_bytes < P.bytes) return (int)cudaErrorInvalidValue;
+  unsigned char* base = static_cast<unsigned char*>(acts);
+  auto at = [base](long long off) { return reinterpret_cast<bf16*>(base + off); };
+  const Acts A{at(P.x), at(P.v), at(P.h), at(P.f), at(P.hv), P.rows_pad};
+  return launch<true>(emb, emb_stride, w, bias, h_alpha, h_rgb, A, B, depth, width, input_ch,
+                      views_ch, ha, hr, stream);
 }

@@ -1,7 +1,9 @@
 // What the trunk's forward (trunk.cu) and backward (trunk_bwd.cu) kernels
-// share: the CTA's shape, the tensor-core fragment types, the embedding's
-// staging into shared memory, and `layer`, one layer's products for a tile
-// of kRows rows with a caller-given epilogue.
+// share: the CTA's rows and padding, `ActPlan`, the layout of the
+// activations the training forward saves and the backward reads, and
+// `copy_out`; and the forward's own pieces: the tensor-core fragment types,
+// the embedding's staging into shared memory, and `layer`, one layer's
+// products for a tile of kRows rows with a caller-given epilogue.
 
 #pragma once
 
@@ -24,25 +26,35 @@ constexpr int kMaxSmem = 232448;  // a block's dynamic shared memory on sm_90
 constexpr int kStageBytes = kWarps * 256 * 4;  // one 16x16 f32 staging tile per warp
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
+// B: the weights' (n x k) nn.Linear matrix read as W^T (out = A W^T), each
+// fragment's k pairs one 32-bit load
+using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-// The B operand of a layer's product.  kKMajor: the weights' (n x k)
-// nn.Linear matrix read as W^T (the forward, out = A W^T), each fragment's
-// k pairs one 32-bit load.  Otherwise the (k x n) matrix read as it is (the
-// gradient through a layer, out = A W).
-template <bool kKMajor>
-struct FragBOf {
-  using type = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-};
-template <>
-struct FragBOf<false> {
-  using type = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-};
-
 __host__ __device__ inline int round16(int n) { return (n + 15) / 16 * 16; }
+__host__ __device__ inline long long align256(long long n) { return (n + 255) / 256 * 256; }
+
+// The training forward's saved activations, bf16, row-major, rows_pad rows
+// each (the batch rounded up to whole CTAs): x (in_pad columns), v (v_pad),
+// h_0..h_{D-1} then f, one (D + 1) x rows_pad x width block (so that the
+// weight-gradient pass reads them as one matrix), hv (width / 2).  Offsets
+// in bytes from the workspace's start, 256-aligned.
+struct ActPlan {
+  long long rows_pad, x, v, h, f, hv, bytes;
+  __host__ __device__ ActPlan(int B, int depth, int width, int in_pad, int v_pad) {
+    rows_pad = ((long long)B + kRows - 1) / kRows * kRows;
+    const long long R = rows_pad;
+    x = 0;
+    v = x + align256(R * in_pad * 2);
+    h = v + align256(R * v_pad * 2);
+    f = h + (long long)depth * R * width * 2;
+    hv = h + align256((long long)(depth + 1) * R * width * 2);
+    bytes = hv + align256(R * (width / 2) * 2);
+  }
+};
 
 // One operand of a layer: A (kRows x k, bf16, row-major in shared memory,
-// leading dimension lda) times the weights in global memory (see FragBOf).
+// leading dimension lda) times the weights in global memory (see FragB).
 // k = 0 marks an absent second operand.
 struct Operand {
   const bf16* a;
@@ -75,14 +87,12 @@ __device__ __forceinline__ void stage_inputs(const float* __restrict__ emb, int 
 
 // acc = A0 B0 [+ A1 B1] for n output columns, then the epilogue: for each
 // 16x16 tile, each lane hands epi.apply(row, col, v) the tile's row
-// lane / 2, columns col .. col + 7 (lane % 2 picks the half); once a warp
-// has handed over all kRows rows of a 16-column tile it calls
-// epi.finish(col), every lane.  Each warp owns kRows rows x 32 columns at a
-// time: per k-step of 16 it loads two B fragments straight from global
+// lane / 2, columns col .. col + 7 (lane % 2 picks the half).  Each warp
+// owns kRows rows x 32 columns at a time: per k-step of 16 it loads two B fragments straight from global
 // memory (the weights stay in L2) and four A fragments from shared memory,
 // and runs eight 16x16x16 bf16 products into f32 accumulators.  Called by
 // every warp of the CTA; no barrier inside.
-template <bool kKMajor, typename Epi>
+template <typename Epi>
 __device__ __forceinline__ void layer(Operand op0, Operand op1, int n, float* stage, Epi& epi) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -101,15 +111,10 @@ __device__ __forceinline__ void layer(Operand op0, Operand op1, int n, float* st
     for (int o = 0; o < 2; ++o) {
       const Operand op = o == 0 ? op0 : op1;
       for (int k0 = 0; k0 < op.k; k0 += 16) {
-        typename FragBOf<kKMajor>::type b[kColTiles];
+        FragB b[kColTiles];
 #pragma unroll
         for (int j = 0; j < kColTiles; ++j)
-          if (j < nt) {
-            if constexpr (kKMajor)
-              wmma::load_matrix_sync(b[j], op.w + (size_t)(t0 + j) * 16 * op.k + k0, op.k);
-            else
-              wmma::load_matrix_sync(b[j], op.w + (size_t)k0 * n + (t0 + j) * 16, n);
-          }
+          if (j < nt) wmma::load_matrix_sync(b[j], op.w + (size_t)(t0 + j) * 16 * op.k + k0, op.k);
 #pragma unroll
         for (int i = 0; i < kRowTiles; ++i) {
           FragA a;
@@ -140,8 +145,20 @@ __device__ __forceinline__ void layer(Operand op0, Operand op1, int n, float* st
         epi.apply(i * 16 + r, col, v);
         __syncwarp();
       }
-      epi.finish(col);
     }
+  }
+}
+
+// A (kRows x cols) bf16 tile from shared memory (leading dimension lds) to
+// global memory (leading dimension cols), 16 bytes a thread, by threads
+// 0 .. threads - 1.
+__device__ __forceinline__ void copy_out(const bf16* src, int lds, bf16* dst, int cols,
+                                         int threads = kThreads) {
+  const int per_row = cols / 8;
+  for (int idx = threadIdx.x; idx < kRows * per_row; idx += threads) {
+    const int r = idx / per_row, c = (idx - r * per_row) * 8;
+    *reinterpret_cast<uint4*>(dst + (size_t)r * cols + c) =
+        *reinterpret_cast<const uint4*>(src + r * lds + c);
   }
 }
 

@@ -5,10 +5,12 @@ VJP (_trunk_bwd).  On CUDA tensors `trunk_encode` launches the hand-written
 Hopper kernel (cfnerf_torch/csrc/trunk.cu) or raises; on CPU tensors it runs
 `trunk_encode_plain`, the same arithmetic in eager PyTorch, which is also
 the kernel's oracle on the card.  Where a gradient is needed either route
-goes through `_Trunk`, an autograd Function whose backward is the backward
-kernel (cfnerf_torch/csrc/trunk_bwd.cu) on the card and
-`trunk_encode_bwd_plain` on the CPU, so that both compute _trunk_bwd's
-arithmetic.
+goes through `_Trunk`, an autograd Function.  On the card its forward
+launches the kernel's training variant, which also writes every bf16
+activation into a workspace kept for the backward, and its backward is the
+backward kernel (cfnerf_torch/csrc/trunk_bwd.cu) reading that workspace; on
+the CPU they are `trunk_encode_plain` and `trunk_encode_bwd_plain`, so that
+both routes compute _trunk_bwd's arithmetic.
 
 The forward arithmetic is `_fwd_mlp`'s: inputs and every activation rounded
 to bf16, every product bf16 x bf16 summed in f32, the f32 bias added, then
@@ -51,8 +53,8 @@ SOURCE_BWD = "cfnerf_torch/csrc/trunk_bwd.cu"
 REPLACES_BWD = ("cfnerf_tpu/ops/pallas/trunk.py:170", "cfnerf_tpu/ops/pallas/trunk.py:229")
 
 K_STEP = 16  # the kernel's k-step: input widths are padded to it
-MAX_WIDTH = 512  # three (64, W) bf16 activation buffers in a block's shared memory
-MAX_INPUT = 128  # x and v widths the kernel stages beside them
+MAX_WIDTH = 512  # two (64, W) bf16 activation buffers in a block's shared memory
+MAX_INPUT = 128  # x and v widths the forward stages beside them
 MAX_DEPTH = 32  # the backward's weight-gradient job table
 
 Outputs = Tuple[torch.Tensor, torch.Tensor]
@@ -319,44 +321,59 @@ def trunk_encode_bwd(packed: TrunkWeights, x: torch.Tensor,
                      g_h_rgb: Optional[torch.Tensor]) -> Outputs:
     """Trunk backward.  Arguments and gradients as in
     `trunk_encode_bwd_plain`.  CPU tensors take the plain version; CUDA
-    tensors launch the backward kernels (or raise); anything else raises.
-    Training reaches the kernels through autograd (`_Trunk`); this entry
-    lets a caller hold them against the plain version."""
+    tensors launch the forward's training variant, then the backward
+    kernels on its saved activations (or raise); anything else raises.
+    Training reaches the same two launches through autograd (`_Trunk`);
+    this entry lets a caller hold them against the plain version."""
     _check_x(packed, x)
     if _devices("trunk backward", (x, packed.w, packed.b, g_h_alpha, g_h_rgb)) == "cpu":
         return trunk_encode_bwd_plain(packed, x, g_h_alpha, g_h_rgb)
-    return _launch_bwd(packed, x, g_h_alpha, g_h_rgb)
+    B, _ = _kernel_args(packed, x, "trunk backward kernel")
+    cots = _cotangents(packed._shape(), B, x, g_h_alpha, g_h_rgb)
+    w16 = packed.w.to(torch.bfloat16)
+    _, _, acts = _launch(packed, x, save=True, w16=w16)
+    return _launch_bwd(packed._shape(), w16, acts, B, *cots)
 
 
-trunk_encode_bwd.launches = 0  # backward launches (one entry call, its three kernels)
+trunk_encode_bwd.launches = 0  # backward launches (one entry call, its four kernels)
 
 
 class _Trunk(torch.autograd.Function):
     """The trunk with a gradient: forward and backward kernels on the card,
     or (`plain`) the plain versions.  Takes the f32 packed weights, so that
-    the weight gradients it returns stay f32; x gets none."""
+    the weight gradients it returns stay f32; x gets none.  On the card the
+    forward keeps the bf16 weights and the activation workspace for the
+    backward (~9.9 KB a row at D8/W512); autograd drops both once the
+    backward has run."""
 
     @staticmethod
     def forward(ctx, shape, plain, x, w, b):
-        ctx.save_for_backward(x, w, b)
-        ctx.shape, ctx.plain = shape, plain
+        ctx.shape, ctx.plain, ctx.rows = shape, plain, x.shape[0]
         ctx.set_materialize_grads(False)  # an unused head's cotangent arrives as None
         packed = TrunkWeights(*shape, w=w, b=b)
-        return trunk_encode_plain(packed, x) if plain else _launch(packed, x)
+        if plain:
+            ctx.save_for_backward(x, w, b)
+            return trunk_encode_plain(packed, x)
+        w16 = w.to(torch.bfloat16)
+        h_alpha, h_rgb, acts = _launch(packed, x, save=True, w16=w16)
+        ctx.save_for_backward(w16, acts)
+        return h_alpha, h_rgb
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_h_alpha, g_h_rgb):
-        x, w, b = ctx.saved_tensors
-        packed = TrunkWeights(*ctx.shape, w=w, b=b)
-        bwd = trunk_encode_bwd_plain if ctx.plain else _launch_bwd
-        dw, db = bwd(packed, x, g_h_alpha, g_h_rgb)
+        if ctx.plain:
+            x, w, b = ctx.saved_tensors
+            dw, db = trunk_encode_bwd_plain(TrunkWeights(*ctx.shape, w=w, b=b), x,
+                                            g_h_alpha, g_h_rgb)
+        else:
+            w16, acts = ctx.saved_tensors
+            dw, db = _launch_bwd(ctx.shape, w16, acts, ctx.rows, g_h_alpha, g_h_rgb)
         return None, None, None, dw, db
 
 
 def _kernel_args(packed: TrunkWeights, x: torch.Tensor, what: str):
-    """Checks what the kernels take; returns (B, the bf16 weights, x's row
-    stride)."""
+    """Checks what the kernels take; returns (B, x's row stride)."""
     B = _check_x(packed, x)
     dev = x.device
     for name, t in (("x", x), ("w", packed.w), ("b", packed.b)):
@@ -370,56 +387,79 @@ def _kernel_args(packed: TrunkWeights, x: torch.Tensor, what: str):
                      packed.h_rgb, packed.input_ch, packed.views_ch):
         raise ValueError(f"{what}: unsupported shape {packed._shape()}")
     row_stride = x.stride(0) if B > 1 else x.shape[1]  # a single row's stride is arbitrary
-    return B, packed.w.to(torch.bfloat16), row_stride
+    return B, row_stride
 
 
-def _launch(packed: TrunkWeights, x: torch.Tensor) -> Outputs:
-    B, w16, row_stride = _kernel_args(packed, x, "trunk kernel")
-    fn = _entry()
+def _launch(packed: TrunkWeights, x: torch.Tensor, save: bool = False,
+            w16: Optional[torch.Tensor] = None):
+    """The forward kernel: (h_alpha, h_rgb); with `save` the training
+    variant, which also writes every bf16 activation into a new workspace:
+    (h_alpha, h_rgb, workspace).  `w16`: the weights already cast."""
+    B, row_stride = _kernel_args(packed, x, "trunk kernel")
+    w16 = packed.w.to(torch.bfloat16) if w16 is None else w16
     h_alpha = x.new_empty((B, packed.h_alpha))
     h_rgb = x.new_empty((B, packed.h_rgb))
+    shape = packed._shape()
+    if save:
+        fn, workspace_bytes = _entry_save()
+        acts = x.new_empty((workspace_bytes(B, *shape[:4]),), dtype=torch.uint8)
+        extra = (acts.data_ptr(), acts.numel())
+    else:
+        fn, extra = _entry(), ()
     with _on_device(x.device) as stream:
         err = fn(x.data_ptr(), row_stride, w16.data_ptr(), packed.b.data_ptr(),
-                 h_alpha.data_ptr(), h_rgb.data_ptr(), B, *packed._shape(), stream)
+                 h_alpha.data_ptr(), h_rgb.data_ptr(), *extra, B, *shape, stream)
     if err != 0:
-        raise RuntimeError(
-            f"trunk_fwd launch failed: CUDA error {err} (B={B}, shape {packed._shape()})"
-        )
+        raise RuntimeError(f"trunk_fwd{'_save' if save else ''} launch failed: CUDA error "
+                           f"{err} (B={B}, shape {shape})")
     trunk_encode.launches += 1
-    return h_alpha, h_rgb
+    return (h_alpha, h_rgb, acts) if save else (h_alpha, h_rgb)
 
 
-def _launch_bwd(packed: TrunkWeights, x: torch.Tensor, g_h_alpha: Optional[torch.Tensor],
+def _cotangents(shape, B: int, like: torch.Tensor, g_h_alpha: Optional[torch.Tensor],
                 g_h_rgb: Optional[torch.Tensor]) -> Outputs:
-    B, w16, row_stride = _kernel_args(packed, x, "trunk backward kernel")
+    """The two heads' cotangents as the backward kernels take them: f32
+    (B, width) on `like`'s device, contiguous, zeros for an unused head
+    (None)."""
+    dev = like.device
     cots = []
-    for name, g, cols in (("h_alpha", g_h_alpha, packed.h_alpha),
-                          ("h_rgb", g_h_rgb, packed.h_rgb)):
+    for name, g, cols in (("h_alpha", g_h_alpha, shape[4]), ("h_rgb", g_h_rgb, shape[5])):
         if g is None:
-            g = x.new_zeros((B, cols))
-        elif tuple(g.shape) != (B, cols) or g.dtype != torch.float32 or g.device != x.device:
+            g = like.new_zeros((B, cols), dtype=torch.float32)
+        elif tuple(g.shape) != (B, cols) or g.dtype != torch.float32 or g.device != dev:
             raise ValueError(f"cotangent of {name}: expected float32 {(B, cols)} on "
-                             f"{x.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
+                             f"{dev}, got {g.dtype} {tuple(g.shape)} on {g.device}")
         cots.append(g.contiguous())  # autograd may hand over expanded views
+    return cots[0], cots[1]
+
+
+def _launch_bwd(shape, w16: torch.Tensor, acts: torch.Tensor, B: int,
+                g_h_alpha: Optional[torch.Tensor], g_h_rgb: Optional[torch.Tensor]) -> Outputs:
+    """The backward kernels of the trunk `shape` (TrunkWeights._shape) on
+    the activations the training forward saved for B rows (`acts`), with the
+    bf16 weights `w16`.  Returns (dw, db) in f32."""
+    g_ha, g_hr = _cotangents(shape, B, acts, g_h_alpha, g_h_rgb)
     fn, workspace_bytes = _entry_bwd()
-    workspace = x.new_empty((workspace_bytes(B, *packed._shape()),), dtype=torch.uint8)
-    dw = torch.empty_like(packed.w)
-    db = torch.empty_like(packed.b)
-    with _on_device(x.device) as stream:
-        err = fn(x.data_ptr(), row_stride, w16.data_ptr(), packed.b.data_ptr(),
-                 cots[0].data_ptr(), cots[1].data_ptr(), dw.data_ptr(), db.data_ptr(),
-                 workspace.data_ptr(), workspace.numel(), B, *packed._shape(), stream)
+    workspace = acts.new_empty((workspace_bytes(B, *shape),))
+    mats, biases = _layout(*shape)
+    dw = acts.new_empty(sum(r * c for _, r, c in mats), dtype=torch.float32)
+    db = acts.new_empty(sum(n for _, n in biases), dtype=torch.float32)
+    with _on_device(acts.device) as stream:
+        err = fn(acts.data_ptr(), acts.numel(), w16.data_ptr(), g_ha.data_ptr(),
+                 g_hr.data_ptr(), dw.data_ptr(), db.data_ptr(), workspace.data_ptr(),
+                 workspace.numel(), B, *shape, stream)
     if err != 0:
         raise RuntimeError(
-            f"trunk_bwd launch failed: CUDA error {err} (B={B}, shape {packed._shape()})"
+            f"trunk_bwd launch failed: CUDA error {err} (B={B}, shape {shape})"
         )
     trunk_encode_bwd.launches += 1
     return dw, db
 
 
 def _entry():
-    """The ctypes entry: emb, its row stride, w, b, h_alpha, h_rgb, then B,
-    depth, width, input_ch, views_ch, h_alpha, h_rgb and the stream."""
+    """The ctypes entry of the serving forward: emb, its row stride, w, b,
+    h_alpha, h_rgb, then B, depth, width, input_ch, views_ch, h_alpha, h_rgb
+    and the stream."""
     fn = getattr(_build.load(NAME), "trunk_fwd")
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
@@ -428,16 +468,33 @@ def _entry():
     return fn
 
 
+def _entry_save():
+    """The ctypes entries of the training forward: trunk_fwd_save (as
+    trunk_fwd, with the activation workspace and its bytes after h_rgb) and
+    trunk_fwd_workspace (B, depth, width, input_ch, views_ch -> the
+    workspace's bytes)."""
+    lib = _build.load(NAME)
+    fn, size = lib.trunk_fwd_save, lib.trunk_fwd_workspace
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+                       + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    if size.argtypes is None:
+        size.argtypes = [ctypes.c_int] * 5
+        size.restype = ctypes.c_longlong
+    return fn, size
+
+
 def _entry_bwd():
-    """The ctypes entries of the backward: trunk_bwd (emb, its row stride,
-    w, b, g_h_alpha, g_h_rgb, dw, db, the workspace and its bytes, then B,
-    depth, width, input_ch, views_ch, h_alpha, h_rgb and the stream) and
-    trunk_bwd_workspace (B and the six shape ints -> the bytes of scratch
-    trunk_bwd needs)."""
+    """The ctypes entries of the backward: trunk_bwd (the saved activations
+    and their bytes, w, g_h_alpha, g_h_rgb, dw, db, the workspace and its
+    bytes, then B, depth, width, input_ch, views_ch, h_alpha, h_rgb and the
+    stream) and trunk_bwd_workspace (B and the six shape ints -> the bytes
+    of scratch trunk_bwd needs)."""
     lib = _build.load(NAME_BWD)
     fn, size = lib.trunk_bwd, lib.trunk_bwd_workspace
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 6
                        + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     if size.argtypes is None:

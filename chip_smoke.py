@@ -23,13 +23,20 @@ final line):
                    tile, the hierarchical fine and coarse passes, D4/W256, a
                    ragged B and strided rows; the trunk backward at the
                    three training shapes, D4/W256, a ragged B, strided rows
-                   and exact (dyadic) arithmetic, bitwise deterministic
+                   and exact (dyadic) arithmetic, bitwise deterministic, and
+                   through the training forward's saved workspace bitwise
+                   equal to the standalone entry; its weight-gradient pass
+                   alone at 64 x 64 x 64 and the flat step's matrix shapes
+                   against a float64 product
   4. kernel_time   each kernel's ms, plain ms, bytes, operations and bound
                    (train-tile launches rotate over inputs larger than L2);
                    the trunk forward's also beside two yardsticks, the f32
                    nn.Linear encode and its layer chain in bf16 through
-                   torch.matmul; the trunk backward's beside autograd of
-                   that bf16 chain
+                   torch.matmul; the trunk backward alone from a saved
+                   workspace, by pass, the training forward (checked
+                   against the plain forward, its bound counting the saved
+                   activations) beside the serving one, and the two
+                   together beside autograd of that bf16 chain
   5. serve         the flagship model (D8 W512 N128 K32 F4, random weights from
                    a seed) renders a 400x400 view in 8192-ray tiles through
                    build_model -> make_render_rays -> render_image; launch
@@ -69,7 +76,9 @@ final line):
                    step through trunk_impl="interpret"
  15. trunk_grad_golden  the card's trunk backward kernels against JAX's
                    _trunk_bwd gradients on the D4/W256 trunk (tests/fixtures)
- 16. kernels       per-kernel launches, error, time, plain time and bound
+ 16. kernels       per-kernel launches, error, time, plain time and bound;
+                   trunk_fwd's entry also the training variant's (fwd_save_*,
+                   at the flat training step)
 
 then the `nvidia-smi` name/power line and, last, the `ok` line.
 """
@@ -223,6 +232,15 @@ SERVE_FLAT_PTS = TILE * FLAGSHIP["N_samples"]  # points of one flagship serving 
 # 1e-4 / 0.999999, a hundred times below the randn cases' spread.
 TRUNK_BWD_REL_RMS, TRUNK_BWD_MIN_COS = 2e-2, 0.9998
 TRUNK_EXACT_REL_RMS, TRUNK_EXACT_MIN_COS = 1e-4, 0.999999
+# the weight-gradient pass alone against float64: every bf16 x bf16 product
+# is exact, but the tensor cores add each k-step's sum into the f32
+# accumulator with a rounding that is not to nearest, so over K rows the
+# error grows like K, not sqrt(K): measured 6.6e-8 at 64 rows and 9.5e-5 at
+# 81,920 (randn G and H).  Gate: at most one f32 ulp (2^-23) of the running
+# sum lost every 8 rows, K / 8 * 2^-24 relative (6.1e-4 at 81,920 rows),
+# and never below 1e-6
+def trunk_wgrad_rel(rows):
+    return max(1e-6, rows / 8 * 2.0 ** -24)
 # one training step's gradients through trunk_impl="pallas" vs
 # trunk_impl="interpret" on the card (same weights, batch and draws): the
 # two forwards differ as above, the loss's gradient at the trunk differs by
@@ -895,21 +913,34 @@ def phase_trunk_time(flat_err):
     return stats
 
 
+def trunk_acts(depth, width, in_ch, v_ch):
+    """bf16 values a row of the training forward saves for the backward:
+    x, v, every layer's output, f and hv."""
+    return in_ch + v_ch + depth * width + width + width // 2
+
+
+def trunk_fwd_save_work(B, depth, width, in_ch, v_ch, ha, hr):
+    """(bytes, operations) of the training forward: the serving forward's,
+    and its saved activations written once."""
+    nbytes, ops = trunk_work(B, depth, width, in_ch, v_ch, ha, hr)
+    return nbytes + 2 * B * trunk_acts(depth, width, in_ch, v_ch), ops
+
+
 def trunk_bwd_work(B, depth, width, in_ch, v_ch, ha, hr):
-    """(bytes, operations) of the trunk backward at true widths: the f32
-    embedding and the two heads' f32 cotangents read once, the bf16 weights
-    and f32 biases read once, dW and db written once in f32; two operations
-    per multiply-add of the weight gradient of every matrix (the forward's
+    """(bytes, operations) of the trunk backward at true widths, from the
+    training forward's saved activations: those (bf16: x, v, every layer's
+    output, f, hv) and the two heads' f32 cotangents read once, the bf16
+    weights read once, dW and db written once in f32; two operations per
+    multiply-add of the weight gradient of every matrix (the forward's
     multiply-adds) and of the gradient through every layer but the x and
-    view inputs (they are data).  The recompute of the forward is the
-    kernel's own cost, not counted."""
+    view inputs (they are data)."""
     _, fwd_ops = trunk_work(B, depth, width, in_ch, v_ch, ha, hr)
     half = width // 2
     wgrad = fwd_ops // (2 * B)
     dgrad = wgrad - 2 * in_ch * width - v_ch * half
     biases = depth * width + width + ha + half + hr
-    nbytes = (4 * B * (in_ch + v_ch + ha + hr) + 2 * wgrad + 4 * biases
-              + 4 * wgrad + 4 * biases)
+    acts = trunk_acts(depth, width, in_ch, v_ch)
+    nbytes = (2 * B * acts + 4 * B * (ha + hr) + 2 * wgrad + 4 * wgrad + 4 * biases)
     return nbytes, 2 * (wgrad + dgrad) * B
 
 
@@ -982,7 +1013,9 @@ def phase_trunk_bwd_checks():
     """The trunk backward kernels against their plain version at the
     training paths' shapes (flat step, hierarchical fine and coarse passes),
     D4/W256, a ragged B, strided rows, and on dyadic values; two launches
-    give the same bits.  Returns the flat step's max abs error."""
+    give the same bits, and the training route (the forward's saved
+    workspace, autograd's backward) gives the standalone entry's bits.
+    Returns the flat step's max abs error."""
     cases = [  # (B, depth, width, x row stride, dyadic, label)
         (TRAIN_FLAT_PTS, 8, 512, 90, False, "flat training step"),
         (TRAIN_FINE_PTS, 8, 512, 90, False, "hierarchical training fine pass"),
@@ -1004,21 +1037,72 @@ def phase_trunk_bwd_checks():
             out = trunk.trunk_encode_bwd(packed, x, g_ha, g_hr)
             again = trunk.trunk_encode_bwd(packed, x, g_ha, g_hr)
             ref = trunk.trunk_encode_bwd_plain(packed, x, g_ha, g_hr)
+        saved = trunk_grads_through_autograd(packed, x, g_ha, g_hr)
         torch.cuda.synchronize()
         check(all(torch.equal(a, b) for a, b in zip(out, again)),
               f"trunk backward is deterministic run to run ({label})")
+        check(all(torch.equal(a, b) for a, b in zip(out, saved)),
+              f"trunk backward from the training forward's saved workspace equals the "
+              f"standalone entry ({label})")
         rel, cos = ((TRUNK_EXACT_REL_RMS, TRUNK_EXACT_MIN_COS) if dyadic
                     else (TRUNK_BWD_REL_RMS, TRUNK_BWD_MIN_COS))
         errs = leaf_errors(trunk_leaves(packed, *out), trunk_leaves(packed, *ref))
         worst = gate_leaves(errs, rel, cos, f"trunk_bwd vs plain ({label})")
         emit("kernel", kernel="trunk_bwd", case=label, B=B, depth=depth, width=width,
-             x_row_stride=stride, errors=worst,
+             x_row_stride=stride, errors=worst, bitwise_run_to_run=True,
+             bitwise_saved_workspace_vs_standalone=True,
              tolerance={"rel_rms": rel, "min_cos": cos, "per": "weight or bias leaf"})
         if i == 0:
             flat_err = worst["max_abs"]
-        del x, out, again, ref, model
+        del x, out, again, ref, saved, model
         torch.cuda.empty_cache()
     return flat_err
+
+
+def trunk_grads_through_autograd(packed, x, g_ha, g_hr):
+    """(dw, db) of the packed trunk through `_Trunk`, the training route: the
+    forward's training variant saves its activations, autograd's backward
+    reads them."""
+    w = packed.w.detach().requires_grad_()
+    b = packed.b.detach().requires_grad_()
+    with torch.enable_grad():
+        outs = trunk.trunk_encode(dataclasses.replace(packed, w=w, b=b), x)
+        return torch.autograd.grad(outs, [w, b], [g_ha, g_hr])
+
+
+def phase_trunk_wgrad_checks():
+    """The weight-gradient pass alone (trunk_bwd.cu's wgmma kernel through
+    its one-matrix entry, trunk_bwd_wgrad_one) against the float64 product
+    of the same bf16 G and H, at one 64 x 64 x 64 product and at every
+    matrix shape of the flat training step (81,920 rows): the products are
+    exact, only the order of the f32 sums over the rows differs."""
+    import ctypes
+
+    fn = _build.load(trunk.NAME_BWD).trunk_bwd_wgrad_one
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    R = TRAIN_FLAT_PTS
+    cases = [(64, 64, 64, "64 x 64 x 64"), (R, 512, 512, "w1..w7, wf"), (R, 512, 64, "w0, wsx"),
+             (R, 64, 512, "wha"), (R, 256, 512, "wvf"), (R, 256, 32, "wvv"),
+             (R, 64, 256, "whr")]
+    for i, (rows, n_out, n_in, label) in enumerate(cases):
+        g = torch.Generator(device="cuda").manual_seed(1700 + i)
+        G = torch.randn(rows, n_out, generator=g, device="cuda").bfloat16()
+        Hm = torch.randn(rows, n_in, generator=g, device="cuda").bfloat16()
+        dw = torch.full((n_out, n_in), float("nan"), device="cuda")
+        err = fn(G.data_ptr(), Hm.data_ptr(), rows, n_out, n_in, dw.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"trunk_bwd_wgrad_one launch: CUDA error {err} ({label})")
+        torch.cuda.synchronize()
+        ref = G.double().t() @ Hm.double()
+        rel = float((dw.double() - ref).norm() / ref.norm())
+        tol = trunk_wgrad_rel(rows)
+        check(bool(torch.isfinite(dw).all()) and rel <= tol,
+              f"weight-gradient pass vs float64 ({label}): relative L2 {rel}")
+        emit("kernel", kernel="trunk_bwd_wgrad", case=label, rows=rows, n_out=n_out, n_in=n_in,
+             rel_l2_vs_f64=rel, tolerance={"rel_l2": tol})
+        del G, Hm, dw, ref
+    torch.cuda.empty_cache()
 
 
 def trunk_bf16_matmul_bwd(packed):
@@ -1036,18 +1120,55 @@ def trunk_bf16_matmul_bwd(packed):
     return fn
 
 
+def device_ms_by_kernel(fn, arg_sets, iters, groups):
+    """Mean device ms a call of `fn` spends in the kernels whose names hold
+    each of `groups` (name -> substring), from torch.profiler's CUDA
+    activity over `iters` calls rotating over `arg_sets`, after one warm-up
+    call; "not measured" where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*arg_sets[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+    sums = dict.fromkeys(groups, 0.0)
+    seen = False
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            seen = True
+            for group, key in groups.items():
+                if key in evt.name:
+                    sums[group] += (evt.time_range.end - evt.time_range.start) / 1e3
+    if not seen:
+        return dict.fromkeys(groups, "not measured")
+    return {group: ms / iters for group, ms in sums.items()}
+
+
+TRUNK_BWD_PASSES = {"data": "trunk_bwd_data", "wgrad": "trunk_bwd_wgrad",
+                    "reductions": "trunk_bwd_reduce"}
+
+
 def phase_trunk_bwd_time(flat_err):
-    """The backward at each training shape, CUDA-event timed after a
-    warm-up, launches rotating over three input sets, beside its bound at
-    the bf16 peak, the plain version and autograd of the bf16 torch.matmul
-    chain (forward and backward: autograd has no backward alone).  Returns
-    the stats of the kernels line (the flat step)."""
+    """At each training shape, CUDA-event timed after a warm-up, launches
+    rotating over three input sets: the backward alone from a saved
+    workspace (the kernel of the kernels line), split by pass through the
+    profiler; the training forward (with its saved activations) beside the
+    serving forward; the two together (the standalone entry) beside
+    autograd of the bf16 torch.matmul chain, which also runs both; and the
+    plain version.  Bounds at the bf16 peak: the backward's, and the
+    weight-gradient pass's alone, and the training forward's (its saved
+    activations written).  Returns the stats of the kernels line (the flat
+    step): the backward's, and the training forward's for the trunk_fwd
+    entry, with its max abs error against the plain forward."""
     model = build_model(trunk_args())[0]
     D, Wd = model.net_depth, model.net_width
     shape = (D, Wd, model.input_ch, model.input_ch_views, FLAGSHIP["h_alpha_size"],
              FLAGSHIP["h_rgb_size"])
     with torch.no_grad():
         packed = pack_trunk_weights(model)
+        w16 = packed.w.to(torch.bfloat16)
     yard = trunk_bf16_matmul_bwd(packed)
     stats = None
     for i, (label, B) in enumerate((("flat training step", TRAIN_FLAT_PTS),
@@ -1056,23 +1177,63 @@ def phase_trunk_bwd_time(flat_err):
         sets = [(trunk_inputs(B, seed=1500 + 7 * i + j), *trunk_cotangents(B, 1600 + 7 * i + j))
                 for j in range(3)]
         with torch.no_grad():
-            ms = cuda_ms(lambda x, a, b: trunk.trunk_encode_bwd(packed, x, a, b), 10, sets)
+            saved = [(trunk._launch(packed, x, save=True, w16=w16)[2], a, b)
+                     for x, a, b in sets]
+
+            def bwd(acts, a, b):
+                return trunk._launch_bwd(packed._shape(), w16, acts, B, a, b)
+
+            ms = cuda_ms(bwd, 10, saved)
+            passes = device_ms_by_kernel(bwd, saved, 6, TRUNK_BWD_PASSES)
+            fwd_save_ms = cuda_ms(lambda x, a, b: trunk._launch(packed, x, save=True, w16=w16),
+                                  10, sets)
+            fwd_ms = cuda_ms(lambda x, a, b: trunk._launch(packed, x, w16=w16), 10, sets)
+            both_ms = cuda_ms(lambda x, a, b: trunk.trunk_encode_bwd(packed, x, a, b), 10, sets)
             plain_ms = cuda_ms(lambda x, a, b: trunk.trunk_encode_bwd_plain(packed, x, a, b),
                                3, sets)
         yard_ms = cuda_ms(yard, 3, sets)
         nbytes, ops = trunk_bwd_work(B, *shape)
         b_ms, b_by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
+        wgrad_ops = trunk_work(B, *shape)[1]
         emit("kernel_time", kernel="trunk_bwd", launch=label, B=B, depth=D, width=Wd, ms=ms,
-             plain_ms=plain_ms, bf16_matmul_autograd_ms=yard_ms, bound_ms=b_ms, bound_by=b_by,
+             pass_ms=passes, fwd_save_ms=fwd_save_ms, fwd_serving_kernel_ms=fwd_ms,
+             fwd_plus_bwd_ms=both_ms, plain_ms=plain_ms, bf16_matmul_autograd_ms=yard_ms,
+             bound_ms=b_ms, bound_by=b_by, wgrad_bound_ms=1e3 * wgrad_ops / BF16_OPS_PER_S,
              bytes=nbytes, ops=ops, achieved_tflop_per_s=ops / ms / 1e9,
+             wgrad_tflop_per_s=(wgrad_ops / passes["wgrad"] / 1e9
+                                if isinstance(passes["wgrad"], float) and passes["wgrad"] > 0
+                                else "not measured"),
              input_sets_rotated=len(sets))
         if i == 0:
             stats = dict(max_abs_err=flat_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, bf16_matmul_autograd_ms=yard_ms,
-                         shape=f"B={B} D{D} W{Wd}, the flat training step")
-        del sets
+                         bound_by=b_by, fwd_plus_bwd_ms=both_ms,
+                         bf16_matmul_autograd_ms=yard_ms,
+                         shape=f"B={B} D{D} W{Wd}, the flat training step, from the "
+                               f"training forward's saved activations")
+            x = sets[0][0]
+            with torch.no_grad():
+                out = trunk._launch(packed, x, save=True, w16=w16)[:2]
+                ref = trunk.trunk_encode_plain(packed, x)
+                fwd_plain_ms = cuda_ms(lambda x, a, b: trunk.trunk_encode_plain(packed, x),
+                                       3, sets)
+            save_bytes, save_ops = trunk_fwd_save_work(B, *shape)
+            save_b_ms, save_b_by = bound_ms(save_bytes, save_ops, BF16_OPS_PER_S)
+            save_stats = dict(
+                fwd_save_max_abs_err=max(e["max_abs"] for e in compare_trunk(out, ref).values()),
+                fwd_save_ms=fwd_save_ms, fwd_save_plain_ms=fwd_plain_ms,
+                fwd_save_bound_ms=save_b_ms, fwd_save_bound_by=save_b_by,
+                fwd_save_bytes=save_bytes,
+                fwd_save_timed_at=f"B={B} D{D} W{Wd}, the flat training step, the "
+                                  f"training variant (every bf16 activation saved)")
+            emit("kernel_time", kernel="trunk_fwd", launch="flat training step, save variant",
+                 B=B, depth=D, width=Wd, ms=fwd_save_ms, plain_ms=fwd_plain_ms,
+                 serving_variant_ms=fwd_ms, bound_ms=save_b_ms, bound_by=save_b_by,
+                 bytes=save_bytes, ops=save_ops,
+                 max_abs_err_vs_plain=save_stats["fwd_save_max_abs_err"])
+            del x, out, ref
+        del sets, saved
         torch.cuda.empty_cache()
-    return stats
+    return stats, save_stats
 
 
 # ---------------------------------------------------------------------- #
@@ -1852,9 +2013,12 @@ def kernel_entry(name, source, replaces, launches_by_path, stats):
              "bound_by": stats["bound_by"], "library_ms": None}
     if "shape" in stats:
         entry["timed_at"] = stats["shape"]
-    for yardstick in ("xla_f32_ms", "bf16_matmul_ms", "bf16_matmul_autograd_ms"):
-        if yardstick in stats:
-            entry[yardstick] = stats[yardstick]
+    for extra in ("xla_f32_ms", "bf16_matmul_ms", "fwd_plus_bwd_ms",
+                  "bf16_matmul_autograd_ms", "fwd_save_max_abs_err", "fwd_save_ms",
+                  "fwd_save_plain_ms", "fwd_save_bound_ms", "fwd_save_bound_by",
+                  "fwd_save_timed_at"):
+        if extra in stats:
+            entry[extra] = stats[extra]
     return entry
 
 
@@ -1877,7 +2041,9 @@ def main() -> int:
     bwd_stats = phase_bwd_checks()
     flow_stats = phase_flow_stack_time(*phase_flow_stack_checks())
     trunk_stats = phase_trunk_time(phase_trunk_checks())
-    trunk_bwd_stats = phase_trunk_bwd_time(phase_trunk_bwd_checks())
+    phase_trunk_wgrad_checks()
+    trunk_bwd_stats, trunk_save_stats = phase_trunk_bwd_time(phase_trunk_bwd_checks())
+    trunk_stats.update(trunk_save_stats)
     serve_launches, unfused_launches = phase_serve()
     phase_golden()
     train = phase_train()

@@ -49,7 +49,8 @@ from cfnerf_torch.ops.kernels.trunk import (
     trunk_encode_plain,
 )
 from tests.test_torch_common import Tiny, jax_nerf_flows, port_nerf_flows, to_np
-from tests.test_torch_trunk import GOLDEN, _Entry, _no_cuda_context, _no_plain, _OnCuda
+from tests.test_torch_trunk import (
+    GOLDEN, _Entry, _no_cuda_context, _no_plain, _on_cuda, _OnCuda)
 from tests.test_torch_train import (
     METRICS,
     TRAIN_KW,
@@ -217,26 +218,35 @@ def _fill(ptr, n, value):
 
 
 GRAD_VALUE = 1.2345678  # not a bf16 value: bf16 would make it 1.234375
+ACTS_BYTES = 4096  # what the stand-in trunk_fwd_workspace announces
 
 
 def _stand_ins(monkeypatch, bwd_lib=None):
-    """Stand-in forward and backward entries; the backward fills dw with
-    GRAD_VALUE and db with 0.5.  Returns (forward entry, backward entry)."""
+    """Stand-in forward (serving and training) and backward entries; the
+    backward fills dw with GRAD_VALUE and db with 0.5.  Returns (training
+    forward entry, backward entry); the serving entry and the two size
+    entries are on the returned entries' `.lib` namespaces."""
     packed = _packed()
 
     def fwd_body(*a):  # emb, stride, w, b, h_alpha, h_rgb, B, ...
         _fill(a[4], a[6] * a[11], 1.5)
         _fill(a[5], a[6] * a[12], 1.5)
 
-    def bwd_body(*a):  # emb, stride, w, b, g_ha, g_hr, dw, db, ws, ws_bytes, B, ...
-        _fill(a[6], packed.w.numel(), GRAD_VALUE)
-        _fill(a[7], packed.b.numel(), 0.5)
+    def save_body(*a):  # emb, stride, w, b, h_alpha, h_rgb, acts, acts_bytes, B, ...
+        _fill(a[4], a[8] * a[13], 1.5)
+        _fill(a[5], a[8] * a[14], 1.5)
 
-    fwd, bwd = _Entry(fwd_body), _Entry(bwd_body)
-    size = _Entry(lambda *a: None, ret=256)
-    libs = {trunk.NAME: types.SimpleNamespace(trunk_fwd=fwd),
-            trunk.NAME_BWD: bwd_lib or types.SimpleNamespace(trunk_bwd=bwd,
-                                                              trunk_bwd_workspace=size)}
+    def bwd_body(*a):  # acts, acts_bytes, w, g_ha, g_hr, dw, db, ws, ws_bytes, B, ...
+        _fill(a[5], packed.w.numel(), GRAD_VALUE)
+        _fill(a[6], packed.b.numel(), 0.5)
+
+    fwd, save, bwd = _Entry(fwd_body), _Entry(save_body), _Entry(bwd_body)
+    fwd_lib = types.SimpleNamespace(trunk_fwd=fwd, trunk_fwd_save=save,
+                                    trunk_fwd_workspace=_Entry(lambda *a: None, ret=ACTS_BYTES))
+    bwd_ns = types.SimpleNamespace(trunk_bwd=bwd,
+                                   trunk_bwd_workspace=_Entry(lambda *a: None, ret=256))
+    save.lib, bwd.lib = fwd_lib, bwd_ns
+    libs = {trunk.NAME: fwd_lib, trunk.NAME_BWD: bwd_lib or bwd_ns}
 
     def load(name):
         lib = libs[name]
@@ -248,7 +258,7 @@ def _stand_ins(monkeypatch, bwd_lib=None):
     monkeypatch.setattr(trunk, "_on_device", lambda dev: _no_cuda_context())
     monkeypatch.setattr(trunk, "trunk_encode_plain", _no_plain)
     monkeypatch.setattr(trunk, "trunk_encode_bwd_plain", _no_plain)
-    return fwd, bwd
+    return save, bwd
 
 
 def _packed(cfg=SMALL):
@@ -267,19 +277,20 @@ def _cuda_leaves():
 
 
 def test_cuda_gradient_launches_forward_then_backward(monkeypatch):
-    """One forward and one backward launch, counted; the weight gradient
-    arrives as the backward kernel wrote it, in f32; x gets none."""
+    """One forward (the training variant) and one backward launch,
+    counted; the weight gradient arrives as the backward kernel wrote it, in
+    f32; x gets none."""
     fwd, bwd = _stand_ins(monkeypatch)
     packed, x = _cuda_leaves()
     before = trunk_encode.launches, trunk_encode_bwd.launches
     ha, hr = trunk_encode(packed, x)
     assert (trunk_encode.launches, trunk_encode_bwd.launches) == (before[0] + 1, before[1])
-    assert len(fwd.calls) == 1 and not bwd.calls
+    assert len(fwd.calls) == 1 and not bwd.calls and not fwd.lib.trunk_fwd.calls
     g = torch.ones(10, 64).as_subclass(_OnCuda)
     torch.autograd.backward([ha, hr], [g, g])
     assert (trunk_encode.launches, trunk_encode_bwd.launches) == (before[0] + 1, before[1] + 1)
     call = bwd.calls[0]
-    assert call[9] == 256 and call[10:17] == (10, 4, 256, IN_CH, V_CH, 64, 64)
+    assert call[8] == 256 and call[9:16] == (10, 4, 256, IN_CH, V_CH, 64, 64)
     assert packed.w.grad.dtype == torch.float32
     assert bool((packed.w.grad == torch.tensor(GRAD_VALUE)).all())
     assert bool((packed.b.grad == 0.5).all())
@@ -293,7 +304,7 @@ def test_cuda_gradient_of_one_head_sends_a_zero_cotangent(monkeypatch):
     _, bwd = _stand_ins(monkeypatch)
     real = bwd.body
     bwd.body = lambda *a: (seen.append(np.ctypeslib.as_array(
-        (ctypes.c_float * (10 * 64)).from_address(a[5])).copy()), real(*a))
+        (ctypes.c_float * (10 * 64)).from_address(a[4])).copy()), real(*a))
     packed, x = _cuda_leaves()
     ha, _ = trunk_encode(packed, x)
     ha.backward(torch.ones(10, 64).as_subclass(_OnCuda))
@@ -317,26 +328,93 @@ def test_a_failed_build_raises_instead_of_falling_back(monkeypatch, failing):
 
 
 def test_backward_kernel_refuses_what_it_cannot_take(monkeypatch):
+    """The standalone entry checks x, the weights and the cotangents
+    before it launches anything (the training forward comes first)."""
     monkeypatch.setattr(_build, "load", lambda name: pytest.fail("no launch expected"))
-    packed = _packed()
+    packed = _on_cuda(_packed())
     x = T(_inputs(4, 3)[0])
-    g = torch.zeros(4, 64)
+    g = torch.zeros(4, 64).as_subclass(_OnCuda)
     with pytest.raises(ValueError, match="contiguous"):
-        trunk._launch_bwd(packed, x.t().contiguous().t(), g, g)
+        trunk_encode_bwd(packed, x.t().contiguous().t().as_subclass(_OnCuda), g, g)
     with pytest.raises(ValueError, match="cotangent of h_rgb"):
-        trunk._launch_bwd(packed, x, g, torch.zeros(4, 48))
+        trunk_encode_bwd(packed, x.as_subclass(_OnCuda), g, torch.zeros(4, 48).as_subclass(_OnCuda))
     with pytest.raises(ValueError, match="float32"):
-        trunk._launch_bwd(dataclasses.replace(packed, w=packed.w.double()), x, g, g)
+        trunk_encode_bwd(dataclasses.replace(packed, w=packed.w.double()),
+                         x.as_subclass(_OnCuda), g, g)
+
+
+def test_training_forward_saves_the_workspace_the_backward_reads(monkeypatch):
+    """On the kernel route a forward with a gradient launches the training
+    variant with a workspace of the size trunk_fwd_workspace announces; the
+    backward gets that same memory and its size, and no embedding: it does
+    not recompute the forward."""
+    save, bwd = _stand_ins(monkeypatch)
+    packed, x = _cuda_leaves()
+    ha, hr = trunk_encode(packed, x)
+    assert save.lib.trunk_fwd_workspace.calls == [(10, 4, 256, IN_CH, V_CH)]
+    (call,) = save.calls
+    assert call[0] == x.data_ptr() and call[7] == ACTS_BYTES
+    assert call[8:15] == (10, 4, 256, IN_CH, V_CH, 64, 64)
+    g = torch.ones(10, 64).as_subclass(_OnCuda)
+    torch.autograd.backward([ha, hr], [g, g])
+    (bcall,) = bwd.calls
+    assert bcall[:2] == (call[6], ACTS_BYTES)
+    assert x.data_ptr() not in bcall
+
+
+def test_serving_forward_allocates_no_workspace(monkeypatch):
+    """Under no_grad the route launches the serving kernel and asks for no
+    workspace."""
+    save, _ = _stand_ins(monkeypatch)
+    packed, x = _cuda_leaves()
+    before = trunk_encode.launches
+    with torch.no_grad():
+        trunk_encode(packed, x)
+    assert trunk_encode.launches == before + 1
+    assert len(save.lib.trunk_fwd.calls) == 1
+    assert not save.calls and not save.lib.trunk_fwd_workspace.calls
+
+
+def test_standalone_backward_launches_training_forward_then_backward(monkeypatch):
+    """trunk_encode_bwd on CUDA tensors: the training forward into a new
+    workspace, then the backward on it; one launch counted on each."""
+    save, bwd = _stand_ins(monkeypatch)
+    packed, x = _cuda_leaves()
+    g = torch.ones(10, 64).as_subclass(_OnCuda)
+    before = trunk_encode.launches, trunk_encode_bwd.launches
+    with torch.no_grad():
+        dw, db = trunk_encode_bwd(packed, x, g, None)
+    assert (trunk_encode.launches, trunk_encode_bwd.launches) == (before[0] + 1, before[1] + 1)
+    (call,), (bcall,) = save.calls, bwd.calls
+    assert bcall[:2] == (call[6], ACTS_BYTES)
+    assert bool((dw == torch.tensor(GRAD_VALUE)).all()) and bool((db == 0.5).all())
 
 
 def test_backward_kernel_source_is_built_for_hopper():
     assert "trunk_bwd" in _build.KERNELS
+    assert "arch=compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
     src = (_build.CSRC / "trunk_bwd.cu").read_text()
     assert 'extern "C" int trunk_bwd' in src and 'extern "C" long long trunk_bwd_workspace' in src
+    fwd = (_build.CSRC / "trunk.cu").read_text()
+    assert 'extern "C" int trunk_fwd_save' in fwd
+    assert 'extern "C" long long trunk_fwd_workspace' in fwd
+    # both read the saved activations' layout from the shared header
+    assert "struct ActPlan" in (_build.CSRC / "trunk.cuh").read_text()
     for name in ("_bwd_top_kernel", "_bwd_bottom_kernel"):
         assert f"cfnerf_tpu/ops/pallas/trunk.py:{name}" in src.replace("\n//", "")
-    assert '#include "trunk.cuh"' in src and "wmma::mma_sync" in src
+    # both passes run wgmma: the data pass with A loaded by ldmatrix and B by
+    # TMA, the weight-gradient pass on TMA-loaded, mbarrier-completed tiles;
+    # the shared header's WMMA layer routine stays for the forward only
+    header = (_build.CSRC / "trunk.cuh").read_text()
+    assert '#include "trunk.cuh"' in src and "wmma::mma_sync" in header
+    assert "layer(" not in src and "wmma::" not in src and "ldmatrix" in src
+    for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait",
+                "__grid_constant__ WgradParams", "cuTensorMapEncodeTiled"):
+        assert ptx in src, ptx
     assert "atomicAdd" not in src  # fixed-order sums: deterministic
+    # the backward reads the training forward's activations: it stages no
+    # embedding and takes none
+    assert "stage_inputs" not in src and "const float* emb" not in src
     assert trunk.REPLACES_BWD == ("cfnerf_tpu/ops/pallas/trunk.py:170",
                                   "cfnerf_tpu/ops/pallas/trunk.py:229")
 
