@@ -24,13 +24,13 @@ gradient for the input (it is data).
 
 `pack_trunk_weights` turns a NeRFFlows' nn.Linear weights into the two flat
 f32 buffers the kernels read, once per call as pallas_encode packs (~9.4 MB
-at D8/W512).  Each matrix keeps nn.Linear's (out, in) layout, K-major, so
-that no transpose is needed and each tensor-core fragment's pair along k is
-one 32-bit load; the odd input widths (63, 27) are zero-padded to the
-kernel's k-step of 16.  The weights stay f32 up to the Function and are
-rounded to bf16 inside it, as _trunk_fwd_impl casts them inside the custom
-VJP: so the weight gradients reach the nn.Linear leaves in f32 (autograd
-would round a gradient to the dtype of the tensor it belongs to).
+at D8/W512).  Each matrix keeps nn.Linear's (out, in) layout, K-major: the
+forward's TMA streams it as wgmma's B operand with no transpose; the odd
+input widths (63, 27) are zero-padded to the kernel's k-step of 16.  The
+weights stay f32 up to the Function and are rounded to bf16 inside it, as
+_trunk_fwd_impl casts them inside the custom VJP: so the weight gradients
+reach the nn.Linear leaves in f32 (autograd would round a gradient to the
+dtype of the tensor it belongs to).
 """
 from __future__ import annotations
 
@@ -53,7 +53,9 @@ SOURCE_BWD = "cfnerf_torch/csrc/trunk_bwd.cu"
 REPLACES_BWD = ("cfnerf_tpu/ops/pallas/trunk.py:170", "cfnerf_tpu/ops/pallas/trunk.py:229")
 
 K_STEP = 16  # the kernel's k-step: input widths are padded to it
-MAX_WIDTH = 512  # two (64, W) bf16 activation buffers in a block's shared memory
+MAX_WIDTH = 512  # the forward's shared memory: at W=512, with x and v up to MAX_INPUT,
+# one (64, W) bf16 activation buffer and the x and v tiles leave room for two 64 KB
+# weight stages; the backward's data pass fits its own tiles at that width
 MAX_INPUT = 128  # x and v widths the forward stages beside them
 MAX_DEPTH = 32  # the backward's weight-gradient job table
 
@@ -223,6 +225,47 @@ def _forward(packed: TrunkWeights, x: torch.Tensor):
     f = _bf(_dot(hs[-1], m["wf"]) + b["bf"])
     hv = _bf(torch.relu(_dot(f, m["wvf"]) + _dot(vb, m["wvv"]) + b["bv"]))
     return xb, vb, hs, f, hv
+
+
+ROWS = 64  # the kernels' rows per CTA: the saved activations' rows are padded to it
+PLAN_FIELDS = ("rows_pad", "x", "v", "h", "f", "hv", "bytes")
+
+
+def act_plan(packed: TrunkWeights, B: int) -> Dict[str, int]:
+    """Where the training forward saves its activations for B rows, as the
+    kernel library computes it (csrc/trunk.cuh's ActPlan, through
+    trunk_fwd_act_plan): byte offsets of x, v, h (h_0..h_{D-1} then f, one
+    (D + 1) x rows_pad x width block), f and hv, all bf16 row-major with
+    rows_pad rows, and the workspace's bytes."""
+    fn = _build.load(NAME).trunk_fwd_act_plan
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+        fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * len(PLAN_FIELDS))()
+    if fn(B, packed.depth, packed.width, packed.input_ch, packed.views_ch, out) != 0:
+        raise ValueError(f"act_plan: unsupported shape {packed._shape()}")
+    return dict(zip(PLAN_FIELDS, out))
+
+
+def workspace_views(packed: TrunkWeights, B: int, acts: torch.Tensor,
+                    plan: Optional[Dict[str, int]] = None):
+    """The activations the training forward saved for B rows, read from its
+    workspace (`acts`, uint8, laid out by `plan`, act_plan's by default) as
+    `_forward` returns them: (xb, vb, hs, f, hv), bf16 values held in f32,
+    rows < B."""
+    plan = act_plan(packed, B) if plan is None else plan
+    if acts.dtype != torch.uint8 or acts.numel() < plan["bytes"]:
+        raise ValueError(f"workspace: expected >= {plan['bytes']} bytes of uint8, got "
+                         f"{acts.numel()} of {acts.dtype}")
+    R = plan["rows_pad"]
+
+    def read(off, cols):
+        return acts[off:off + R * cols * 2].view(torch.bfloat16).view(R, cols)[:B].float()
+
+    W = packed.width
+    hs = [read(plan["h"] + i * R * W * 2, W) for i in range(packed.depth)]
+    return (read(plan["x"], _round(packed.input_ch)), read(plan["v"], _round(packed.views_ch)),
+            hs, read(plan["f"], W), read(plan["hv"], W // 2))
 
 
 def trunk_encode_plain(packed: TrunkWeights, x: torch.Tensor) -> Outputs:

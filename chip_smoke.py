@@ -21,7 +21,14 @@ final line):
                    its backward at the hierarchical training passes; the
                    trunk forward (bf16 tensor cores) at the flat serving
                    tile, the hierarchical fine and coarse passes, D4/W256, a
-                   ragged B and strided rows; the trunk backward at the
+                   ragged B and strided rows; its training variant at the
+                   flat training step, D4/W256, the ragged cases and odd
+                   widths (W32/96/160/384, heads 16-48, x and v padded to
+                   96-128 columns): outputs against the plain version and
+                   bitwise equal to the serving variant's, two launches of
+                   each bitwise equal, the saved activations (read back by
+                   trunk.workspace_views) against the plain forward's; the
+                   trunk backward at the
                    three training shapes, D4/W256, a ragged B, strided rows
                    and exact (dyadic) arithmetic, bitwise deterministic, and
                    through the training forward's saved workspace bitwise
@@ -77,8 +84,8 @@ final line):
  15. trunk_grad_golden  the card's trunk backward kernels against JAX's
                    _trunk_bwd gradients on the D4/W256 trunk (tests/fixtures)
  16. kernels       per-kernel launches, error, time, plain time and bound;
-                   trunk_fwd's entry also the training variant's (fwd_save_*,
-                   at the flat training step)
+                   trunk_fwd's entry also the training variant's
+                   (fwd_save_*, at the flat training step)
 
 then the `nvidia-smi` name/power line and, last, the `ok` line.
 """
@@ -871,6 +878,91 @@ def phase_trunk_checks():
     return flat_err
 
 
+def trunk_act_names(depth):
+    return ["x", "v"] + [f"h_{i}" for i in range(depth)] + ["f", "hv"]
+
+
+def flat_acts(acts):
+    """(xb, vb, hs, f, hv) as one list, in trunk_act_names' order."""
+    xb, vb, hs, f, hv = acts
+    return [xb, vb, *hs, f, hv]
+
+
+def phase_trunk_save_checks():
+    """The training forward (trunk_fwd_save) beside the serving one
+    (trunk_fwd) on the same inputs, at the flat training step, D4/W256, the
+    ragged cases and odd widths (W32/96/160/384, heads 16-48, x and v
+    padded to 96 and 128 columns): h_alpha / h_rgb against the plain
+    version and bitwise equal across the two entries (one arithmetic); two
+    launches of each entry bitwise equal (outputs, and the saved
+    activations); the saved activations, read back through
+    trunk.workspace_views, against the plain forward's (_forward), each at
+    the forward's tolerance: a wrong box or swizzle on the TMA store shows
+    here.  Returns the worst activation error."""
+    cases = [  # (B, depth, width, ha, hr, multires, multires_views, extra x columns, label)
+        (TRAIN_FLAT_PTS, 8, 512, 64, 64, 10, 4, 0, "flat training step"),
+        (65536, 4, 256, 64, 64, 10, 4, 0, "D4/W256"),
+        (1000, 8, 512, 64, 64, 10, 4, 0, "ragged B=1000"),
+        (4099, 8, 512, 64, 64, 10, 4, 6, "ragged B=4099, row stride 96"),
+        (777, 3, 96, 16, 48, 10, 4, 0, "D3/W96 ha16 hr48 B=777"),
+        (300, 5, 160, 48, 32, 10, 4, 0, "D5/W160 ha48 hr32 B=300"),
+        (129, 4, 32, 16, 16, 10, 4, 0, "D4/W32 ha16 hr16 B=129"),
+        (2000, 6, 384, 64, 64, 15, 8, 0, "D6/W384 x/v padded to 96/64 B=2000"),
+        (500, 8, 512, 64, 64, 20, 20, 0, "D8/W512 x/v padded to 128/128 B=500"),
+    ]
+    worst_all = 0.0
+    for i, (B, depth, width, ha, hr, mr, mrv, extra, label) in enumerate(cases):
+        args = types.SimpleNamespace(**dict(
+            FLAGSHIP, netdepth=depth, netwidth=width, h_alpha_size=ha, h_rgb_size=hr,
+            multires=mr, multires_views=mrv, trunk_impl="pallas"))
+        model = build_model(args)[0]
+        cols = model.input_ch + model.input_ch_views
+        g = torch.Generator(device="cuda").manual_seed(1800 + i)
+        x = (torch.rand(B, cols + extra, generator=g, device="cuda") * 2.0 - 1.0)[:, :cols]
+        with torch.inference_mode():
+            packed = pack_trunk_weights(model)
+            w16 = packed.w.to(torch.bfloat16)
+            serve = [trunk._launch(packed, x, w16=w16) for _ in range(2)]
+            save = [trunk._launch(packed, x, save=True, w16=w16) for _ in range(2)]
+            saved = [flat_acts(trunk.workspace_views(packed, B, s[2])) for s in save]
+            ref = flat_acts(trunk._forward(packed, x))
+            ref_out = trunk.trunk_encode_plain(packed, x)
+        torch.cuda.synchronize()
+
+        def same(a, b):
+            return all(torch.equal(u, v) for u, v in zip(a, b))
+
+        def close(name, a, b):
+            check(tuple(a.shape) == tuple(b.shape), f"{name} shape ({label})")
+            diff = (a - b).abs()
+            check(bool(torch.isfinite(a).all())
+                  and bool((diff <= TRUNK_ATOL + TRUNK_RTOL * b.abs()).all()),
+                  f"{name} vs plain ({label}): max abs err {float(diff.max())}")
+            return float(diff.max())
+
+        out_errs = {name: close(f"trunk_fwd {name}", a, b)
+                    for name, a, b in zip(("h_alpha", "h_rgb"), serve[0], ref_out)}
+        check(same(*serve), f"trunk_fwd: two launches bitwise equal ({label})")
+        check(same(save[0][:2], save[1][:2]) and same(*saved),
+              f"trunk_fwd_save: two launches bitwise equal, outputs and saved "
+              f"activations ({label})")
+        check(same(save[0][:2], serve[0]),
+              f"trunk_fwd_save's h_alpha / h_rgb bitwise equal to trunk_fwd's ({label})")
+        errs = {name: close(f"saved {name}", a, b)
+                for name, a, b in zip(trunk_act_names(depth), saved[0], ref)}
+        worst = max(errs.values())
+        worst_all = max(worst_all, worst)
+        emit("kernel", kernel="trunk_fwd_save", case=label, B=B, depth=depth, width=width,
+             h_alpha=ha, h_rgb=hr, input_ch=model.input_ch, views_ch=model.input_ch_views,
+             x_row_stride=cols + extra, outputs_max_abs_vs_plain=out_errs,
+             bitwise_two_launches=True, bitwise_outputs_vs_serving=True,
+             saved_acts_max_abs_vs_plain=errs, saved_acts_worst=worst,
+             tolerance={"rtol": TRUNK_RTOL, "atol": TRUNK_ATOL, "per": "output and activation"})
+        del x, serve, save, saved, ref, ref_out, model
+        torch.cuda.empty_cache()
+    return worst_all
+
+
 def phase_trunk_time(flat_err):
     """One trunk launch at each serving shape, CUDA-event timed after a
     warm-up, beside its bound at the bf16 peak, the plain version and two
@@ -899,14 +991,19 @@ def phase_trunk_time(flat_err):
                 trunk_bf16_matmul(packed, x), trunk.trunk_encode_plain(packed, x))]
         nbytes, ops = trunk_work(B, *shape)
         b_ms, b_by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
+        # a model, not a measurement: every CTA of 64 rows reads the whole
+        # packed bf16 weight buffer once
+        l2_model = -(-B // trunk.ROWS) * packed.w.numel() * 2
         emit("kernel_time", kernel="trunk_fwd", launch=label, B=B, depth=D, width=Wd, ms=ms,
              plain_ms=plain_ms, xla_f32_ms=xla_ms, bf16_matmul_ms=bf16_ms, pack_ms=pack_ms,
              bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops,
-             achieved_tflop_per_s=ops / ms / 1e9,
+             achieved_tflop_per_s=ops / ms / 1e9, l2_weight_bytes_model=l2_model,
+             l2_weight_tb_per_s_model=l2_model / ms / 1e9,
              bf16_matmul_max_abs_vs_plain={"h_alpha": bf16_errs[0], "h_rgb": bf16_errs[1]})
         if i == 0:
             stats = dict(max_abs_err=flat_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, xla_f32_ms=xla_ms, bf16_matmul_ms=bf16_ms,
+                         bound_by=b_by, xla_f32_ms=xla_ms,
+                         bf16_matmul_ms=bf16_ms,
                          shape=f"B={B} D{D} W{Wd}, the flat serving tile")
         del x, packed
         torch.cuda.empty_cache()
@@ -2013,7 +2110,8 @@ def kernel_entry(name, source, replaces, launches_by_path, stats):
              "bound_by": stats["bound_by"], "library_ms": None}
     if "shape" in stats:
         entry["timed_at"] = stats["shape"]
-    for extra in ("xla_f32_ms", "bf16_matmul_ms", "fwd_plus_bwd_ms",
+    for extra in ("fwd_save_acts_max_abs_err",
+                  "xla_f32_ms", "bf16_matmul_ms", "fwd_plus_bwd_ms",
                   "bf16_matmul_autograd_ms", "fwd_save_max_abs_err", "fwd_save_ms",
                   "fwd_save_plain_ms", "fwd_save_bound_ms", "fwd_save_bound_by",
                   "fwd_save_timed_at"):
@@ -2041,6 +2139,7 @@ def main() -> int:
     bwd_stats = phase_bwd_checks()
     flow_stats = phase_flow_stack_time(*phase_flow_stack_checks())
     trunk_stats = phase_trunk_time(phase_trunk_checks())
+    trunk_stats["fwd_save_acts_max_abs_err"] = phase_trunk_save_checks()
     phase_trunk_wgrad_checks()
     trunk_bwd_stats, trunk_save_stats = phase_trunk_bwd_time(phase_trunk_bwd_checks())
     trunk_stats.update(trunk_save_stats)

@@ -465,18 +465,88 @@ def test_kernel_refuses_what_its_layout_cannot_take(monkeypatch):
         trunk._launch(packed, x.double())
 
 
+TRUNK_SOURCES = ("trunk.cu", "trunk.cuh", "trunk_bwd.cu", "hopper.cuh")
+
+
 def test_kernel_source_is_built_for_hopper():
     assert "arch=compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert "trunk" in _build.KERNELS
     src = (_build.CSRC / "trunk.cu").read_text()
     assert 'extern "C" int trunk_fwd' in src
     assert "cfnerf_tpu/ops/pallas/trunk.py:_fwd_kernel" in src
-    # the layer routine it shares with the backward lives in the header
-    assert '#include "trunk.cuh"' in src
-    header = (_build.CSRC / "trunk.cuh").read_text()
-    assert "#include <mma.h>" in header and "wmma::mma_sync" in header
+    # the Hopper pieces come from the header both trunk sources include, the
+    # shared layouts from trunk.cuh
+    for name in ("trunk.cu", "trunk_bwd.cu"):
+        text = (_build.CSRC / name).read_text()
+        assert '#include "hopper.cuh"' in text and '#include "trunk.cuh"' in text, name
+    hopper = (_build.CSRC / "hopper.cuh").read_text()
+    # wgmma on TMA-streamed weights behind mbarriers, the activations handed
+    # to the products through the async proxy, the saves by TMA store
+    for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor", "fence.proxy.async", "mbarrier",
+                "cp.async.bulk.wait_group.read"):
+        assert ptx in src + hopper, ptx
+    for call in ("wgmma_ss<", "tma_load(", "tma_store(", "fence_proxy_async()", "mbar_wait(",
+                 "bulk_wait_read<", "setmaxnreg"):
+        assert call in src, call
+    for name in TRUNK_SOURCES:  # no mma.sync fragments left in any trunk source
+        assert "wmma::" not in (_build.CSRC / name).read_text(), name
+    assert "atomicAdd" not in src
     assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
     assert trunk.REPLACES == "cfnerf_tpu/ops/pallas/trunk.py:160"
+
+
+def _act_offsets(B, depth, width, in_pad, v_pad):
+    """ActPlan's offsets as csrc/trunk.cuh writes them, spelled out here:
+    rows_pad = B rounded up to 64; x, v, then h_0..h_{D-1} and f in one
+    block, then hv; each region 256-aligned."""
+    R = (B + 63) // 64 * 64
+    up = lambda n: (n + 255) // 256 * 256
+    x = 0
+    v = x + up(R * in_pad * 2)
+    h = v + up(R * v_pad * 2)
+    hv = h + up((depth + 1) * R * width * 2)
+    return R, {"x": x, "v": v, "h": h, "f": h + depth * R * width * 2, "hv": hv,
+               "bytes": hv + up(R * width // 2 * 2)}
+
+
+@pytest.mark.parametrize("cfg,B", [(WIDE, 150), (SMALL, 77)], ids=["D8W512_B150", "D4W256_B77"])
+def test_workspace_views_read_back_the_saved_activations(cfg, B, monkeypatch):
+    """A workspace written at ActPlan's offsets from `_forward`'s activations
+    (the padded rows past B filled with NaN bits) reads back exactly, with
+    the offsets taken from the library's trunk_fwd_act_plan entry (here a
+    stand-in that answers with the offsets spelled out above)."""
+    packed, x = _packed(cfg), T(_x(B, seed=21))
+    with torch.no_grad():
+        xb, vb, hs, f, hv = trunk._forward(packed, x)
+    R, off = _act_offsets(B, cfg.depth, cfg.width, xb.shape[1], vb.shape[1])
+
+    def plan_body(*a):  # B, depth, width, input_ch, views_ch, out
+        assert a[:5] == (B, cfg.depth, cfg.width, IN_CH, V_CH)
+        for i, v in enumerate([R] + [off[k] for k in ("x", "v", "h", "f", "hv", "bytes")]):
+            a[5][i] = v
+
+    entry = _Entry(plan_body)
+    monkeypatch.setattr(_build, "load",
+                        lambda name: types.SimpleNamespace(trunk_fwd_act_plan=entry))
+    acts = torch.full((off["bytes"],), 0xFF, dtype=torch.uint8)
+
+    def write(at, t):
+        acts[at:at + R * t.shape[1] * 2].view(torch.bfloat16).view(R, -1)[:B] = t.bfloat16()
+
+    write(off["x"], xb)
+    write(off["v"], vb)
+    for i, h in enumerate(hs):
+        write(off["h"] + i * R * cfg.width * 2, h)
+    write(off["f"], f)
+    write(off["hv"], hv)
+    got = trunk.workspace_views(packed, B, acts)
+    want = (xb, vb, hs, f, hv)
+    for name, a, b in zip(("xb", "vb", "hs", "f", "hv"), got, want):
+        for i, (ai, bi) in enumerate(zip(a, b) if name == "hs" else [(a, b)]):
+            assert ai.shape == bi.shape and torch.equal(ai, bi), (name, i)
+    assert len(entry.calls) == 1
+    with pytest.raises(ValueError, match="bytes"):
+        trunk.workspace_views(packed, B, acts[:-1])
 
 
 # ---------------------------------------------------------------------- #

@@ -404,13 +404,19 @@ def test_backward_kernel_source_is_built_for_hopper():
         assert f"cfnerf_tpu/ops/pallas/trunk.py:{name}" in src.replace("\n//", "")
     # both passes run wgmma: the data pass with A loaded by ldmatrix and B by
     # TMA, the weight-gradient pass on TMA-loaded, mbarrier-completed tiles;
-    # the shared header's WMMA layer routine stays for the forward only
+    # the Hopper pieces come from hopper.cuh, which the forward includes too
     header = (_build.CSRC / "trunk.cuh").read_text()
-    assert '#include "trunk.cuh"' in src and "wmma::mma_sync" in header
-    assert "layer(" not in src and "wmma::" not in src and "ldmatrix" in src
+    hopper = (_build.CSRC / "hopper.cuh").read_text()
+    assert '#include "hopper.cuh"' in src and '#include "trunk.cuh"' in src
+    assert '#include "hopper.cuh"' in fwd
+    for text in (src, header, fwd, hopper):
+        assert "wmma::" not in text
+    assert "layer(" not in src and "ldmatrix" in src
     for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait",
                 "__grid_constant__ WgradParams", "cuTensorMapEncodeTiled"):
-        assert ptx in src, ptx
+        assert ptx in src + hopper, ptx
+    for call in ("wgmma_tt<", "wgmma_m64n64k16_rt(", "tma_load(", "mbar_wait(", "encode_map("):
+        assert call in src, call
     assert "atomicAdd" not in src  # fixed-order sums: deterministic
     # the backward reads the training forward's activations: it stages no
     # embedding and takes none
