@@ -1,19 +1,38 @@
 // Shared by the render-core forward (render_core.cu) and backward
-// (render_core_bwd.cu): constants, the scalar activations, the per-warp
-// staging load and one step of each triangular-Sylvester chain.  Both
-// kernels compute the forward with these same functions, so the backward
+// (render_core_bwd.cu): constants, the cut of a ray into segments, the
+// scalar activations, the per-warp staging loads (synchronous and by
+// cp.async) and one step of each triangular-Sylvester chain.  Both kernels
+// compute the forward with these same functions, so the backward
 // recomputes exactly the values the forward produced.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
-constexpr int kMaxChunk = 32;                 // points staged per warp per pass
-constexpr int kSmemBudget = 48 * 1024;        // bytes per block, static limit
 constexpr float kTransEps = 1e-10f;           // reference (1 - alpha + 1e-10)
 constexpr float kLogdetEps = 1e-8f;           // reference flows.py:255
+constexpr int kSegWarps = 8;                  // segments of a ray at once: a CTA's warps
+constexpr int kSegThreads = kSegWarps * 32;
+constexpr int kMaxSeg = 16;                   // samples of a segment in one round
+constexpr int kMaxDynSmem = 227 * 1024;       // dynamic shared memory a CTA may ask
+
+// The cut of a ray of S samples: rounds of kSegWarps contiguous segments of
+// `seg` samples (the last ones shorter or empty), rounds of at most
+// kSegWarps * kMaxSeg samples, split evenly.  Warp w's segment in round r
+// starts at r * kSegWarps * seg + w * seg.  (render_core.py:kernel_segments
+// mirrors it for the tests.)
+struct SegPlan {
+  int rounds, seg;
+};
+
+inline SegPlan seg_plan(int S) {
+  const int rounds = (S + kSegWarps * kMaxSeg - 1) / (kSegWarps * kMaxSeg);
+  const int per_round = (S + rounds - 1) / rounds;
+  return {rounds, (per_round + kSegWarps - 1) / kSegWarps};
+}
 
 __device__ __forceinline__ float softplus_f(float x) {
   // max(x, 0) + log1p(exp(-|x|)) == jax.nn.softplus
@@ -34,12 +53,35 @@ __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
   for (int i = lane; i < n; i += 32) dst[i] = __ldg(src + i);
 }
 
-// Points staged per warp so that kWarpsPerBlock warps fit kSmemBudget;
-// 0 when F is too large to stage one point.
-inline int staging_chunk(int S, int F) {
-  const int per_point = (24 * F + 2) * (int)sizeof(float);
-  const int chunk = kSmemBudget / (kWarpsPerBlock * per_point);
-  return chunk < 1 ? 0 : min(chunk, min(kMaxChunk, S));
+// The same copy, asynchronous: each lane's cp.async joins its current group.
+// 16 bytes a lane where src is 16-byte aligned and n a multiple of 4 (dst
+// always is), else 4.  Visible to the warp after cp_async_wait + __syncwarp.
+__device__ __forceinline__ void stage_async(float* dst, const float* src, int n,
+                                            int lane) {
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && (n & 3) == 0) {
+    for (int i = 4 * lane; i < n; i += 128) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       static_cast<uint32_t>(__cvta_generic_to_shared(dst + i))),
+                   "l"(src + i)
+                   : "memory");
+    }
+  } else {
+    for (int i = lane; i < n; i += 32) {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                       static_cast<uint32_t>(__cvta_generic_to_shared(dst + i))),
+                   "l"(src + i)
+                   : "memory");
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>  // wait until at most N of this thread's groups are pending
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Density chain (Z = 1, the flip is the identity), step f:

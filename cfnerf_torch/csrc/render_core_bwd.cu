@@ -1,6 +1,7 @@
 // Render-core backward for Hopper (sm_90a): the gradient of the render-core
 // forward (render_core.cu) with respect to the shared base draws and every
-// per-point flow parameter, one warp per ray.
+// per-point flow parameter.  One CTA per ray; its warps split the ray's
+// samples into segments and join them with segmented transmittance scans.
 //
 // Replaces: cfnerf_tpu/ops/pallas/render_core.py:_bwd_kernel (with _flow_bwd,
 // launched by _vjp_bwd, the custom VJP of fused_flow_composite), in both modes
@@ -25,58 +26,81 @@
 // tile (640 rays x 128 samples, K=32, F=4) about 64 MB, ~0.02 ms at
 // 3.35 TB/s.  It recomputes the forward and runs the reverse sweeps for every
 // (point, draw): about 825 f32 operations each at F=4, ~2.2 GFLOP, ~0.03 ms
-// at 67 TFLOP/s (chip_smoke.py:render_core_bwd_work counts them).
+// at 67 TFLOP/s (chip_smoke.py:render_core_bwd_work counts them, each
+// transcendental as one).  The card issues more: 2,162 instructions per
+// (point, draw) at F=4 in train mode, 98 of them on the multi-function unit
+// (phase A 481 / 40, phase B 1,681 / 58; this file's SASS,
+// scripts/sass_loops.py), 0.17 ms at the train tile at one warp
+// instruction a clock per scheduler and 1.98 GHz.  The earlier design gave
+// one warp to a ray and walked its 128 samples in order: 640 warps at the
+// train tile, ~5 per SM, each a dependent chain, 58-62x the bound.
 //
-// What the design does about it, simply and not yet fast:
-//   * A warp owns a ray and lane k owns draw k (lane groups of 32 when
-//     K > 32, idle lanes with zero cotangents when K < 32), as in the forward.
-//   * Pass 1 walks the samples in order through the density chain and keeps
-//     each sample's exclusive transmittance T_s in a global scratch (R,S,K),
-//     each lane writing and later reading only its own draw (coalesced, 10.5
-//     MB at the train tile, mostly L2-resident).  Shared memory would need
-//     S*32 floats per warp (16 KB at S=128, more for longer rays) on top of
-//     the staging; the scratch takes any S, and T_s is never recovered by
-//     dividing by x (the closed form that NaN'd at saturated alpha).
-//   * Pass 2 walks the samples backwards, staging each chunk of points into
-//     shared memory as the forward does.  For each sample it recomputes both
-//     flow chains of this lane's draw, runs the composite backward with C in
-//     a register, then each chain's reverse sweep.  F is a runtime value, so
-//     step f's input z_f is recomputed from z0 (O(F^2) steps per point)
-//     instead of being kept in a register array with a compile-time bound.
-//   * Per-point gradients are fixed-order butterfly warp sums over the
-//     draws; lane 0 stores them, and adds the later lane groups' sums to
-//     what it stored (K > 32).  No atomics: the result is the same on every
-//     run.
-//   * Each lane accumulates its draw's z0 gradient over the ray in registers
-//     and writes one row of per-ray partials (R, 4K); a second kernel sums
-//     the R rows of each column in a fixed order.
-// Faster work (trace in shared memory, several rays per warp, fewer
-// shuffles) is later work.
+// What the design does about it:
+//   * Segments.  A CTA of kSegWarps warps owns one ray; warp w owns a
+//     contiguous segment of at most kMaxSeg samples, lane k owns draw k
+//     (lane groups of 32 when K > 32, idle lanes with zero cotangents when
+//     K < 32).  At the train tile that is 5,120 warps instead of 640.
+//     Longer rays go in rounds of kSegWarps segments, the last first.
+//   * Phase A, all segments at once.  Each warp stages its segment's
+//     parameters into shared memory (coalesced), recomputes both chains per
+//     (point, draw), and keeps per sample the segment-local exclusive
+//     transmittance in shared memory.  It forms the segment's product of x
+//     (P) and its (M, Y) pair, the affine map C_in = Y + P C_out of the C
+//     recurrence across the segment (Y = sum_s g_T[s] T_local[s]; JAX's
+//     pairs, render_core.py:421-431).
+//   * The join, one warp, fixed order: T at each segment's start is the
+//     exclusive product of the earlier P; C at each segment's end is the
+//     suffix composition of the later (P, Y).  Rounds carry C backwards
+//     and take T at their start from a density-only pre-pass.  No global
+//     transmittance scratch: the (R*S*K) `trans` buffer of the earlier
+//     design is gone, and T is never recovered by dividing by x.
+//   * Phase B, each segment in reverse: T_s = T_start * T_local[s], C in a
+//     register, the composite backward, then both chains' reverse sweeps
+//     interleaved step by step.  Each step's input and tanh are kept in
+//     registers from the recompute (F is a template bound: exact at F = 4,
+//     a guarded bound of kMaxF otherwise), not recomputed from z0.
+//   * Per-point gradients, summed over the draws through shared memory:
+//     each lane writes a step's 18 gradients to its row, then lane j sums
+//     column j over the 32 rows in a fixed order and stores it.  Later lane
+//     groups add to what the same lane stored.  No atomics, no butterflies:
+//     every run gives the same bits.
+//   * z0 partials: each warp sums its draws' z0 gradients over its
+//     segments; the CTA folds the warps in order into the ray's row of the
+//     (R, 4K) partials, and a second kernel sums the R rows of each column
+//     in a fixed order.
 
 #include "render_core.cuh"
 
 namespace {
 
+constexpr int kMaxF = 8;           // flow steps the generic path holds
+constexpr int kGradsPerStep = 18;  // density 3 + rgb 15 per flow step
+constexpr int kRedStride = kGradsPerStep + 1;  // odd: rows land on distinct banks
 constexpr int kReduceThreads = 256;
-
-__device__ __forceinline__ float warp_sum(float v) {
-  // butterfly: every lane ends with the same bits (a + b == b + a)
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// Per-point gradient summed over this warp's draws.  Lane 0 stores it; for
-// a later lane group it adds to what the same lane stored before.
-__device__ __forceinline__ void put(float* dst, float v, bool first, int lane) {
-  v = warp_sum(v);
-  if (lane == 0) *dst = first ? v : *dst + v;
-}
 
 __device__ __forceinline__ float sign_f(float x) {  // jnp.sign: sign(0) = 0
   return (float)((x > 0.f) - (x < 0.f));
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+// Shared memory, in floats.  Per warp: the staged segment (rounded to 16
+// bytes), its local transmittance (seg x 32) and the reduction rows
+// (32 x kRedStride).  Per CTA: P, Y, T_start, C_end and the z0 fold
+// (kSegWarps x 32 each, the fold x4), and T at each round's start.
+__host__ __device__ inline int stage_floats(int seg, int F) {
+  return (seg * (24 * F + 2) + 3) & ~3;
+}
+__host__ __device__ inline int warp_floats(int seg, int F) {
+  return stage_floats(seg, F) + seg * 32 + 32 * kRedStride;
+}
+inline size_t bwd_smem_bytes(int S, int F) {
+  const SegPlan pl = seg_plan(S);
+  const size_t floats = (size_t)kSegWarps * warp_floats(pl.seg, F) +
+                        (size_t)kSegWarps * 32 * 8 + (size_t)(pl.rounds + 1) * 32;
+  return floats * sizeof(float);
+}
+
+template <int FMAX, bool EXACT>
+__global__ void __launch_bounds__(kSegThreads, 2)
 render_core_bwd_kernel(const float* __restrict__ z0a,
                        const float* __restrict__ r1a,
                        const float* __restrict__ r2a,
@@ -97,28 +121,56 @@ render_core_bwd_kernel(const float* __restrict__ z0a,
                        float* __restrict__ g_r1r,
                        float* __restrict__ g_r2r,
                        float* __restrict__ g_br,
-                       float* __restrict__ trans,
                        float* __restrict__ z0_part,
-                       int R, int S, int K, int F, int chunk,
+                       int R, int S, int K, int F_rt, int seg, int rounds,
                        int compute_log_det) {
   extern __shared__ float smem[];
+  const int F = EXACT ? FMAX : F_rt;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int ray = blockIdx.x * kWarpsPerBlock + warp;
-  if (ray >= R) return;  // whole warp leaves together; no block barrier below
-
-  // this warp's staging area, laid out as in the forward
-  float* st = smem + (size_t)warp * chunk * (24 * F + 2);
-  float* s_r1a = st;
-  float* s_r2a = s_r1a + chunk * F;
-  float* s_ba = s_r2a + chunk * F;
-  float* s_r1r = s_ba + chunk * F;
-  float* s_r2r = s_r1r + chunk * 9 * F;
-  float* s_br = s_r2r + chunk * 9 * F;
-  float* s_z = s_br + chunk * 3 * F;
-  float* s_d = s_z + chunk;
-
+  const int ray = blockIdx.x;
+  const int RL = kSegWarps * seg;  // samples a round covers
   const bool cld = compute_log_det != 0;
+
+  // this warp's area: the staged segment, laid out as one run per array
+  float* st = smem + (size_t)warp * warp_floats(seg, F);
+  float* s_r1a = st;
+  float* s_r2a = s_r1a + seg * F;
+  float* s_ba = s_r2a + seg * F;
+  float* s_r1r = s_ba + seg * F;
+  float* s_r2r = s_r1r + seg * 9 * F;
+  float* s_br = s_r2r + seg * 9 * F;
+  float* s_z = s_br + seg * 3 * F;
+  float* s_d = s_z + seg;
+  float* tloc = st + stage_floats(seg, F);  // [seg][32]
+  float* red = tloc + seg * 32;             // [32][kRedStride]
+  // the CTA's area
+  float* cta = smem + (size_t)kSegWarps * warp_floats(seg, F);
+  float* segP = cta;
+  float* segY = segP + kSegWarps * 32;
+  float* Tst = segY + kSegWarps * 32;
+  float* Cend = Tst + kSegWarps * 32;
+  float* z0f = Cend + kSegWarps * 32;  // [kSegWarps][4][32]
+  float* tround = z0f + kSegWarps * 4 * 32;  // [rounds + 1][32]
+
+  // where lane j < 18 stores the sum of column j of a step's gradients:
+  // dst = base + p * pstride + eoff * F + f; lanes 18-23 zero the lower
+  // triangles of g_r1_r / g_r2_r (elements 3, 6, 7)
+  float* gbase = nullptr;
+  int pstride = 0, eoff = 0;
+  {
+    // upper elements 0 1 2 4 5 8 of a 3x3 block, lower ones 3 6 7
+    const auto upper = [](int i) { return i + (i >= 3) + 2 * (i >= 5); };
+    const auto lower = [](int i) { return 3 + 3 * (i >= 1) + (i >= 2); };
+    if (lane == 0) { gbase = g_r1a; pstride = F; }
+    else if (lane == 1) { gbase = g_r2a; pstride = F; }
+    else if (lane == 2) { gbase = g_ba; pstride = F; }
+    else if (lane < 9) { gbase = g_r1r; pstride = 9 * F; eoff = upper(lane - 3); }
+    else if (lane < 15) { gbase = g_r2r; pstride = 9 * F; eoff = upper(lane - 9); }
+    else if (lane < 18) { gbase = g_br; pstride = 3 * F; eoff = lane - 15; }
+    else if (lane < 21) { gbase = g_r1r; pstride = 9 * F; eoff = lower(lane - 18); }
+    else if (lane < 24) { gbase = g_r2r; pstride = 9 * F; eoff = lower(lane - 21); }
+  }
 
   for (int kb = 0; kb < K; kb += 32) {
     const int k = kb + lane;
@@ -144,27 +196,42 @@ render_core_bwd_kernel(const float* __restrict__ z0a,
         glr = g_ldj[(size_t)R + ray];
       }
     }
-    float* T_of = trans + (size_t)ray * S * K + k;  // T_s at T_of[s * K]
 
-    // ---- pass 1: exclusive transmittance, samples in order ----
-    float T = 1.f;
-    for (int s = 0; s < S; ++s) {
-      const size_t p = (size_t)ray * S + s;
-      float za = za0;
-      for (int f = 0; f < F; ++f) density_step(za, r1a + p * F, r2a + p * F, ba + p * F, f);
-      const float e = expf(-softplus_f(za) * dpts[p]);
-      if (active) T_of[(size_t)s * K] = T;
-      T = T * (e + kTransEps);
+    // ---- pre-pass (rays longer than one round): T at each round's start,
+    // from the density chain alone, rounds in order ----
+    if (rounds > 1) {
+      if (warp == 0) tround[lane] = 1.f;
+      for (int r = 0; r + 1 < rounds; ++r) {
+        const int a = min(S, r * RL + warp * seg);
+        const int b = min(S, a + seg);
+        float P = 1.f;
+        for (int s = a; s < b; ++s) {
+          const size_t p = (size_t)ray * S + s;
+          float za = za0;
+          for (int f = 0; f < F; ++f)
+            density_step(za, r1a + p * F, r2a + p * F, ba + p * F, f);
+          P = P * (expf(-softplus_f(za) * dpts[p]) + kTransEps);
+        }
+        segP[warp * 32 + lane] = P;
+        __syncthreads();
+        if (warp == 0) {
+          float T = tround[r * 32 + lane];
+          for (int w = 0; w < kSegWarps; ++w) T = T * segP[w * 32 + lane];
+          tround[(r + 1) * 32 + lane] = T;
+        }
+        __syncthreads();
+      }
     }
 
-    // ---- pass 2: samples in reverse ----
-    float C = 0.f;
+    float C_carry = 0.f;  // warp 0: C at the last sample of the round before
     float gz0a = 0.f, gz0r0 = 0.f, gz0r1 = 0.f, gz0r2 = 0.f;
-    for (int s_end = S; s_end > 0; s_end -= chunk) {
-      const int n = min(chunk, s_end);
-      const int s0 = s_end - n;
-      const size_t p0 = (size_t)ray * S + s0;
-      __syncwarp();  // the previous chunk is fully consumed
+
+    for (int r = rounds - 1; r >= 0; --r) {
+      const int a = min(S, r * RL + warp * seg);
+      const int n = min(S, a + seg) - a;  // this segment's samples (may be 0)
+      const size_t p0 = (size_t)ray * S + a;
+
+      __syncwarp();  // the previous round's phase B is done with the staging
       stage(s_r1a, r1a + p0 * F, n * F, lane);
       stage(s_r2a, r2a + p0 * F, n * F, lane);
       stage(s_ba, ba + p0 * F, n * F, lane);
@@ -175,35 +242,102 @@ render_core_bwd_kernel(const float* __restrict__ z0a,
       stage(s_d, dpts + p0, n, lane);
       __syncwarp();
 
-      for (int s = n - 1; s >= 0; --s) {
-        const size_t p = p0 + s;
-        const float* q1a = s_r1a + s * F;
-        const float* q2a = s_r2a + s * F;
-        const float* qba = s_ba + s * F;
-        const float* q1 = s_r1r + s * 9 * F;
-        const float* q2 = s_r2r + s * 9 * F;
-        const float* qb = s_br + s * 3 * F;
-
-        // recompute this point's forward for this draw
+      // ---- phase A: the segment's product P and its (P, Y) map ----
+      float Tl = 1.f, Y = 0.f;
+      for (int i = 0; i < n; ++i) {
+        const float* q1a = s_r1a + i * F;
+        const float* q2a = s_r2a + i * F;
+        const float* qba = s_ba + i * F;
+        const float* q1 = s_r1r + i * 9 * F;
+        const float* q2 = s_r2r + i * 9 * F;
+        const float* qb = s_br + i * 3 * F;
         float za = za0;
-        for (int f = 0; f < F; ++f) density_step(za, q1a, q2a, qba, f);
+#pragma unroll
+        for (int f = 0; f < FMAX; ++f)
+          if (f < F) density_step(za, q1a, q2a, qba, f);
         float z0 = zr0, z1 = zr1, z2 = zr2;
-        for (int f = 0; f < F; ++f) {
-          float t0, t1, t2;
-          rgb_tanh(q2, qb, f, F, z0, z1, z2, t0, t1, t2);
-          rgb_update(q1, f, F, t0, t1, t2, z0, z1, z2);
+#pragma unroll
+        for (int f = 0; f < FMAX; ++f) {
+          if (f < F) {
+            float t0, t1, t2;
+            rgb_tanh(q2, qb, f, F, z0, z1, z2, t0, t1, t2);
+            rgb_update(q1, f, F, t0, t1, t2, z0, z1, z2);
+          }
         }
-        const float d = s_d[s];
+        const float e = expf(-softplus_f(za) * s_d[i]);
+        float gw = Ga + Gd * s_z[i];
+        gw = gw + G0 * sigmoid_f(z0);
+        gw = gw + G1 * sigmoid_f(z1);
+        gw = gw + G2 * sigmoid_f(z2);
+        tloc[i * 32 + lane] = Tl;
+        Y = Y + (gw * (1.f - e)) * Tl;
+        Tl = Tl * (e + kTransEps);
+      }
+      segP[warp * 32 + lane] = Tl;
+      segY[warp * 32 + lane] = Y;
+      __syncthreads();
+
+      // ---- the join, fixed order: C at each segment's end (suffix), T at
+      // each segment's start (exclusive prefix) ----
+      if (warp == 0) {
+        float C = C_carry;
+        for (int w = kSegWarps - 1; w >= 0; --w) {
+          Cend[w * 32 + lane] = C;
+          C = segY[w * 32 + lane] + segP[w * 32 + lane] * C;
+        }
+        C_carry = C;
+        float T = rounds > 1 ? tround[r * 32 + lane] : 1.f;
+        for (int w = 0; w < kSegWarps; ++w) {
+          Tst[w * 32 + lane] = T;
+          T = T * segP[w * 32 + lane];
+        }
+      }
+      __syncthreads();
+
+      // ---- phase B: the segment in reverse ----
+      float C = Cend[warp * 32 + lane];
+      const float T0 = Tst[warp * 32 + lane];
+      for (int i = n - 1; i >= 0; --i) {
+        const size_t p = p0 + i;
+        const float* q1a = s_r1a + i * F;
+        const float* q2a = s_r2a + i * F;
+        const float* qba = s_ba + i * F;
+        const float* q1 = s_r1r + i * 9 * F;
+        const float* q2 = s_r2r + i * 9 * F;
+        const float* qb = s_br + i * 3 * F;
+
+        // recompute this point's forward, keeping each step's input and tanh
+        float xa[FMAX], ta[FMAX], xr[3 * FMAX], tr[3 * FMAX];
+        float za = za0;
+#pragma unroll
+        for (int f = 0; f < FMAX; ++f) {
+          if (f < F) {
+            xa[f] = za;
+            ta[f] = density_step(za, q1a, q2a, qba, f);
+          }
+        }
+        float z0 = zr0, z1 = zr1, z2 = zr2;
+#pragma unroll
+        for (int f = 0; f < FMAX; ++f) {
+          if (f < F) {
+            xr[3 * f + 0] = z0; xr[3 * f + 1] = z1; xr[3 * f + 2] = z2;
+            float t0, t1, t2;
+            rgb_tanh(q2, qb, f, F, z0, z1, z2, t0, t1, t2);
+            tr[3 * f + 0] = t0; tr[3 * f + 1] = t1; tr[3 * f + 2] = t2;
+            rgb_update(q1, f, F, t0, t1, t2, z0, z1, z2);
+          }
+        }
+        const float d = s_d[i];
         const float sp = softplus_f(za);
         const float sg = sigmoid_f(za);  // softplus'
         const float e = expf(-sp * d);
         const float x = e + kTransEps;
-        const float Ts = active ? T_of[(size_t)(s0 + s) * K] : 0.f;
+        const float Ts = T0 * tloc[i * 32 + lane];
         const float w = (1.f - e) * Ts;
         const float v0 = sigmoid_f(z0), v1 = sigmoid_f(z1), v2 = sigmoid_f(z2);
 
         // ---- composite backward ----
-        float gw = Ga + Gd * s_z[s];
+        float gw = Ga + Gd * s_z[i];
         gw = gw + G0 * v0;
         gw = gw + G1 * v1;
         gw = gw + G2 * v2;
@@ -223,117 +357,126 @@ render_core_bwd_kernel(const float* __restrict__ z0a,
           gz2 = gz2 + glr * (1.f - 2.f * v2);
         }
 
-        // ---- density chain, reverse ----
-        for (int f = F - 1; f >= 0; --f) {
-          float zf = za0;  // this step's input, recomputed from z0
-          for (int h = 0; h < f; ++h) density_step(zf, q1a, q2a, qba, h);
-          const float t = tanhf(qba[f] + q2a[f] * zf);
-          const float a = q1a[f], c = q2a[f], der = 1.f - t * t;
-          float gt = 0.f, gr1 = 0.f, gr2 = 0.f;
-          if (cld) {
-            const float rr = a * c;
-            const float dj = der * rr + 1.f;
-            const float cc = gla * sign_f(dj) / (fabsf(dj) + kLogdetEps);
-            gt = cc * (-2.f * t) * rr;
-            gr1 = cc * der * c;
-            gr2 = cc * der * a;
+        // ---- both chains in reverse, a step of each at a time ----
+#pragma unroll
+        for (int f = FMAX - 1; f >= 0; --f) {
+          if (f >= F) continue;
+          float* row = red + lane * kRedStride;
+          {  // density step f
+            const float zf = xa[f], t = ta[f];
+            const float a = q1a[f], c = q2a[f], der = 1.f - t * t;
+            float gt = 0.f, gr1 = 0.f, gr2 = 0.f;
+            if (cld) {
+              const float rr = a * c;
+              const float dj = der * rr + 1.f;
+              const float cc = gla * sign_f(dj) / (fabsf(dj) + kLogdetEps);
+              gt = cc * (-2.f * t) * rr;
+              gr1 = cc * der * c;
+              gr2 = cc * der * a;
+            }
+            gr1 = gr1 + gza * t;
+            gt = gt + a * gza;
+            const float gp = gt * der;
+            gr2 = gr2 + gp * zf;
+            gza = gza + c * gp;
+            row[0] = gr1; row[1] = gr2; row[2] = gp;
           }
-          gr1 = gr1 + gza * t;
-          gt = gt + a * gza;
-          const float gp = gt * der;
-          gr2 = gr2 + gp * zf;
-          gza = gza + c * gp;
-          put(g_r1a + p * F + f, gr1, first, lane);
-          put(g_r2a + p * F + f, gr2, first, lane);
-          put(g_ba + p * F + f, gp, first, lane);
+          {  // rgb step f
+            const float y0 = xr[3 * f + 0], y1 = xr[3 * f + 1], y2 = xr[3 * f + 2];
+            const float t0 = tr[3 * f + 0], t1 = tr[3 * f + 1], t2 = tr[3 * f + 2];
+            const bool flip = (f & 1) != 0;
+            const float zp0 = flip ? y2 : y0, zp1 = y1, zp2 = flip ? y0 : y2;
+            const float gu0 = flip ? gz2 : gz0, gu1 = gz1, gu2 = flip ? gz0 : gz2;
+            const float a00 = q1[0 * F + f], a01 = q1[1 * F + f], a02 = q1[2 * F + f];
+            const float a11 = q1[4 * F + f], a12 = q1[5 * F + f], a22 = q1[8 * F + f];
+            const float c00 = q2[0 * F + f], c01 = q2[1 * F + f], c02 = q2[2 * F + f];
+            const float c11 = q2[4 * F + f], c12 = q2[5 * F + f], c22 = q2[8 * F + f];
+            const float d0 = 1.f - t0 * t0, d1 = 1.f - t1 * t1, d2 = 1.f - t2 * t2;
+
+            float gt0 = 0.f, gt1 = 0.f, gt2 = 0.f;
+            float g1_00 = 0.f, g1_11 = 0.f, g1_22 = 0.f;
+            float g2_00 = 0.f, g2_11 = 0.f, g2_22 = 0.f;
+            if (cld) {
+              float rr = a00 * c00, dj = d0 * rr + 1.f;
+              float cc = glr * sign_f(dj) / (fabsf(dj) + kLogdetEps);
+              gt0 = cc * (-2.f * t0) * rr; g1_00 = cc * d0 * c00; g2_00 = cc * d0 * a00;
+              rr = a11 * c11; dj = d1 * rr + 1.f;
+              cc = glr * sign_f(dj) / (fabsf(dj) + kLogdetEps);
+              gt1 = cc * (-2.f * t1) * rr; g1_11 = cc * d1 * c11; g2_11 = cc * d1 * a11;
+              rr = a22 * c22; dj = d2 * rr + 1.f;
+              cc = glr * sign_f(dj) / (fabsf(dj) + kLogdetEps);
+              gt2 = cc * (-2.f * t2) * rr; g1_22 = cc * d2 * c22; g2_22 = cc * d2 * a22;
+            }
+            // u_i = sum_{j >= i} r1[i,j] t_j
+            g1_00 = g1_00 + gu0 * t0; gt0 = gt0 + a00 * gu0;
+            const float g1_01 = gu0 * t1; gt1 = gt1 + a01 * gu0;
+            const float g1_02 = gu0 * t2; gt2 = gt2 + a02 * gu0;
+            g1_11 = g1_11 + gu1 * t1; gt1 = gt1 + a11 * gu1;
+            const float g1_12 = gu1 * t2; gt2 = gt2 + a12 * gu1;
+            g1_22 = g1_22 + gu2 * t2; gt2 = gt2 + a22 * gu2;
+            // pre_i = b_i + sum_{j >= i} r2[i,j] zp_j
+            const float gp0 = gt0 * d0, gp1 = gt1 * d1, gp2 = gt2 * d2;
+            g2_00 = g2_00 + gp0 * zp0; float gzp0 = c00 * gp0;
+            const float g2_01 = gp0 * zp1; float gzp1 = c01 * gp0;
+            const float g2_02 = gp0 * zp2; float gzp2 = c02 * gp0;
+            g2_11 = g2_11 + gp1 * zp1; gzp1 = gzp1 + c11 * gp1;
+            const float g2_12 = gp1 * zp2; gzp2 = gzp2 + c12 * gp1;
+            g2_22 = g2_22 + gp2 * zp2; gzp2 = gzp2 + c22 * gp2;
+            // back through the flip: zp_j is z_{P(j)}
+            if (flip) {
+              gz2 = gz2 + gzp0; gz1 = gz1 + gzp1; gz0 = gz0 + gzp2;
+            } else {
+              gz0 = gz0 + gzp0; gz1 = gz1 + gzp1; gz2 = gz2 + gzp2;
+            }
+            row[3] = g1_00; row[4] = g1_01; row[5] = g1_02;
+            row[6] = g1_11; row[7] = g1_12; row[8] = g1_22;
+            row[9] = g2_00; row[10] = g2_01; row[11] = g2_02;
+            row[12] = g2_11; row[13] = g2_12; row[14] = g2_22;
+            row[15] = gp0; row[16] = gp1; row[17] = gp2;
+          }
+          __syncwarp();
+          // the step's per-point gradients, summed over the 32 draws in a
+          // fixed order (four interleaved partial sums, then a tree)
+          if (lane < kGradsPerStep) {
+            float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll
+            for (int j = 0; j < 32; j += 4) {
+              s0 += red[(j + 0) * kRedStride + lane];
+              s1 += red[(j + 1) * kRedStride + lane];
+              s2 += red[(j + 2) * kRedStride + lane];
+              s3 += red[(j + 3) * kRedStride + lane];
+            }
+            const float v = (s0 + s1) + (s2 + s3);
+            float* dst = gbase + p * pstride + eoff * F + f;
+            *dst = first ? v : *dst + v;
+          } else if (lane < 24 && first) {
+            gbase[p * pstride + eoff * F + f] = 0.f;
+          }
+          __syncwarp();
         }
         gz0a += gza;
-
-        // ---- rgb chain, reverse ----
-        for (int f = F - 1; f >= 0; --f) {
-          float y0 = zr0, y1 = zr1, y2 = zr2;  // this step's input z_f
-          for (int h = 0; h < f; ++h) {
-            float t0, t1, t2;
-            rgb_tanh(q2, qb, h, F, y0, y1, y2, t0, t1, t2);
-            rgb_update(q1, h, F, t0, t1, t2, y0, y1, y2);
-          }
-          float t0, t1, t2;
-          rgb_tanh(q2, qb, f, F, y0, y1, y2, t0, t1, t2);
-          const bool flip = (f & 1) != 0;
-          const float zp0 = flip ? y2 : y0, zp1 = y1, zp2 = flip ? y0 : y2;
-          const float gu0 = flip ? gz2 : gz0, gu1 = gz1, gu2 = flip ? gz0 : gz2;
-          const float a00 = q1[0 * F + f], a01 = q1[1 * F + f], a02 = q1[2 * F + f];
-          const float a11 = q1[4 * F + f], a12 = q1[5 * F + f], a22 = q1[8 * F + f];
-          const float c00 = q2[0 * F + f], c01 = q2[1 * F + f], c02 = q2[2 * F + f];
-          const float c11 = q2[4 * F + f], c12 = q2[5 * F + f], c22 = q2[8 * F + f];
-          const float d0 = 1.f - t0 * t0, d1 = 1.f - t1 * t1, d2 = 1.f - t2 * t2;
-
-          float gt0 = 0.f, gt1 = 0.f, gt2 = 0.f;
-          float g1_00 = 0.f, g1_11 = 0.f, g1_22 = 0.f;
-          float g2_00 = 0.f, g2_11 = 0.f, g2_22 = 0.f;
-          if (cld) {
-            float rr = a00 * c00, dj = d0 * rr + 1.f;
-            float cc = glr * sign_f(dj) / (fabsf(dj) + kLogdetEps);
-            gt0 = cc * (-2.f * t0) * rr; g1_00 = cc * d0 * c00; g2_00 = cc * d0 * a00;
-            rr = a11 * c11; dj = d1 * rr + 1.f;
-            cc = glr * sign_f(dj) / (fabsf(dj) + kLogdetEps);
-            gt1 = cc * (-2.f * t1) * rr; g1_11 = cc * d1 * c11; g2_11 = cc * d1 * a11;
-            rr = a22 * c22; dj = d2 * rr + 1.f;
-            cc = glr * sign_f(dj) / (fabsf(dj) + kLogdetEps);
-            gt2 = cc * (-2.f * t2) * rr; g1_22 = cc * d2 * c22; g2_22 = cc * d2 * a22;
-          }
-          // u_i = sum_{j >= i} r1[i,j] t_j
-          g1_00 = g1_00 + gu0 * t0; gt0 = gt0 + a00 * gu0;
-          const float g1_01 = gu0 * t1; gt1 = gt1 + a01 * gu0;
-          const float g1_02 = gu0 * t2; gt2 = gt2 + a02 * gu0;
-          g1_11 = g1_11 + gu1 * t1; gt1 = gt1 + a11 * gu1;
-          const float g1_12 = gu1 * t2; gt2 = gt2 + a12 * gu1;
-          g1_22 = g1_22 + gu2 * t2; gt2 = gt2 + a22 * gu2;
-          // pre_i = b_i + sum_{j >= i} r2[i,j] zp_j
-          const float gp0 = gt0 * d0, gp1 = gt1 * d1, gp2 = gt2 * d2;
-          g2_00 = g2_00 + gp0 * zp0; float gzp0 = c00 * gp0;
-          const float g2_01 = gp0 * zp1; float gzp1 = c01 * gp0;
-          const float g2_02 = gp0 * zp2; float gzp2 = c02 * gp0;
-          g2_11 = g2_11 + gp1 * zp1; gzp1 = gzp1 + c11 * gp1;
-          const float g2_12 = gp1 * zp2; gzp2 = gzp2 + c12 * gp1;
-          g2_22 = g2_22 + gp2 * zp2; gzp2 = gzp2 + c22 * gp2;
-          // back through the flip: zp_j is z_{P(j)}
-          if (flip) {
-            gz2 = gz2 + gzp0; gz1 = gz1 + gzp1; gz0 = gz0 + gzp2;
-          } else {
-            gz0 = gz0 + gzp0; gz1 = gz1 + gzp1; gz2 = gz2 + gzp2;
-          }
-
-          float* o1 = g_r1r + p * 9 * F + f;
-          float* o2 = g_r2r + p * 9 * F + f;
-          float* ob = g_br + p * 3 * F + f;
-          put(o1 + 0 * F, g1_00, first, lane); put(o2 + 0 * F, g2_00, first, lane);
-          put(o1 + 1 * F, g1_01, first, lane); put(o2 + 1 * F, g2_01, first, lane);
-          put(o1 + 2 * F, g1_02, first, lane); put(o2 + 2 * F, g2_02, first, lane);
-          put(o1 + 4 * F, g1_11, first, lane); put(o2 + 4 * F, g2_11, first, lane);
-          put(o1 + 5 * F, g1_12, first, lane); put(o2 + 5 * F, g2_12, first, lane);
-          put(o1 + 8 * F, g1_22, first, lane); put(o2 + 8 * F, g2_22, first, lane);
-          put(ob + 0 * F, gp0, first, lane);
-          put(ob + 1 * F, gp1, first, lane);
-          put(ob + 2 * F, gp2, first, lane);
-          if (first && lane == 0) {  // lower triangles
-            o1[3 * F] = 0.f; o1[6 * F] = 0.f; o1[7 * F] = 0.f;
-            o2[3 * F] = 0.f; o2[6 * F] = 0.f; o2[7 * F] = 0.f;
-          }
-        }
         gz0r0 += gz0;
         gz0r1 += gz1;
         gz0r2 += gz2;
       }
     }
 
-    if (active) {  // this ray's z0 partials: columns [a | r0 | r1 | r2] x K
+    // this ray's z0 partials: the warps' sums folded in order, columns
+    // [a | r0 | r1 | r2] x K
+    z0f[(warp * 4 + 0) * 32 + lane] = gz0a;
+    z0f[(warp * 4 + 1) * 32 + lane] = gz0r0;
+    z0f[(warp * 4 + 2) * 32 + lane] = gz0r1;
+    z0f[(warp * 4 + 3) * 32 + lane] = gz0r2;
+    __syncthreads();
+    if (warp == 0 && active) {
       float* part = z0_part + (size_t)ray * 4 * K + k;
-      part[0] = gz0a;
-      part[(size_t)K] = gz0r0;
-      part[(size_t)2 * K] = gz0r1;
-      part[(size_t)3 * K] = gz0r2;
+      for (int c = 0; c < 4; ++c) {
+        float v = 0.f;
+        for (int w = 0; w < kSegWarps; ++w) v += z0f[(w * 4 + c) * 32 + lane];
+        part[(size_t)c * K] = v;
+      }
     }
+    __syncthreads();  // the fold is read before the next lane group writes
   }
 }
 
@@ -366,13 +509,37 @@ render_core_bwd_reduce_kernel(const float* __restrict__ z0_part,
   }
 }
 
+template <int FMAX, bool EXACT>
+cudaError_t launch_bwd(size_t smem, cudaStream_t st, const float* z0a,
+                       const float* r1a, const float* r2a, const float* ba,
+                       const float* z0r, const float* r1r, const float* r2r,
+                       const float* br, const float* zpts, const float* dpts,
+                       const float* g_rgb, const float* g_depth,
+                       const float* g_acc, const float* g_ldj, float* g_r1a,
+                       float* g_r2a, float* g_ba, float* g_r1r, float* g_r2r,
+                       float* g_br, float* z0_part, int R, int S, int K, int F,
+                       int compute_log_det) {
+  auto kern = render_core_bwd_kernel<FMAX, EXACT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const SegPlan pl = seg_plan(S);
+  kern<<<R, kSegThreads, smem, st>>>(
+      z0a, r1a, r2a, ba, z0r, r1r, r2r, br, zpts, dpts, g_rgb, g_depth, g_acc,
+      g_ldj, g_r1a, g_r2a, g_ba, g_r1r, g_r2r, g_br, z0_part, R, S, K, F,
+      pl.seg, pl.rounds, compute_log_det);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry point (bound with ctypes).  Pointers are device pointers to
 // contiguous f32 arrays; the caller checks shapes and allocates the scratch
-// `trans` (R*S*K floats) and `z0_part` (R*4*K floats).  Launches both kernels
-// on `stream` and returns the first cudaGetLastError() that is not 0 (0 on
-// success); it never synchronises.
+// `z0_part` (R*4*K floats).  F may be at most 8 (the flow steps a lane holds
+// in registers), and a ray's rounds must fit shared memory (S up to ~10^5);
+// otherwise it returns cudaErrorInvalidValue.  Launches both kernels on
+// `stream` and returns the first error that is not 0 (0 on success); it
+// never synchronises.
 extern "C" int render_core_bwd(const float* z0a, const float* r1a,
                                const float* r2a, const float* ba,
                                const float* z0r, const float* r1r,
@@ -382,21 +549,23 @@ extern "C" int render_core_bwd(const float* z0a, const float* r1a,
                                const float* g_acc, const float* g_ldj,
                                float* g_z0a, float* g_r1a, float* g_r2a,
                                float* g_ba, float* g_z0r, float* g_r1r,
-                               float* g_r2r, float* g_br, float* trans,
-                               float* z0_part, int R, int S, int K, int F,
-                               int compute_log_det, void* stream) {
-  if (R < 0 || S < 1 || K < 1 || F < 1) return (int)cudaErrorInvalidValue;
-  const int chunk = staging_chunk(S, F);
-  if (chunk < 1) return (int)cudaErrorInvalidValue;  // F too large to stage
+                               float* g_r2r, float* g_br, float* z0_part,
+                               int R, int S, int K, int F, int compute_log_det,
+                               void* stream) {
+  if (R < 0 || S < 1 || K < 1 || F < 1 || F > kMaxF) return (int)cudaErrorInvalidValue;
+  const size_t smem = bwd_smem_bytes(S, F);
+  if (smem > (size_t)kMaxDynSmem) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (R > 0) {
-    const size_t smem = (size_t)kWarpsPerBlock * chunk * (24 * F + 2) * sizeof(float);
-    const dim3 grid((R + kWarpsPerBlock - 1) / kWarpsPerBlock);
-    render_core_bwd_kernel<<<grid, kWarpsPerBlock * 32, smem, st>>>(
-        z0a, r1a, r2a, ba, z0r, r1r, r2r, br, zpts, dpts, g_rgb, g_depth,
-        g_acc, g_ldj, g_r1a, g_r2a, g_ba, g_r1r, g_r2r, g_br, trans, z0_part,
-        R, S, K, F, chunk, compute_log_det);
-    const cudaError_t err = cudaGetLastError();
+    const cudaError_t err =
+        F == 4 ? launch_bwd<4, true>(smem, st, z0a, r1a, r2a, ba, z0r, r1r, r2r, br, zpts,
+                                     dpts, g_rgb, g_depth, g_acc, g_ldj, g_r1a, g_r2a,
+                                     g_ba, g_r1r, g_r2r, g_br, z0_part, R, S, K, F,
+                                     compute_log_det)
+               : launch_bwd<kMaxF, false>(smem, st, z0a, r1a, r2a, ba, z0r, r1r, r2r, br,
+                                          zpts, dpts, g_rgb, g_depth, g_acc, g_ldj, g_r1a,
+                                          g_r2a, g_ba, g_r1r, g_r2r, g_br, z0_part, R, S,
+                                          K, F, compute_log_det);
     if (err != cudaSuccess) return (int)err;
   }
   render_core_bwd_reduce_kernel<<<4 * K, kReduceThreads, 0, st>>>(

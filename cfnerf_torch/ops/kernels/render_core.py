@@ -6,7 +6,12 @@ and its custom VJP.  On CUDA tensors the wrappers launch the hand-written
 Hopper kernels (cfnerf_torch/csrc/render_core.cu, render_core_bwd.cu) or
 raise; on CPU tensors they run the plain versions, the same functions in
 eager PyTorch, which are also the kernels' oracles on the card.  There is
-no shape gate: any R, any S >= 1, any K and any F the kernels can stage.
+no shape gate: any R, any S >= 1, any K and any F the kernels can stage
+(the backward kernel keeps at most MAX_F_BWD = 8 flow steps a lane).  The
+kernels cut each ray into segments, one per warp (`kernel_segments`), and
+join them; `fused_flow_composite_segmented` and
+`fused_flow_composite_bwd_segmented` do that arithmetic in eager PyTorch
+for the tests.
 
 Where a gradient is needed, the CUDA route goes through an autograd
 Function whose forward is the forward kernel and whose backward is the
@@ -22,7 +27,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from cfnerf_torch.flows.sylvester import triangular_sylvester_stack
-from cfnerf_torch.ops.compositing import composite_weights, softplus
+from cfnerf_torch.ops.compositing import TRANS_EPS, composite_weights, softplus
 from cfnerf_torch.ops.kernels import _build
 
 NAME = "render_core"
@@ -31,6 +36,8 @@ REPLACES = "cfnerf_tpu/ops/pallas/render_core.py:322"  # _fwd_kernel
 NAME_BWD = "render_core_bwd"
 SOURCE_BWD = "cfnerf_torch/csrc/render_core_bwd.cu"
 REPLACES_BWD = "cfnerf_tpu/ops/pallas/render_core.py:378"  # _bwd_kernel
+MAX_F_BWD = 8  # flow steps the backward kernel holds per lane (render_core_bwd.cu)
+SEG_WARPS, MAX_SEG = 8, 16  # segments a round, samples a segment (render_core.cuh)
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 Grads = Tuple[torch.Tensor, ...]  # the 8 flow-input gradients, z0_a ... b_r
@@ -127,6 +134,156 @@ def fused_flow_composite_bwd_plain(
         grads = torch.autograd.grad([o for o, _ in pairs], xs,
                                     [g for _, g in pairs], allow_unused=True)
     return tuple(torch.zeros_like(x) if g is None else g for x, g in zip(xs, grads))
+
+
+def segment_bounds(S: int, n_seg: int, rounds: int = 1):
+    """The kernels' cut of a ray of S samples: `rounds` rounds of `n_seg`
+    contiguous segments of ceil(ceil(S / rounds) / n_seg) samples each,
+    the last ones shorter or empty.  Returns [(start, end)] in order."""
+    per_round = -(-S // rounds)
+    seg = -(-per_round // n_seg)
+    return [(min(S, i * seg), min(S, (i + 1) * seg)) for i in range(rounds * n_seg)]
+
+
+def kernel_segments(S: int):
+    """The segments the kernels cut a ray of S samples into: rounds of
+    SEG_WARPS segments of at most MAX_SEG samples (render_core.cuh:
+    seg_plan)."""
+    return segment_bounds(S, SEG_WARPS, -(-S // (SEG_WARPS * MAX_SEG)))
+
+
+def _segment_join(P, Y):
+    """The join of segments given each one's product of x (P) and its C map
+    C_in = Y + P C_out: T at each segment's start, the exclusive prefix
+    product in order; C at each segment's end, the suffix composition from
+    C = 0 after the last sample."""
+    T, t_start = torch.ones_like(P[0]), []
+    for p in P:
+        t_start.append(T)
+        T = T * p
+    C, c_end = torch.zeros_like(P[0]), [None] * len(P)
+    for i in reversed(range(len(P))):
+        c_end[i] = C
+        C = Y[i] + P[i] * C
+    return t_start, c_end
+
+
+def fused_flow_composite_bwd_segmented(
+    inputs: Sequence[torch.Tensor],
+    cotangents: Sequence[Optional[torch.Tensor]],
+    s_per_ray: int,
+    compute_log_det: bool,
+    n_seg: int,
+    rounds: int = 1,
+) -> Grads:
+    """The backward kernel's transmittance arithmetic in eager PyTorch, for
+    the tests (never on the main path).  Arguments and gradients as in
+    `fused_flow_composite_bwd_plain`; each ray is cut by `segment_bounds`.
+    Per segment: the local exclusive transmittance, the product P of
+    x = e + 1e-10 and the (P, Y) map of C_s = g_T[s+1] + x[s+1] C_{s+1};
+    joined across segments; then each segment in reverse with
+    T_s = T_start T_local[s] and no division.  Both flow chains go back
+    through autograd."""
+    R, S, K, _ = _shapes(*inputs, s_per_ray)
+    B = R * S
+    g_rgb, g_depth, g_acc, g_ldj = (
+        torch.zeros(shape, dtype=inputs[0].dtype) if g is None else g.detach()
+        for g, shape in zip(cotangents, ((R, 3, K), (R, K), (R, K), (2, R))))
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_() for t in inputs[:8]]
+        z_a, ldj_a = triangular_sylvester_stack(
+            xs[0][None].expand(B, K, 1), *xs[1:4], compute_log_det=compute_log_det)
+        z_r, ldj_r = triangular_sylvester_stack(
+            xs[4][None].expand(B, K, 3), *xs[5:8], compute_log_det=compute_log_det)
+    with torch.no_grad():
+        den = z_a[..., 0].reshape(R, S, K)
+        v = torch.sigmoid(z_r.reshape(R, S, K, 3))
+        sg = torch.sigmoid(den)
+        d = inputs[9].detach().reshape(R, S, 1)
+        e = torch.exp(-softplus(den) * d)
+        x = e + TRANS_EPS
+        g_w = (g_acc[:, None] + g_depth[:, None] * inputs[8].detach().reshape(R, S, 1)
+               + (g_rgb.transpose(1, 2)[:, None] * v).sum(-1))
+        g_T = g_w * (1.0 - e)
+        # phase A: per segment, T_local, P and Y = sum_s g_T[s] T_local[s]
+        bounds = segment_bounds(S, n_seg, rounds)
+        t_loc, P, Y = torch.empty_like(x), [], []
+        for a, b in bounds:
+            t, y = torch.ones(R, K), torch.zeros(R, K)
+            for s in range(a, b):
+                t_loc[:, s] = t
+                y = y + g_T[:, s] * t
+                t = t * x[:, s]
+            P.append(t)
+            Y.append(y)
+        t_start, c_end = _segment_join(P, Y)
+        # phase B: each segment in reverse
+        g_den = torch.empty_like(x)
+        g_zr = torch.empty_like(v)
+        for (a, b), t0, C in zip(bounds, t_start, c_end):
+            for s in reversed(range(a, b)):
+                T = t0 * t_loc[:, s]
+                g_x = T * C
+                C = g_T[:, s] + x[:, s] * C
+                g_e = g_x - g_w[:, s] * T
+                g_den[:, s] = g_e * e[:, s] * (-d[:, s]) * sg[:, s]
+                w = (1.0 - e[:, s]) * T
+                g_zr[:, s] = g_rgb.transpose(1, 2) * (w[..., None] * v[:, s] * (1.0 - v[:, s]))
+        if compute_log_det:
+            g_den = g_den + g_ldj[0][:, None, None] * (1.0 - sg)
+            g_zr = g_zr + g_ldj[1][:, None, None, None] * (1.0 - 2.0 * v)
+    outs, outs_g = [z_a, z_r], [g_den.reshape(B, K, 1), g_zr.reshape(B, K, 3)]
+    if compute_log_det:
+        outs += [ldj_a, ldj_r]
+        outs_g += [g_ldj[0].repeat_interleave(S)[:, None].expand(B, K),
+                   g_ldj[1].repeat_interleave(S)[:, None].expand(B, K)]
+    grads = torch.autograd.grad(outs, xs, outs_g, allow_unused=True)
+    return tuple(torch.zeros_like(x) if g is None else g for x, g in zip(xs, grads))
+
+
+def fused_flow_composite_segmented(
+    z0_a, r1_a, r2_a, b_a, z0_r, r1_r, r2_r, b_r, z_pts, d_pts,
+    s_per_ray: int, compute_log_det: bool, n_seg: int, rounds: int = 1,
+) -> Outputs:
+    """The forward kernel's segment join in eager PyTorch, for the tests
+    (never on the main path).  Arguments and outputs as in
+    `fused_flow_composite_plain`; each ray is cut by `segment_bounds`.  Each
+    segment composites from T = 1 and keeps its product P of x; the ray's
+    maps are sum over segments of T_start * (segment's maps), T_start the
+    exclusive prefix product of P in order."""
+    R, S, K, _ = _shapes(z0_a, r1_a, r2_a, b_a, z0_r, r1_r, r2_r, b_r,
+                         z_pts, d_pts, s_per_ray)
+    B = R * S
+    z_a, ldj_a = triangular_sylvester_stack(
+        z0_a[None].expand(B, K, 1), r1_a, r2_a, b_a, compute_log_det=compute_log_det)
+    z_r, ldj_r = triangular_sylvester_stack(
+        z0_r[None].expand(B, K, 3), r1_r, r2_r, b_r, compute_log_det=compute_log_det)
+    e = torch.exp(-softplus(z_a[..., 0].reshape(R, S, K)) * d_pts.reshape(R, S, 1))
+    x = e + TRANS_EPS
+    v = torch.sigmoid(z_r).reshape(R, S, K, 3)
+    z = z_pts.reshape(R, S)
+    P, maps = [], []  # maps: (R, 5, K) rgb, depth, acc per segment
+    for a, b in segment_bounds(S, n_seg, rounds):
+        t, m = torch.ones(R, K), torch.zeros(R, 5, K)
+        for s in range(a, b):
+            w = (1.0 - e[:, s]) * t
+            m = m + torch.stack([w * v[:, s, :, 0], w * v[:, s, :, 1], w * v[:, s, :, 2],
+                                 w * z[:, s, None], w], 1)
+            t = t * x[:, s]
+        P.append(t)
+        maps.append(m)
+    t_start, _ = _segment_join(P, [torch.zeros_like(p) for p in P])
+    out = torch.zeros(R, 5, K)
+    for t0, m in zip(t_start, maps):
+        out = out + t0[:, None] * m
+    if compute_log_det:
+        corr_a = ldj_a + (z_a - softplus(z_a)).sum(-1)
+        corr_r = ldj_r + (z_r - 2.0 * softplus(z_r)).sum(-1)
+        ldj = torch.stack([corr_a.reshape(R, S * K).sum(1),
+                           corr_r.reshape(R, S * K).sum(1)])
+    else:
+        ldj = torch.zeros(2, R, dtype=out.dtype)
+    return out[:, :3], out[:, 3], out[:, 4], ldj
 
 
 def fused_flow_composite(
@@ -258,12 +415,16 @@ def _launch_bwd(inputs, cotangents, s_per_ray: int, compute_log_det: bool) -> Gr
                 f"{g.dtype} {tuple(g.shape)}"
             )
         cots.append(g.contiguous())  # autograd may hand over expanded views
+    if F > MAX_F_BWD:
+        raise ValueError(
+            f"render core backward kernel: F={F} flow steps, at most {MAX_F_BWD} "
+            "(the steps a lane keeps in registers)"
+        )
     fn = _entry_bwd()
     grads = tuple(x.new_empty(x.shape) for x in inputs[:8])
-    trans = like.new_empty((R * S * K,))  # per-(point, draw) transmittance
     z0_part = like.new_empty((R * 4 * K,))  # per-ray z0 gradient partials
     with _on_device(like.device) as stream:
-        err = fn(*(t.data_ptr() for t in (*inputs, *cots, *grads, trans, z0_part)),
+        err = fn(*(t.data_ptr() for t in (*inputs, *cots, *grads, z0_part)),
                  R, S, K, F, int(bool(compute_log_det)), stream)
     if err != 0:
         raise RuntimeError(
@@ -287,4 +448,4 @@ def _entry():
 
 
 def _entry_bwd():
-    return _bind(NAME_BWD, "render_core_bwd", 24)
+    return _bind(NAME_BWD, "render_core_bwd", 23)

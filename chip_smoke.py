@@ -15,7 +15,8 @@ final line):
                    the render-core forward at the serving tile, the flagship
                    train tile and awkward shapes, both modes; its backward at
                    the flagship train tile, saturated, test mode, awkward
-                   shapes and K=40; the flow-stack forward (Z = 1 and 3, both
+                   shapes and K=40; both at the edges of their segments
+                   (S=1, S=5, S=129); the flow-stack forward (Z = 1 and 3, both
                    modes) at the hierarchical serving and training fine
                    passes, awkward shapes, K=40, expanded and contiguous z0;
                    its backward at the hierarchical training passes; the
@@ -345,7 +346,7 @@ def render_core_bwd_work(R, S, K, F, compute_log_det):
                                 accumulation)
       train mode               +65 per step (log-det terms) and +15 (the
                                 final-activation corrections).
-    The kernel recomputes each step's input from z0 (O(F^2) steps): that is
+    The kernel recomputes the forward twice (its phases A and B): that is
     its own overhead, not the function's work."""
     B = R * S
     in_floats = K * 4 + B * (24 * F + 2) + R * 3 * K + 2 * R * K + 2 * R
@@ -393,6 +394,10 @@ def phase_kernel_checks():
         # the model's diagonals are tanh-bounded: is the ldj gap above the
         # ill-conditioning of log|1 + (1-t^2) r1 r2| at raw randn diagonals?
         (8192, 128, 32, 4, True, True, "serving tile, saturated, tanh-bounded diagonals"),
+        # the edges of the kernels' segments (8 a round, <= 16 samples each)
+        (640, 1, 32, 4, True, True, "segment edge: S=1"),
+        (640, 5, 32, 4, True, False, "segment edge: S=5, under one segment"),
+        (640, 129, 32, 4, True, True, "segment edge: S=129, two rounds"),
     ]
     serving_err = None
     for i, (R, S, K, F, cld, sat, label) in enumerate(cases):
@@ -482,6 +487,10 @@ def phase_bwd_checks():
         (64, 48, 40, 3, True, True, "K=40 > one warp, saturated"),
         # the entropy term's gradient alone, at a unit cotangent per ray
         (640, 128, 32, 4, True, True, "flagship train tile, saturated, ldj cotangent only"),
+        # the edges of the kernel's segments (8 a round, <= 16 samples each)
+        (640, 1, 32, 4, True, True, "segment edge: S=1"),
+        (640, 5, 32, 4, True, False, "segment edge: S=5, under one segment"),
+        (640, 129, 32, 4, True, True, "segment edge: S=129, two rounds"),
     ]
     train_err = None
     for i, (R, S, K, F, cld, sat, label) in enumerate(cases):
@@ -2006,7 +2015,7 @@ def trunk_view(config, label, counters, want):
          pallas_vs_xla_f32_64_rays_not_gated=vs_xla,
          tolerance={"rtol": TRUNK_MAP_RTOL, "atol": TRUNK_MAP_ATOL})
     emit("trunk_profile", view=label, tile_rays=TILE, **breakdown)
-    return launches[trunk.trunk_encode.__name__]
+    return launches
 
 
 def phase_trunk_serve():
@@ -2151,6 +2160,9 @@ def main() -> int:
     phase_hier_golden()
     hier_train = phase_hier_train()
     trunk_flat, trunk_hier = phase_trunk_serve()
+    trunk_flat_launches = trunk_flat[trunk.trunk_encode.__name__]
+    trunk_flat_core = trunk_flat[render_core.fused_flow_composite.__name__]
+    trunk_hier_launches = trunk_hier[trunk.trunk_encode.__name__]
     phase_trunk_golden()
     trunk_train, trunk_hier_train = phase_trunk_train()
     phase_trunk_grad_golden()
@@ -2158,13 +2170,15 @@ def main() -> int:
     # serving: 20 render-core launches a view; training: one render-core
     # forward and backward a step; hierarchical: 4 flow-stack launches (two
     # chains, two passes) a tile or a step, and 4 backward launches a step;
-    # trunk_impl="pallas": a trunk launch per pass, 20 a flat view and 40 a
-    # hierarchical one; training, a trunk forward and backward per pass (the
-    # backward's four kernels count as one launch), beside the render core's
-    # (flat) or the flow stack's (hierarchical)
+    # trunk_impl="pallas": a trunk launch per pass, 20 a flat view (beside 20
+    # render-core launches) and 40 a hierarchical one; training, a trunk
+    # forward and backward per pass (the backward's four kernels count as one
+    # launch), beside the render core's (flat) or the flow stack's
+    # (hierarchical)
     print(json.dumps({"kernels": [
         kernel_entry("render_core_fwd", render_core.SOURCE, render_core.REPLACES,
                      {"serve": serve_launches, "train": train["fused_flow_composite"],
+                      "trunk_serve": trunk_flat_core,
                       "trunk_train": trunk_train["fused_flow_composite"]}, fwd_stats),
         kernel_entry("render_core_bwd", render_core.SOURCE_BWD, render_core.REPLACES_BWD,
                      {"train": train["fused_flow_composite_bwd"],
@@ -2180,7 +2194,8 @@ def main() -> int:
                       "trunk_hier_train": trunk_hier_train["fused_flow_stack_bwd"]},
                      flow_stats["bwd"]),
         kernel_entry("trunk_fwd", trunk.SOURCE, trunk.REPLACES,
-                     {"trunk_serve": trunk_flat, "trunk_hier_serve": trunk_hier,
+                     {"trunk_serve": trunk_flat_launches,
+                      "trunk_hier_serve": trunk_hier_launches,
                       "trunk_train": trunk_train["trunk_encode"],
                       "trunk_hier_train": trunk_hier_train["trunk_encode"]}, trunk_stats),
         kernel_entry("trunk_bwd", trunk.SOURCE_BWD, ", ".join(trunk.REPLACES_BWD),

@@ -278,7 +278,7 @@ def test_cuda_route_with_gradients_goes_through_both_kernels(monkeypatch):
         seen["g_depth"] = _floats(a[11], R * K).copy()
         seen["g_acc"] = _floats(a[12], R * K).copy()
         seen["g_ldj"] = _floats(a[13], 2 * R).copy()
-        seen["ints"] = a[24:29]
+        seen["ints"] = a[23:28]
         for ptr, x in zip(a[14:22], x_grad):
             _floats(ptr, x.numel())[:] = 7.0
 
