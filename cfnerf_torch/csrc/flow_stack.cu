@@ -15,56 +15,109 @@
 // expand is never materialised: 604 MB at the hierarchical serving tile),
 // K*Z when z0 is a contiguous (B, K, Z) tensor.
 //
-// What bounds it on an H100: bytes.  Per point it reads 2 Z^2 F + Z F
-// parameters (84 floats for the rgb chain at F=4) and writes K (Z + 1)
-// outputs (128 floats at K=32): at the hierarchical serving fine pass (8192
-// rays x 192 samples, K=32) the rgb launch moves ~1.3 GB, ~0.4 ms at
-// 3.35 TB/s, against ~5.4 GFLOP of arithmetic, ~0.08 ms at 67 TFLOP/s
-// (chip_smoke.py:flow_stack_work counts both).
+// What bounds it on an H100.  By chip_smoke.py's bound, bytes: per point it
+// reads 2 Z^2 F + Z F parameters (84 floats for the rgb chain at F=4) and
+// writes K (Z + 1) outputs (128 floats at K=32): at the hierarchical serving
+// fine pass (8192 rays x 192 samples, K=32) the rgb launch moves ~1.3 GB,
+// ~0.4 ms at 3.35 TB/s, against ~5.4 GFLOP of arithmetic, ~0.08 ms at 67
+// TFLOP/s (chip_smoke.py:flow_stack_work counts both).  What the card must
+// issue is more: the accurate libm tanhf is a dozen or more instructions,
+// and the rgb chain takes 12 of them a (point, draw) at F=4.
 //
-// What the design does about it, simply: every thread reads its point's
-// parameters straight from device memory; at K=32 the 32 lanes of a warp
-// are one point's draws, so each parameter load is one broadcast per warp,
-// and consecutive warps walk consecutive points.  z and ldj are written
-// once, neighbouring threads on neighbouring addresses.  Nothing
-// intermediate touches memory.  Wider loads (parameters staged through
-// shared memory, several points per warp at small K) are later work.
+// What the design does about it.  Measured by ablation on the card
+// (scripts/torch_render_core_times.py --kernels flow_stack, PERF.md), the
+// earlier design (this one's shape, with F at runtime and 64-bit index
+// arithmetic) was held by the instructions it issued, not by its bytes:
+// its arithmetic alone took 92% of its time, its loads alone 66%, its
+// stores alone 27%.  Designs that staged a CTA's parameters through shared
+// memory (cp.async, a ring of tiles, 16-byte stores of z) issued fewer
+// instructions a (point, draw) but ran no faster: they held more registers
+// and waited at barriers, so fewer warps hid the tanh chains' latency.
+// So the thread a (point, draw) stays, at 32 registers (64 warps an SM),
+// and what it issues is cut:
+//   * F = 4 is compile-time and the steps unroll: each step's 15
+//     parameters (rgb chain) are loads at fixed offsets from one pointer,
+//     with no index arithmetic, and each step's flip is compile-time.
+//     Any other F takes the same code with a runtime F.
+//   * The point and draw of a thread come from 32-bit index arithmetic
+//     whenever B K < 2^31 (a uniform branch keeps the 64-bit division for
+//     larger launches).
+//   * At K = 32 the 32 lanes of a warp are one point's draws, so each
+//     parameter load is one broadcast a warp; z and ldj are written once,
+//     neighbouring threads on neighbouring addresses.
+// Math is f32 throughout with the accurate libm functions: no fast-math,
+// no approximate intrinsic.
 
 #include "flow_stack.cuh"
 
 namespace {
 
-template <int Z>
-__global__ void __launch_bounds__(kFwdThreads)
+constexpr int kThreads = 256;
+
+template <int Z, int FC, bool CLD>
+__global__ void __launch_bounds__(kThreads)
 flow_stack_fwd_kernel(const float* __restrict__ z0, long long z0_stride,
                       const float* __restrict__ r1,
                       const float* __restrict__ r2,
                       const float* __restrict__ b,
                       float* __restrict__ z_out,
                       float* __restrict__ ldj_out,
-                      long long n, int K, int F, int compute_log_det) {
-  const long long i = (long long)blockIdx.x * kFwdThreads + threadIdx.x;
+                      long long n, int K, int F_rt) {
+  constexpr int ZZ = Z * Z;
+  const int F = FC > 0 ? FC : F_rt;
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
-  const long long p = i / K;
-  const int k = (int)(i - p * K);
+  long long p;
+  int k;
+  if (n <= 0x7fffffffLL) {  // uniform: 32-bit arithmetic
+    const unsigned pu = (unsigned)i / (unsigned)K;
+    p = pu;
+    k = (int)((unsigned)i - pu * (unsigned)K);
+  } else {
+    p = i / K;
+    k = (int)(i - p * K);
+  }
 
-  const float* src = z0 + p * z0_stride + (long long)k * Z;
+  const float* src = z0 + p * z0_stride + k * Z;
   float z[Z], t[Z];
 #pragma unroll
-  for (int c = 0; c < Z; ++c) z[c] = src[c];
-  const float* q1 = r1 + p * (Z * Z * F);
-  const float* q2 = r2 + p * (Z * Z * F);
+  for (int c = 0; c < Z; ++c) z[c] = __ldg(src + c);
+  const float* q1 = r1 + p * (ZZ * F);
+  const float* q2 = r2 + p * (ZZ * F);
   const float* qb = b + p * (Z * F);
-
-  const bool cld = compute_log_det != 0;
   float ldj = 0.f;
+#pragma unroll
   for (int f = 0; f < F; ++f) {
-    FlowStep<Z>::run(z, t, q1, q2, qb, f, F);
-    if (cld) ldj += step_logdet<Z>(t, q1, q2, f, F);
+    const Step<Z> s = load_step<Z>(q1, q2, qb, f, F);
+    step_fwd<Z>(s, f, z, t);
+    if (CLD) ldj += step_logdet<Z>(s, t);
   }
 #pragma unroll
   for (int c = 0; c < Z; ++c) z_out[i * Z + c] = z[c];
   ldj_out[i] = ldj;
+}
+
+template <int Z, int FC, bool CLD>
+cudaError_t launch_fwd(cudaStream_t st, const float* z0, int z0_stride, const float* r1,
+                       const float* r2, const float* b, float* z, float* ldj, int B,
+                       int K, int F) {
+  const long long n = (long long)B * K;
+  const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
+  flow_stack_fwd_kernel<Z, FC, CLD><<<grid, kThreads, 0, st>>>(z0, z0_stride, r1, r2, b, z,
+                                                                ldj, n, K, F);
+  return cudaGetLastError();
+}
+
+template <int Z>
+cudaError_t launch_fwd_z(bool f4, bool cld, cudaStream_t st, const float* z0,
+                         int z0_stride, const float* r1, const float* r2, const float* b,
+                         float* z, float* ldj, int B, int K, int F) {
+  if (f4) {
+    return cld ? launch_fwd<Z, 4, true>(st, z0, z0_stride, r1, r2, b, z, ldj, B, K, F)
+               : launch_fwd<Z, 4, false>(st, z0, z0_stride, r1, r2, b, z, ldj, B, K, F);
+  }
+  return cld ? launch_fwd<Z, 0, true>(st, z0, z0_stride, r1, r2, b, z, ldj, B, K, F)
+             : launch_fwd<Z, 0, false>(st, z0, z0_stride, r1, r2, b, z, ldj, B, K, F);
 }
 
 }  // namespace
@@ -72,7 +125,8 @@ flow_stack_fwd_kernel(const float* __restrict__ z0, long long z0_stride,
 // C entry point (bound with ctypes).  Pointers are device pointers to f32
 // arrays: z0 read through `z0_stride` floats per point (its (K, Z) block
 // contiguous), r1, r2 (B, Z, Z, F), b (B, Z, F), z (B, K, Z) and ldj (B, K)
-// contiguous; the caller checks shapes.  Launches on `stream` and returns
+// contiguous; the caller checks shapes.  F = 4 takes the compile-time
+// kernel, any other F the runtime-F one.  Launches on `stream` and returns
 // cudaGetLastError() (0 on success); it never synchronises.
 extern "C" int flow_stack_fwd(const float* z0, int z0_stride, const float* r1,
                               const float* r2, const float* b, float* z,
@@ -81,16 +135,11 @@ extern "C" int flow_stack_fwd(const float* z0, int z0_stride, const float* r1,
   if (B < 0 || K < 1 || F < 1 || z0_stride < 0 || (Z != 1 && Z != 3)) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long n = (long long)B * K;
-  if (n == 0) return 0;
-  const dim3 grid((unsigned)((n + kFwdThreads - 1) / kFwdThreads));
+  if (B == 0) return 0;
+  const bool cld = compute_log_det != 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Z == 1) {
-    flow_stack_fwd_kernel<1><<<grid, kFwdThreads, 0, st>>>(
-        z0, z0_stride, r1, r2, b, z, ldj, n, K, F, compute_log_det);
-  } else {
-    flow_stack_fwd_kernel<3><<<grid, kFwdThreads, 0, st>>>(
-        z0, z0_stride, r1, r2, b, z, ldj, n, K, F, compute_log_det);
-  }
-  return (int)cudaGetLastError();
+  const cudaError_t err =
+      Z == 1 ? launch_fwd_z<1>(F == 4, cld, st, z0, z0_stride, r1, r2, b, z, ldj, B, K, F)
+             : launch_fwd_z<3>(F == 4, cld, st, z0, z0_stride, r1, r2, b, z, ldj, B, K, F);
+  return (int)err;
 }

@@ -59,6 +59,12 @@
 //     interleaved step by step.  Each step's input and tanh are kept in
 //     registers from the recompute (F is a template bound: exact at F = 4,
 //     a guarded bound of kMaxF otherwise), not recomputed from z0.
+//   * Any F above kMaxF takes a generic path: nothing is staged (each
+//     warp reads its segment's parameters from device memory, through L1,
+//     so shared memory does not grow with F), and each step's input is
+//     recomputed from z0 (O(F^2) step evaluations a draw).  The cut of the
+//     ray is the same, so the backward takes every F the forward takes (the
+//     forward's bound: one sample a ring stage must fit, F <= 146).
 //   * Per-point gradients, summed over the draws through shared memory:
 //     each lane writes a step's 18 gradients to its row, then lane j sums
 //     column j over the 32 rows in a fixed order and stores it.  Later lane
@@ -73,7 +79,7 @@
 
 namespace {
 
-constexpr int kMaxF = 8;           // flow steps the generic path holds
+constexpr int kMaxF = 8;           // flow steps the staged path keeps in registers
 constexpr int kGradsPerStep = 18;  // density 3 + rgb 15 per flow step
 constexpr int kRedStride = kGradsPerStep + 1;  // odd: rows land on distinct banks
 constexpr int kReduceThreads = 256;
@@ -83,11 +89,12 @@ __device__ __forceinline__ float sign_f(float x) {  // jnp.sign: sign(0) = 0
 }
 
 // Shared memory, in floats.  Per warp: the staged segment (rounded to 16
-// bytes), its local transmittance (seg x 32) and the reduction rows
-// (32 x kRedStride).  Per CTA: P, Y, T_start, C_end and the z0 fold
-// (kSegWarps x 32 each, the fold x4), and T at each round's start.
+// bytes; none on the generic path, F > kMaxF), its local transmittance
+// (seg x 32) and the reduction rows (32 x kRedStride).  Per CTA: P, Y,
+// T_start, C_end and the z0 fold (kSegWarps x 32 each, the fold x4), and T
+// at each round's start.
 __host__ __device__ inline int stage_floats(int seg, int F) {
-  return (seg * (24 * F + 2) + 3) & ~3;
+  return F > kMaxF ? 0 : (seg * (24 * F + 2) + 3) & ~3;
 }
 __host__ __device__ inline int warp_floats(int seg, int F) {
   return stage_floats(seg, F) + seg * 32 + 32 * kRedStride;
@@ -99,6 +106,148 @@ inline size_t bwd_smem_bytes(int S, int F) {
   return floats * sizeof(float);
 }
 
+// Steps [0, n) of both chains from (za; z0, z1, z2).  FMAX > 0: unrolled
+// to FMAX with a guard; FMAX = 0 (the generic path): a runtime loop.
+template <int FMAX>
+__device__ __forceinline__ void chain_steps(float& za, float& z0, float& z1, float& z2,
+                                            const float* q1a, const float* q2a,
+                                            const float* qba, const float* q1,
+                                            const float* q2, const float* qb, int F,
+                                            int n) {
+  if constexpr (FMAX > 0) {
+#pragma unroll
+    for (int f = 0; f < FMAX; ++f)
+      if (f < n) density_step(za, q1a, q2a, qba, f);
+#pragma unroll
+    for (int f = 0; f < FMAX; ++f) {
+      if (f < n) {
+        float t0, t1, t2;
+        rgb_tanh(q2, qb, f, F, z0, z1, z2, t0, t1, t2);
+        rgb_update(q1, f, F, t0, t1, t2, z0, z1, z2);
+      }
+    }
+  } else {
+    for (int f = 0; f < n; ++f) density_step(za, q1a, q2a, qba, f);
+    for (int f = 0; f < n; ++f) {
+      float t0, t1, t2;
+      rgb_tanh(q2, qb, f, F, z0, z1, z2, t0, t1, t2);
+      rgb_update(q1, f, F, t0, t1, t2, z0, z1, z2);
+    }
+  }
+}
+
+// Where lane j stores the draws' sum of column j of a step's gradients.
+struct GradDst {
+  float* base;
+  int pstride, eoff;
+};
+
+// Step f of both chains in reverse for one draw: (zf, t) the density
+// step's input and tanh, (y, tr) the rgb step's; gza / gz hold the
+// cotangents of the steps' outputs on entry and of their inputs on return.
+// The step's 18 per-point gradients are summed over the warp's 32 draws
+// through `red` and stored at point p (added to what is there unless
+// `first`; lanes 18-23 zero the lower triangles).
+__device__ __forceinline__ void reverse_step(
+    int f, int F, float zf, float t, const float* y, const float* tr,
+    const float* q1a, const float* q2a, const float* q1, const float* q2,
+    float gla, float glr, bool cld, float& gza, float& gz0, float& gz1, float& gz2,
+    float* red, int lane, GradDst dst, size_t p, bool first) {
+  float* row = red + lane * kRedStride;
+  {  // density step f
+    const float a = q1a[f], c = q2a[f], der = 1.f - t * t;
+    float gt = 0.f, gr1 = 0.f, gr2 = 0.f;
+    if (cld) {
+      const float rr = a * c;
+      const float dj = der * rr + 1.f;
+      const float cc = gla * sign_f(dj) / (fabsf(dj) + kLogdetEps);
+      gt = cc * (-2.f * t) * rr;
+      gr1 = cc * der * c;
+      gr2 = cc * der * a;
+    }
+    gr1 = gr1 + gza * t;
+    gt = gt + a * gza;
+    const float gp = gt * der;
+    gr2 = gr2 + gp * zf;
+    gza = gza + c * gp;
+    row[0] = gr1; row[1] = gr2; row[2] = gp;
+  }
+  {  // rgb step f
+    const float y0 = y[0], y1 = y[1], y2 = y[2];
+    const float t0 = tr[0], t1 = tr[1], t2 = tr[2];
+    const bool flip = (f & 1) != 0;
+    const float zp0 = flip ? y2 : y0, zp1 = y1, zp2 = flip ? y0 : y2;
+    const float gu0 = flip ? gz2 : gz0, gu1 = gz1, gu2 = flip ? gz0 : gz2;
+    const float a00 = q1[0 * F + f], a01 = q1[1 * F + f], a02 = q1[2 * F + f];
+    const float a11 = q1[4 * F + f], a12 = q1[5 * F + f], a22 = q1[8 * F + f];
+    const float c00 = q2[0 * F + f], c01 = q2[1 * F + f], c02 = q2[2 * F + f];
+    const float c11 = q2[4 * F + f], c12 = q2[5 * F + f], c22 = q2[8 * F + f];
+    const float d0 = 1.f - t0 * t0, d1 = 1.f - t1 * t1, d2 = 1.f - t2 * t2;
+
+    float gt0 = 0.f, gt1 = 0.f, gt2 = 0.f;
+    float g1_00 = 0.f, g1_11 = 0.f, g1_22 = 0.f;
+    float g2_00 = 0.f, g2_11 = 0.f, g2_22 = 0.f;
+    if (cld) {
+      float rr = a00 * c00, dj = d0 * rr + 1.f;
+      float cc = glr * sign_f(dj) / (fabsf(dj) + kLogdetEps);
+      gt0 = cc * (-2.f * t0) * rr; g1_00 = cc * d0 * c00; g2_00 = cc * d0 * a00;
+      rr = a11 * c11; dj = d1 * rr + 1.f;
+      cc = glr * sign_f(dj) / (fabsf(dj) + kLogdetEps);
+      gt1 = cc * (-2.f * t1) * rr; g1_11 = cc * d1 * c11; g2_11 = cc * d1 * a11;
+      rr = a22 * c22; dj = d2 * rr + 1.f;
+      cc = glr * sign_f(dj) / (fabsf(dj) + kLogdetEps);
+      gt2 = cc * (-2.f * t2) * rr; g1_22 = cc * d2 * c22; g2_22 = cc * d2 * a22;
+    }
+    // u_i = sum_{j >= i} r1[i,j] t_j
+    g1_00 = g1_00 + gu0 * t0; gt0 = gt0 + a00 * gu0;
+    const float g1_01 = gu0 * t1; gt1 = gt1 + a01 * gu0;
+    const float g1_02 = gu0 * t2; gt2 = gt2 + a02 * gu0;
+    g1_11 = g1_11 + gu1 * t1; gt1 = gt1 + a11 * gu1;
+    const float g1_12 = gu1 * t2; gt2 = gt2 + a12 * gu1;
+    g1_22 = g1_22 + gu2 * t2; gt2 = gt2 + a22 * gu2;
+    // pre_i = b_i + sum_{j >= i} r2[i,j] zp_j
+    const float gp0 = gt0 * d0, gp1 = gt1 * d1, gp2 = gt2 * d2;
+    g2_00 = g2_00 + gp0 * zp0; float gzp0 = c00 * gp0;
+    const float g2_01 = gp0 * zp1; float gzp1 = c01 * gp0;
+    const float g2_02 = gp0 * zp2; float gzp2 = c02 * gp0;
+    g2_11 = g2_11 + gp1 * zp1; gzp1 = gzp1 + c11 * gp1;
+    const float g2_12 = gp1 * zp2; gzp2 = gzp2 + c12 * gp1;
+    g2_22 = g2_22 + gp2 * zp2; gzp2 = gzp2 + c22 * gp2;
+    // back through the flip: zp_j is z_{P(j)}
+    if (flip) {
+      gz2 = gz2 + gzp0; gz1 = gz1 + gzp1; gz0 = gz0 + gzp2;
+    } else {
+      gz0 = gz0 + gzp0; gz1 = gz1 + gzp1; gz2 = gz2 + gzp2;
+    }
+    row[3] = g1_00; row[4] = g1_01; row[5] = g1_02;
+    row[6] = g1_11; row[7] = g1_12; row[8] = g1_22;
+    row[9] = g2_00; row[10] = g2_01; row[11] = g2_02;
+    row[12] = g2_11; row[13] = g2_12; row[14] = g2_22;
+    row[15] = gp0; row[16] = gp1; row[17] = gp2;
+  }
+  __syncwarp();
+  // the step's per-point gradients, summed over the 32 draws in a fixed
+  // order (four interleaved partial sums, then a tree)
+  if (lane < kGradsPerStep) {
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 32; j += 4) {
+      s0 += red[(j + 0) * kRedStride + lane];
+      s1 += red[(j + 1) * kRedStride + lane];
+      s2 += red[(j + 2) * kRedStride + lane];
+      s3 += red[(j + 3) * kRedStride + lane];
+    }
+    const float v = (s0 + s1) + (s2 + s3);
+    float* out = dst.base + p * dst.pstride + dst.eoff * F + f;
+    *out = first ? v : *out + v;
+  } else if (lane < 24 && first) {
+    dst.base[p * dst.pstride + dst.eoff * F + f] = 0.f;
+  }
+  __syncwarp();
+}
+
+// FMAX > 0: the staged path, F <= FMAX (EXACT: F == FMAX at compile time);
+// FMAX = 0: the generic path, any F, nothing staged, step inputs recomputed.
 template <int FMAX, bool EXACT>
 __global__ void __launch_bounds__(kSegThreads, 2)
 render_core_bwd_kernel(const float* __restrict__ z0a,
@@ -124,6 +273,7 @@ render_core_bwd_kernel(const float* __restrict__ z0a,
                        float* __restrict__ z0_part,
                        int R, int S, int K, int F_rt, int seg, int rounds,
                        int compute_log_det) {
+  constexpr bool kStaged = FMAX > 0;
   extern __shared__ float smem[];
   const int F = EXACT ? FMAX : F_rt;
   const int warp = threadIdx.x >> 5;
@@ -132,16 +282,9 @@ render_core_bwd_kernel(const float* __restrict__ z0a,
   const int RL = kSegWarps * seg;  // samples a round covers
   const bool cld = compute_log_det != 0;
 
-  // this warp's area: the staged segment, laid out as one run per array
+  // this warp's area: the staged segment (staged path), laid out as one
+  // run per array, then its local transmittance and reduction rows
   float* st = smem + (size_t)warp * warp_floats(seg, F);
-  float* s_r1a = st;
-  float* s_r2a = s_r1a + seg * F;
-  float* s_ba = s_r2a + seg * F;
-  float* s_r1r = s_ba + seg * F;
-  float* s_r2r = s_r1r + seg * 9 * F;
-  float* s_br = s_r2r + seg * 9 * F;
-  float* s_z = s_br + seg * 3 * F;
-  float* s_d = s_z + seg;
   float* tloc = st + stage_floats(seg, F);  // [seg][32]
   float* red = tloc + seg * 32;             // [32][kRedStride]
   // the CTA's area
@@ -156,20 +299,19 @@ render_core_bwd_kernel(const float* __restrict__ z0a,
   // where lane j < 18 stores the sum of column j of a step's gradients:
   // dst = base + p * pstride + eoff * F + f; lanes 18-23 zero the lower
   // triangles of g_r1_r / g_r2_r (elements 3, 6, 7)
-  float* gbase = nullptr;
-  int pstride = 0, eoff = 0;
+  GradDst gdst{nullptr, 0, 0};
   {
     // upper elements 0 1 2 4 5 8 of a 3x3 block, lower ones 3 6 7
     const auto upper = [](int i) { return i + (i >= 3) + 2 * (i >= 5); };
     const auto lower = [](int i) { return 3 + 3 * (i >= 1) + (i >= 2); };
-    if (lane == 0) { gbase = g_r1a; pstride = F; }
-    else if (lane == 1) { gbase = g_r2a; pstride = F; }
-    else if (lane == 2) { gbase = g_ba; pstride = F; }
-    else if (lane < 9) { gbase = g_r1r; pstride = 9 * F; eoff = upper(lane - 3); }
-    else if (lane < 15) { gbase = g_r2r; pstride = 9 * F; eoff = upper(lane - 9); }
-    else if (lane < 18) { gbase = g_br; pstride = 3 * F; eoff = lane - 15; }
-    else if (lane < 21) { gbase = g_r1r; pstride = 9 * F; eoff = lower(lane - 18); }
-    else if (lane < 24) { gbase = g_r2r; pstride = 9 * F; eoff = lower(lane - 21); }
+    if (lane == 0) gdst = {g_r1a, F, 0};
+    else if (lane == 1) gdst = {g_r2a, F, 0};
+    else if (lane == 2) gdst = {g_ba, F, 0};
+    else if (lane < 9) gdst = {g_r1r, 9 * F, upper(lane - 3)};
+    else if (lane < 15) gdst = {g_r2r, 9 * F, upper(lane - 9)};
+    else if (lane < 18) gdst = {g_br, 3 * F, lane - 15};
+    else if (lane < 21) gdst = {g_r1r, 9 * F, lower(lane - 18)};
+    else if (lane < 24) gdst = {g_r2r, 9 * F, lower(lane - 21)};
   }
 
   for (int kb = 0; kb < K; kb += 32) {
@@ -231,39 +373,42 @@ render_core_bwd_kernel(const float* __restrict__ z0a,
       const int n = min(S, a + seg) - a;  // this segment's samples (may be 0)
       const size_t p0 = (size_t)ray * S + a;
 
-      __syncwarp();  // the previous round's phase B is done with the staging
-      stage(s_r1a, r1a + p0 * F, n * F, lane);
-      stage(s_r2a, r2a + p0 * F, n * F, lane);
-      stage(s_ba, ba + p0 * F, n * F, lane);
-      stage(s_r1r, r1r + p0 * 9 * F, n * 9 * F, lane);
-      stage(s_r2r, r2r + p0 * 9 * F, n * 9 * F, lane);
-      stage(s_br, br + p0 * 3 * F, n * 3 * F, lane);
-      stage(s_z, zpts + p0, n, lane);
-      stage(s_d, dpts + p0, n, lane);
-      __syncwarp();
+      // the segment's arrays: staged into shared memory, or (generic path)
+      // read where they lie
+      const float *s_r1a, *s_r2a, *s_ba, *s_r1r, *s_r2r, *s_br, *s_z, *s_d;
+      if constexpr (kStaged) {
+        float* w_r1a = st;
+        float* w_r2a = w_r1a + seg * F;
+        float* w_ba = w_r2a + seg * F;
+        float* w_r1r = w_ba + seg * F;
+        float* w_r2r = w_r1r + seg * 9 * F;
+        float* w_br = w_r2r + seg * 9 * F;
+        float* w_z = w_br + seg * 3 * F;
+        float* w_d = w_z + seg;
+        __syncwarp();  // the previous round's phase B is done with the staging
+        stage(w_r1a, r1a + p0 * F, n * F, lane);
+        stage(w_r2a, r2a + p0 * F, n * F, lane);
+        stage(w_ba, ba + p0 * F, n * F, lane);
+        stage(w_r1r, r1r + p0 * 9 * F, n * 9 * F, lane);
+        stage(w_r2r, r2r + p0 * 9 * F, n * 9 * F, lane);
+        stage(w_br, br + p0 * 3 * F, n * 3 * F, lane);
+        stage(w_z, zpts + p0, n, lane);
+        stage(w_d, dpts + p0, n, lane);
+        __syncwarp();
+        s_r1a = w_r1a; s_r2a = w_r2a; s_ba = w_ba; s_r1r = w_r1r;
+        s_r2r = w_r2r; s_br = w_br; s_z = w_z; s_d = w_d;
+      } else {
+        s_r1a = r1a + p0 * F; s_r2a = r2a + p0 * F; s_ba = ba + p0 * F;
+        s_r1r = r1r + p0 * 9 * F; s_r2r = r2r + p0 * 9 * F; s_br = br + p0 * 3 * F;
+        s_z = zpts + p0; s_d = dpts + p0;
+      }
 
       // ---- phase A: the segment's product P and its (P, Y) map ----
       float Tl = 1.f, Y = 0.f;
       for (int i = 0; i < n; ++i) {
-        const float* q1a = s_r1a + i * F;
-        const float* q2a = s_r2a + i * F;
-        const float* qba = s_ba + i * F;
-        const float* q1 = s_r1r + i * 9 * F;
-        const float* q2 = s_r2r + i * 9 * F;
-        const float* qb = s_br + i * 3 * F;
-        float za = za0;
-#pragma unroll
-        for (int f = 0; f < FMAX; ++f)
-          if (f < F) density_step(za, q1a, q2a, qba, f);
-        float z0 = zr0, z1 = zr1, z2 = zr2;
-#pragma unroll
-        for (int f = 0; f < FMAX; ++f) {
-          if (f < F) {
-            float t0, t1, t2;
-            rgb_tanh(q2, qb, f, F, z0, z1, z2, t0, t1, t2);
-            rgb_update(q1, f, F, t0, t1, t2, z0, z1, z2);
-          }
-        }
+        float za = za0, z0 = zr0, z1 = zr1, z2 = zr2;
+        chain_steps<FMAX>(za, z0, z1, z2, s_r1a + i * F, s_r2a + i * F, s_ba + i * F,
+                          s_r1r + i * 9 * F, s_r2r + i * 9 * F, s_br + i * 3 * F, F, F);
         const float e = expf(-softplus_f(za) * s_d[i]);
         float gw = Ga + Gd * s_z[i];
         gw = gw + G0 * sigmoid_f(z0);
@@ -306,26 +451,31 @@ render_core_bwd_kernel(const float* __restrict__ z0a,
         const float* q2 = s_r2r + i * 9 * F;
         const float* qb = s_br + i * 3 * F;
 
-        // recompute this point's forward, keeping each step's input and tanh
-        float xa[FMAX], ta[FMAX], xr[3 * FMAX], tr[3 * FMAX];
-        float za = za0;
+        // this point's forward; the staged path keeps each step's input
+        // and tanh in registers
+        constexpr int NF = kStaged ? FMAX : 1;
+        float xa[NF], ta[NF], xr[3 * NF], tr[3 * NF];
+        float za = za0, z0 = zr0, z1 = zr1, z2 = zr2;
+        if constexpr (kStaged) {
 #pragma unroll
-        for (int f = 0; f < FMAX; ++f) {
-          if (f < F) {
-            xa[f] = za;
-            ta[f] = density_step(za, q1a, q2a, qba, f);
+          for (int f = 0; f < FMAX; ++f) {
+            if (f < F) {
+              xa[f] = za;
+              ta[f] = density_step(za, q1a, q2a, qba, f);
+            }
           }
-        }
-        float z0 = zr0, z1 = zr1, z2 = zr2;
 #pragma unroll
-        for (int f = 0; f < FMAX; ++f) {
-          if (f < F) {
-            xr[3 * f + 0] = z0; xr[3 * f + 1] = z1; xr[3 * f + 2] = z2;
-            float t0, t1, t2;
-            rgb_tanh(q2, qb, f, F, z0, z1, z2, t0, t1, t2);
-            tr[3 * f + 0] = t0; tr[3 * f + 1] = t1; tr[3 * f + 2] = t2;
-            rgb_update(q1, f, F, t0, t1, t2, z0, z1, z2);
+          for (int f = 0; f < FMAX; ++f) {
+            if (f < F) {
+              xr[3 * f + 0] = z0; xr[3 * f + 1] = z1; xr[3 * f + 2] = z2;
+              float t0, t1, t2;
+              rgb_tanh(q2, qb, f, F, z0, z1, z2, t0, t1, t2);
+              tr[3 * f + 0] = t0; tr[3 * f + 1] = t1; tr[3 * f + 2] = t2;
+              rgb_update(q1, f, F, t0, t1, t2, z0, z1, z2);
+            }
           }
+        } else {
+          chain_steps<0>(za, z0, z1, z2, q1a, q2a, qba, q1, q2, qb, F, F);
         }
         const float d = s_d[i];
         const float sp = softplus_f(za);
@@ -358,101 +508,24 @@ render_core_bwd_kernel(const float* __restrict__ z0a,
         }
 
         // ---- both chains in reverse, a step of each at a time ----
+        if constexpr (kStaged) {
 #pragma unroll
-        for (int f = FMAX - 1; f >= 0; --f) {
-          if (f >= F) continue;
-          float* row = red + lane * kRedStride;
-          {  // density step f
-            const float zf = xa[f], t = ta[f];
-            const float a = q1a[f], c = q2a[f], der = 1.f - t * t;
-            float gt = 0.f, gr1 = 0.f, gr2 = 0.f;
-            if (cld) {
-              const float rr = a * c;
-              const float dj = der * rr + 1.f;
-              const float cc = gla * sign_f(dj) / (fabsf(dj) + kLogdetEps);
-              gt = cc * (-2.f * t) * rr;
-              gr1 = cc * der * c;
-              gr2 = cc * der * a;
-            }
-            gr1 = gr1 + gza * t;
-            gt = gt + a * gza;
-            const float gp = gt * der;
-            gr2 = gr2 + gp * zf;
-            gza = gza + c * gp;
-            row[0] = gr1; row[1] = gr2; row[2] = gp;
+          for (int f = FMAX - 1; f >= 0; --f) {
+            if (f >= F) continue;
+            reverse_step(f, F, xa[f], ta[f], xr + 3 * f, tr + 3 * f, q1a, q2a, q1, q2,
+                         gla, glr, cld, gza, gz0, gz1, gz2, red, lane, gdst, p, first);
           }
-          {  // rgb step f
-            const float y0 = xr[3 * f + 0], y1 = xr[3 * f + 1], y2 = xr[3 * f + 2];
-            const float t0 = tr[3 * f + 0], t1 = tr[3 * f + 1], t2 = tr[3 * f + 2];
-            const bool flip = (f & 1) != 0;
-            const float zp0 = flip ? y2 : y0, zp1 = y1, zp2 = flip ? y0 : y2;
-            const float gu0 = flip ? gz2 : gz0, gu1 = gz1, gu2 = flip ? gz0 : gz2;
-            const float a00 = q1[0 * F + f], a01 = q1[1 * F + f], a02 = q1[2 * F + f];
-            const float a11 = q1[4 * F + f], a12 = q1[5 * F + f], a22 = q1[8 * F + f];
-            const float c00 = q2[0 * F + f], c01 = q2[1 * F + f], c02 = q2[2 * F + f];
-            const float c11 = q2[4 * F + f], c12 = q2[5 * F + f], c22 = q2[8 * F + f];
-            const float d0 = 1.f - t0 * t0, d1 = 1.f - t1 * t1, d2 = 1.f - t2 * t2;
-
-            float gt0 = 0.f, gt1 = 0.f, gt2 = 0.f;
-            float g1_00 = 0.f, g1_11 = 0.f, g1_22 = 0.f;
-            float g2_00 = 0.f, g2_11 = 0.f, g2_22 = 0.f;
-            if (cld) {
-              float rr = a00 * c00, dj = d0 * rr + 1.f;
-              float cc = glr * sign_f(dj) / (fabsf(dj) + kLogdetEps);
-              gt0 = cc * (-2.f * t0) * rr; g1_00 = cc * d0 * c00; g2_00 = cc * d0 * a00;
-              rr = a11 * c11; dj = d1 * rr + 1.f;
-              cc = glr * sign_f(dj) / (fabsf(dj) + kLogdetEps);
-              gt1 = cc * (-2.f * t1) * rr; g1_11 = cc * d1 * c11; g2_11 = cc * d1 * a11;
-              rr = a22 * c22; dj = d2 * rr + 1.f;
-              cc = glr * sign_f(dj) / (fabsf(dj) + kLogdetEps);
-              gt2 = cc * (-2.f * t2) * rr; g1_22 = cc * d2 * c22; g2_22 = cc * d2 * a22;
-            }
-            // u_i = sum_{j >= i} r1[i,j] t_j
-            g1_00 = g1_00 + gu0 * t0; gt0 = gt0 + a00 * gu0;
-            const float g1_01 = gu0 * t1; gt1 = gt1 + a01 * gu0;
-            const float g1_02 = gu0 * t2; gt2 = gt2 + a02 * gu0;
-            g1_11 = g1_11 + gu1 * t1; gt1 = gt1 + a11 * gu1;
-            const float g1_12 = gu1 * t2; gt2 = gt2 + a12 * gu1;
-            g1_22 = g1_22 + gu2 * t2; gt2 = gt2 + a22 * gu2;
-            // pre_i = b_i + sum_{j >= i} r2[i,j] zp_j
-            const float gp0 = gt0 * d0, gp1 = gt1 * d1, gp2 = gt2 * d2;
-            g2_00 = g2_00 + gp0 * zp0; float gzp0 = c00 * gp0;
-            const float g2_01 = gp0 * zp1; float gzp1 = c01 * gp0;
-            const float g2_02 = gp0 * zp2; float gzp2 = c02 * gp0;
-            g2_11 = g2_11 + gp1 * zp1; gzp1 = gzp1 + c11 * gp1;
-            const float g2_12 = gp1 * zp2; gzp2 = gzp2 + c12 * gp1;
-            g2_22 = g2_22 + gp2 * zp2; gzp2 = gzp2 + c22 * gp2;
-            // back through the flip: zp_j is z_{P(j)}
-            if (flip) {
-              gz2 = gz2 + gzp0; gz1 = gz1 + gzp1; gz0 = gz0 + gzp2;
-            } else {
-              gz0 = gz0 + gzp0; gz1 = gz1 + gzp1; gz2 = gz2 + gzp2;
-            }
-            row[3] = g1_00; row[4] = g1_01; row[5] = g1_02;
-            row[6] = g1_11; row[7] = g1_12; row[8] = g1_22;
-            row[9] = g2_00; row[10] = g2_01; row[11] = g2_02;
-            row[12] = g2_11; row[13] = g2_12; row[14] = g2_22;
-            row[15] = gp0; row[16] = gp1; row[17] = gp2;
+        } else {
+          for (int f = F - 1; f >= 0; --f) {
+            // step f's inputs, recomputed from z0, then its tanh
+            float ya = za0, y[3] = {zr0, zr1, zr2}, t[3];
+            chain_steps<0>(ya, y[0], y[1], y[2], q1a, q2a, qba, q1, q2, qb, F, f);
+            const float yf = ya;
+            const float tf = density_step(ya, q1a, q2a, qba, f);
+            rgb_tanh(q2, qb, f, F, y[0], y[1], y[2], t[0], t[1], t[2]);
+            reverse_step(f, F, yf, tf, y, t, q1a, q2a, q1, q2, gla, glr, cld, gza, gz0,
+                         gz1, gz2, red, lane, gdst, p, first);
           }
-          __syncwarp();
-          // the step's per-point gradients, summed over the 32 draws in a
-          // fixed order (four interleaved partial sums, then a tree)
-          if (lane < kGradsPerStep) {
-            float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-#pragma unroll
-            for (int j = 0; j < 32; j += 4) {
-              s0 += red[(j + 0) * kRedStride + lane];
-              s1 += red[(j + 1) * kRedStride + lane];
-              s2 += red[(j + 2) * kRedStride + lane];
-              s3 += red[(j + 3) * kRedStride + lane];
-            }
-            const float v = (s0 + s1) + (s2 + s3);
-            float* dst = gbase + p * pstride + eoff * F + f;
-            *dst = first ? v : *dst + v;
-          } else if (lane < 24 && first) {
-            gbase[p * pstride + eoff * F + f] = 0.f;
-          }
-          __syncwarp();
         }
         gz0a += gza;
         gz0r0 += gz0;
@@ -479,6 +552,7 @@ render_core_bwd_kernel(const float* __restrict__ z0a,
     __syncthreads();  // the fold is read before the next lane group writes
   }
 }
+
 
 // g_z0: column `blockIdx.x` of the (R, 4K) partials summed over the rays in a
 // fixed order (strided per thread, then a tree), so every run gives the
@@ -535,11 +609,11 @@ cudaError_t launch_bwd(size_t smem, cudaStream_t st, const float* z0a,
 
 // C entry point (bound with ctypes).  Pointers are device pointers to
 // contiguous f32 arrays; the caller checks shapes and allocates the scratch
-// `z0_part` (R*4*K floats).  F may be at most 8 (the flow steps a lane holds
-// in registers), and a ray's rounds must fit shared memory (S up to ~10^5);
-// otherwise it returns cudaErrorInvalidValue.  Launches both kernels on
-// `stream` and returns the first error that is not 0 (0 on success); it
-// never synchronises.
+// `z0_part` (R*4*K floats).  F = 4 takes the compile-time kernel, F <= 8
+// the staged one with a runtime F, any larger F the generic one.  A ray's
+// rounds must fit shared memory (S up to ~10^5); otherwise it returns
+// cudaErrorInvalidValue.  Launches both kernels on `stream` and returns the
+// first error that is not 0 (0 on success); it never synchronises.
 extern "C" int render_core_bwd(const float* z0a, const float* r1a,
                                const float* r2a, const float* ba,
                                const float* z0r, const float* r1r,
@@ -552,20 +626,18 @@ extern "C" int render_core_bwd(const float* z0a, const float* r1a,
                                float* g_r2r, float* g_br, float* z0_part,
                                int R, int S, int K, int F, int compute_log_det,
                                void* stream) {
-  if (R < 0 || S < 1 || K < 1 || F < 1 || F > kMaxF) return (int)cudaErrorInvalidValue;
+  if (R < 0 || S < 1 || K < 1 || F < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = bwd_smem_bytes(S, F);
   if (smem > (size_t)kMaxDynSmem) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (R > 0) {
-    const cudaError_t err =
-        F == 4 ? launch_bwd<4, true>(smem, st, z0a, r1a, r2a, ba, z0r, r1r, r2r, br, zpts,
-                                     dpts, g_rgb, g_depth, g_acc, g_ldj, g_r1a, g_r2a,
-                                     g_ba, g_r1r, g_r2r, g_br, z0_part, R, S, K, F,
-                                     compute_log_det)
-               : launch_bwd<kMaxF, false>(smem, st, z0a, r1a, r2a, ba, z0r, r1r, r2r, br,
-                                          zpts, dpts, g_rgb, g_depth, g_acc, g_ldj, g_r1a,
-                                          g_r2a, g_ba, g_r1r, g_r2r, g_br, z0_part, R, S,
-                                          K, F, compute_log_det);
+    const auto launch = F == 4 ? &launch_bwd<4, true>
+                        : F <= kMaxF ? &launch_bwd<kMaxF, false>
+                                     : &launch_bwd<0, false>;
+    const cudaError_t err = launch(smem, st, z0a, r1a, r2a, ba, z0r, r1r, r2r, br, zpts,
+                                   dpts, g_rgb, g_depth, g_acc, g_ldj, g_r1a, g_r2a, g_ba,
+                                   g_r1r, g_r2r, g_br, z0_part, R, S, K, F,
+                                   compute_log_det);
     if (err != cudaSuccess) return (int)err;
   }
   render_core_bwd_reduce_kernel<<<4 * K, kReduceThreads, 0, st>>>(

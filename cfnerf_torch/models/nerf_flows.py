@@ -13,7 +13,9 @@ activation log-det corrections fold into the entropy term.
 The trunk runs as f32 nn.Linear layers (trunk_impl="xla", the default, as
 in the JAX package) or, with trunk_impl="pallas", through the trunk
 kernels' bf16 products (cfnerf_torch/ops/kernels/trunk.py), forward and
-backward.  The unfused forward's flow stacks run through the flow-stack
+backward, within the kernels' domain (trunk.supported); trunk_impl=
+"interpret" runs their plain versions within JAX's domain for its Pallas
+trunk (interpret_supported), which is wider.  The unfused forward's flow stacks run through the flow-stack
 kernel (flow_impl "auto" or "pallas") or its plain version ("xla" or
 "interpret"); the fused forward's render core through its kernel or, with
 interpret=True, its plain version.
@@ -49,6 +51,19 @@ TRUNK_IMPLS = ("xla", "pallas", "interpret")
 FLOW_IMPLS = ("auto", "xla", "pallas", "interpret")
 
 Eps = Tuple[torch.Tensor, torch.Tensor]
+LANE = 128  # JAX's Pallas trunk tiles its widths by the TPU's 128 lanes
+
+
+def interpret_supported(depth: int, width: int, use_viewdirs: bool,
+                        skips: Sequence[int]) -> bool:
+    """The domain of trunk_impl="interpret": JAX's own rule for its Pallas
+    trunk (cfnerf_tpu/ops/pallas/trunk.py:supported, with the skip check of
+    cfnerf_tpu/models/nerf_flows.py:encode): the viewdirs topology with one
+    skip after layer depth // 2, depth >= 3, widths W and W / 2 in whole
+    128-lane tiles, any head widths.  The plain version it runs has no
+    limit of its own beyond the topology."""
+    return (use_viewdirs and tuple(skips) == (depth // 2,) and depth >= 3
+            and width % LANE == 0 and (width // 2) % LANE == 0)
 
 
 def _fixed_eps(k_samples: int, seed: int) -> Eps:
@@ -88,18 +103,27 @@ class NeRFFlows(nn.Module):
             raise ValueError(f"trunk_impl must be one of {TRUNK_IMPLS}, got {trunk_impl!r}")
         if flow_impl not in FLOW_IMPLS:
             raise ValueError(f"flow_impl must be one of {FLOW_IMPLS}, got {flow_impl!r}")
-        if trunk_impl != "xla" and not trunk_supported(
+        # never silently ignore an explicit implementation choice
+        if trunk_impl == "pallas" and not trunk_supported(
                 net_depth, net_width, use_viewdirs, skips, h_alpha_size, h_rgb_size,
                 input_ch, input_ch_views):
-            # never silently ignore an explicit implementation choice
             raise ValueError(
-                f"trunk_impl={trunk_impl!r} requires use_viewdirs, skips == "
-                f"(depth//2,), 3 <= depth <= 32, width % 32 == 0 and <= {MAX_WIDTH}, "
+                f"trunk_impl='pallas' (the trunk kernels) requires use_viewdirs, skips "
+                f"== (depth//2,), 3 <= depth <= 32, width % 32 == 0 and <= {MAX_WIDTH}, "
                 f"and head widths % 16 == 0 and <= width; got depth={net_depth}, "
                 f"width={net_width}, "
                 f"skips={tuple(skips)}, use_viewdirs={use_viewdirs}, heads="
-                f"({h_alpha_size}, {h_rgb_size}). Use trunk_impl='xla' for this "
-                "configuration."
+                f"({h_alpha_size}, {h_rgb_size}). Use trunk_impl='interpret' or 'xla' "
+                "for this configuration."
+            )
+        if trunk_impl == "interpret" and not interpret_supported(
+                net_depth, net_width, use_viewdirs, skips):
+            raise ValueError(
+                "trunk_impl='interpret' requires what JAX's Pallas trunk takes: "
+                "use_viewdirs, skips == (depth//2,), depth >= 3, width % 128 == 0 and "
+                f"(width // 2) % 128 == 0; got depth={net_depth}, width={net_width}, "
+                f"skips={tuple(skips)}, use_viewdirs={use_viewdirs}. Use "
+                "trunk_impl='xla' for this configuration."
             )
         self.net_depth, self.net_width = net_depth, net_width
         self.input_ch, self.input_ch_views = input_ch, input_ch_views

@@ -6,8 +6,10 @@ and its custom VJP.  On CUDA tensors the wrappers launch the hand-written
 Hopper kernels (cfnerf_torch/csrc/render_core.cu, render_core_bwd.cu) or
 raise; on CPU tensors they run the plain versions, the same functions in
 eager PyTorch, which are also the kernels' oracles on the card.  There is
-no shape gate: any R, any S >= 1, any K and any F the kernels can stage
-(the backward kernel keeps at most MAX_F_BWD = 8 flow steps a lane).  The
+no shape gate: any R, any S >= 1, any K and any F up to MAX_F, the most
+the forward kernel can stage (the backward takes every F the forward
+takes: F = 4 compile-time, F <= 8 with each step's input kept in
+registers, any larger F recomputed from z0).  The
 kernels cut each ray into segments, one per warp (`kernel_segments`), and
 join them; `fused_flow_composite_segmented` and
 `fused_flow_composite_bwd_segmented` do that arithmetic in eager PyTorch
@@ -36,7 +38,9 @@ REPLACES = "cfnerf_tpu/ops/pallas/render_core.py:322"  # _fwd_kernel
 NAME_BWD = "render_core_bwd"
 SOURCE_BWD = "cfnerf_torch/csrc/render_core_bwd.cu"
 REPLACES_BWD = "cfnerf_tpu/ops/pallas/render_core.py:378"  # _bwd_kernel
-MAX_F_BWD = 8  # flow steps the backward kernel holds per lane (render_core_bwd.cu)
+# flow steps the forward kernel can stage: one sample a ring stage must fit
+# its 227 KB of shared memory (render_core.cu:fwd_smem_bytes)
+MAX_F = 146
 SEG_WARPS, MAX_SEG = 8, 16  # segments a round, samples a segment (render_core.cuh)
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -378,9 +382,16 @@ def _check_kernel_inputs(args) -> None:
             )
 
 
+def _check_flow_steps(F: int) -> None:
+    if F > MAX_F:
+        raise ValueError(f"render core kernels: F={F} flow steps, at most {MAX_F} (the "
+                         "forward's shared memory); use the unfused path")
+
+
 def _launch(args, s_per_ray: int, compute_log_det: bool) -> Outputs:
     R, S, K, F = _shapes(*args, s_per_ray)
     _check_kernel_inputs(args)
+    _check_flow_steps(F)
     fn = _entry()
     like = args[0]  # outputs go where the inputs are
     rgb = like.new_empty((R, 3, K))
@@ -415,11 +426,7 @@ def _launch_bwd(inputs, cotangents, s_per_ray: int, compute_log_det: bool) -> Gr
                 f"{g.dtype} {tuple(g.shape)}"
             )
         cots.append(g.contiguous())  # autograd may hand over expanded views
-    if F > MAX_F_BWD:
-        raise ValueError(
-            f"render core backward kernel: F={F} flow steps, at most {MAX_F_BWD} "
-            "(the steps a lane keeps in registers)"
-        )
+    _check_flow_steps(F)
     fn = _entry_bwd()
     grads = tuple(x.new_empty(x.shape) for x in inputs[:8])
     z0_part = like.new_empty((R * 4 * K,))  # per-ray z0 gradient partials

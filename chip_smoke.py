@@ -16,10 +16,15 @@ final line):
                    train tile and awkward shapes, both modes; its backward at
                    the flagship train tile, saturated, test mode, awkward
                    shapes and K=40; both at the edges of their segments
-                   (S=1, S=5, S=129); the flow-stack forward (Z = 1 and 3, both
-                   modes) at the hierarchical serving and training fine
-                   passes, awkward shapes, K=40, expanded and contiguous z0;
-                   its backward at the hierarchical training passes; the
+                   (S=1, S=5, S=129); the backward also at F=5 and 8 (each
+                   step's input kept in registers) and F=9, 12 and 16 (its
+                   generic path), and one fused training step at F=12
+                   through the kernels against the same step through the
+                   plain render core; the flow-stack forward (Z = 1 and 3,
+                   both modes) at the hierarchical serving and training fine
+                   passes, awkward shapes, K=40, K=7 with a ragged B, F=1,
+                   F=9, expanded and contiguous z0; its backward at the
+                   hierarchical training passes and the same edges; the
                    trunk forward (bf16 tensor cores) at the flat serving
                    tile, the hierarchical fine and coarse passes, D4/W256, a
                    ragged B and strided rows; its training variant at the
@@ -37,7 +42,10 @@ final line):
                    alone at 64 x 64 x 64 and the flat step's matrix shapes
                    against a float64 product
   4. kernel_time   each kernel's ms, plain ms, bytes, operations and bound
-                   (train-tile launches rotate over inputs larger than L2);
+                   (train-tile launches rotate over inputs larger than L2;
+                   the render-core backward also at F=12; every flow-stack
+                   launch of a hierarchical serving tile and training step,
+                   each group's sum beside its bound);
                    the trunk forward's also beside two yardsticks, the f32
                    nn.Linear encode and its layer chain in bf16 through
                    torch.matmul; the trunk backward alone from a saved
@@ -491,6 +499,14 @@ def phase_bwd_checks():
         (640, 1, 32, 4, True, True, "segment edge: S=1"),
         (640, 5, 32, 4, True, False, "segment edge: S=5, under one segment"),
         (640, 129, 32, 4, True, True, "segment edge: S=129, two rounds"),
+        # F past the compile-time 4: the staged path (F <= 8, each step's
+        # input in registers) and the generic one (F > 8, recomputed)
+        (640, 128, 32, 5, True, False, "F=5, staged path"),
+        (640, 128, 32, 8, True, True, "F=8, staged path's bound, saturated"),
+        (256, 64, 32, 9, True, False, "F=9, generic path"),
+        (256, 64, 40, 12, True, True, "F=12, generic path, K=40, saturated"),
+        (64, 129, 8, 12, False, False, "F=12, generic path, S=129 two rounds, test mode"),
+        (128, 48, 32, 16, True, False, "F=16, generic path"),
     ]
     train_err = None
     for i, (R, S, K, F, cld, sat, label) in enumerate(cases):
@@ -530,6 +546,17 @@ def phase_bwd_checks():
     emit("kernel_time", kernel="render_core_bwd", R=R, S=S, K=K, F=F, ms=ms,
          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops,
          achieved_tflop_per_s=ops / ms / 1e9, input_sets_rotated=len(sets))
+    # the generic path (F > 8) at the same tile, F = 12
+    F12 = 12
+    sets12 = [(bounded_diagonals(render_core_inputs(R, S, K, F12, seed=40 + 2 * i)),
+               render_core_cotangents(R, K, seed=41 + 2 * i)) for i in range(3)]
+    ms12 = cuda_ms(lambda x, c: render_core.fused_flow_composite_bwd(x, c, S, True), 11,
+                   sets12)
+    b12, b12_by = bound_ms(*render_core_bwd_work(R, S, K, F12, True))
+    emit("kernel_time", kernel="render_core_bwd", R=R, S=S, K=K, F=F12,
+         path="generic (F > 8)", ms=ms12, bound_ms=b12, bound_by=b12_by,
+         input_sets_rotated=len(sets12))
+    del sets12
     xs = [(x,) for x, _ in sets]
     with torch.inference_mode():
         fwd_ms = cuda_ms(lambda x: render_core.fused_flow_composite(*x, S, True), 21, xs)
@@ -546,6 +573,54 @@ def phase_bwd_checks():
          ops=f_ops, input_sets_rotated=len(xs), errors=fwd_errs)
     return dict(max_abs_err=train_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by)
+
+
+# a fused training step past the 8 flow steps the render-core backward keeps
+# in registers: a small net (D4 W128, 64 samples, K32) at F = 12, through
+# the render core's kernels (the backward's generic path) and through its
+# plain version (RenderConfig.fused = "interpret") from the same weights,
+# batch and draws.  The two differ only in the render core's sums (each
+# gradient within BWD_RTOL / BWD_ATOL of the plain one, as phase_bwd_checks
+# holds it), carried back through the amortization and the f32 trunk: per
+# leaf relative RMS <= 1e-3 and cosine >= 0.9999
+MANY_FLOWS = dict(FLAGSHIP, netdepth=4, netwidth=128, N_samples=64, n_flows=12)
+MANY_FLOWS_REL_RMS, MANY_FLOWS_MIN_COS = 1e-3, 0.9999
+
+
+def phase_many_flows_step():
+    batch = flagship_batches()()
+    grads, losses, launches = {}, {}, {}
+    counters = (render_core.fused_flow_composite, render_core.fused_flow_composite_bwd)
+    for fused in ("on", "interpret"):
+        model, _, rc = build_model(types.SimpleNamespace(**MANY_FLOWS, trunk_impl="xla"))
+        cfg = TrainConfig(H=H, W=W, focal=FOCAL, ndc=False, near=NEAR, far=FAR,
+                          k_samples=MANY_FLOWS["K_samples"], **TRAIN_CFG)
+        step, _ = make_train_step(model, dataclasses.replace(rc, fused=fused), cfg)
+        for counter in counters:
+            counter.launches = 0
+        loss, _ = step.loss_fn(batch, torch.Generator(device="cuda").manual_seed(3))
+        loss.backward()
+        torch.cuda.synchronize()
+        launches[fused] = [counter.launches for counter in counters]
+        losses[fused] = float(loss.detach())
+        grads[fused] = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                        if p.grad is not None}
+        del model, step, loss
+    check(launches == {"on": [1, 1], "interpret": [0, 0]},
+          f"F=12 step: render-core launches {launches}, want one forward and one "
+          "backward through the kernels and none through the plain version")
+    check(math.isfinite(losses["on"])
+          and abs(losses["on"] - losses["interpret"]) <= E2E_ATOL + E2E_RTOL * abs(
+              losses["interpret"]), f"F=12 step: loss {losses}")
+    check(set(grads["on"]) == set(grads["interpret"]), "F=12 step: the same leaves")
+    worst = gate_leaves(leaf_errors(grads["on"], grads["interpret"]), MANY_FLOWS_REL_RMS,
+                        MANY_FLOWS_MIN_COS, "F=12 step: kernels vs plain render core")
+    emit("kernel", kernel="render_core_fwd+bwd", case="a fused training step at F=12 "
+         "(D4 W128, N64, K32)", launches=launches, loss=losses, grads_vs_plain=worst,
+         tolerance={"loss_rtol": E2E_RTOL, "loss_atol": E2E_ATOL,
+                    "rel_rms": MANY_FLOWS_REL_RMS, "min_cos": MANY_FLOWS_MIN_COS})
+    del grads
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------- #
@@ -654,6 +729,10 @@ def phase_flow_stack_checks():
         (TRAIN_COARSE_PTS, 32, 4, False, "training coarse pass, contiguous z0"),
         (1000, 8, 2, False, "awkward B=1000 K=8 F=2, contiguous z0"),
         (4096, 40, 3, True, "K=40 > one warp"),
+        (1001, 7, 4, True, "K=7 (a point's run not a multiple of 16 bytes), ragged B"),
+        (5000, 32, 1, True, "F=1"),
+        (3000, 32, 9, False, "F=9, contiguous z0"),
+        (SERVE_FINE_PTS - 77, 32, 4, True, "ragged B: the serving fine pass less 77"),
     ]
     serving_err = None
     for i, (B, K, F, shared, label) in enumerate(cases):
@@ -681,6 +760,10 @@ def phase_flow_stack_checks():
         (TRAIN_COARSE_PTS, 32, 4, True, "hierarchical training coarse pass"),
         (1000, 8, 2, False, "awkward B=1000 K=8 F=2, contiguous z0"),
         (4096, 40, 3, True, "K=40 > one warp"),
+        (1001, 7, 4, True, "K=7, ragged B"),
+        (5000, 32, 1, True, "F=1"),
+        (3000, 32, 9, False, "F=9, contiguous z0"),
+        (TRAIN_FINE_PTS - 77, 32, 4, True, "ragged B: the training fine pass less 77"),
     ]
     train_err = None
     for i, (B, K, F, shared, label) in enumerate(cases):
@@ -718,11 +801,13 @@ def phase_flow_stack_checks():
 
 def phase_flow_stack_time(serving_err, train_err):
     """Each launch of the hierarchical paths at its own shape: the four
-    forward launches of a serving tile (test mode), and the training fine
-    pass's forward and backward (train mode).  Launches rotate over three
-    input sets, so every launch reads its inputs cold from HBM.  Returns
-    the stats of the kernels line: the forward at the serving fine pass's
-    rgb launch, the backward at the training fine pass's."""
+    forward launches of a serving tile (test mode), and the four forward
+    and four backward launches of a training step (train mode; coarse and
+    fine pass, both chains), each group's sum beside its bound.  Launches
+    rotate over three input sets, so every launch reads its inputs cold
+    from HBM.  Returns the stats of the kernels line: the forward at the
+    serving fine pass's rgb launch, the backward at the training fine
+    pass's."""
     K, F = HIER["K_samples"], HIER["n_flows"]
     stats = {}
 
@@ -741,23 +826,7 @@ def phase_flow_stack_time(serving_err, train_err):
         torch.cuda.empty_cache()
         return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
-    tile = {}
-    for label, B in (("serving coarse pass", SERVE_COARSE_PTS),
-                     ("serving fine pass", SERVE_FINE_PTS)):
-        for Z in (1, 3):
-            tile[(label, Z)] = time_fwd(label, B, Z, False, 20)
-    emit("kernel_time", kernel="flow_stack_fwd", launch="one hierarchical serving tile",
-         launches=4, ms=sum(t["ms"] for t in tile.values()),
-         plain_ms=sum(t["plain_ms"] for t in tile.values()),
-         bound_ms=sum(t["bound_ms"] for t in tile.values()))
-    stats["fwd"] = dict(tile[("serving fine pass", 3)], max_abs_err=serving_err,
-                        shape=f"B={SERVE_FINE_PTS} K={K} Z=3 F={F}, test mode, "
-                              "the serving fine pass's rgb launch")
-    for Z in (1, 3):
-        time_fwd("training fine pass", TRAIN_FINE_PTS, Z, True, 21)
-
-    B = TRAIN_FINE_PTS
-    for Z in (1, 3):
+    def time_bwd(label, B, Z):
         sets = []
         for j in range(3):
             g = torch.Generator(device="cuda").manual_seed(800 + 7 * j + Z)
@@ -769,17 +838,37 @@ def phase_flow_stack_time(serving_err, train_err):
                            3, sets)
         nbytes, ops = flow_stack_bwd_work(B, K, Z, F, True)
         b_ms, b_by = bound_ms(nbytes, ops)
-        emit("kernel_time", kernel="flow_stack_bwd", launch="training fine pass", B=B, K=K,
-             Z=Z, F=F, compute_log_det=True, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-             bound_by=b_by, bytes=nbytes, ops=ops, achieved_gb_per_s=nbytes / ms / 1e6,
+        emit("kernel_time", kernel="flow_stack_bwd", launch=label, B=B, K=K, Z=Z, F=F,
+             compute_log_det=True, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+             bytes=nbytes, ops=ops, achieved_gb_per_s=nbytes / ms / 1e6,
              input_sets_rotated=len(sets))
-        if Z == 3:
-            stats["bwd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                                max_abs_err=train_err,
-                                shape=f"B={B} K={K} Z=3 F={F}, train mode, "
-                                      "the training fine pass's rgb launch")
         del sets
         torch.cuda.empty_cache()
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+    def emit_sum(kernel, label, times):
+        emit("kernel_time", kernel=kernel, launch=label, launches=len(times),
+             ms=sum(t["ms"] for t in times.values()),
+             plain_ms=sum(t["plain_ms"] for t in times.values()),
+             bound_ms=sum(t["bound_ms"] for t in times.values()))
+
+    passes = {"serving": (("coarse pass", SERVE_COARSE_PTS), ("fine pass", SERVE_FINE_PTS)),
+              "training": (("coarse pass", TRAIN_COARSE_PTS), ("fine pass", TRAIN_FINE_PTS))}
+    tile = {(p, Z): time_fwd(f"serving {p}", B, Z, False, 20)
+            for p, B in passes["serving"] for Z in (1, 3)}
+    emit_sum("flow_stack_fwd", "one hierarchical serving tile", tile)
+    stats["fwd"] = dict(tile[("fine pass", 3)], max_abs_err=serving_err,
+                        shape=f"B={SERVE_FINE_PTS} K={K} Z=3 F={F}, test mode, "
+                              "the serving fine pass's rgb launch")
+    step = {(p, Z): time_fwd(f"training {p}", B, Z, True, 21)
+            for p, B in passes["training"] for Z in (1, 3)}
+    emit_sum("flow_stack_fwd", "one hierarchical training step", step)
+    step = {(p, Z): time_bwd(f"training {p}", B, Z)
+            for p, B in passes["training"] for Z in (1, 3)}
+    emit_sum("flow_stack_bwd", "one hierarchical training step", step)
+    stats["bwd"] = dict(step[("fine pass", 3)], max_abs_err=train_err,
+                        shape=f"B={TRAIN_FINE_PTS} K={K} Z=3 F={F}, train mode, "
+                              "the training fine pass's rgb launch")
     return stats
 
 
@@ -2146,6 +2235,7 @@ def main() -> int:
 
     fwd_stats = phase_kernel_checks()
     bwd_stats = phase_bwd_checks()
+    phase_many_flows_step()
     flow_stats = phase_flow_stack_time(*phase_flow_stack_checks())
     trunk_stats = phase_trunk_time(phase_trunk_checks())
     trunk_stats["fwd_save_acts_max_abs_err"] = phase_trunk_save_checks()

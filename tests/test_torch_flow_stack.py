@@ -96,6 +96,32 @@ def test_plain_matches_jax_kernel_forward_and_vjp(Z, compute_log_det, shared_z0)
         assert not to_np(g)[:, lower].any()  # strictly lower entries: zero
 
 
+@pytest.mark.parametrize("Z", [1, 3])
+@pytest.mark.parametrize("B,K,F", [(61, 7, 4), (96, 8, 1), (40, 32, 9)],
+                         ids=["K7_ragged_B61", "F1", "F9"])
+def test_plain_matches_jax_kernel_at_the_kernels_edges(B, K, F, Z):
+    """The shapes where the kernels take other code (chip_smoke.py holds
+    them against this plain version): an odd K whose point runs are not a
+    multiple of 16 bytes, F = 1 and F = 9 (every F but 4 takes the
+    runtime-F code), in train mode, forward and VJP against JAX's kernel.
+    Tolerances as above, but at F = 9: nine steps of these unit-scale
+    parameters carry each side's f32 roundings further (the rgb chain's
+    worst element measured at 3.2x the F <= 4 rule of rtol = atol = 1e-5
+    in either mode), so rtol = atol = 1e-4 there."""
+    z0, r1, r2, b = flow_inputs(B, K, Z, F, seed=B + F, shared_z0=True)
+    rng = np.random.RandomState(20 + Z)
+    cots = (rng.randn(B, K, Z).astype(np.float32), rng.randn(B, K).astype(np.float32))
+    (jz, jldj), jgrads = _jax_fwd_vjp(z0, r1, r2, b, True, cots)
+    fwd_tol, grad_tol = (FWD_TOL, GRAD_TOL) if F <= 4 else ((dict(rtol=1e-4, atol=1e-4),) * 2)
+    inputs = [_z0_of(z0, B), T(r1), T(r2), T(b)]
+    z, ldj = fused_flow_stack(*inputs, True)
+    np.testing.assert_allclose(to_np(z), np.asarray(jz), err_msg="z", **fwd_tol)
+    np.testing.assert_allclose(to_np(ldj), np.asarray(jldj), err_msg="ldj", **fwd_tol)
+    grads = fused_flow_stack_bwd(inputs, [T(c) for c in cots], True)
+    for name, a, j in zip(("g_z0", "g_r1", "g_r2", "g_b"), grads, jgrads):
+        np.testing.assert_allclose(to_np(a), np.asarray(j), err_msg=name, **grad_tol)
+
+
 def test_autograd_through_the_expanded_draws_sums_over_the_points():
     """The model's case: the gradient of the shared (K, Z) draws is the
     kernel-shaped (B, K, Z) gradient summed over the points."""

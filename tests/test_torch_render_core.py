@@ -180,6 +180,30 @@ def test_plain_backward_matches_jax_vjp_of_the_kernel(saturate, compute_log_det)
     assert not np.any(np.asarray(ref[8])) and not np.any(np.asarray(ref[9]))
 
 
+def test_plain_backward_matches_jax_vjp_past_eight_flow_steps():
+    """F = 12, past the 8 steps the backward kernel keeps in registers (its
+    generic path recomputes each step's input): the oracle against jax.vjp
+    of JAX's kernel, which takes any F, in train mode.  The same rule as
+    above."""
+    compute_log_det = True
+    R, S, K, F = 128, 3, 4, 12
+    args, z_vals, rays_d = render_core_inputs(R, S, K, F, seed=21, saturate=True)
+    args = _model_like(args)
+    inputs = [args[k] for k in ORDER] + [z_vals.ravel(), dists_np(z_vals, rays_d).ravel()]
+    cots = _cotangents(R, K, seed=22)
+    _, vjp = jax.vjp(lambda *a: jax_fused(*a, S, compute_log_det, True),
+                     *[jnp.asarray(a) for a in inputs])
+    ref = vjp(tuple(jnp.asarray(c) for c in cots))
+    out = fused_flow_composite_bwd_plain([torch.as_tensor(a) for a in inputs],
+                                         [torch.as_tensor(c) for c in cots], S,
+                                         compute_log_det)
+    for name, a, b in zip(ORDER, out, ref):
+        assert a.shape == b.shape, name
+        assert np.all(np.isfinite(to_np(a))), name
+        np.testing.assert_allclose(to_np(a), np.asarray(b), rtol=1e-4, atol=1e-6,
+                                   err_msg=name)
+
+
 # ---------------------------------------------------------------------- #
 # routing: CPU -> plain; CUDA -> kernel or raise; never a quiet fallback
 # ---------------------------------------------------------------------- #
@@ -310,6 +334,72 @@ def test_cuda_route_with_gradients_goes_through_both_kernels(monkeypatch):
     for t in on_cuda[:8]:
         assert t.grad is not None and bool((t.grad == 7.0).all())
     assert on_cuda[8].grad is None  # z_pts: a constant to the kernel's VJP
+
+
+def _stand_in_entries(monkeypatch, R, S, K, F):
+    """Stand-in forward and backward entries that record their calls; the
+    forward writes zero outputs, the backward 7.0 into every gradient."""
+    def fwd(*a):
+        for ptr, n in zip(a[10:14], (R * 3 * K, R * K, R * K, 2 * R)):
+            _floats(ptr, n)[:] = 0.0
+
+    def bwd(*a):
+        B = R * S
+        for ptr, n in zip(a[14:22], (K, B * F, B * F, B * F, 3 * K, 9 * B * F, 9 * B * F,
+                                     3 * B * F)):
+            _floats(ptr, n)[:] = 7.0
+
+    def no_plain(*a, **k):
+        raise AssertionError("a plain version ran for a CUDA tensor")
+
+    entries = {"render_core": _Lib(render_core_fwd=_Entry(fwd)),
+               "render_core_bwd": _Lib(render_core_bwd=_Entry(bwd))}
+    monkeypatch.setattr(_build, "load", lambda name: entries[name])
+    monkeypatch.setattr(render_core, "_on_device", lambda dev: _no_cuda_context())
+    monkeypatch.setattr(render_core, "fused_flow_composite_plain", no_plain)
+    monkeypatch.setattr(render_core, "fused_flow_composite_bwd_plain", no_plain)
+    return entries
+
+
+def test_training_past_eight_flow_steps_goes_through_both_kernels(monkeypatch):
+    """F = 12 with a gradient on CUDA tensors: `_RenderCore` launches the
+    forward and then the backward entry with F = 12, and raises nowhere
+    (the backward once refused F > 8 after the forward had run)."""
+    R, S, K, F = 3, 4, 2, 12
+    entries = _stand_in_entries(monkeypatch, R, S, K, F)
+    x, _ = _small(R, S, K, F)
+    on_cuda = [t.as_subclass(_OnCuda).requires_grad_(i < 8) for i, t in enumerate(x)]
+    before = fused_flow_composite.launches, fused_flow_composite_bwd.launches
+    rgb, depth, acc, ldj = fused_flow_composite(*on_cuda, S, True)
+    (rgb.sum() + depth.sum() + ldj.sum()).backward()
+    assert fused_flow_composite.launches == before[0] + 1
+    assert fused_flow_composite_bwd.launches == before[1] + 1
+    (fwd_call,) = entries["render_core"].render_core_fwd.calls
+    (bwd_call,) = entries["render_core_bwd"].render_core_bwd.calls
+    assert fwd_call[14:19] == (R, S, K, F, 1)
+    assert bwd_call[23:28] == (R, S, K, F, 1)
+    for t in on_cuda[:8]:
+        assert t.grad is not None and bool((t.grad == 7.0).all())
+
+
+def test_more_flow_steps_than_the_forward_stages_raise_before_any_launch(monkeypatch):
+    """The one bound on F left is the forward's (one sample a ring stage in
+    shared memory); a training call past it raises before the forward
+    launches, and the backward entry refuses it too."""
+    R, S, K, F = 2, 3, 2, render_core.MAX_F + 1
+    entries = _stand_in_entries(monkeypatch, R, S, K, F)
+    x, _ = _small(R, S, K, F)
+    on_cuda = [t.as_subclass(_OnCuda).requires_grad_(i < 8) for i, t in enumerate(x)]
+    before = fused_flow_composite.launches, fused_flow_composite_bwd.launches
+    with pytest.raises(ValueError, match=f"at most {render_core.MAX_F}"):
+        fused_flow_composite(*on_cuda, S, True)
+    cots = [torch.ones(R, 3, K), torch.ones(R, K), torch.ones(R, K), torch.ones(2, R)]
+    with pytest.raises(ValueError, match=f"at most {render_core.MAX_F}"):
+        fused_flow_composite_bwd([t.detach() for t in on_cuda],
+                                 [c.as_subclass(_OnCuda) for c in cots], S, True)
+    assert not entries["render_core"].render_core_fwd.calls
+    assert not entries["render_core_bwd"].render_core_bwd.calls
+    assert (fused_flow_composite.launches, fused_flow_composite_bwd.launches) == before
 
 
 def test_failed_build_of_the_backward_raises(monkeypatch):

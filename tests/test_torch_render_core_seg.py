@@ -37,13 +37,15 @@ from tests.test_torch_render_core import (
     _model_like,
 )
 
-# (S, K, saturate, compute_log_det): the JAX kernel takes R % 128 == 0 and
-# an S whose rays tile 128 lanes (3, 6, 24, ...)
+# (S, K, saturate, compute_log_det, F): the JAX kernel takes R % 128 == 0
+# and an S whose rays tile 128 lanes (3, 6, 24, ...); F = 12 is past the
+# steps the backward kernel keeps in registers (its generic path)
 SHAPES = {
-    "S6": (6, 8, False, True),
-    "S3_saturated": (3, 8, True, True),
-    "S24_K40_saturated": (24, 40, True, True),
-    "S24_test_mode": (24, 8, False, False),
+    "S6": (6, 8, False, True, 2),
+    "S3_saturated": (3, 8, True, True, 2),
+    "S24_K40_saturated": (24, 40, True, True, 2),
+    "S24_test_mode": (24, 8, False, False, 2),
+    "S6_F12": (6, 4, True, True, 12),
 }
 # (shape, segments, rounds): counts 1, 2 and 4; S not divisible by the
 # count (6 / 4 leaves an empty segment, 3 / 2 a short one); two rounds
@@ -52,13 +54,14 @@ CASES = [
     ("S3_saturated", 2, 1), ("S3_saturated", 4, 1),
     ("S24_K40_saturated", 4, 1), ("S24_K40_saturated", 5, 2),
     ("S24_test_mode", 4, 1), ("S24_test_mode", 8, 1),
+    ("S6_F12", 8, 1), ("S6_F12", 4, 2),
 ]
 R, F = 128, 2
 
 
 @functools.lru_cache(maxsize=None)
 def _case(shape):
-    S, K, saturate, cld = SHAPES[shape]
+    S, K, saturate, cld, F = SHAPES[shape]
     args, z_vals, rays_d = render_core_inputs(R, S, K, F, seed=11, saturate=saturate)
     args = _model_like(args)
     inputs = [args[k] for k in ORDER] + [z_vals.ravel(), dists_np(z_vals, rays_d).ravel()]
@@ -73,7 +76,7 @@ def _case(shape):
 @pytest.mark.parametrize("shape,n_seg,rounds", CASES)
 def test_segmented_backward_matches_jax_vjp(shape, n_seg, rounds):
     """rtol 1e-4 / atol 1e-6: the rule of the plain backward's JAX test."""
-    S, K, saturate, cld = SHAPES[shape]
+    S, K, saturate, cld, _ = SHAPES[shape]
     inputs, cots, _, ref = _case(shape)
     out = fused_flow_composite_bwd_segmented(
         [torch.as_tensor(a) for a in inputs], [torch.as_tensor(c) for c in cots],
@@ -91,7 +94,7 @@ def test_segmented_backward_matches_jax_vjp(shape, n_seg, rounds):
 def test_segmented_forward_matches_jax(shape, n_seg, rounds):
     """Tolerances of the plain forward's JAX test (rtol 2e-5, atol 2e-4,
     ldj 2e-5 relative)."""
-    S, _, _, cld = SHAPES[shape]
+    S, _, _, cld, _ = SHAPES[shape]
     inputs, _, ref, _ = _case(shape)
     out = fused_flow_composite_segmented(*[torch.as_tensor(a) for a in inputs], S, cld,
                                          n_seg, rounds)
