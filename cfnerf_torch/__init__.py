@@ -2,13 +2,15 @@
 
 Layout mirrors cfnerf_tpu so each module's counterpart is easy to find:
 
-  ops/          positional encoding, rays, z schedules, compositing, metrics
+  ops/          positional encoding, rays, z schedules, compositing, metrics,
+                proposal-placed sampling (occupancy)
   ops/kernels/  hand-written CUDA kernels for sm_90a, their wrappers, plain
                 PyTorch versions and the nvcc build (kernel sources: csrc/)
   flows/        triangular Sylvester flow steps and their amortization
   models/       NeRFFlows and the model factory
   render/       ray-batch renderer and the tiled full-image renderer
   train/        losses, Adam with the exponential schedule, the train step
+                (and its occ stage), the stage schedules
   data/         host-side ray precompute and batch samplers (numpy)
   convert.py    weights (and gradients) carried across from a cfnerf_tpu
                 params pytree

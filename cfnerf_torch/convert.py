@@ -18,6 +18,11 @@ layout maps the same way, onto the port's parameter names.
 `nerf_flows_pair_state_dicts_from_jax` does the same for a hierarchical
 {"coarse", "fine"} params pair (cfnerf_tpu/models/factory.py:create_nerf),
 giving the state dicts of the coarse and the fine network.
+
+`proposal_state_dict_from_jax` turns a cfnerf_tpu ProposalMLP params dict
+({"w0", "b0", ...}, w{i} (d_in, d_out); keys starting "__" are metadata and
+skipped) into a state_dict for cfnerf_torch.ops.occupancy.ProposalMLP
+(layers.{i}.weight (d_out, d_in), layers.{i}.bias).
 Reading an Orbax checkpoint from disk comes with the checkpoint slice.
 """
 from __future__ import annotations
@@ -73,3 +78,13 @@ def nerf_flows_pair_state_dicts_from_jax(
     network's test eps as in `nerf_flows_state_dict_from_jax`."""
     return (nerf_flows_state_dict_from_jax(params["coarse"], test_eps),
             nerf_flows_state_dict_from_jax(params["fine"], test_eps_fine))
+
+
+def proposal_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    i = 0
+    while f"w{i}" in params:
+        sd[f"layers.{i}.weight"] = _t(params[f"w{i}"]).T.contiguous()
+        sd[f"layers.{i}.bias"] = _t(params[f"b{i}"])
+        i += 1
+    return sd

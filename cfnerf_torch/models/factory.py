@@ -2,9 +2,10 @@
 create_nerf, run_nerf_uncertainty_NF.py:317-341).
 
 Reads the same flag names as cfnerf_tpu/utils/config.py.  It builds the
-triangular NeRFFlows that serves and trains, and with --N_importance > 0 its
-fine network; everything else raises NotImplementedError naming the slice
-that brings it.  Resuming from checkpoints comes with slice 6 (data, loop,
+triangular NeRFFlows that serves and trains, in f32 or bf16
+(--compute_dtype), and with --N_importance > 0 its fine network; every other
+model or flow family raises NotImplementedError naming the slice that brings
+it.  Resuming from checkpoints comes with slice 6 (data, loop,
 checkpoints, CLI).
 """
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from cfnerf_torch.models.nerf_flows import FLOW_IMPLS, TRUNK_IMPLS, NeRFFlows
+from cfnerf_torch.models.nerf_flows import COMPUTE_DTYPES, FLOW_IMPLS, TRUNK_IMPLS, NeRFFlows
 from cfnerf_torch.ops.embed import get_embedder
 from cfnerf_torch.render.renderer import FUSED_MODES, RenderConfig
 from cfnerf_torch.utils.device import DeviceLike, resolve_device
@@ -30,14 +31,10 @@ def _check_supported(args) -> None:
         raise NotImplementedError(
             f"--type_flows {args.type_flows}: other flow families come with slice 7"
         )
-    if getattr(args, "compute_dtype", "float32") != "float32":
-        raise NotImplementedError(
-            "--compute_dtype bfloat16 (the nn.Linear trunk cast to bf16, held to "
-            "JAX's bf16 flax path) is not ported yet: it is an item of its own in "
-            "ROADMAP.md Queue 1, after slice 4; the port runs the xla trunk in "
-            "float32, and --trunk_impl pallas runs the trunk kernels' bf16 "
-            "products"
-        )
+    compute_dtype = getattr(args, "compute_dtype", "float32")
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"--compute_dtype must be one of {tuple(COMPUTE_DTYPES)}, "
+                         f"got {compute_dtype!r}")
     trunk_impl = getattr(args, "trunk_impl", "xla")
     if trunk_impl not in TRUNK_IMPLS:
         raise ValueError(f"--trunk_impl must be one of {TRUNK_IMPLS}, got {trunk_impl!r}")
@@ -80,9 +77,11 @@ def build_model(
     Returns (model, model_fine, render_config).  With --N_importance > 0,
     model_fine is the hierarchical fine network at --netdepth_fine /
     --netwidth_fine (cfnerf_tpu/models/factory.py:93-97), else None.
-    --trunk_impl (xla, pallas or interpret; default xla) and --flow_impl
-    (auto, xla, pallas or interpret; default auto, the flow-stack kernel) go
-    to both nets, as cfnerf_tpu/models/factory.py:88-89 passes them.
+    --trunk_impl (xla, pallas or interpret; default xla), --flow_impl
+    (auto, xla, pallas or interpret; default auto, the flow-stack kernel) and
+    --compute_dtype (float32 or bfloat16; default float32, the xla trunk's
+    arithmetic, parameters f32 either way) go to both nets, as
+    cfnerf_tpu/models/factory.py:33,73,87-89 passes them.
     --fused_render (auto, on, off or interpret; default auto) becomes
     RenderConfig.fused, auto resolving to 'on': the render core, the kernel
     on the card, as JAX's factory resolves it to its kernel on a TPU.  An
@@ -115,6 +114,7 @@ def build_model(
             type_flows=args.type_flows,
             trunk_impl=getattr(args, "trunk_impl", "xla"),
             flow_impl=getattr(args, "flow_impl", "auto"),
+            compute_dtype=COMPUTE_DTYPES[getattr(args, "compute_dtype", "float32")],
         )
         return init_params(model, seed).to(dev)
 

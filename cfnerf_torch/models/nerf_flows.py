@@ -10,8 +10,9 @@ all points (models.py:234,246), go through two amortized triangular-Sylvester
 stacks.  Outputs are pre-softplus density and pre-sigmoid rgb; their
 activation log-det corrections fold into the entropy term.
 
-The trunk runs as f32 nn.Linear layers (trunk_impl="xla", the default, as
-in the JAX package) or, with trunk_impl="pallas", through the trunk
+The trunk runs as nn.Linear layers (trunk_impl="xla", the default, as in
+the JAX package), in f32 or, with compute_dtype=torch.bfloat16, in bf16 on
+f32 parameters, or, with trunk_impl="pallas", through the trunk
 kernels' bf16 products (cfnerf_torch/ops/kernels/trunk.py), forward and
 backward, within the kernels' domain (trunk.supported); trunk_impl=
 "interpret" runs their plain versions within JAX's domain for its Pallas
@@ -46,6 +47,8 @@ from cfnerf_torch.ops.kernels.trunk import supported as trunk_supported
 Z_ALPHA = 1  # density latent dim
 Z_RGB = 3    # rgb latent dim
 TRUNK_IMPLS = ("xla", "pallas", "interpret")
+# --compute_dtype: the xla trunk's arithmetic (cfnerf_tpu/models/factory.py:33)
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the flow-stack kernel ("auto", "pallas") or its plain version ("xla",
 # "interpret"), as cfnerf_tpu's --flow_impl picks the Pallas kernel or XLA
 FLOW_IMPLS = ("auto", "xla", "pallas", "interpret")
@@ -64,6 +67,27 @@ def interpret_supported(depth: int, width: int, use_viewdirs: bool,
     limit of its own beyond the topology."""
     return (use_viewdirs and tuple(skips) == (depth // 2,) and depth >= 3
             and width % LANE == 0 and (width // 2) % LANE == 0)
+
+
+def _dense_f32(layer: nn.Linear, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """One nn.Linear over the concatenation of `parts`."""
+    return layer(parts[0] if len(parts) == 1 else torch.cat(parts, -1))
+
+
+def _dense_bf16(layer: nn.Linear, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """cfnerf_tpu's TorchDense in bf16 (cfnerf_tpu/utils/init.py:71-78):
+    weight and bias cast per call, y = bias + p0 @ W0 + p1 @ W1 + ..., one
+    product per part of the concatenation over its columns of the weight,
+    each product and each add rounded to bf16 in that order.  addmm would
+    add the bias before the rounding and differ from JAX in the last bit."""
+    w = layer.weight.to(torch.bfloat16)
+    y = layer.bias.to(torch.bfloat16)
+    off = 0
+    for p in parts:
+        n = p.shape[-1]
+        y = y + p @ w[:, off:off + n].T
+        off += n
+    return y
 
 
 def _fixed_eps(k_samples: int, seed: int) -> Eps:
@@ -92,6 +116,7 @@ class NeRFFlows(nn.Module):
         test_eps_seed: int = 0,
         trunk_impl: str = "xla",
         flow_impl: str = "auto",
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if type_flows != "triangular":
@@ -103,6 +128,9 @@ class NeRFFlows(nn.Module):
             raise ValueError(f"trunk_impl must be one of {TRUNK_IMPLS}, got {trunk_impl!r}")
         if flow_impl not in FLOW_IMPLS:
             raise ValueError(f"flow_impl must be one of {FLOW_IMPLS}, got {flow_impl!r}")
+        if compute_dtype not in COMPUTE_DTYPES.values():
+            raise ValueError(f"compute_dtype must be one of {tuple(COMPUTE_DTYPES.values())}, "
+                             f"got {compute_dtype!r}")
         # never silently ignore an explicit implementation choice
         if trunk_impl == "pallas" and not trunk_supported(
                 net_depth, net_width, use_viewdirs, skips, h_alpha_size, h_rgb_size,
@@ -133,6 +161,7 @@ class NeRFFlows(nn.Module):
         self.type_flows = type_flows
         self.trunk_impl = trunk_impl
         self.flow_impl = flow_impl
+        self.compute_dtype = compute_dtype
 
         W = net_width
         layers, fan_in = [], input_ch
@@ -169,11 +198,16 @@ class NeRFFlows(nn.Module):
         """Trunk + heads (models.py:165-186).  x: (B, input_ch [+ views]).
         Returns (h_alpha, h_rgb) in f32.
 
-        trunk_impl "xla" runs the nn.Linear layers in f32; "pallas" the
-        trunk kernels (their plain versions for CPU tensors) on bf16
-        products; "interpret" the kernels' plain versions on any device, as
-        JAX's interpret mode runs the Pallas kernels' arithmetic without the
-        kernels.  Both differentiate as JAX's custom VJP does."""
+        trunk_impl "xla" runs the nn.Linear layers in compute_dtype: f32, or
+        bf16 as cfnerf_tpu/models/nerf_flows.py:230-266 computes it (inputs
+        cast to bf16, each weight and bias cast per call, so the parameters
+        and Adam's state stay f32; the skip and views concatenations as one
+        product per part); "pallas" the trunk kernels (their plain versions
+        for CPU tensors) on bf16 products; "interpret" the kernels' plain
+        versions on any device, as JAX's interpret mode runs the Pallas
+        kernels' arithmetic without the kernels.  "pallas" and "interpret"
+        ignore compute_dtype, as JAX's pallas_encode does.  Every path
+        differentiates as JAX's does."""
         if self.trunk_impl != "xla":
             packed = pack_trunk_weights(self)
             lead = x.shape[:-1]
@@ -181,21 +215,23 @@ class NeRFFlows(nn.Module):
             h_alpha, h_rgb = trunk_encode(packed, x2,
                                           interpret=self.trunk_impl == "interpret")
             return h_alpha.reshape(*lead, -1), h_rgb.reshape(*lead, -1)
+        dense = _dense_f32 if self.compute_dtype == torch.float32 else _dense_bf16
+        x = x.to(self.compute_dtype)
         input_pts = x[..., : self.input_ch]
         input_views = x[..., self.input_ch:]
-        h = input_pts
+        h = (input_pts,)
         for i, layer in enumerate(self.pts_linears):
-            h = torch.relu(layer(h))
+            h = (torch.relu(dense(layer, h)),)
             if i in self.skips:
-                h = torch.cat([input_pts, h], -1)
+                h = (input_pts, h[0])
         if self.use_viewdirs:
-            h_alpha = self.h_alpha_linear(h)
-            feature = self.feature_linear(h)
-            hv = torch.relu(self.views_linear(torch.cat([feature, input_views], -1)))
-            h_rgb = self.h_rgb_linear(hv)
+            h_alpha = dense(self.h_alpha_linear, h)
+            feature = dense(self.feature_linear, h)
+            hv = torch.relu(dense(self.views_linear, (feature, input_views)))
+            h_rgb = dense(self.h_rgb_linear, (hv,))
         else:
-            h_alpha = self.h_alpha_linear(h)
-            h_rgb = self.h_rgb_linear(h)
+            h_alpha = dense(self.h_alpha_linear, h)
+            h_rgb = dense(self.h_rgb_linear, h)
         return h_alpha.float(), h_rgb.float()
 
     # ------------------------------------------------------------------ #

@@ -16,7 +16,10 @@ lr = lrate * 0.1^(step / (lrate_decay*1000)) (:1072-1077)).
   * Adam (0.9, 0.999, eps 1e-8) with the JAX step's schedule, offset by
     `start_step` (cfnerf_tpu/train/step.py:92-105);
   * `remat` recomputes the train-mode model forward in the backward
-    (torch.utils.checkpoint, the counterpart of jax.checkpoint).
+    (torch.utils.checkpoint, the counterpart of jax.checkpoint);
+  * with `occ` (OccTrainConfig) the step trains on proposal-placed depths and
+    co-trains the proposal after the field's update
+    (cfnerf_tpu/train/step.py:36-60, :193-248, :318-354).
 
 PyTorch runs eagerly: there is no jit, and `make_train_loop` is a Python
 loop where the JAX package scans on the device.
@@ -31,10 +34,38 @@ from torch.optim.lr_scheduler import LambdaLR
 from torch.utils.checkpoint import checkpoint
 
 from cfnerf_torch.ops.metrics import img2mse, mse2psnr
+from cfnerf_torch.ops.occupancy import (
+    ProposalMLP,
+    density_query,
+    make_proposal_sigma_fn,
+    place_from_sigma,
+)
 from cfnerf_torch.render.renderer import RenderConfig, make_render_rays, prepare_rays
 from cfnerf_torch.train.loss import kde_nll, total_loss
 
 Metrics = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class OccTrainConfig:
+    """Proposal-placed training, the occ stage (cfnerf_tpu/train/step.py:36).
+    Each step places render_config.n_samples depths a ray by inverse CDF over
+    the proposal's visibility weights at n_candidates bins (stratified u,
+    the uniform floor mixed in), and after the field's Adam step fits the
+    proposal once to log1p of the updated field's density at cotrain_points
+    uniform points of the aabb (lo, hi), with an Adam of its own at prop_lr.
+    The proposal and its optimizer live beside the step, not in the model's
+    state_dict."""
+
+    lo: Tuple[float, float, float]
+    hi: Tuple[float, float, float]
+    n_candidates: int = 128
+    floor: float = 0.3
+    prop_width: int = 64
+    prop_depth: int = 2
+    prop_multires: int = 4
+    prop_lr: float = 2e-3
+    cotrain_points: int = 8192
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,18 +155,33 @@ def make_train_step(
 
     The two halves are callable apart, so that the gradients can be read
     before the update: train_step.loss_fn(batch, generator, *, z_vals, eps,
-    eps_fine, pdf_u, noise) -> (loss, metrics) renders and scores;
+    eps_fine, pdf_u, noise, place_u) -> (loss, metrics) renders and scores;
     train_step.update() takes the optimizer step on the gradients in .grad
     and advances the schedule.
+
+    With `occ` (OccTrainConfig; no fine pass, ValueError otherwise) the step
+    renders at proposal-placed depths: placement without gradient, its
+    stratified u from the generator first (the keyword `place_u` (R + D, N)
+    injects them), the floor batch["occ_floor"] when the batch has one, else
+    occ.floor.  After the field's update, train_step.cotrain(generator, *,
+    prop_pts) fits the proposal (train_step.proposal, its own Adam
+    train_step.prop_optimizer) to log1p of the updated field's test-mode
+    density at occ.cotrain_points points of the unit cube mapped into the
+    aabb, drawn from the generator after the step's other draws (`prop_pts`
+    injects them), and the step's metrics gain prop_loss.  The proposal starts
+    from ProposalMLP's seeded init; train_step.install_proposal(prop or
+    state_dict) loads distilled weights and restarts its Adam (JAX's
+    _wrap_state), at the stage boundary.
     """
-    if occ is not None:
-        raise NotImplementedError("proposal-placed training (occ) comes with slice 5")
     if mesh is not None:
         raise NotImplementedError("training over a device mesh comes with slice 8")
     if model_fine is not None and render_config.n_importance == 0:
         raise ValueError("a fine network needs render_config.n_importance > 0")
     if cfg.loss_mode not in ("kde", "mse"):
         raise ValueError(f"loss_mode must be 'kde' or 'mse', got {cfg.loss_mode!r}")
+    if occ is not None and render_config.n_importance > 0:
+        raise ValueError("occ training is incompatible with a "
+                         "hierarchical fine pass (one placement owner)")
 
     nets = [model] if model_fine is None else [model, model_fine]
     optimizer, scheduler = make_optimizer(
@@ -145,10 +191,20 @@ def make_train_step(
         wrap(model), render_config,
         model_fine=None if model_fine is None else wrap(model_fine))
 
+    dev = model.alpha_mean.device
+    if occ is not None:
+        proposal = ProposalMLP(occ.prop_width, occ.prop_depth, occ.prop_multires,
+                               device=dev)
+        prop_optimizer = torch.optim.Adam(proposal.parameters(), lr=occ.prop_lr,
+                                          betas=(0.9, 0.999), eps=1e-8)
+        occ_lo = torch.tensor(occ.lo, dtype=torch.float32, device=dev)
+        occ_hi = torch.tensor(occ.hi, dtype=torch.float32, device=dev)
+        sigma_fn = make_proposal_sigma_fn(proposal, occ_lo, occ_hi)
+        density_fn = density_query(model, render_config)
+
     def loss_fn(batch: Mapping, generator: Optional[torch.Generator] = None, *,
                 z_vals=None, eps=None, eps_fine=None, pdf_u=None,
-                noise=None) -> Tuple[torch.Tensor, Metrics]:
-        dev = model.alpha_mean.device
+                noise=None, place_u=None) -> Tuple[torch.Tensor, Metrics]:
         b = {k: torch.as_tensor(v, dtype=torch.float32, device=dev) for k, v in batch.items()}
         rays_o, rays_d = b["rays_o"], b["rays_d"]
         n_rgb = rays_o.shape[0]
@@ -158,6 +214,12 @@ def make_train_step(
         rays_o, rays_d, viewdirs, near_v, far_v = prepare_rays(
             rays_o, rays_d, H=cfg.H, W=cfg.W, focal=cfg.focal, ndc=cfg.ndc,
             use_viewdirs=render_config.use_viewdirs, near=cfg.near, far=cfg.far)
+        if occ is not None and z_vals is None:
+            with torch.no_grad():
+                z_vals = place_from_sigma(
+                    sigma_fn, rays_o, rays_d, near_v, far_v, render_config.n_samples,
+                    n_candidates=occ.n_candidates, floor=b.get("occ_floor", occ.floor),
+                    generator=generator, u=place_u)
         out = render_rays(rays_o, rays_d, viewdirs, near_v, far_v, generator,
                           is_test=False, z_vals=z_vals, eps=eps, eps_fine=eps_fine,
                           pdf_u=pdf_u, noise=noise)
@@ -203,18 +265,48 @@ def make_train_step(
         optimizer.step()
         scheduler.step()
 
+    def cotrain(generator: Optional[torch.Generator], *, prop_pts=None) -> torch.Tensor:
+        """One Adam step of the proposal towards log1p of the field's current
+        density; returns the loss before it."""
+        if prop_pts is None:
+            prop_pts = torch.rand((occ.cotrain_points, 3), generator=generator,
+                                  device=generator.device)
+        pts_unit = torch.as_tensor(prop_pts, dtype=torch.float32).to(dev)
+        target = torch.log1p(density_fn(occ_lo + pts_unit * (occ_hi - occ_lo)))
+        prop_optimizer.zero_grad(set_to_none=True)
+        prop_loss = torch.mean((torch.log1p(proposal(pts_unit)) - target) ** 2)
+        prop_loss.backward()
+        prop_optimizer.step()
+        return prop_loss.detach()
+
     def train_step(batch: Mapping, generator: Optional[torch.Generator], *,
                    z_vals=None, eps=None, eps_fine=None, pdf_u=None,
-                   noise=None) -> Metrics:
+                   noise=None, place_u=None, prop_pts=None) -> Metrics:
         optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(batch, generator, z_vals=z_vals, eps=eps,
-                                eps_fine=eps_fine, pdf_u=pdf_u, noise=noise)
+                                eps_fine=eps_fine, pdf_u=pdf_u, noise=noise,
+                                place_u=place_u)
         loss.backward()
         update()
-        return {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if occ is not None:
+            metrics["prop_loss"] = cotrain(generator, prop_pts=prop_pts)
+        return metrics
 
     train_step.loss_fn = loss_fn
     train_step.update = update
+    if occ is not None:
+        def install_proposal(prop) -> None:
+            """Load distilled weights (a ProposalMLP or its state_dict) and
+            restart the proposal's Adam."""
+            state = prop.state_dict() if isinstance(prop, torch.nn.Module) else prop
+            proposal.load_state_dict(state)
+            prop_optimizer.state.clear()
+
+        train_step.cotrain = cotrain
+        train_step.proposal = proposal
+        train_step.prop_optimizer = prop_optimizer
+        train_step.install_proposal = install_proposal
     return train_step, optimizer
 
 
@@ -238,4 +330,6 @@ def make_train_loop(
                  for i in range(n_inner)]
         return {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
 
+    if occ is not None:
+        train_loop.install_proposal = train_step.install_proposal
     return train_loop, optimizer

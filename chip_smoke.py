@@ -16,14 +16,17 @@ final line):
                    train tile and awkward shapes, both modes; its backward at
                    the flagship train tile, saturated, test mode, awkward
                    shapes and K=40; both at the edges of their segments
-                   (S=1, S=5, S=129); the backward also at F=5 and 8 (each
-                   step's input kept in registers) and F=9, 12 and 16 (its
+                   (S=1, S=5, S=129) and at the placed paths' shapes (an
+                   S=16 serving tile, an S=12 training step); the
+                   backward also at F=5 and 8 (each step's input kept in
+                   registers) and F=9, 12 and 16 (its
                    generic path), and one fused training step at F=12
                    through the kernels against the same step through the
                    plain render core; the flow-stack forward (Z = 1 and 3,
                    both modes) at the hierarchical serving and training fine
                    passes, awkward shapes, K=40, K=7 with a ragged B, F=1,
-                   F=9, expanded and contiguous z0; its backward at the
+                   F=9, expanded and contiguous z0, a density query's
+                   65,536 and 8,192 points; its backward at the
                    hierarchical training passes and the same edges; the
                    trunk forward (bf16 tensor cores) at the flat serving
                    tile, the hierarchical fine and coarse passes, D4/W256, a
@@ -48,11 +51,14 @@ final line):
                    each group's sum beside its bound);
                    the trunk forward's also beside two yardsticks, the f32
                    nn.Linear encode and its layer chain in bf16 through
-                   torch.matmul; the trunk backward alone from a saved
+                   torch.matmul (with cuBLAS's bf16 reduced-precision
+                   reductions off, the port's setting, and on); the trunk
+                   backward alone from a saved
                    workspace, by pass, the training forward (checked
                    against the plain forward, its bound counting the saved
                    activations) beside the serving one, and the two
-                   together beside autograd of that bf16 chain
+                   together beside autograd of that bf16 chain (both
+                   settings)
   5. serve         the flagship model (D8 W512 N128 K32 F4, random weights from
                    a seed) renders a 400x400 view in 8192-ray tiles through
                    build_model -> make_render_rays -> render_image; launch
@@ -92,14 +98,41 @@ final line):
                    step through trunk_impl="interpret"
  15. trunk_grad_golden  the card's trunk backward kernels against JAX's
                    _trunk_bwd gradients on the D4/W256 trunk (tests/fixtures)
- 16. kernels       per-kernel launches, error, time, plain time and bound;
+ 16. bf16_serve    the flagship view with --compute_dtype bfloat16 on the xla
+     bf16_train    trunk (20 render-core launches), its first tile against
+                   the f32 trunk (reported), a profiled tile; 1 + 10 + 10
+                   flagship steps (a render-core forward and backward
+                   each), the parameters f32
+ 17. bf16_golden   a tiny bf16 model's JAX render and encode (tests/fixtures)
+                   against the card's bf16 path; the same weights on the f32
+                   trunk as the control that the encode gate must refuse
+ 18. occ_serve     --occ_eval 16 (32 candidates, floor 0.3) through
+                   wrap_renderer_for_serving: --occ_impl auto, the grid on the
+                   card (a 128^3 bake of the field through the flow-stack
+                   kernel, 64 launches; 64 baked cells against the CPU's
+                   density query), the view (20 render-core launches), 64
+                   rays against the CPU's plain path, a profiled tile
+ 19. occ_prop_serve  the same with --occ_impl proposal (the distillation,
+                   2^20 points, 4 epochs, 32 flow-stack launches), 64 rays'
+                   placed depths against the CPU's placement with the same
+                   proposal
+ 20. occ_train     --occ_train 12 (128 candidates, floor 0.3, co-training at
+                   8192 points): the proposal distilled from the initial
+                   field, then 1 + 10 + 10 steps (a render-core forward and
+                   backward and two flow-stack forwards each), a profiled step
+ 21. occ_golden    one JAX occ step of a tiny model (tests/fixtures, with its
+                   draws) through the card's occ step
+ 22. rates         every path's rays/s of this run, side by side
+ 23. kernels       per-kernel launches, error, time, plain time and bound;
                    trunk_fwd's entry also the training variant's
                    (fwd_save_*, at the flat training step)
 
-then the `nvidia-smi` name/power line and, last, the `ok` line.
+then the script's wall time, the `nvidia-smi` name/power line and, last, the
+`ok` line.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -117,6 +150,7 @@ import torch
 from cfnerf_torch.convert import (
     nerf_flows_pair_state_dicts_from_jax,
     nerf_flows_state_dict_from_jax,
+    proposal_state_dict_from_jax,
 )
 from cfnerf_torch.data.sampler import (
     N_DEPTH,
@@ -132,6 +166,16 @@ from cfnerf_torch.ops.kernels import _build
 from cfnerf_torch.ops.kernels import flow_stack, render_core, trunk
 from cfnerf_torch.ops.kernels.trunk import pack_trunk_weights
 from cfnerf_torch.ops.metrics import std_over_k
+from cfnerf_torch.ops.occupancy import (
+    aabb_from_scene,
+    distill_proposal,
+    grid_coords,
+    make_density_fn,
+    make_occ_render_rays,
+    make_proposal_sigma_fn,
+    place_from_sigma,
+    wrap_renderer_for_serving,
+)
 from cfnerf_torch.ops.rays import get_rays
 from cfnerf_torch.ops.sampling import sample_z_vals, stratified_perturb
 from cfnerf_torch.render.renderer import (
@@ -140,7 +184,7 @@ from cfnerf_torch.render.renderer import (
     prepare_rays,
     render_image,
 )
-from cfnerf_torch.train.step import TrainConfig, make_train_step
+from cfnerf_torch.train.step import OccTrainConfig, TrainConfig, make_train_step
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "fixtures" / "torch_port_golden.npz"
@@ -265,6 +309,11 @@ def trunk_wgrad_rel(rows):
 # hierarchically (worst leaf, relative RMS), so 2.5e-2 / 0.9995
 TRUNK_STEP_REL_RMS, TRUNK_STEP_MIN_COS = 2.5e-2, 0.9995
 TRAIN_FLAT_PTS = (N_RAND + N_DEPTH) * FLAGSHIP["N_samples"]  # points of a training step
+
+
+# rays/s of every serving and training path of this run, by phase label,
+# printed together (phase "rates") so each path stands beside the others
+RATES = {}
 
 
 def emit(phase: str, **fields) -> None:
@@ -406,6 +455,11 @@ def phase_kernel_checks():
         (640, 1, 32, 4, True, True, "segment edge: S=1"),
         (640, 5, 32, 4, True, False, "segment edge: S=5, under one segment"),
         (640, 129, 32, 4, True, True, "segment edge: S=129, two rounds"),
+        # the placed paths' shapes: --occ_eval 16 a serving tile, --occ_train
+        # 12 a training step
+        (8192, OCC["occ_eval"], 32, 4, False, False, "placed serving tile, test mode"),
+        (N_RAND + N_DEPTH, OCC["occ_train"], 32, 4, True, False,
+         "placed training step, train mode"),
     ]
     serving_err = None
     for i, (R, S, K, F, cld, sat, label) in enumerate(cases):
@@ -507,6 +561,8 @@ def phase_bwd_checks():
         (256, 64, 40, 12, True, True, "F=12, generic path, K=40, saturated"),
         (64, 129, 8, 12, False, False, "F=12, generic path, S=129 two rounds, test mode"),
         (128, 48, 32, 16, True, False, "F=16, generic path"),
+        (N_RAND + N_DEPTH, OCC["occ_train"], 32, 4, True, False,
+         "placed training step (--occ_train 12)"),
     ]
     train_err = None
     for i, (R, S, K, F, cld, sat, label) in enumerate(cases):
@@ -733,6 +789,8 @@ def phase_flow_stack_checks():
         (5000, 32, 1, True, "F=1"),
         (3000, 32, 9, False, "F=9, contiguous z0"),
         (SERVE_FINE_PTS - 77, 32, 4, True, "ragged B: the serving fine pass less 77"),
+        (DENSITY_CHUNK, 32, 4, True, "a density query's chunk (bake, distillation)"),
+        (OCC_COTRAIN_POINTS, 32, 4, True, "the occ step's co-training density query"),
     ]
     serving_err = None
     for i, (B, K, F, shared, label) in enumerate(cases):
@@ -927,6 +985,20 @@ def trunk_bf16_matmul(packed, x):
     return ha.float(), (torch.matmul(hv, m["whr"].t()) + b["bhr"]).float()
 
 
+@contextlib.contextmanager
+def cublas_bf16_reduced(allowed):
+    """cuBLAS's bf16 reduced-precision reductions, which the port turns off
+    (utils/device.py), allowed or not: PyTorch's default allows them, so the
+    yardsticks are timed both ways."""
+    m = torch.backends.cuda.matmul
+    was = m.allow_bf16_reduced_precision_reduction
+    m.allow_bf16_reduced_precision_reduction = allowed
+    try:
+        yield
+    finally:
+        m.allow_bf16_reduced_precision_reduction = was
+
+
 def compare_trunk(out, ref, what="trunk kernel vs plain"):
     """Max abs / rel error of (h_alpha, h_rgb); raises past the tolerance."""
     errs = {}
@@ -1083,7 +1155,11 @@ def phase_trunk_time(flat_err):
             ms = cuda_ms(lambda: trunk.trunk_encode(packed, x), 10)
             plain_ms = cuda_ms(lambda: trunk.trunk_encode_plain(packed, x), 3)
             xla_ms = cuda_ms(lambda: model_xla.encode(x), 3)
+            check(not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+                  "the port's cuBLAS setting: no bf16 reduced-precision reductions")
             bf16_ms = cuda_ms(lambda: trunk_bf16_matmul(packed, x), 5)
+            with cublas_bf16_reduced(True):
+                bf16_reduced_ms = cuda_ms(lambda: trunk_bf16_matmul(packed, x), 5)
             # not gated: the yardstick rounds its sums to bf16 between layers
             bf16_errs = [float((a - b).abs().max()) for a, b in zip(
                 trunk_bf16_matmul(packed, x), trunk.trunk_encode_plain(packed, x))]
@@ -1093,7 +1169,8 @@ def phase_trunk_time(flat_err):
         # packed bf16 weight buffer once
         l2_model = -(-B // trunk.ROWS) * packed.w.numel() * 2
         emit("kernel_time", kernel="trunk_fwd", launch=label, B=B, depth=D, width=Wd, ms=ms,
-             plain_ms=plain_ms, xla_f32_ms=xla_ms, bf16_matmul_ms=bf16_ms, pack_ms=pack_ms,
+             plain_ms=plain_ms, xla_f32_ms=xla_ms, bf16_matmul_ms=bf16_ms,
+             bf16_matmul_reduced_ms=bf16_reduced_ms, pack_ms=pack_ms,
              bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops,
              achieved_tflop_per_s=ops / ms / 1e9, l2_weight_bytes_model=l2_model,
              l2_weight_tb_per_s_model=l2_model / ms / 1e9,
@@ -1101,7 +1178,7 @@ def phase_trunk_time(flat_err):
         if i == 0:
             stats = dict(max_abs_err=flat_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, xla_f32_ms=xla_ms,
-                         bf16_matmul_ms=bf16_ms,
+                         bf16_matmul_ms=bf16_ms, bf16_matmul_reduced_ms=bf16_reduced_ms,
                          shape=f"B={B} D{D} W{Wd}, the flat serving tile")
         del x, packed
         torch.cuda.empty_cache()
@@ -1387,12 +1464,15 @@ def phase_trunk_bwd_time(flat_err):
             plain_ms = cuda_ms(lambda x, a, b: trunk.trunk_encode_bwd_plain(packed, x, a, b),
                                3, sets)
         yard_ms = cuda_ms(yard, 3, sets)
+        with cublas_bf16_reduced(True):
+            yard_reduced_ms = cuda_ms(yard, 3, sets)
         nbytes, ops = trunk_bwd_work(B, *shape)
         b_ms, b_by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
         wgrad_ops = trunk_work(B, *shape)[1]
         emit("kernel_time", kernel="trunk_bwd", launch=label, B=B, depth=D, width=Wd, ms=ms,
              pass_ms=passes, fwd_save_ms=fwd_save_ms, fwd_serving_kernel_ms=fwd_ms,
              fwd_plus_bwd_ms=both_ms, plain_ms=plain_ms, bf16_matmul_autograd_ms=yard_ms,
+             bf16_matmul_autograd_reduced_ms=yard_reduced_ms,
              bound_ms=b_ms, bound_by=b_by, wgrad_bound_ms=1e3 * wgrad_ops / BF16_OPS_PER_S,
              bytes=nbytes, ops=ops, achieved_tflop_per_s=ops / ms / 1e9,
              wgrad_tflop_per_s=(wgrad_ops / passes["wgrad"] / 1e9
@@ -1403,6 +1483,7 @@ def phase_trunk_bwd_time(flat_err):
             stats = dict(max_abs_err=flat_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, fwd_plus_bwd_ms=both_ms,
                          bf16_matmul_autograd_ms=yard_ms,
+                         bf16_matmul_autograd_reduced_ms=yard_reduced_ms,
                          shape=f"B={B} D{D} W{Wd}, the flat training step, from the "
                                f"training forward's saved activations")
             x = sets[0][0]
@@ -1520,6 +1601,7 @@ def phase_serve():
 
     breakdown = profile_device(one_tile)
 
+    RATES["serve"] = H * W / image_s
     emit("serve", H=H, W=W, K=K, tile=TILE, n_tiles=n_tiles,
          render_core_launches=launches, first_render_s=first_s,
          image_s=image_s, image_s_all=times, rays_per_s=H * W / image_s,
@@ -1663,21 +1745,48 @@ def flagship_batches():
     return next_batch
 
 
-def train_run(config, label, counters, want_per_step, metric_keys, trunk_impl="xla"):
+def train_run(config, label, counters, want_per_step, metric_keys, trunk_impl="xla",
+              occ=False):
     """Training steps of `config`'s nets (the flagship model, or with
     N_importance the hierarchical pair) on flagship batches of the
     synthetic scene: 1 warm-up, then TRAIN_STEPS timed steps, the main path,
     counted (each counter in `counters` reset just before and held to
     want_per_step * TRAIN_STEPS just after); finite metrics with the keys
-    `metric_keys`; every parameter with a gradient moves; the loss falls
-    over FIXED_STEPS steps on a fixed batch; a profiled step.  With
-    trunk_impl="pallas", also one step's gradients against the same step
-    through trunk_impl="interpret" nets.  Returns the counts."""
+    `metric_keys`; every parameter with a gradient moves and stays f32; the
+    loss falls over FIXED_STEPS steps on a fixed batch; a profiled step.
+    With trunk_impl="pallas", also one step's gradients against the same
+    step through trunk_impl="interpret" nets.  With occ, the occ stage at
+    config's occ_* flags: --occ_train placed samples, the aabb from the
+    scene's train cameras, the proposal distilled once from the initial
+    field before the warm-up (the stage boundary, at the JAX loop's 2^18
+    points and 2 epochs) and installed.  Returns the counts."""
+    extra = {}
+
     def nets(impl):
-        model, model_fine, rc = build_model(types.SimpleNamespace(**config, trunk_impl=impl))
+        args = types.SimpleNamespace(**config, trunk_impl=impl)
+        model, model_fine, rc = build_model(args)
         cfg = TrainConfig(H=H, W=W, focal=FOCAL, ndc=False, near=NEAR, far=FAR,
                           k_samples=config["K_samples"], **TRAIN_CFG)
-        step, _ = make_train_step(model, rc, cfg, model_fine=model_fine)
+        occ_cfg = None
+        if occ:
+            lo, hi = aabb_from_scene(scene_dict(), args, model.alpha_mean.device)
+            occ_cfg = OccTrainConfig(lo=tuple(lo.tolist()), hi=tuple(hi.tolist()),
+                                     n_candidates=args.occ_candidates, floor=args.occ_floor,
+                                     cotrain_points=OCC_COTRAIN_POINTS)
+            dense_rc, rc = rc, dataclasses.replace(rc, n_samples=args.occ_train)
+        step, _ = make_train_step(model, rc, cfg, model_fine=model_fine, occ=occ_cfg)
+        if occ:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prop, loss = distill_proposal(
+                make_density_fn(model, dense_rc), lo, hi,
+                torch.Generator(device="cuda").manual_seed(0), n_points=1 << 18, epochs=2)
+            step.install_proposal(prop)
+            torch.cuda.synchronize()
+            extra.update(distill_s=time.perf_counter() - t0, distill_loss=loss,
+                         aabb=[lo.tolist(), hi.tolist()], placed_samples=args.occ_train,
+                         candidates=args.occ_candidates, floor=args.occ_floor,
+                         cotrain_points=OCC_COTRAIN_POINTS)
         named = {"coarse": model} if model_fine is None else {"coarse": model,
                                                               "fine": model_fine}
         return step, named
@@ -1720,6 +1829,8 @@ def train_run(config, label, counters, want_per_step, metric_keys, trunk_impl="x
     check(all(params[tuple(k.split("/", 1))].grad is not None
               and not params[tuple(k.split("/", 1))].grad.any() for k in still),
           f"{label}: parameters with a gradient that did not move: {still}")
+    check(all(p.dtype == torch.float32 for p in params.values()),
+          f"{label}: the parameters stay f32")
     fixed = next_batch()
     fixed_losses = [float(train_step(fixed, torch.Generator(device="cuda").manual_seed(1))["loss"])
                     for _ in range(FIXED_STEPS)]
@@ -1752,12 +1863,15 @@ def train_run(config, label, counters, want_per_step, metric_keys, trunk_impl="x
         torch.cuda.empty_cache()
 
     step_s = statistics.median(times)
+    RATES[label] = (N_RAND + N_DEPTH) / step_s
     emit(label, rays_per_step=N_RAND + N_DEPTH, rgb_rays=N_RAND, depth_rays=N_DEPTH,
-         samples={"coarse": config["N_samples"], "importance": config["N_importance"]},
+         samples={"coarse": config["occ_train"] if occ else config["N_samples"],
+                  "importance": config["N_importance"]},
          K=config["K_samples"], steps=TRAIN_STEPS, launches=launches, step_ms=1e3 * step_s,
          step_ms_all=[1e3 * t for t in times], train_rays_per_s=(N_RAND + N_DEPTH) / step_s,
          peak_mem_gb=peak_gb, unmoved_zero_gradient=still, first_loss=metrics[0]["loss"],
          last_metrics=metrics[-1], fixed_batch_losses=fixed_losses,
+         compute_dtype=config.get("compute_dtype", "float32"), **extra,
          **({} if vs_interpret is None else dict(
              pallas_vs_interpret_step_grads=vs_interpret,
              tolerance={"rel_rms": TRUNK_STEP_REL_RMS, "min_cos": TRUNK_STEP_MIN_COS})))
@@ -1923,6 +2037,7 @@ def phase_hier_serve():
             render_rays(*tile_rays, None, is_test=True)
 
     breakdown = profile_device(one_tile)
+    RATES["hier_serve"] = H * W / image_s
     emit("hier_serve", H=H, W=W, K=K, tile=TILE, n_tiles=n_tiles,
          samples={"coarse": args.N_samples, "importance": args.N_importance},
          fine_net={"depth": args.netdepth_fine, "width": args.netwidth_fine},
@@ -2097,6 +2212,7 @@ def trunk_view(config, label, counters, want):
             render_rays(*tile_rays, None, is_test=True)
 
     breakdown = profile_device(one_tile)
+    RATES[f"trunk_serve ({label})"] = H * W / image_s
     emit("trunk_serve", view=label, H=H, W=W, K=K, tile=TILE, launches=launches,
          counted_render_s=counted_s, image_s=image_s, rays_per_s=H * W / image_s,
          peak_mem_gb=peak_gb, mean_std_over_k=float(std.mean()),
@@ -2197,6 +2313,408 @@ def phase_trunk_grad_golden():
          tolerance={"rel_rms": TRUNK_BWD_REL_RMS, "min_cos": TRUNK_BWD_MIN_COS})
 
 
+# ---------------------------------------------------------------------- #
+# --compute_dtype bfloat16 on the xla trunk
+# ---------------------------------------------------------------------- #
+
+BF16 = dict(FLAGSHIP, compute_dtype="bfloat16")
+BF16_GOLDEN = ROOT / "tests" / "fixtures" / "torch_port_bf16_golden.npz"
+# the card's bf16 render vs JAX's (tests/fixtures, op by op on the CPU):
+# cuBLAS sums each bf16 product in another order than XLA's CPU dot, so a
+# trunk entry lands one bf16 ulp (2^-8 relative) apart here and there, and
+# the flows and the composite carry that into the maps: measured 2.3e-4 on
+# the card, so rtol = atol = 2e-3, as tests/test_torch_bf16.py states.
+# Those maps cannot tell the bf16 trunk from the f32 one (the f32 trunk's
+# maps lie within 5.7e-4 of JAX's bf16 maps on the CPU), so the golden's
+# JAX bf16 encode of 1024 rows is held too: an entry bitwise equal unless
+# another summation order rounds it to the neighbouring bf16 value and the
+# flip spreads through the later layers; the f32 trunk's outputs are not
+# bf16 values and match almost none.  At least half the entries bitwise
+# equal (set before the first reading, between the f32 trunk's ~0 and the
+# bf16 trunk's expected > 0.9; measured 0.99994 and 0.0 on an H100), each
+# within BF16_ATOL; the f32 trunk on the same weights, run as the control,
+# must fail that share
+BF16_RTOL = BF16_ATOL = 2e-3
+BF16_ENCODE_EQUAL_MIN = 0.5
+
+
+def phase_bf16_serve():
+    """The flagship view with --compute_dtype bfloat16 on the xla trunk: 20
+    render-core launches, counted, then one timed render; the first tile
+    against the f32 trunk on the same weights (reported, not gated)."""
+    model, _, rc = build_model(types.SimpleNamespace(**BF16))
+    check(model.compute_dtype == torch.bfloat16, "bf16 model")
+    render_rays = make_render_rays(model.eval(), rc)
+    c2w = pose_spherical(30.0, -30.0, 4.0)
+    view = dict(H=H, W=W, focal=FOCAL, ndc=False, use_viewdirs=True,
+                near=NEAR, far=FAR, tile=TILE)
+    n_tiles = -(-H * W // TILE)
+
+    # the main path, counted
+    render_core.fused_flow_composite.launches = 0
+    out = render_image(render_rays, c2w, **view)
+    torch.cuda.synchronize()
+    launches = render_core.fused_flow_composite.launches
+    check(launches == n_tiles, f"bf16_serve: render core launched {launches} times, "
+                               f"want {n_tiles}")
+    check(tuple(out["rgb_map"].shape) == (H, W, 3, BF16["K_samples"]), "bf16_serve rgb_map shape")
+    for k, v in out.items():
+        check(bool(torch.isfinite(v).all()), f"bf16_serve {k} finite")
+    del out
+    t0 = time.perf_counter()
+    render_image(render_rays, c2w, **view)
+    torch.cuda.synchronize()
+    image_s = time.perf_counter() - t0
+    RATES["bf16_serve"] = H * W / image_s
+
+    f32_model, _, _ = build_model(types.SimpleNamespace(**FLAGSHIP))
+    tile_rays = [t[:TILE] for t in view_rays(c2w)]
+    with torch.inference_mode():
+        a = render_rays(*tile_rays, None, is_test=True)
+        b = make_render_rays(f32_model.eval(), rc)(*tile_rays, None, is_test=True)
+    vs_f32 = {k: float((a[k] - b[k]).abs().max()) for k in ("rgb_map", "depth_map", "acc_map")}
+    del a, b, f32_model
+
+    def one_tile():
+        with torch.inference_mode():
+            render_rays(*tile_rays, None, is_test=True)
+
+    breakdown = profile_device(one_tile)
+    emit("bf16_serve", H=H, W=W, tile=TILE, render_core_launches=launches, image_s=image_s,
+         rays_per_s=H * W / image_s, f32_serve_rays_per_s=RATES.get("serve"),
+         bf16_vs_f32_first_tile_max_abs_not_gated=vs_f32)
+    emit("bf16_profile", tile_rays=TILE, **breakdown)
+    return launches
+
+
+def phase_bf16_train():
+    """Flagship training with --compute_dtype bfloat16: a render-core
+    forward and backward a step; the parameters stay f32."""
+    launches = train_run(BF16, "bf16_train", (render_core.fused_flow_composite,
+                         render_core.fused_flow_composite_bwd), (1, 1), FLAT_METRICS)
+    emit("bf16_train_vs_f32", bf16_train_rays_per_s=RATES["bf16_train"],
+         f32_train_rays_per_s=RATES.get("train"))
+    return launches
+
+
+def phase_bf16_golden():
+    """A tiny bf16 model's JAX render (tests/fixtures) against the card's
+    bf16 xla trunk and render core on the same weights."""
+    with np.load(BF16_GOLDEN) as g:
+        D, Wd, K, F, ha, hr, n_samples, h, w = (int(v) for v in g["config"])
+        focal, near, far = (float(v) for v in g["view"])
+        model = NeRFFlows(net_depth=D, net_width=Wd, skips=(D // 2,), h_alpha_size=ha,
+                          h_rgb_size=hr, n_flows=F, k_samples=K, compute_dtype=torch.bfloat16)
+        model.load_state_dict(nerf_flows_state_dict_from_jax(
+            nested_params(g), (g["test_eps_a"], g["test_eps_r"])))
+        model = model.cuda().eval()
+        rc = RenderConfig(n_samples=n_samples, perturb=False, use_viewdirs=True,
+                          white_bkgd=True)
+        before = render_core.fused_flow_composite.launches
+        out = render_image(make_render_rays(model, rc), g["c2w"], H=h, W=w, focal=focal,
+                           ndc=False, use_viewdirs=True, near=near, far=far, tile=64)
+        check(render_core.fused_flow_composite.launches > before,
+              "bf16 golden went through the kernel")
+        maps = ("rgb_map", "depth_map", "acc_map")
+        ref_maps = {k: torch.as_tensor(g[f"jax/{k}"]) for k in maps}
+        errs = compare_maps(out, ref_maps, maps, BF16_RTOL, BF16_ATOL, "bf16 golden")
+        x = torch.as_tensor(g["x"], device="cuda")
+        ref_h = [torch.as_tensor(g[f"jax/{k}"], device="cuda") for k in ("h_alpha", "h_rgb")]
+
+        def encode_vs_jax(m):
+            with torch.inference_mode():
+                hs = m.encode(x)
+            equal = sum(int((a == b).sum()) for a, b in zip(hs, ref_h))
+            return (equal / sum(b.numel() for b in ref_h),
+                    max(float((a - b).abs().max()) for a, b in zip(hs, ref_h)))
+
+        equal, enc_err = encode_vs_jax(model)
+        check(equal >= BF16_ENCODE_EQUAL_MIN and enc_err <= BF16_ATOL,
+              f"bf16 golden encode: {equal} of the entries bitwise equal to JAX's, "
+              f"max abs {enc_err}")
+        # the control: the same weights on the f32 trunk
+        model.compute_dtype = torch.float32
+        ctrl_equal, ctrl_err = encode_vs_jax(model)
+        check(ctrl_equal < BF16_ENCODE_EQUAL_MIN,
+              f"bf16 golden: the f32 trunk's encode passes the bf16 gate ({ctrl_equal})")
+        ctrl = render_image(make_render_rays(model, rc), g["c2w"], H=h, W=w, focal=focal,
+                            ndc=False, use_viewdirs=True, near=near, far=far, tile=64)
+        ctrl_maps = {k: float((ctrl[k].cpu() - ref_maps[k]).abs().max()) for k in maps}
+    emit("bf16_golden", source=str(BF16_GOLDEN.relative_to(ROOT)), H=h, W=w, K=K,
+         max_abs_err_vs_jax=errs, encode_rows=int(x.shape[0]),
+         encode_bitwise_equal_share=equal, encode_max_abs_err=enc_err,
+         f32_control={"encode_bitwise_equal_share": ctrl_equal, "encode_max_abs_err": ctrl_err,
+                      "maps_max_abs_err_vs_jax_bf16": ctrl_maps},
+         tolerance={"rtol": BF16_RTOL, "atol": BF16_ATOL,
+                    "encode_bitwise_equal_share_min": BF16_ENCODE_EQUAL_MIN})
+
+
+# ---------------------------------------------------------------------- #
+# proposal-placed serving and training (ops/occupancy.py)
+# ---------------------------------------------------------------------- #
+
+# the JAX package's serving and training defaults (cfnerf_tpu/utils/
+# config.py:158-233): --occ_eval 16 placed samples from 32 candidates, floor
+# 0.3, a 128^3 grid dilated once, --occ_impl auto (the grid off a TPU);
+# --occ_train 12 from 128 candidates, the proposal co-trained at 8192 points
+OCC = dict(FLAGSHIP, dataset_type="blender", no_ndc=False, occ_eval=16,
+           occ_eval_candidates=32, occ_candidates=128, occ_floor=0.3, occ_res=128,
+           occ_dilate=1, occ_impl="auto", occ_train=12)
+OCC_COTRAIN_POINTS = 8192
+# the points of one model forward in a density query (the chunk of
+# bake_density_grid and distill_proposal) and the distillation's pool at
+# serving: their defaults
+DENSITY_CHUNK = 65536
+DISTILL_POINTS = 1 << 20
+OCC_METRICS = FLAT_METRICS + ("prop_loss",)
+# placed depths through the proposal on the card vs on the CPU, the same
+# weights: cuBLAS and the CPU may round the hidden layers' bf16 products
+# apart (2^-8 of an activation), which would move the placement CDF by
+# about that much of a candidate bin (0.125 here); measured 1.9e-6, so
+# atol 1e-3, 0.8% of a bin
+PROP_Z_ATOL = 1e-3
+OCC_GOLDEN = ROOT / "tests" / "fixtures" / "torch_port_occ_golden.npz"
+# the card's occ step vs JAX's (tests/fixtures): metrics and weights after
+# Adam by train_golden's rules; the field's gradients per leaf by relative
+# RMS and cosine, as tests/test_torch_occ_train.py holds them (the placed
+# depths differ by a few ulp and switch a ReLU near 0 now and then); the
+# proposal after its Adam step 1e-6 where its |g| >= 1e-5, elsewhere 2 lr
+OCC_GRAD_REL_RMS, OCC_GRAD_MIN_COS = 1e-2, 0.9999
+
+
+def scene_dict():
+    """The synthetic scene's train cameras as aabb_from_scene reads them."""
+    _, poses, _ = synthetic_scene(seed=0)
+    return dict(H=H, W=W, focal=FOCAL, i_train=list(range(len(poses))), poses=poses,
+                near=NEAR, far=FAR)
+
+
+def occ_view(impl, label):
+    """The flagship model serves the view at --occ_eval placed samples
+    through wrap_renderer_for_serving with --occ_impl `impl`: the proxy
+    built from the field (flow-stack forward launches counted), the view
+    (20 render-core launches, no flow-stack launch), a profiled tile.
+    Returns (render_rays, model, rc, build launches, view launches, rays)."""
+    args = types.SimpleNamespace(**dict(OCC, occ_impl=impl))
+    model, _, rc = build_model(args)
+    model.eval()
+    rc = dataclasses.replace(rc, n_samples=args.occ_eval)
+    flow_stack.fused_flow_stack.launches = 0
+    torch.cuda.synchronize()
+    render_rays = wrap_renderer_for_serving(make_render_rays(model, rc), args, scene_dict(),
+                                            model, rc)
+    torch.cuda.synchronize()
+    build_launches = flow_stack.fused_flow_stack.launches
+    # two launches (the density and rgb chains) a chunk of the density query:
+    # the grid's res^3 cells, or the distillation's pool
+    queried = DISTILL_POINTS if impl == "proposal" else args.occ_res ** 3
+    want = 2 * -(-queried // DENSITY_CHUNK)
+    check(build_launches == want, f"{label}: the proxy was built with {build_launches} "
+                                  f"flow-stack launches, want {want}")
+    c2w = pose_spherical(30.0, -30.0, 4.0)
+    view = dict(H=H, W=W, focal=FOCAL, ndc=False, use_viewdirs=True,
+                near=NEAR, far=FAR, tile=TILE)
+    n_tiles = -(-H * W // TILE)
+
+    # the main path, counted
+    render_core.fused_flow_composite.launches = 0
+    flow_stack.fused_flow_stack.launches = 0
+    t0 = time.perf_counter()
+    out = render_image(render_rays, c2w, **view)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    launches = render_core.fused_flow_composite.launches
+    check(launches == n_tiles, f"{label}: render core launched {launches} times, "
+                               f"want {n_tiles}")
+    check(flow_stack.fused_flow_stack.launches == 0, f"{label}: the view ran no flow stack")
+    check(tuple(out["rgb_map"].shape) == (H, W, 3, OCC["K_samples"]), f"{label} rgb_map shape")
+    for k, v in out.items():
+        check(bool(torch.isfinite(v).all()), f"{label} {k} finite")
+    std = std_over_k(out["rgb_map"])
+    del out
+    t0 = time.perf_counter()
+    render_image(render_rays, c2w, **view)
+    torch.cuda.synchronize()
+    image_s = time.perf_counter() - t0
+    RATES[label] = H * W / image_s
+
+    rays = view_rays(c2w)
+    tile_rays = [t[:TILE] for t in rays]
+
+    def one_tile():
+        with torch.inference_mode():
+            render_rays(*tile_rays, None, is_test=True)
+
+    breakdown = profile_device(one_tile)
+    placement = render_rays.placement
+    info = dict(impl=placement["impl"], build_s=placement["seconds"],
+                build_flow_stack_launches=build_launches, placed_samples=rc.n_samples,
+                candidates=placement["n_candidates"], floor=placement["floor"],
+                aabb=[t.tolist() for t in placement["aabb"]], render_core_launches=launches,
+                counted_render_s=counted_s, image_s=image_s, rays_per_s=H * W / image_s,
+                dense_f32_serve_rays_per_s=RATES.get("serve"),
+                mean_std_over_k=float(std.mean()))
+    emit(f"{label}_profile", tile_rays=TILE, placed_samples=rc.n_samples, **breakdown)
+    return render_rays, model, rc, build_launches, launches, info, rays
+
+
+def phase_occ_serve():
+    """--occ_eval 16 on the default --occ_impl auto (the grid on the card):
+    the 128^3 bake, the view, and 64 placed rays against the CPU's plain
+    path on the same weights and grid (the hier_serve tolerance)."""
+    render_rays, model, rc, bake, launches, info, rays = occ_view("auto", "occ_serve")
+    placement = render_rays.placement
+    check(placement["impl"] == "grid", "occ_serve: auto is the grid on the card")
+    grid = placement["proxy"]
+    lo, hi = placement["aabb"]
+    cpu_model = copy.deepcopy(model).cpu()
+
+    # the bake against the CPU's plain density query: 64 interior cells, each
+    # the max over its 3x3x3 neighbourhood's cell centres (one dilation)
+    check(OCC["occ_dilate"] == 1, "occ_serve: the bake check reads one dilation")
+    res = grid.shape[0]
+    cells = torch.randint(1, res - 1, (64, 3), generator=torch.Generator().manual_seed(6))
+    offs = torch.stack(torch.meshgrid(*[torch.arange(-1, 2)] * 3, indexing="ij"), -1)
+    nb = (cells[:, None, :] + offs.reshape(27, 3)).cuda()
+    centres = grid_coords(res, lo, hi).reshape(res, res, res, 3)[nb[..., 0], nb[..., 1],
+                                                                  nb[..., 2]]
+    with torch.inference_mode():
+        sigma_cpu = make_density_fn(cpu_model, rc)(centres.reshape(-1, 3).cpu())
+    baked = grid[cells[:, 0], cells[:, 1], cells[:, 2]].cpu()
+    want = sigma_cpu.reshape(64, 27).max(-1).values
+    bake_err = float((baked - want).abs().max())
+    check(bool(torch.allclose(baked, want, rtol=E2E_RTOL, atol=E2E_ATOL)),
+          f"occ_serve: baked cells vs the CPU's density query, max abs {bake_err}")
+
+    pick = torch.randperm(H * W, generator=torch.Generator().manual_seed(4))[:64].cuda()
+    sub = [t[pick] for t in rays]
+    cpu_rays = make_occ_render_rays(make_render_rays(cpu_model, rc),
+                                    grid.cpu(), lo.cpu(), hi.cpu(), rc.n_samples,
+                                    n_candidates=placement["n_candidates"],
+                                    floor=placement["floor"])
+    with torch.inference_mode():
+        a = render_rays(*sub, None, is_test=True)
+        b = cpu_rays(*[t.cpu() for t in sub], None, is_test=True)
+    cpu_errs = compare_maps(a, b, ("rgb_map", "depth_map", "acc_map"), E2E_RTOL, E2E_ATOL,
+                            "occ_serve: card vs CPU plain path")
+    emit("occ_serve", grid_res=grid.shape[0], grid_points=grid.numel(),
+         occupied_share=placement["occupied"], **info,
+         baked_64_cells_vs_cpu_max_abs=bake_err,
+         baked_64_cells_max=float(baked.max()), card_vs_cpu_plain_64_rays=cpu_errs,
+         tolerance={"rtol": E2E_RTOL, "atol": E2E_ATOL})
+    return {"bake": bake, "view": launches}
+
+
+def phase_occ_prop_serve():
+    """--occ_impl proposal: the distillation, the view, and the placed depths
+    of 64 rays against the CPU's plain placement with the same proposal."""
+    render_rays, model, rc, distill, launches, info, rays = occ_view("proposal",
+                                                                     "occ_prop_serve")
+    placement = render_rays.placement
+    prop = placement["proxy"]
+    lo, hi = placement["aabb"]
+    pick = torch.randperm(H * W, generator=torch.Generator().manual_seed(5))[:64].cuda()
+    ro, rd, _, nv, fv = [t[pick] for t in rays]
+    kw = dict(n_candidates=placement["n_candidates"], floor=placement["floor"])
+    prop_cpu = copy.deepcopy(prop).cpu()
+    with torch.inference_mode():
+        z = place_from_sigma(make_proposal_sigma_fn(prop, lo, hi), ro, rd, nv, fv,
+                             rc.n_samples, **kw)
+        z_cpu = place_from_sigma(make_proposal_sigma_fn(prop_cpu, lo.cpu(), hi.cpu()),
+                                 ro.cpu(), rd.cpu(), nv.cpu(), fv.cpu(), rc.n_samples, **kw)
+    z_err = float((z.cpu() - z_cpu).abs().max())
+    check(z_err <= PROP_Z_ATOL, f"occ_prop_serve: placed z card vs CPU {z_err}")
+    emit("occ_prop_serve", distill_loss=placement["final_loss"], **info,
+         placed_z_card_vs_cpu_64_rays=z_err, tolerance={"atol": PROP_Z_ATOL})
+    return {"distill": distill, "view": launches}
+
+
+def phase_occ_train():
+    """--occ_train 12: a render-core forward and backward a step and the
+    co-training density query's two flow-stack forwards (density and rgb
+    chains of one model forward)."""
+    launches = train_run(OCC, "occ_train", (render_core.fused_flow_composite,
+                         render_core.fused_flow_composite_bwd, flow_stack.fused_flow_stack),
+                         (1, 1, 2), OCC_METRICS, occ=True)
+    emit("occ_train_vs_dense", occ_train_rays_per_s=RATES["occ_train"],
+         dense_f32_train_rays_per_s=RATES.get("train"))
+    return launches
+
+
+def phase_occ_golden():
+    """One JAX occ step of a tiny model (tests/fixtures, with its draws)
+    through the card's occ step: render core forward and backward, the
+    co-training target through the flow-stack forward, then both updates."""
+    with np.load(OCC_GOLDEN) as f:
+        g = {k: f[k] for k in f.files}
+    D, Wd, K, F, ha, hr, n_placed, n_cand, cotrain = (int(v) for v in g["config"])
+    h, w, focal, near, far, beta1, depth_lambda, lrate = (float(v) for v in g["train"])
+    *box, floor, prop_lr = (float(v) for v in g["occ"])
+    model = NeRFFlows(net_depth=D, net_width=Wd, skips=(D // 2,), h_alpha_size=ha,
+                      h_rgb_size=hr, n_flows=F, k_samples=K)
+    model.load_state_dict(nerf_flows_state_dict_from_jax(
+        nested_params(g), (g["test_eps_a"], g["test_eps_r"])))
+    model = model.cuda()
+    cfg = TrainConfig(H=int(h), W=int(w), focal=focal, ndc=False, near=near, far=far,
+                      k_samples=K, lrate=lrate, beta1=beta1, colmap_depth=True,
+                      depth_lambda=depth_lambda)
+    occ = OccTrainConfig(lo=tuple(box[:3]), hi=tuple(box[3:]), n_candidates=n_cand,
+                         floor=floor, prop_lr=prop_lr, cotrain_points=cotrain)
+    step, _ = make_train_step(model, RenderConfig(n_samples=n_placed), cfg, occ=occ)
+    step.install_proposal(proposal_state_dict_from_jax(
+        {k[5:]: v for k, v in g.items() if k.startswith("prop/")}))
+    batch = {k[6:]: v for k, v in g.items() if k.startswith("batch/")}
+    counters = (render_core.fused_flow_composite, render_core.fused_flow_composite_bwd,
+                flow_stack.fused_flow_stack)
+    before = [c.launches for c in counters]
+    loss, metrics = step.loss_fn(batch, None, eps=(g["eps_a"], g["eps_r"]),
+                                 place_u=torch.as_tensor(g["place_u"], device="cuda"))
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    step.update()
+    metrics = {k: float(v.detach()) for k, v in metrics.items()}
+    metrics["prop_loss"] = float(step.cotrain(None, prop_pts=torch.as_tensor(
+        g["prop_pts"], device="cuda")))
+    torch.cuda.synchronize()
+    got = [c.launches - b for c, b in zip(counters, before)]
+    check(got == [1, 1, 2], f"occ golden launches (render core fwd, bwd, flow stack) {got}")
+    m_err, bad = {}, []
+    for k, v in metrics.items():
+        ref = float(g[f"jax/{k}"])
+        m_err[k] = abs(v - ref)
+        if not m_err[k] <= E2E_ATOL + E2E_RTOL * abs(ref):
+            bad.append(k)
+    ref_grads = {n: torch.as_tensor(g[f"grad/{n}"], device="cuda") for n in grads}
+    worst = gate_leaves(leaf_errors(grads, ref_grads), OCC_GRAD_REL_RMS, OCC_GRAD_MIN_COS,
+                        "occ golden gradients")
+    p_err = {}
+    for n, p in model.named_parameters():
+        d = (p.detach() - torch.as_tensor(g[f"after/{n}"], device="cuda")).abs()
+        sel = d[ref_grads[n].abs() >= ADAM_G_MIN]
+        if not (bool((sel <= ADAM_ATOL).all()) and float(d.max()) <= 2 * lrate + ADAM_ATOL):
+            bad.append(f"after/{n}")
+        p_err[n] = float(sel.max()) if sel.numel() else 0.0
+    prop_err = {}
+    for n, p in step.proposal.named_parameters():
+        d = (p.detach() - torch.as_tensor(g[f"prop_after/{n}"], device="cuda")).abs()
+        sel = d[p.grad.abs() >= ADAM_G_MIN]
+        if not (bool((sel <= ADAM_ATOL).all()) and float(d.max()) <= 2 * prop_lr + ADAM_ATOL):
+            bad.append(f"prop_after/{n}")
+        prop_err[n] = {"where_abs_grad_ge": float(sel.max()) if sel.numel() else 0.0,
+                       "all": float(d.max())}
+    emit("occ_golden", source=str(OCC_GOLDEN.relative_to(ROOT)), rays=len(g["place_u"]),
+         placed_samples=n_placed, candidates=n_cand, K=K, metrics_abs_err_vs_jax=m_err,
+         grad_errors_vs_jax=worst, weights_after_update_max_abs_err=max(p_err.values()),
+         proposal_after_update_err=prop_err,
+         tolerance={"metrics": {"rtol": E2E_RTOL, "atol": E2E_ATOL},
+                    "grads": {"rel_rms": OCC_GRAD_REL_RMS, "min_cos": OCC_GRAD_MIN_COS},
+                    "weights": {"atol": ADAM_ATOL, "where_abs_grad_ge": ADAM_G_MIN},
+                    "proposal": {"atol": ADAM_ATOL, "where_abs_grad_ge": ADAM_G_MIN,
+                                 "elsewhere": 2 * prop_lr}})
+    check(not bad, f"occ golden past the tolerance: {bad} (weights {p_err}, "
+                   f"proposal {prop_err})")
+
+
 def kernel_entry(name, source, replaces, launches_by_path, stats):
     """`launches` totals the per-path counts; `launches_by_path` keeps each
     path's own count, reset just before that path and read just after."""
@@ -2209,8 +2727,9 @@ def kernel_entry(name, source, replaces, launches_by_path, stats):
     if "shape" in stats:
         entry["timed_at"] = stats["shape"]
     for extra in ("fwd_save_acts_max_abs_err",
-                  "xla_f32_ms", "bf16_matmul_ms", "fwd_plus_bwd_ms",
-                  "bf16_matmul_autograd_ms", "fwd_save_max_abs_err", "fwd_save_ms",
+                  "xla_f32_ms", "bf16_matmul_ms", "bf16_matmul_reduced_ms",
+                  "fwd_plus_bwd_ms", "bf16_matmul_autograd_ms",
+                  "bf16_matmul_autograd_reduced_ms", "fwd_save_max_abs_err", "fwd_save_ms",
                   "fwd_save_plain_ms", "fwd_save_bound_ms", "fwd_save_bound_by",
                   "fwd_save_timed_at"):
         if extra in stats:
@@ -2222,6 +2741,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     smi = nvidia_smi_line()
     emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
@@ -2256,6 +2776,14 @@ def main() -> int:
     phase_trunk_golden()
     trunk_train, trunk_hier_train = phase_trunk_train()
     phase_trunk_grad_golden()
+    bf16_serve = phase_bf16_serve()
+    bf16_train = phase_bf16_train()
+    phase_bf16_golden()
+    occ_serve = phase_occ_serve()
+    occ_prop_serve = phase_occ_prop_serve()
+    occ_train = phase_occ_train()
+    phase_occ_golden()
+    emit("rates", rays_per_s=RATES)
 
     # serving: 20 render-core launches a view; training: one render-core
     # forward and backward a step; hierarchical: 4 flow-stack launches (two
@@ -2264,20 +2792,33 @@ def main() -> int:
     # render-core launches) and 40 a hierarchical one; training, a trunk
     # forward and backward per pass (the backward's four kernels count as one
     # launch), beside the render core's (flat) or the flow stack's
-    # (hierarchical)
+    # (hierarchical); bf16 on the xla trunk as f32 (20 a view, 1 + 1 a
+    # step); placed serving: 20 render-core launches a view, the grid's bake
+    # or the proposal's distillation through the flow stack (two launches a
+    # density query of 65,536 points); occ training: a render-core forward
+    # and backward a step, and two flow-stack launches for the co-training
+    # target
     print(json.dumps({"kernels": [
         kernel_entry("render_core_fwd", render_core.SOURCE, render_core.REPLACES,
                      {"serve": serve_launches, "train": train["fused_flow_composite"],
                       "trunk_serve": trunk_flat_core,
-                      "trunk_train": trunk_train["fused_flow_composite"]}, fwd_stats),
+                      "trunk_train": trunk_train["fused_flow_composite"],
+                      "bf16_serve": bf16_serve,
+                      "bf16_train": bf16_train["fused_flow_composite"],
+                      "occ_serve": occ_serve["view"], "occ_prop_serve": occ_prop_serve["view"],
+                      "occ_train": occ_train["fused_flow_composite"]}, fwd_stats),
         kernel_entry("render_core_bwd", render_core.SOURCE_BWD, render_core.REPLACES_BWD,
                      {"train": train["fused_flow_composite_bwd"],
-                      "trunk_train": trunk_train["fused_flow_composite_bwd"]}, bwd_stats),
+                      "trunk_train": trunk_train["fused_flow_composite_bwd"],
+                      "bf16_train": bf16_train["fused_flow_composite_bwd"],
+                      "occ_train": occ_train["fused_flow_composite_bwd"]}, bwd_stats),
         kernel_entry("flow_stack_fwd", flow_stack.SOURCE, flow_stack.REPLACES,
                      {"hier_serve": hier_serve_launches,
                       "hier_train": hier_train["fused_flow_stack"],
                       "serve_unfused_check": unfused_launches,
-                      "trunk_hier_train": trunk_hier_train["fused_flow_stack"]},
+                      "trunk_hier_train": trunk_hier_train["fused_flow_stack"],
+                      "occ_serve": occ_serve["bake"], "occ_prop_serve": occ_prop_serve["distill"],
+                      "occ_train": occ_train["fused_flow_stack"]},
                      flow_stats["fwd"]),
         kernel_entry("flow_stack_bwd", flow_stack.SOURCE_BWD, flow_stack.REPLACES_BWD,
                      {"hier_train": hier_train["fused_flow_stack_bwd"],
@@ -2293,6 +2834,7 @@ def main() -> int:
                       "trunk_hier_train": trunk_hier_train["trunk_encode_bwd"]},
                      trunk_bwd_stats),
     ]}), flush=True)
+    emit("wall", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -46,7 +46,8 @@ def test_port_modules_mirror_the_jax_layout():
     for mod in ("ops/embed.py", "ops/rays.py", "ops/sampling.py", "ops/compositing.py",
                 "ops/metrics.py", "flows/sylvester.py", "flows/amortized.py",
                 "models/nerf_flows.py", "models/factory.py", "render/renderer.py",
-                "train/loss.py", "train/step.py", "data/sampler.py"):
+                "train/loss.py", "train/step.py", "data/sampler.py",
+                "ops/occupancy.py", "train/loop.py"):
         assert mod in port and (ROOT / "cfnerf_tpu" / mod).exists(), mod
     # each Pallas kernel module has its wrapper under ops/kernels/
     for mod in ("render_core.py", "flow_stack.py", "trunk.py"):

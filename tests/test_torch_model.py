@@ -220,11 +220,20 @@ def test_init_params_uses_the_linear_default_bound():
 @pytest.mark.parametrize("over,slice_no", [
     (dict(type_flows="planar"), "slice 7"),
     (dict(model="nerf"), "slice 7"),
-    (dict(compute_dtype="bfloat16"), "slice 4"),
 ])
 def test_configurations_of_later_slices_raise(over, slice_no):
     with pytest.raises(NotImplementedError, match=slice_no):
         build_model(_args(**over), device="cpu")
+
+
+def test_build_model_with_compute_dtype_bfloat16_on_cpu():
+    """--compute_dtype bfloat16: the xla trunk in bf16 on f32 parameters."""
+    model, _, _ = build_model(_args(compute_dtype="bfloat16"), device="cpu")
+    assert model.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    with torch.no_grad():
+        h_alpha, h_rgb = model.encode(torch.rand(5, 90))
+    assert h_alpha.dtype == h_rgb.dtype == torch.float32
 
 
 def test_build_model_with_n_importance_on_cpu():

@@ -323,12 +323,26 @@ def _port_model():
 
 
 @pytest.mark.parametrize("render_config,kw,slice_no", [
-    (RenderConfig(n_samples=13), dict(occ=object()), "slice 5"),
     (RenderConfig(n_samples=13), dict(mesh=object()), "slice 8"),
-], ids=["occ", "mesh"])
+], ids=["mesh"])
 def test_later_slices_raise(render_config, kw, slice_no):
     with pytest.raises(NotImplementedError, match=slice_no):
         make_train_step(_port_model(), render_config, TrainConfig(**TRAIN_KW), **kw)
+
+
+def test_occ_step_trains_on_cpu():
+    """Proposal-placed training (slice 5): an occ step runs on the CPU, with
+    finite metrics and prop_loss, and moves the field."""
+    from cfnerf_torch.train.step import OccTrainConfig
+
+    model = _port_model()
+    step, _ = make_train_step(model, RenderConfig(n_samples=12), TrainConfig(**TRAIN_KW),
+                              occ=OccTrainConfig(lo=(-1.5, -1.5, -2.0), hi=(1.5, 1.5, 5.0),
+                                                 n_candidates=32, cotrain_points=128))
+    start = [p.detach().clone() for p in model.parameters()]
+    metrics = step(make_batch(12, 4, seed=6), torch.Generator().manual_seed(3))
+    assert "prop_loss" in metrics and all(torch.isfinite(v) for v in metrics.values())
+    assert any(not torch.equal(a, p) for a, p in zip(start, model.parameters()))
 
 
 def test_a_fine_net_without_a_fine_pass_is_refused():
