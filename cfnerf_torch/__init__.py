@@ -10,8 +10,12 @@ Layout mirrors cfnerf_tpu so each module's counterpart is easy to find:
   models/       NeRFFlows and the model factory
   render/       ray-batch renderer and the tiled full-image renderer
   train/        losses, Adam with the exponential schedule, the train step
-                (and its occ stage), the stage schedules
-  data/         host-side ray precompute and batch samplers (numpy)
+                (and its occ stage), the stage schedules, the dataset
+                dispatch, checkpoints and resume
+  data/         LLFF and Blender loaders, COLMAP files, pose math, PNG I/O
+                and the two resamplers (image_io), host-side ray precompute,
+                batch samplers and the batch prefetcher
+  utils/        the flag parser (the JAX package's flags), device selection
   convert.py    weights (and gradients) carried across from a cfnerf_tpu
                 params pytree
 

@@ -23,7 +23,9 @@ giving the state dicts of the coarse and the fine network.
 ({"w0", "b0", ...}, w{i} (d_in, d_out); keys starting "__" are metadata and
 skipped) into a state_dict for cfnerf_torch.ops.occupancy.ProposalMLP
 (layers.{i}.weight (d_out, d_in), layers.{i}.bias).
-Reading an Orbax checkpoint from disk comes with the checkpoint slice.
+scripts/jax_checkpoint_to_torch.py reads a JAX Orbax checkpoint (Orbax
+imports jax, so not here) and writes it through these maps as the port's
+checkpoint.
 """
 from __future__ import annotations
 

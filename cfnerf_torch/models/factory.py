@@ -5,8 +5,8 @@ Reads the same flag names as cfnerf_tpu/utils/config.py.  It builds the
 triangular NeRFFlows that serves and trains, in f32 or bf16
 (--compute_dtype), and with --N_importance > 0 its fine network; every other
 model or flow family raises NotImplementedError naming the slice that brings
-it.  Resuming from checkpoints comes with slice 6 (data, loop,
-checkpoints, CLI).
+it.  create_nerf builds and resumes from the run dir's checkpoints, as
+cfnerf_tpu/models/factory.py:create_nerf does.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from torch import nn
 from cfnerf_torch.models.nerf_flows import COMPUTE_DTYPES, FLOW_IMPLS, TRUNK_IMPLS, NeRFFlows
 from cfnerf_torch.ops.embed import get_embedder
 from cfnerf_torch.render.renderer import FUSED_MODES, RenderConfig
+from cfnerf_torch.train import checkpoint as ckpt
 from cfnerf_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -137,3 +138,38 @@ def build_model(
         fused="on" if fused_render == "auto" else fused_render,
     )
     return model, model_fine, render_config
+
+
+def create_nerf(
+    args, device: DeviceLike = None
+) -> Tuple[NeRFFlows, Optional[NeRFFlows], RenderConfig, int]:
+    """Build + auto-resume (cfnerf_tpu/models/factory.py:130-158).
+
+    Returns (model, model_fine, render_config, start): build_model's nets,
+    then, unless --no_reload, the checkpoint that find_resume_checkpoint
+    picks from the run dir basedir/dataname/type_flows/expname (or
+    --ft_path; --index_step, --index_ensembles) filtered-merged into their
+    state dicts, test-mode eps buffers included, and its global step as
+    start (0 without one).  Pass start on as TrainConfig.start_step, so the
+    lr schedule continues.  Prints "Reloading from <path>" or "No
+    reloading", as JAX's create_nerf does."""
+    model, model_fine, render_config = build_model(args, device)
+    nets = {"coarse": model} if model_fine is None else {"coarse": model,
+                                                          "fine": model_fine}
+    rundir = ckpt.run_dir(args.basedir, args.dataname, args.type_flows, args.expname)
+    start = 0
+    path = None
+    if not args.no_reload:
+        path = ckpt.find_resume_checkpoint(
+            rundir, ft_path=args.ft_path, index_step=args.index_step,
+            ensemble=args.index_ensembles,
+        )
+    if path is not None:
+        print("Reloading from", path)
+        params, start = ckpt.restore_checkpoint(
+            path, {name: net.state_dict() for name, net in nets.items()})
+        for name, net in nets.items():
+            net.load_state_dict(params[name])
+    else:
+        print("No reloading")
+    return model, model_fine, render_config, start

@@ -56,6 +56,30 @@ def get_rays_by_coord_np(
     return rays_o, rays_d
 
 
+def get_ray_directions(H: int, W: int, K: np.ndarray) -> np.ndarray:
+    """Camera-space directions (H, W, 3) from a full 3x3 intrinsics matrix (no
+    +0.5 pixel centering, matching the reference)."""
+    i, j = np.meshgrid(np.arange(W, dtype=np.float32), np.arange(H, dtype=np.float32), indexing="xy")
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    return np.stack([(i - cx) / fx, -(j - cy) / fy, -np.ones_like(i)], -1)
+
+
+def get_rays_phototourism(
+    directions: np.ndarray, c2w: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray]:
+    """World-space rays from camera-space `directions` (get_ray_directions) and
+    a 3x4 c2w, the per-image-intrinsics rig of phototourism-style captures
+    (reference run_nerf_helpers.py:324-347).  Unlike get_rays the directions
+    are unit-norm, and both outputs are flattened to (H*W, 3) float32."""
+    rays_d = directions @ c2w[:, :3].T
+    rays_d = rays_d / np.linalg.norm(rays_d, axis=-1, keepdims=True)
+    rays_o = np.broadcast_to(c2w[:, 3], rays_d.shape)
+    return (
+        rays_o.reshape(-1, 3).astype(np.float32),
+        rays_d.reshape(-1, 3).astype(np.float32),
+    )
+
+
 def ndc_rays(
     H: int, W: int, focal: float, near: float, rays_o: torch.Tensor, rays_d: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:

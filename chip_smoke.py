@@ -122,8 +122,21 @@ final line):
                    backward and two flow-stack forwards each), a profiled step
  21. occ_golden    one JAX occ step of a tiny model (tests/fixtures, with its
                    draws) through the card's occ step
- 22. rates         every path's rays/s of this run, side by side
- 23. kernels       per-kernel launches, error, time, plain time and bound;
+ 22. data_train    the path from disk: scripts/train_NF.sh's flags through the
+                   port's parse_args on a copy of the checked-in LLFF + COLMAP
+                   capture (tests/fixtures/minicapture), load_dataset (the
+                   minify to 48x64 and COLMAP depth on the card's own
+                   installation), create_nerf, batches through
+                   BatchPrefetcher (the first bitwise the host batch), 1
+                   warm-up + 10 counted steps of the flagship model,
+                   save_checkpoint at step 10 with args.txt, the held-out
+                   view, create_nerf again (bitwise state with the eps
+                   buffers, the same view within 1e-6, start 10, a fresh
+                   Adam at the decayed lr, one more step), and a Blender
+                   scene written by imwrite_png and read back, half_res
+                   against a 2x2 block mean
+ 23. rates         every path's rays/s of this run, side by side
+ 24. kernels       per-kernel launches, error, time, plain time and bound;
                    trunk_fwd's entry also the training variant's
                    (fwd_save_*, at the flat training step)
 
@@ -135,11 +148,15 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -152,6 +169,9 @@ from cfnerf_torch.convert import (
     nerf_flows_state_dict_from_jax,
     proposal_state_dict_from_jax,
 )
+from cfnerf_torch.data.blender import load_blender_data
+from cfnerf_torch.data.image_io import imread_png, imwrite_png
+from cfnerf_torch.data.prefetch import BatchPrefetcher
 from cfnerf_torch.data.sampler import (
     N_DEPTH,
     DepthRayBatcher,
@@ -159,7 +179,7 @@ from cfnerf_torch.data.sampler import (
     precompute_depth_rays,
     precompute_rays,
 )
-from cfnerf_torch.models.factory import build_model
+from cfnerf_torch.models.factory import build_model, create_nerf
 from cfnerf_torch.models.nerf_flows import NeRFFlows
 from cfnerf_torch.ops.compositing import LAST_DIST
 from cfnerf_torch.ops.kernels import _build
@@ -184,7 +204,10 @@ from cfnerf_torch.render.renderer import (
     prepare_rays,
     render_image,
 )
+from cfnerf_torch.train import checkpoint as ckpt
+from cfnerf_torch.train.loop import _snapshot_args, load_dataset
 from cfnerf_torch.train.step import OccTrainConfig, TrainConfig, make_train_step
+from cfnerf_torch.utils.config import parse_args
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "fixtures" / "torch_port_golden.npz"
@@ -1623,9 +1646,12 @@ def view_rays(c2w):
 
 def profile_device(fn):
     """Device time by kernel for one call of `fn` (after one warm-up call),
-    from torch.profiler's CUDA activity (CUPTI); kernels run on one stream,
-    so their summed time over the call's wall time is the device's busy
-    share."""
+    from torch.profiler's CUDA activity (CUPTI).  Only kernels, memcpys and
+    memsets count: a user-annotation range on the device's timeline (such as
+    Optimizer.step#Adam.step) spans the kernels it annotates and is left
+    out.  The busy share is the union of those intervals over the call's
+    wall time; by_group_ms and top_kernels sum each kernel's own time
+    ("matmul": cuBLAS's and CUTLASS's GEMMs)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm
@@ -1636,14 +1662,25 @@ def profile_device(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    by_name = {}
+    by_name, spans, annotation_ms = {}, [], 0.0
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            us = evt.time_range.end - evt.time_range.start
-            n, t = by_name.get(evt.name, (0, 0.0))
-            by_name[evt.name] = (n + 1, t + us / 1e3)
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = evt.time_range.start, evt.time_range.end
+        if (getattr(evt, "is_user_annotation", False)
+                or "annotation" in str(getattr(evt, "activity_type", "")).lower()):
+            annotation_ms += (end - start) / 1e3
+            continue
+        spans.append((start, end))
+        n, t = by_name.get(evt.name, (0, 0.0))
+        by_name[evt.name] = (n + 1, t + (end - start) / 1e3)
     if not by_name:
         return {"wall_ms": wall_ms, "device_ms": "not measured"}
+    busy_us, reach = 0.0, -math.inf
+    for start, end in sorted(spans):
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
 
     def group(name):
         low = name.lower()
@@ -1651,16 +1688,18 @@ def profile_device(fn):
                        "flow_stack_fwd", "trunk_fwd", "trunk_bwd"):
             if kernel in low:
                 return kernel
-        if any(k in low for k in ("gemm", "xmma", "cutlass", "sm90")):
+        # cuBLAS's Hopper GEMMs are named nvjet_*
+        if any(k in low for k in ("gemm", "xmma", "cutlass", "sm90", "nvjet")):
             return "matmul"
         return "other"
 
     groups = {}
     for name, (_, ms) in by_name.items():
         groups[group(name)] = groups.get(group(name), 0.0) + ms
-    device_ms = sum(groups.values())
+    device_ms = busy_us / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     return {"wall_ms": wall_ms, "device_ms": device_ms, "busy_share": device_ms / wall_ms,
+            "kernel_sum_ms": sum(groups.values()), "annotation_ms_left_out": annotation_ms,
             "by_group_ms": groups,
             "top_kernels": [{"name": n[:90], "count": c, "ms": ms} for n, (c, ms) in top]}
 
@@ -2715,6 +2754,267 @@ def phase_occ_golden():
                    f"proposal {prop_err})")
 
 
+# ---------------------------------------------------------------------- #
+# data_train: scenes from disk, flags, checkpoints and resume
+# ---------------------------------------------------------------------- #
+
+CAPTURE = ROOT / "tests" / "fixtures" / "minicapture"
+# scripts/train_NF.sh's flags, verbatim
+TRAIN_NF_FLAGS = [
+    "--config", str(ROOT / "configs" / "africa_ds.txt"), "--expname", "africa",
+    "--N_rand", "512", "--N_samples", "128", "--n_flows", "4", "--h_alpha_size", "64",
+    "--h_rgb_size", "64", "--K_samples", "32", "--n_hidden", "128",
+    "--type_flows", "triangular", "--beta1", "0.01", "--depth_lambda", "0.01",
+    "--netdepth", "8", "--netwidth", "512", "--model", "NeRF_Flows", "--index_step", "-1",
+    "--is_train",
+]
+# the view rendered from the restored weights against the trained model's:
+# the same weights and eps through the same kernels, sums in a fixed order,
+# so 0 is expected
+RESTORED_VIEW_ATOL = 1e-6
+# half_res against a numpy 2x2 block mean of the decoded images
+HALF_RES_ATOL = 1e-6
+BLENDER_SIDE = 800
+
+
+def blender_round_trip(tmp):
+    """A Blender scene written with imwrite_png (800x800 RGBA, 2 train / 1
+    val / 1 test frames, transforms_*.json) and loaded back in full and with
+    half_res: the decoded images bitwise what was written, the 400x400 ones
+    a 2x2 block mean of them."""
+    root = os.path.join(tmp, "blender")
+    rng = np.random.RandomState(0)
+    written = []
+    for split, n in (("train", 2), ("val", 1), ("test", 1)):
+        os.makedirs(os.path.join(root, split))
+        frames = []
+        for i in range(n):
+            img = rng.randint(0, 256, (BLENDER_SIDE, BLENDER_SIDE, 4), dtype=np.uint8)
+            imwrite_png(os.path.join(root, split, f"r_{i}.png"), img)
+            written.append(img)
+            frames.append({"file_path": f"./{split}/r_{i}",
+                           "transform_matrix": pose_spherical(90.0 * len(written), -30.0,
+                                                              4.0).tolist()})
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": 0.6911112070083618, "frames": frames}, f)
+    t0 = time.perf_counter()
+    full, _, _, hwf_full, i_split = load_blender_data(root, half_res=False, testskip=1)
+    half, _, _, hwf_half, _ = load_blender_data(root, half_res=True, testskip=1)
+    load_s = time.perf_counter() - t0
+    written = np.stack(written)
+    check(full.dtype == np.float32
+          and np.array_equal(full, (written / 255.0).astype(np.float32)),
+          "the decoded Blender images are bitwise what imwrite_png wrote")
+    check([len(s) for s in i_split] == [2, 1, 1], f"Blender splits {i_split}")
+    side = BLENDER_SIDE // 2
+    block = full.astype(np.float64).reshape(-1, side, 2, side, 2, 4).mean((2, 4))
+    half_err = float(np.abs(half - block).max())
+    check(half.shape == (4, side, side, 4) and half_err <= HALF_RES_ATOL,
+          f"half_res vs a 2x2 block mean: shape {half.shape}, max abs err {half_err}")
+    check(hwf_half[:2] == [side, side] and hwf_half[2] == hwf_full[2] / 2,
+          f"half_res hwf {hwf_half} from {hwf_full}")
+    return {"images": int(len(written)), "side": BLENDER_SIDE, "load_s_full_and_half": load_s,
+            "half_res_max_abs_err_vs_block_mean": half_err,
+            "tolerance": {"half_res_atol": HALF_RES_ATOL, "full_res": "bitwise"}}
+
+
+def create_nerf_said(args):
+    """create_nerf(args) on the card, with what it printed."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        nets = create_nerf(args)
+    said = out.getvalue().strip()
+    print(said, flush=True)
+    return nets, said
+
+
+def phase_data_train():
+    """The slice's path from disk on the card: scripts/train_NF.sh's flags
+    parsed by the port's parse_args on a copy of the checked-in LLFF + COLMAP
+    capture; load_dataset (the minify to images_2, COLMAP depth);
+    create_nerf; the JAX loop's batches through BatchPrefetcher; 1 warm-up
+    forward + backward and 10 timed steps (a render-core forward and backward
+    each, counted); save_checkpoint at step 10 with _snapshot_args; the
+    held-out view rendered; create_nerf again resumes (bitwise state, the
+    same view, start 10, the decayed lr of a fresh Adam, one more step, a
+    profiled one after it); then a Blender scene written and loaded back
+    with half_res."""
+    fwd, bwd = render_core.fused_flow_composite, render_core.fused_flow_composite_bwd
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="cfnerf_data_train_") as tmp:
+        datadir = shutil.copytree(CAPTURE, os.path.join(tmp, "minicapture"))
+        # the capture's own name: africa_ds.txt's "africa" selects the real
+        # africa scene's hard-coded view ranges, past this capture's 8 views
+        args = parse_args(TRAIN_NF_FLAGS + [
+            "--datadir", datadir, "--basedir", os.path.join(tmp, "logs"),
+            "--dataname", "minicapture", "--expname", "data_train", "--i_weights", "10"])
+
+        t0 = time.perf_counter()
+        scene = load_dataset(args)
+        load_s = time.perf_counter() - t0
+        minified = os.path.join(datadir, f"images_{args.factor}")
+        check(os.path.isdir(minified), f"load_dataset wrote {minified}")
+        shapes = {imread_png(os.path.join(minified, f)).shape for f in os.listdir(minified)}
+        check(shapes == {(48, 64, 3)}, f"images_{args.factor} at 48x64: {shapes}")
+        depth_gts = scene["depth_gts"]
+        depth_points = sum(len(d["depth"]) for d in depth_gts)
+        check(depth_points > 0, "the COLMAP depth list is non-empty")
+        check(os.path.exists(os.path.join(datadir, "colmap_depth.npy")),
+              "load_colmap_depth wrote colmap_depth.npy into the capture")
+        Hs, Ws, focal = scene["H"], scene["W"], scene["focal"]
+        near, far = scene["near"], scene["far"]
+        images, poses, i_train = scene["images"], scene["poses"], scene["i_train"]
+        emit("data_train_scene", views=len(images), H=Hs, W=Ws, focal=focal, near=near,
+             far=far, i_train=[int(i) for i in i_train],
+             i_val=[int(i) for i in scene["i_val"]], colmap_depth_points=depth_points,
+             load_dataset_s=load_s)
+
+        (model, model_fine, rc, start), said = create_nerf_said(args)
+        check(said == "No reloading" and start == 0 and model_fine is None,
+              f"create_nerf on an empty run dir: {said!r}, start {start}")
+        cfg = TrainConfig(H=Hs, W=Ws, focal=focal, ndc=not args.no_ndc, near=near, far=far,
+                          k_samples=args.K_samples, lrate=args.lrate,
+                          lrate_decay=args.lrate_decay, start_step=start, beta1=args.beta1,
+                          colmap_depth=args.colmap_depth, depth_lambda=args.depth_lambda)
+        train_step, optimizer = make_train_step(model, rc, cfg)
+
+        rays = RayBatcher(precompute_rays(images, poses, focal, i_train, seed=args.seed),
+                          args.N_rand, seed=args.seed)
+        depth_rays = DepthRayBatcher(precompute_depth_rays(
+            depth_gts, poses, Hs, Ws, focal, i_train, seed=args.seed), N_DEPTH, seed=args.seed)
+        host = {}
+
+        def make_batch(step):
+            batch = rays.next()
+            batch.update(depth_rays.next())
+            batch.pop("ray_weights")  # loaded but unused by the reference loss
+            host[step] = batch
+            return {k: torch.from_numpy(v).pin_memory().to("cuda", non_blocking=True)
+                    for k, v in batch.items()}
+
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        prefetch = BatchPrefetcher(make_batch, start_step=start, device="cuda")
+        try:
+            step_no, first = prefetch.next()
+            check(step_no == start + 1 and set(first) == set(host[step_no])
+                  and all(torch.equal(first[k].cpu(), torch.from_numpy(host[step_no][k]))
+                          for k in first),
+                  "the first prefetched batch is the host batch, bitwise")
+            # warm-up: forward and backward without an update, so that the
+            # timed steps are global steps 1-10
+            loss, _ = train_step.loss_fn(first, gen)
+            loss.backward()
+            optimizer.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+
+            fwd.launches = bwd.launches = 0  # the main path, counted
+            times, metrics = [], []
+            for _ in range(TRAIN_STEPS):
+                _, batch = prefetch.next()
+                t0 = time.perf_counter()
+                m = train_step(batch, gen)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                metrics.append({k: float(v) for k, v in m.items()})
+            step_launches = (fwd.launches, bwd.launches)
+        finally:
+            prefetch.close()
+        check(step_launches == (TRAIN_STEPS, TRAIN_STEPS),
+              f"data_train: {TRAIN_STEPS} steps launched the render core's forward and "
+              f"backward {step_launches} times")
+        check(all(math.isfinite(v) for m in metrics for v in m.values()),
+              f"data_train: finite metrics {metrics[-1]}")
+        check(set(metrics[0]) == set(FLAT_METRICS), f"data_train metrics {sorted(metrics[0])}")
+
+        global_step = start + TRAIN_STEPS
+        check(global_step % args.i_weights == 0, "a checkpoint is due at --i_weights")
+        rundir = ckpt.run_dir(args.basedir, args.dataname, args.type_flows, args.expname)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _snapshot_args(args, rundir)
+        path = ckpt.save_checkpoint(rundir, global_step, {"coarse": model.state_dict()},
+                                    optimizer.state_dict())
+        save_s = time.perf_counter() - t0
+        snap = os.path.join(rundir, "args.txt")
+        check(vars(parse_args(["--config", snap])) == dict(vars(args), config=snap)
+              and os.path.exists(os.path.join(rundir, "config.txt")),
+              "args.txt parses back to the run's flags; config.txt written")
+
+        i_view = int(scene["i_val"][0])
+        n_tiles = math.ceil(Hs * Ws / args.chunk)
+
+        def render(net):
+            fwd.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = render_image(make_render_rays(net, rc), poses[i_view], H=Hs, W=Ws,
+                               focal=focal, ndc=not args.no_ndc,
+                               use_viewdirs=args.use_viewdirs, near=near, far=far,
+                               tile=args.chunk)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            check(fwd.launches == n_tiles,
+                  f"the view launched the render core {fwd.launches} times, want {n_tiles}")
+            check(out["rgb_map"].shape == (Hs, Ws, 3, args.K_samples)
+                  and all(bool(torch.isfinite(v).all()) for v in out.values()),
+                  "the view's maps: shape and finite values")
+            return out, seconds
+
+        view, view_s = render(model)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (model2, _, rc2, start2), said = create_nerf_said(args)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(said == f"Reloading from {path}" and start2 == global_step,
+              f"create_nerf resumes: {said!r}, start {start2}")
+        trained, restored = model.state_dict(), model2.state_dict()
+        check(set(trained) == set(restored) and {"test_eps_a", "test_eps_r"} <= set(restored)
+              and all(torch.equal(trained[k], restored[k]) for k in trained),
+              "every restored state-dict entry, the eps buffers too, is bitwise the trained one")
+        view2, _ = render(model2)
+        view_err = max(float((view2[k] - view[k]).abs().max()) for k in view)
+        check(view_err <= RESTORED_VIEW_ATOL,
+              f"the restored model's view vs the trained one's: {view_err}")
+
+        step2, opt2 = make_train_step(model2, rc2, dataclasses.replace(cfg, start_step=start2))
+        lr = opt2.param_groups[0]["lr"]
+        want_lr = args.lrate * 0.1 ** (start2 / (args.lrate_decay * 1000))
+        check(not opt2.state and abs(lr - want_lr) <= 1e-12 * want_lr,
+              f"a fresh Adam at lr {lr}, want {want_lr}")
+        fwd.launches = bwd.launches = 0
+        batch = make_batch(global_step + 1)
+        m2 = step2(batch, gen)
+        torch.cuda.synchronize()
+        resumed_launches = (fwd.launches, bwd.launches)
+        check(resumed_launches == (1, 1), f"the resumed step's launches {resumed_launches}")
+        check(all(math.isfinite(float(v)) for v in m2.values()), "the resumed step's metrics")
+        breakdown = profile_device(lambda: step2(batch, gen))
+
+        blender = blender_round_trip(tmp)
+
+    step_s = statistics.median(times)
+    RATES["data_train"] = (args.N_rand + N_DEPTH) / step_s
+    emit("data_train", nvidia_smi=nvidia_smi_line(), rays_per_step=args.N_rand + N_DEPTH,
+         steps=TRAIN_STEPS, launches={"fused_flow_composite": step_launches[0],
+                                      "fused_flow_composite_bwd": step_launches[1]},
+         step_ms=1e3 * step_s, step_ms_all=[1e3 * t for t in times],
+         train_rays_per_s=(args.N_rand + N_DEPTH) / step_s, last_metrics=metrics[-1],
+         checkpoint=os.path.basename(path), save_s=save_s, restore_s=restore_s,
+         start_after_restore=start2, lr_after_restore=lr,
+         view={"index": i_view, "H": Hs, "W": Ws, "tiles": n_tiles, "s": view_s,
+               "rays_per_s": Hs * Ws / view_s},
+         restored_view_max_abs_err=view_err, resumed_step_metrics={
+             k: float(v) for k, v in m2.items()},
+         blender=blender, phase_s=time.perf_counter() - t_phase,
+         tolerance={"restored_view_atol": RESTORED_VIEW_ATOL})
+    emit("data_train_profile", rays_per_step=args.N_rand + N_DEPTH, **breakdown)
+    # each segment's counts were reset before it and checked after it
+    return {"fused_flow_composite": TRAIN_STEPS + 2 * n_tiles + 1,
+            "fused_flow_composite_bwd": TRAIN_STEPS + 1}
+
+
 def kernel_entry(name, source, replaces, launches_by_path, stats):
     """`launches` totals the per-path counts; `launches_by_path` keeps each
     path's own count, reset just before that path and read just after."""
@@ -2783,6 +3083,7 @@ def main() -> int:
     occ_prop_serve = phase_occ_prop_serve()
     occ_train = phase_occ_train()
     phase_occ_golden()
+    data_train = phase_data_train()
     emit("rates", rays_per_s=RATES)
 
     # serving: 20 render-core launches a view; training: one render-core
@@ -2797,7 +3098,8 @@ def main() -> int:
     # or the proposal's distillation through the flow stack (two launches a
     # density query of 65,536 points); occ training: a render-core forward
     # and backward a step, and two flow-stack launches for the co-training
-    # target
+    # target; data_train: a render-core forward and backward in each of its
+    # 10 steps and its resumed step, a forward in each tile of its two views
     print(json.dumps({"kernels": [
         kernel_entry("render_core_fwd", render_core.SOURCE, render_core.REPLACES,
                      {"serve": serve_launches, "train": train["fused_flow_composite"],
@@ -2806,12 +3108,14 @@ def main() -> int:
                       "bf16_serve": bf16_serve,
                       "bf16_train": bf16_train["fused_flow_composite"],
                       "occ_serve": occ_serve["view"], "occ_prop_serve": occ_prop_serve["view"],
-                      "occ_train": occ_train["fused_flow_composite"]}, fwd_stats),
+                      "occ_train": occ_train["fused_flow_composite"],
+                      "data_train": data_train["fused_flow_composite"]}, fwd_stats),
         kernel_entry("render_core_bwd", render_core.SOURCE_BWD, render_core.REPLACES_BWD,
                      {"train": train["fused_flow_composite_bwd"],
                       "trunk_train": trunk_train["fused_flow_composite_bwd"],
                       "bf16_train": bf16_train["fused_flow_composite_bwd"],
-                      "occ_train": occ_train["fused_flow_composite_bwd"]}, bwd_stats),
+                      "occ_train": occ_train["fused_flow_composite_bwd"],
+                      "data_train": data_train["fused_flow_composite_bwd"]}, bwd_stats),
         kernel_entry("flow_stack_fwd", flow_stack.SOURCE, flow_stack.REPLACES,
                      {"hier_serve": hier_serve_launches,
                       "hier_train": hier_train["fused_flow_stack"],
