@@ -90,7 +90,7 @@ def _dense_bf16(layer: nn.Linear, parts: Sequence[torch.Tensor]) -> torch.Tensor
     return y
 
 
-def _fixed_eps(k_samples: int, seed: int) -> Eps:
+def fixed_eps(k_samples: int, seed: int) -> Eps:
     g = torch.Generator().manual_seed(seed)
     eps_a = torch.randn(k_samples, Z_ALPHA, generator=g)
     eps_r = torch.randn(k_samples, Z_RGB, generator=g)
@@ -157,6 +157,7 @@ class NeRFFlows(nn.Module):
         self.input_ch, self.input_ch_views = input_ch, input_ch_views
         self.skips = tuple(skips)
         self.k_samples = k_samples
+        self.test_eps_seed = test_eps_seed
         self.use_viewdirs = use_viewdirs
         self.type_flows = type_flows
         self.trunk_impl = trunk_impl
@@ -188,7 +189,7 @@ class NeRFFlows(nn.Module):
         self.flows_alpha = AmortizedTriangularSylvester(h_alpha_size, Z_ALPHA, n_flows)
         self.flows_rgb = AmortizedTriangularSylvester(h_rgb_size, Z_RGB, n_flows)
 
-        eps_a, eps_r = _fixed_eps(k_samples, test_eps_seed)
+        eps_a, eps_r = fixed_eps(k_samples, test_eps_seed)
         self.register_buffer("test_eps_a", eps_a)
         self.register_buffer("test_eps_r", eps_r)
 

@@ -135,6 +135,8 @@ def make_train_step(
     mesh=None,
     model_fine=None,
     occ=None,
+    optimizer: Optional[Tuple[torch.optim.Adam, LambdaLR]] = None,
+    proposal: Optional[Tuple[ProposalMLP, torch.optim.Adam]] = None,
 ) -> Tuple[Callable, torch.optim.Adam]:
     """Returns (train_step, optimizer).
 
@@ -172,6 +174,17 @@ def make_train_step(
     from ProposalMLP's seeded init; train_step.install_proposal(prop or
     state_dict) loads distilled weights and restarts its Adam (JAX's
     _wrap_state), at the stage boundary.
+
+    `optimizer` carries an (Adam, schedule) pair over from an earlier step
+    (its train_step.optimizer and train_step.scheduler) instead of a fresh
+    one: the training loop's stages (another K, the occ stage on or off)
+    build a step each over the same parameters, and JAX's loop carries one
+    opt_state through all of them, Adam's moments and the lr count
+    included.  The pair must hold exactly these nets' parameters.
+    `proposal` carries the occ stage's (ProposalMLP, Adam) pair over the
+    same way (an earlier occ step's train_step.proposal and
+    train_step.prop_optimizer): JAX's opt_state holds the proposal too, so
+    it survives a K boundary inside the occ stage.
     """
     if mesh is not None:
         raise NotImplementedError("training over a device mesh comes with slice 8")
@@ -184,8 +197,14 @@ def make_train_step(
                          "hierarchical fine pass (one placement owner)")
 
     nets = [model] if model_fine is None else [model, model_fine]
-    optimizer, scheduler = make_optimizer(
-        [p for net in nets for p in net.parameters()], cfg)
+    params = [p for net in nets for p in net.parameters()]
+    if optimizer is None:
+        optimizer, scheduler = make_optimizer(params, cfg)
+    else:
+        optimizer, scheduler = optimizer
+        held = [p for group in optimizer.param_groups for p in group["params"]]
+        if {id(p) for p in held} != {id(p) for p in params} or len(held) != len(params):
+            raise ValueError("the carried optimizer holds other parameters than these nets")
     wrap = _Remat if cfg.remat else (lambda net: net)
     render_rays = make_render_rays(
         wrap(model), render_config,
@@ -193,10 +212,11 @@ def make_train_step(
 
     dev = model.alpha_mean.device
     if occ is not None:
-        proposal = ProposalMLP(occ.prop_width, occ.prop_depth, occ.prop_multires,
-                               device=dev)
-        prop_optimizer = torch.optim.Adam(proposal.parameters(), lr=occ.prop_lr,
-                                          betas=(0.9, 0.999), eps=1e-8)
+        if proposal is None:
+            net = ProposalMLP(occ.prop_width, occ.prop_depth, occ.prop_multires, device=dev)
+            proposal = (net, torch.optim.Adam(net.parameters(), lr=occ.prop_lr,
+                                              betas=(0.9, 0.999), eps=1e-8))
+        proposal, prop_optimizer = proposal
         occ_lo = torch.tensor(occ.lo, dtype=torch.float32, device=dev)
         occ_hi = torch.tensor(occ.hi, dtype=torch.float32, device=dev)
         sigma_fn = make_proposal_sigma_fn(proposal, occ_lo, occ_hi)
@@ -295,6 +315,8 @@ def make_train_step(
 
     train_step.loss_fn = loss_fn
     train_step.update = update
+    train_step.optimizer = optimizer
+    train_step.scheduler = scheduler
     if occ is not None:
         def install_proposal(prop) -> None:
             """Load distilled weights (a ProposalMLP or its state_dict) and
@@ -318,18 +340,31 @@ def make_train_loop(
     n_inner: int = 10,
     model_fine=None,
     occ=None,
+    optimizer: Optional[Tuple[torch.optim.Adam, LambdaLR]] = None,
+    proposal: Optional[Tuple[ProposalMLP, torch.optim.Adam]] = None,
 ) -> Tuple[Callable, torch.optim.Adam]:
-    """Returns (train_loop, optimizer).  train_loop(batches, generator) takes
-    n_inner steps over batches stacked on a leading (n_inner, ...) axis and
-    returns the metrics stacked the same way."""
+    """Returns (train_loop, optimizer).  train_loop(batches, generator, *,
+    after_step=None) takes n_inner steps over batches stacked on a leading
+    (n_inner, ...) axis and returns the metrics stacked the same way;
+    after_step(j, metrics), where given, runs after inner step j, its
+    gradients still in .grad.  `optimizer` and `proposal` as in
+    make_train_step."""
     train_step, optimizer = make_train_step(model, render_config, cfg, mesh,
-                                            model_fine, occ)
+                                            model_fine, occ, optimizer, proposal)
 
-    def train_loop(batches: Mapping, generator: Optional[torch.Generator]) -> Metrics:
-        steps = [train_step({k: v[i] for k, v in batches.items()}, generator)
-                 for i in range(n_inner)]
+    def train_loop(batches: Mapping, generator: Optional[torch.Generator], *,
+                   after_step: Optional[Callable[[int, Metrics], None]] = None) -> Metrics:
+        steps = []
+        for j in range(n_inner):
+            steps.append(train_step({k: v[j] for k, v in batches.items()}, generator))
+            if after_step is not None:
+                after_step(j, steps[-1])
         return {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
 
+    train_loop.optimizer = optimizer
+    train_loop.scheduler = train_step.scheduler
     if occ is not None:
         train_loop.install_proposal = train_step.install_proposal
+        train_loop.proposal = train_step.proposal
+        train_loop.prop_optimizer = train_step.prop_optimizer
     return train_loop, optimizer

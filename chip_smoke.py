@@ -135,8 +135,27 @@ final line):
                    Adam at the decayed lr, one more step), and a Blender
                    scene written by imwrite_png and read back, half_res
                    against a 2x2 block mean
- 23. rates         every path's rays/s of this run, side by side
- 24. kernels       per-kernel launches, error, time, plain time and bound;
+ 23. cli_train     the loop through the CLI on a copy of the capture:
+                   cfnerf_torch.cli.eval.evaluate at step 0 (random
+                   weights), cli.train.main with train_NF.sh's flags and
+                   500 steps (the val stream at each i_print, a checkpoint,
+                   the test set and the spiral video as PNG frames at step
+                   500), evaluate at step 500: the held-out view's PSNR must
+                   rise by 3 dB and its NLL fall; the files of each; render-
+                   core launches exact, predicted from the cadences; the
+                   loop's rays/s beside the train phase's
+ 24. cli_train_pallas  the same with --trunk_impl pallas in a fresh run dir
+                   (trunk launches exact too); both trunks again at seeds 1
+                   and 2, each run held to cli_train's gates, and the
+                   quality side by side with its seed-to-seed spread and
+                   the per-seed pallas - f32 difference (cli_quality)
+ 25. cli_render_only  the CLI without --is_train on the f32 run: resumes at
+                   step 500, renders the spiral (30 launches), its frames
+                   bitwise the step-500 video's
+ 26. entry         cfnerf_torch.entry.entry() on the card against the same
+                   fn on the CPU (rtol = atol = 1e-4)
+ 27. rates         every path's rays/s of this run, side by side
+ 28. kernels       per-kernel launches, error, time, plain time and bound;
                    trunk_fwd's entry also the training variant's
                    (fwd_save_*, at the flat training step)
 
@@ -148,6 +167,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import importlib.util
 import io
 import json
 import math
@@ -205,6 +225,9 @@ from cfnerf_torch.render.renderer import (
     render_image,
 )
 from cfnerf_torch.train import checkpoint as ckpt
+from cfnerf_torch.cli import eval as cli_eval
+from cfnerf_torch.cli import train as cli_train
+from cfnerf_torch.entry import entry
 from cfnerf_torch.train.loop import _snapshot_args, load_dataset
 from cfnerf_torch.train.step import OccTrainConfig, TrainConfig, make_train_step
 from cfnerf_torch.utils.config import parse_args
@@ -2818,14 +2841,20 @@ def blender_round_trip(tmp):
             "tolerance": {"half_res_atol": HALF_RES_ATOL, "full_res": "bitwise"}}
 
 
-def create_nerf_said(args):
-    """create_nerf(args) on the card, with what it printed."""
+def with_output(fn, *args, **kwargs):
+    """fn(*args, **kwargs) with its standard output captured, then echoed."""
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        nets = create_nerf(args)
-    said = out.getvalue().strip()
-    print(said, flush=True)
-    return nets, said
+        result = fn(*args, **kwargs)
+    text = out.getvalue()
+    print(text, end="", flush=True)
+    return result, text
+
+
+def create_nerf_said(args):
+    """create_nerf(args) on the card, with what it printed."""
+    nets, text = with_output(create_nerf, args)
+    return nets, text.strip()
 
 
 def phase_data_train():
@@ -3015,6 +3044,264 @@ def phase_data_train():
             "fused_flow_composite_bwd": TRAIN_STEPS + 1}
 
 
+# ---------------------------------------------------------------------- #
+# cli_train, cli_train_pallas, cli_render_only, entry: the loop, the CLI,
+# evaluation and the flagship entry (slice 6b)
+# ---------------------------------------------------------------------- #
+
+CLI_STEPS = 500
+CLI_PRINT = 100
+# every cadence but i_img (its default, 1000, lies past the run) fires:
+# the val stream at each i_print, a checkpoint, the test set and the spiral
+# video at the last step
+CLI_CADENCES = ["--n_iters", str(CLI_STEPS), "--i_print", str(CLI_PRINT),
+                "--i_weights", str(CLI_STEPS), "--i_testset", str(CLI_STEPS),
+                "--i_video", str(CLI_STEPS)]
+# gates, set before the first reading: 500 steps must lift the held-out
+# view's PSNR by 3 dB over the random init and lower its NLL
+CLI_PSNR_GAIN_DB = 3.0
+QUALITY = ("psnr", "ssim", "nll", "ause")
+# the render-core launches of the CLI run, from its cadences: a step each;
+# the val batch (N_rand rays, one launch) at each i_print; one tile (the
+# chunk, 8192 rays, holds a 48x64 view) for each held-out view of the test
+# set and for each of the spiral's frames
+CLI_SPIRAL_FRAMES = 30  # cfnerf_torch/data/llff.py: N_views of the spiral
+# the quality's seed-to-seed spread: both trunks again at these seeds
+# (init weights, batches and draws), beside the default seed 0; reported
+# beside the f32 - pallas difference, not gated
+CLI_SPREAD_SEEDS = (1, 2)
+# entry() on the card against the same fn on the CPU: the hier_serve rule
+ENTRY_RTOL = ENTRY_ATOL = 1e-4
+
+
+def cli_flags(datadir, basedir, expname, *extra):
+    """scripts/train_NF.sh's flags without --is_train, on the capture copy."""
+    return ([f for f in TRAIN_NF_FLAGS if f != "--is_train"]
+            + ["--datadir", str(datadir), "--basedir", str(basedir),
+               "--dataname", "minicapture", "--expname", expname, *extra])
+
+
+def quality_of(summary):
+    return {k: float(summary[k]) for k in QUALITY}
+
+
+def cli_run(datadir, basedir, expname, *extra):
+    """evaluate at step 0 (random weights), the CLI's 500 training steps,
+    evaluate at step 500; each counted.  Returns what the phase reports."""
+    flags = cli_flags(datadir, basedir, expname, *extra)
+    counters = (render_core.fused_flow_composite, render_core.fused_flow_composite_bwd,
+                trunk.trunk_encode, trunk.trunk_encode_bwd)
+
+    def counted(fn, *args):
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result, text = with_output(fn, *args)
+        torch.cuda.synchronize()
+        return result, text, time.perf_counter() - t0, {c.__name__: c.launches
+                                                         for c in counters}
+
+    before, _, eval0_s, eval0_launches = counted(cli_eval.evaluate, parse_args(flags))
+    _, text, train_s, train_launches = counted(cli_train.main, flags + ["--is_train"]
+                                               + CLI_CADENCES)
+    after, _, eval_s, eval_launches = counted(cli_eval.evaluate, parse_args(flags))
+    args = parse_args(flags)
+    rundir = ckpt.run_dir(args.basedir, args.dataname, args.type_flows, args.expname)
+    with open(os.path.join(args.basedir, args.dataname, "summaries", expname,
+                           "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    last = f"eval_{CLI_STEPS}"
+    return dict(flags=flags, args=args, rundir=rundir, before=before, after=after,
+                text=text, records=records,
+                seconds={"eval_0": eval0_s, "train": train_s, last: eval_s},
+                launches={"eval_0": eval0_launches, "train": train_launches,
+                          last: eval_launches})
+
+
+def check_cli_run(run, label, trunk_kernels):
+    """The gates of a CLI run: steps, quality, files and exact launches."""
+    args, rundir = run["args"], run["rundir"]
+    check(run["before"]["step"] == 0 and run["after"]["step"] == CLI_STEPS,
+          f"{label}: evaluated steps {run['before']['step']} and {run['after']['step']}")
+    before, after = quality_of(run["before"]), quality_of(run["after"])
+    check(all(math.isfinite(v) for q in (before, after) for v in q.values())
+          and all(math.isfinite(v[k]) for v in run["after"]["views"] for k in QUALITY),
+          f"{label}: finite metrics {before} {after}")
+    check(after["psnr"] >= before["psnr"] + CLI_PSNR_GAIN_DB,
+          f"{label}: held-out PSNR {after['psnr']} at step {CLI_STEPS} vs "
+          f"{before['psnr']} at step 0, want +{CLI_PSNR_GAIN_DB} dB")
+    check(after["nll"] < before["nll"],
+          f"{label}: held-out NLL {after['nll']} at step {CLI_STEPS} vs {before['nll']}")
+    check(os.path.exists(os.path.join(rundir, f"{CLI_STEPS:06d}_01", ckpt.STATE_FILE)),
+          f"{label}: checkpoint {CLI_STEPS:06d}_01")
+    n_val = len(run["after"]["views"])
+    testset = os.path.join(rundir, f"testset_{CLI_STEPS:06d}")
+    check(sorted(os.listdir(testset)) == sorted(
+        f"{i:03d}{s}.png" for i in range(n_val) for s in ("", "_std")),
+        f"{label}: test-set PNGs {sorted(os.listdir(testset))}")
+    for kind in ("rgb", "disp"):
+        frames = os.path.join(rundir, f"{args.expname}_spiral_{CLI_STEPS:06d}_{kind}")
+        check(os.path.isdir(frames) and sorted(os.listdir(frames)) == [
+            f"{i:03d}.png" for i in range(CLI_SPIRAL_FRAMES)],
+            f"{label}: the {kind} video as {CLI_SPIRAL_FRAMES} PNG frames in {frames}")
+    for step in (0, CLI_STEPS):
+        evaldir = os.path.join(rundir, f"eval_{step:06d}")
+        want = {"metrics.json"} | {f"{v['view']:03d}_{s}" for v in run["after"]["views"]
+                                   for s in ("pred.png", "std.png", "panel.png", "ause.png",
+                                             "uncertainty.ply")}
+        check(set(os.listdir(evaldir)) == want,
+              f"{label}: {evaldir} holds {sorted(os.listdir(evaldir))}")
+    steps = [r["step"] for r in run["records"]]
+    check(steps == list(range(CLI_PRINT, CLI_STEPS + 1, CLI_PRINT))
+          and all({"val/psnr", "val/nll", "iter_time", "train/depth_loss"} <= set(r)
+                  and all(math.isfinite(v) for v in r.values()) for r in run["records"]),
+          f"{label}: metrics.jsonl steps {steps}")
+    # exact launches, predicted from the cadences
+    fwd, bwd = (render_core.fused_flow_composite.__name__,
+                render_core.fused_flow_composite_bwd.__name__)
+    renders = CLI_STEPS // CLI_PRINT + n_val + CLI_SPIRAL_FRAMES
+    want = {"eval_0": {fwd: n_val, bwd: 0}, "train": {fwd: CLI_STEPS + renders, bwd: CLI_STEPS},
+            f"eval_{CLI_STEPS}": {fwd: n_val, bwd: 0}}
+    for part, counts in want.items():
+        if trunk_kernels:  # a trunk forward beside every render-core one
+            counts = dict(counts, trunk_encode=counts[fwd], trunk_encode_bwd=counts[bwd])
+        else:
+            counts = dict(counts, trunk_encode=0, trunk_encode_bwd=0)
+        check(run["launches"][part] == counts,
+              f"{label}: {part} launched {run['launches'][part]}, want {counts}")
+
+
+def cli_report(run, label):
+    """The phase's line: quality before and after, the loop's rates."""
+    t = {r["step"]: r["t"] for r in run["records"]}
+    rays = N_RAND + N_DEPTH
+    loop_s = t[CLI_STEPS] - t[CLI_PRINT]
+    call_rate = CLI_STEPS * rays / run["seconds"]["train"]
+    loop_rate = (CLI_STEPS - CLI_PRINT) * rays / loop_s
+    RATES[label] = loop_rate
+    emit(label, nvidia_smi=nvidia_smi_line(), steps=CLI_STEPS, rays_per_step=rays,
+         quality={"step_0": quality_of(run["before"]),
+                  f"step_{CLI_STEPS}": quality_of(run["after"])},
+         views=run["after"]["views"], seconds=run["seconds"], launches=run["launches"],
+         call_rays_per_s=call_rate,
+         loop_rays_per_s=loop_rate, loop_steps=[CLI_PRINT, CLI_STEPS],
+         iter_time_ms_median=1e3 * statistics.median(r["iter_time"] for r in run["records"]),
+         iter_time_ms=[1e3 * r["iter_time"] for r in run["records"]],
+         val_psnr=[r["val/psnr"] for r in run["records"]],
+         train_psnr=[r["train/psnr"] for r in run["records"]],
+         train_phase_rays_per_s=RATES.get("train"), data_train_rays_per_s=RATES.get(
+             "data_train"),
+         gates={"psnr_gain_db": CLI_PSNR_GAIN_DB, "nll": "lower at step 500"})
+
+
+def phase_cli(tmp):
+    """cli_train and cli_train_pallas: the CLI's 500 steps on train_NF.sh's
+    flags, f32 trunk, then the trunk kernels in a fresh run dir; each
+    evaluated at step 0 and 500.  Returns both runs."""
+    datadir = shutil.copytree(CAPTURE, os.path.join(tmp, "minicapture"))
+    basedir = os.path.join(tmp, "logs")
+    runs = {}
+    for label, expname, extra in (("cli_train", "cli_f32", ()),
+                                  ("cli_train_pallas", "cli_pallas", ("--trunk_impl", "pallas"))):
+        t0 = time.perf_counter()
+        run = cli_run(datadir, basedir, expname, *extra)
+        check_cli_run(run, label, trunk_kernels=bool(extra))
+        cli_report(run, label)
+        run["phase_s"] = time.perf_counter() - t0
+        runs[label] = run
+    per_seed = {"f32": [quality_of(runs["cli_train"]["after"])],
+                "pallas": [quality_of(runs["cli_train_pallas"]["after"])]}
+    for seed in CLI_SPREAD_SEEDS:
+        for name, extra in (("f32", ()), ("pallas", ("--trunk_impl", "pallas"))):
+            run = cli_run(datadir, basedir, f"cli_{name}_seed{seed}", "--seed", str(seed),
+                          *extra)
+            check_cli_run(run, f"cli_train ({name}, seed {seed})", trunk_kernels=bool(extra))
+            per_seed[name].append(quality_of(run["after"]))
+    diffs = {k: [p[k] - f[k] for f, p in zip(per_seed["f32"], per_seed["pallas"])]
+             for k in QUALITY}
+
+    def spread(values):
+        return {"mean": statistics.mean(values), "std": statistics.stdev(values),
+                "min": min(values), "max": max(values)}
+
+    emit("cli_quality", nvidia_smi=nvidia_smi_line(), step=CLI_STEPS,
+         f32=quality_of(runs["cli_train"]["after"]),
+         pallas=quality_of(runs["cli_train_pallas"]["after"]),
+         step_0={"f32": quality_of(runs["cli_train"]["before"]),
+                 "pallas": quality_of(runs["cli_train_pallas"]["before"])},
+         seeds=[0, *CLI_SPREAD_SEEDS], per_seed=per_seed,
+         spread={name: {k: spread([q[k] for q in qs]) for k in QUALITY}
+                 for name, qs in per_seed.items()},
+         pallas_minus_f32={"per_seed": diffs, **{k: spread(v) for k, v in diffs.items()}},
+         note="reported, not gated: the two trajectories differ by bf16 rounding; "
+              "each seed's runs are gated as cli_train's")
+    return runs
+
+
+def phase_cli_render_only(run):
+    """The CLI without --is_train on the finished f32 run: resumes at step
+    500 and renders the spiral, its frames bitwise the PNG frames that the
+    loop's i_video wrote at step 500."""
+    fwd = render_core.fused_flow_composite
+    fwd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, text = with_output(cli_train.main, run["flags"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = fwd.launches
+    rundir = run["rundir"]
+    path = os.path.join(rundir, f"{CLI_STEPS:06d}_01")
+    savedir = os.path.join(rundir, f"renderonly_path_{CLI_STEPS:06d}")
+    check(f"Reloading from {path}" in text and f"Done rendering {savedir}" in text,
+          "cli_render_only resumed at step 500 and rendered into renderonly_path_000500")
+    check(launches == CLI_SPIRAL_FRAMES,
+          f"cli_render_only launched the render core {launches} times, "
+          f"want {CLI_SPIRAL_FRAMES}")
+    video = os.path.join(rundir, f"{run['args'].expname}_spiral_{CLI_STEPS:06d}_rgb")
+    equal = [np.array_equal(imread_png(os.path.join(savedir, f"{i:03d}.png")),
+                            imread_png(os.path.join(video, f"{i:03d}.png")))
+             for i in range(CLI_SPIRAL_FRAMES)]
+    check(all(equal), f"render-only frames bitwise the step-500 video frames: {equal}")
+    check(sorted(os.listdir(os.path.join(savedir, "video"))) == [
+        f"{i:03d}.png" for i in range(CLI_SPIRAL_FRAMES)], "the render-only video as PNGs")
+    emit("cli_render_only", nvidia_smi=nvidia_smi_line(), frames=CLI_SPIRAL_FRAMES,
+         seconds=seconds, frames_per_s=CLI_SPIRAL_FRAMES / seconds, launches=launches,
+         frames_bitwise_equal_video=sum(equal))
+    return launches
+
+
+def phase_entry():
+    """cfnerf_torch.entry.entry() on the card against the same fn with
+    device="cpu": the flagship, 256 rays, test mode."""
+    fn, args = entry()
+    fwd = render_core.fused_flow_composite
+    fn(*args)  # warm-up
+    fwd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = fwd.launches
+    check(launches == 1, f"entry launched the render core {launches} times, want 1")
+    fn_cpu, args_cpu = entry(device="cpu")
+    ref = fn_cpu(*args_cpu)
+    errs = []
+    for name, a, b in zip(("rgb_map", "disp_map", "depth_map"), out, ref):
+        check(tuple(a.shape) == tuple(b.shape) and bool(torch.isfinite(a).all()),
+              f"entry {name}: shape {tuple(a.shape)}, finite")
+        a = a.cpu()
+        errs.append(float((a - b).abs().max()))
+        check(torch.allclose(a, b, rtol=ENTRY_RTOL, atol=ENTRY_ATOL),
+              f"entry {name} card vs CPU: max abs err {errs[-1]}")
+    emit("entry", nvidia_smi=nvidia_smi_line(), rays=int(args[1].shape[0]),
+         rgb_shape=list(out[0].shape), ms=1e3 * seconds, launches=launches,
+         max_abs_err_vs_cpu=max(errs), tolerance={"rtol": ENTRY_RTOL, "atol": ENTRY_ATOL})
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches_by_path, stats):
     """`launches` totals the per-path counts; `launches_by_path` keeps each
     path's own count, reset just before that path and read just after."""
@@ -3045,7 +3332,10 @@ def main() -> int:
     smi = nvidia_smi_line()
     emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda, python=sys.version.split()[0])
+         cuda=torch.version.cuda, python=sys.version.split()[0],
+         optional_libraries={name: importlib.util.find_spec(name) is not None
+                             for name in ("imageio", "PIL", "cv2", "matplotlib",
+                                          "tensorboard")})
 
     t0 = time.perf_counter()
     logs = _build.build()
@@ -3084,7 +3374,14 @@ def main() -> int:
     occ_train = phase_occ_train()
     phase_occ_golden()
     data_train = phase_data_train()
+    with tempfile.TemporaryDirectory(prefix="cfnerf_cli_") as tmp:
+        cli_runs = phase_cli(tmp)
+        render_only_launches = phase_cli_render_only(cli_runs["cli_train"])
+    entry_launches = phase_entry()
     emit("rates", rays_per_s=RATES)
+
+    def cli_launches(label, name):
+        return sum(part[name] for part in cli_runs[label]["launches"].values())
 
     # serving: 20 render-core launches a view; training: one render-core
     # forward and backward a step; hierarchical: 4 flow-stack launches (two
@@ -3099,7 +3396,13 @@ def main() -> int:
     # density query of 65,536 points); occ training: a render-core forward
     # and backward a step, and two flow-stack launches for the co-training
     # target; data_train: a render-core forward and backward in each of its
-    # 10 steps and its resumed step, a forward in each tile of its two views
+    # 10 steps and its resumed step, a forward in each tile of its two views;
+    # cli_train and cli_train_pallas: a render-core forward and backward a
+    # step and a forward a val batch, a test-set view, a spiral frame and an
+    # evaluated view (a trunk forward beside each with pallas, a trunk
+    # backward a step); cli_render_only: a forward a spiral frame; entry: one
+    fwd_name, bwd_name = (render_core.fused_flow_composite.__name__,
+                          render_core.fused_flow_composite_bwd.__name__)
     print(json.dumps({"kernels": [
         kernel_entry("render_core_fwd", render_core.SOURCE, render_core.REPLACES,
                      {"serve": serve_launches, "train": train["fused_flow_composite"],
@@ -3109,13 +3412,20 @@ def main() -> int:
                       "bf16_train": bf16_train["fused_flow_composite"],
                       "occ_serve": occ_serve["view"], "occ_prop_serve": occ_prop_serve["view"],
                       "occ_train": occ_train["fused_flow_composite"],
-                      "data_train": data_train["fused_flow_composite"]}, fwd_stats),
+                      "data_train": data_train["fused_flow_composite"],
+                      "cli_train": cli_launches("cli_train", fwd_name),
+                      "cli_train_pallas": cli_launches("cli_train_pallas", fwd_name),
+                      "cli_render_only": render_only_launches, "entry": entry_launches},
+                     fwd_stats),
         kernel_entry("render_core_bwd", render_core.SOURCE_BWD, render_core.REPLACES_BWD,
                      {"train": train["fused_flow_composite_bwd"],
                       "trunk_train": trunk_train["fused_flow_composite_bwd"],
                       "bf16_train": bf16_train["fused_flow_composite_bwd"],
                       "occ_train": occ_train["fused_flow_composite_bwd"],
-                      "data_train": data_train["fused_flow_composite_bwd"]}, bwd_stats),
+                      "data_train": data_train["fused_flow_composite_bwd"],
+                      "cli_train": cli_launches("cli_train", bwd_name),
+                      "cli_train_pallas": cli_launches("cli_train_pallas", bwd_name)},
+                     bwd_stats),
         kernel_entry("flow_stack_fwd", flow_stack.SOURCE, flow_stack.REPLACES,
                      {"hier_serve": hier_serve_launches,
                       "hier_train": hier_train["fused_flow_stack"],
@@ -3132,10 +3442,13 @@ def main() -> int:
                      {"trunk_serve": trunk_flat_launches,
                       "trunk_hier_serve": trunk_hier_launches,
                       "trunk_train": trunk_train["trunk_encode"],
-                      "trunk_hier_train": trunk_hier_train["trunk_encode"]}, trunk_stats),
+                      "trunk_hier_train": trunk_hier_train["trunk_encode"],
+                      "cli_train_pallas": cli_launches("cli_train_pallas", "trunk_encode")},
+                     trunk_stats),
         kernel_entry("trunk_bwd", trunk.SOURCE_BWD, ", ".join(trunk.REPLACES_BWD),
                      {"trunk_train": trunk_train["trunk_encode_bwd"],
-                      "trunk_hier_train": trunk_hier_train["trunk_encode_bwd"]},
+                      "trunk_hier_train": trunk_hier_train["trunk_encode_bwd"],
+                      "cli_train_pallas": cli_launches("cli_train_pallas", "trunk_encode_bwd")},
                      trunk_bwd_stats),
     ]}), flush=True)
     emit("wall", seconds=time.perf_counter() - t_start)

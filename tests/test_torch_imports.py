@@ -1,7 +1,10 @@
 """The port stands alone: no module of cfnerf_torch, and not chip_smoke.py,
-imports jax or cfnerf_tpu, nor the image and logging libraries that the
-card's installation lacks (imageio, Pillow, cv2, tensorboardX; the port's
-image_io reaches imageio only on use, for a file that is not a PNG).
+imports jax or cfnerf_tpu, nor the image, plotting and logging libraries
+the port must not need (imageio, Pillow, cv2, matplotlib, tensorboard,
+tensorboardX; the card has no imageio and no matplotlib).  The port's
+image_io reaches imageio only on use, for a file that is not a PNG; the
+logger reaches tensorboard and the video writer imageio only where they
+import.
 Checked in a fresh interpreter whose import system refuses those names."""
 import subprocess
 import sys
@@ -13,7 +16,7 @@ GUARD = r"""
 import importlib, importlib.abc, importlib.util, pkgutil, sys
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "cfnerf_tpu", "imageio", "PIL",
-           "cv2", "tensorboardX")
+           "cv2", "matplotlib", "tensorboard", "tensorboardX")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -40,7 +43,7 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     # every module of the port was imported
-    assert int(proc.stdout.split()[-1]) >= 39
+    assert int(proc.stdout.split()[-1]) >= 47
 
 
 def test_port_modules_mirror_the_jax_layout():
@@ -52,7 +55,9 @@ def test_port_modules_mirror_the_jax_layout():
                 "train/loss.py", "train/step.py", "data/sampler.py",
                 "ops/occupancy.py", "train/loop.py", "data/poses.py", "data/colmap.py",
                 "data/colmap_fused.py", "data/blender.py", "data/llff.py",
-                "data/prefetch.py", "utils/config.py", "train/checkpoint.py"):
+                "data/prefetch.py", "utils/config.py", "train/checkpoint.py",
+                "train/logging.py", "utils/pointcloud.py", "utils/visualization.py",
+                "cli/train.py", "cli/eval.py"):
         assert mod in port and (ROOT / "cfnerf_tpu" / mod).exists(), mod
     # each Pallas kernel module has its wrapper under ops/kernels/
     for mod in ("render_core.py", "flow_stack.py", "trunk.py"):
