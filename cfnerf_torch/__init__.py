@@ -6,8 +6,10 @@ Layout mirrors cfnerf_tpu so each module's counterpart is easy to find:
                 proposal-placed sampling (occupancy)
   ops/kernels/  hand-written CUDA kernels for sm_90a, their wrappers, plain
                 PyTorch versions and the nvcc build (kernel sources: csrc/)
-  flows/        triangular Sylvester flow steps and their amortization
-  models/       NeRFFlows and the model factory
+  flows/        the flow families' steps (triangular and general Sylvester,
+                planar, IAF) and their amortization; the conv flow layers
+  models/       NeRFFlows, the baselines (NeRF, MC-dropout, NeRF-W) and
+                their K-sample adapter, the model factory
   render/       ray-batch renderer and the tiled full-image renderer
   train/        losses, Adam with the exponential schedule, the train step
                 (and its occ stage), the stage schedules, the dataset

@@ -1,20 +1,22 @@
 """Model factory — counterpart of cfnerf_tpu/models/factory.py (reference
 create_nerf, run_nerf_uncertainty_NF.py:317-341).
 
-Reads the same flag names as cfnerf_tpu/utils/config.py.  It builds the
-triangular NeRFFlows that serves and trains, in f32 or bf16
-(--compute_dtype), and with --N_importance > 0 its fine network; every other
-model or flow family raises NotImplementedError naming the slice that brings
-it.  create_nerf builds and resumes from the run dir's checkpoints, as
+Reads the same flag names as cfnerf_tpu/utils/config.py.  It builds
+NeRFFlows of any --type_flows the JAX package implements (realnvp and glow
+raise its ValueError), or with --model nerf / nerf_dropout / nerf_wild the
+baselines under KSampleBaseline, in f32 or bf16 (--compute_dtype), and with
+--N_importance > 0 the fine network; an unknown --model raises ValueError.
+create_nerf builds and resumes from the run dir's checkpoints, as
 cfnerf_tpu/models/factory.py:create_nerf does.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
 
+from cfnerf_torch.models.baseline_adapter import BASELINE_KINDS, KSampleBaseline
 from cfnerf_torch.models.nerf_flows import COMPUTE_DTYPES, FLOW_IMPLS, TRUNK_IMPLS, NeRFFlows
 from cfnerf_torch.ops.embed import get_embedder
 from cfnerf_torch.render.renderer import FUSED_MODES, RenderConfig
@@ -22,15 +24,51 @@ from cfnerf_torch.train import checkpoint as ckpt
 from cfnerf_torch.utils.device import DeviceLike, resolve_device
 
 
-def _check_supported(args) -> None:
-    model_name = (getattr(args, "model", None) or "nerf_flows").lower()
-    if model_name != "nerf_flows":
-        raise NotImplementedError(
-            f"--model {model_name}: the baseline models come with slice 7"
+Model = Union[NeRFFlows, KSampleBaseline]
+
+
+def model_name_of(args) -> str:
+    """--model, lower-cased; 'NeRF_Flows' (the reference scripts' spelling)
+    and no value are the flow model, 'nerf_flows'."""
+    return (getattr(args, "model", None) or "nerf_flows").lower()
+
+
+def loss_mode_for_model(model_name: Optional[str]) -> str:
+    """The training loss of a model (cfnerf_tpu/models/factory.py:
+    loss_mode_for_model): the KDE NLL for the flow model and nerf_wild, MSE
+    for nerf and nerf_dropout (K identical or mask-only draws make a KDE
+    bandwidth degenerate)."""
+    name = (model_name or "nerf_flows").lower()
+    return "mse" if name in ("nerf", "nerf_dropout") else "kde"
+
+
+def resolve_fused_render(args) -> str:
+    """--fused_render as RenderConfig.fused: 'auto' is 'on' (the render core)
+    for the triangular NeRFFlows only, else 'off', as JAX's factory resolves
+    it; an explicit 'on' or 'interpret' for any other model raises JAX's
+    ValueError (cfnerf_tpu/models/nerf_flows.py:make_fused_apply)."""
+    mode = getattr(args, "fused_render", "auto")
+    name = model_name_of(args)
+    triangular = name == "nerf_flows" and args.type_flows == "triangular"
+    if mode == "auto":
+        return "on" if triangular else "off"
+    if mode in ("on", "interpret") and not triangular:
+        kind = "NeRFFlows" if name == "nerf_flows" else "KSampleBaseline"
+        type_flows = args.type_flows if name == "nerf_flows" else None
+        raise ValueError(
+            f"--fused_render={mode} requires the triangular NeRFFlows "
+            f"model (got {kind} with type_flows={type_flows!r}); use "
+            "--fused_render=off or auto"
         )
-    if args.type_flows != "triangular":
-        raise NotImplementedError(
-            f"--type_flows {args.type_flows}: other flow families come with slice 7"
+    return mode
+
+
+def _check_supported(args) -> None:
+    model_name = model_name_of(args)
+    if model_name != "nerf_flows" and model_name not in BASELINE_KINDS:
+        raise ValueError(
+            f"unknown baseline model {model_name!r}; choose from "
+            f"{BASELINE_KINDS} or the default flow model"
         )
     compute_dtype = getattr(args, "compute_dtype", "float32")
     if compute_dtype not in COMPUTE_DTYPES:
@@ -49,10 +87,11 @@ def _check_supported(args) -> None:
 
 
 def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
-    """Draw every nn.Linear from torch.nn.Linear's default distribution,
-    U(+-1/sqrt(fan_in)) for weight and bias (the JAX package's TorchDense
-    matches it), from an explicit torch.Generator; base parameters go to
-    mean 0, std 1.  In place; returns the model."""
+    """Draw every nn.Linear (IAF's masked ones too) from torch.nn.Linear's
+    default distribution, U(+-1/sqrt(fan_in)) for weight and bias (the JAX
+    package's TorchDense and MaskedDense match it), from an explicit
+    torch.Generator; base parameters go to mean 0, std 1.  In place;
+    returns the model."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
@@ -72,8 +111,8 @@ def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
 
 def build_model(
     args, device: DeviceLike = None
-) -> Tuple[NeRFFlows, Optional[NeRFFlows], RenderConfig]:
-    """Build the flagship model + render config from the flag namespace.
+) -> Tuple[Model, Optional[Model], RenderConfig]:
+    """Build the model + render config from the flag namespace.
 
     Returns (model, model_fine, render_config).  With --N_importance > 0,
     model_fine is the hierarchical fine network at --netdepth_fine /
@@ -84,9 +123,13 @@ def build_model(
     arithmetic, parameters f32 either way) go to both nets, as
     cfnerf_tpu/models/factory.py:33,73,87-89 passes them.
     --fused_render (auto, on, off or interpret; default auto) becomes
-    RenderConfig.fused, auto resolving to 'on': the render core, the kernel
-    on the card, as JAX's factory resolves it to its kernel on a TPU.  An
-    unknown value of any of them raises.
+    RenderConfig.fused through resolve_fused_render: auto is 'on' (the render
+    core, the kernel on the card, as JAX's factory resolves it to its kernel
+    on a TPU) for the triangular NeRFFlows and 'off' (the unfused path)
+    for every other model.  An unknown value of any of them raises.
+    --model nerf / nerf_dropout / nerf_wild builds KSampleBaseline nets
+    (cfnerf_tpu/models/factory.py:58-72), which --trunk_impl and
+    --flow_impl do not reach; --type_flows picks NeRFFlows' family.
     Weights come from init_params(seed=args.seed), the fine network's from
     seed + 1, as create_nerf seeds them.  The models live on the CUDA device
     unless device="cpu" is passed; with no CUDA device and no explicit
@@ -98,9 +141,17 @@ def build_model(
     if args.use_viewdirs:
         _, input_ch_views = get_embedder(args.multires_views, args.i_embed)
     seed = getattr(args, "seed", 0)
-    fused_render = getattr(args, "fused_render", "auto")
+    fused_render = resolve_fused_render(args)
+    model_name = model_name_of(args)
+    compute_dtype = COMPUTE_DTYPES[getattr(args, "compute_dtype", "float32")]
 
-    def make(depth: int, width: int, seed: int) -> NeRFFlows:
+    def make(depth: int, width: int, seed: int) -> Model:
+        if model_name != "nerf_flows":
+            return init_params(KSampleBaseline(
+                kind=model_name, k_samples=args.K_samples, net_depth=depth,
+                net_width=width, input_ch=input_ch, input_ch_views=input_ch_views,
+                skips=(depth // 2,), use_viewdirs=args.use_viewdirs,
+                compute_dtype=compute_dtype), seed).to(dev)
         model = NeRFFlows(
             net_depth=depth,
             net_width=width,
@@ -115,7 +166,7 @@ def build_model(
             type_flows=args.type_flows,
             trunk_impl=getattr(args, "trunk_impl", "xla"),
             flow_impl=getattr(args, "flow_impl", "auto"),
-            compute_dtype=COMPUTE_DTYPES[getattr(args, "compute_dtype", "float32")],
+            compute_dtype=compute_dtype,
         )
         return init_params(model, seed).to(dev)
 
@@ -135,14 +186,14 @@ def build_model(
         multires=args.multires,
         multires_views=args.multires_views,
         i_embed=args.i_embed,
-        fused="on" if fused_render == "auto" else fused_render,
+        fused=fused_render,
     )
     return model, model_fine, render_config
 
 
 def create_nerf(
     args, device: DeviceLike = None
-) -> Tuple[NeRFFlows, Optional[NeRFFlows], RenderConfig, int]:
+) -> Tuple[Model, Optional[Model], RenderConfig, int]:
     """Build + auto-resume (cfnerf_tpu/models/factory.py:130-158).
 
     Returns (model, model_fine, render_config, start): build_model's nets,

@@ -1,14 +1,17 @@
 """NeRFFlows — the CF-NeRF probabilistic radiance field; counterpart of
-cfnerf_tpu/models/nerf_flows.py (reference model/models.py:13-291), for the
-triangular flow family.
+cfnerf_tpu/models/nerf_flows.py (reference model/models.py:13-291), with
+every flow family the JAX package implements: triangular (the flagship),
+householder and orthogonal (general Sylvester), planar, IAF and no_flow.
 
 A D x W ReLU trunk with a skip concat after layer D//2 emits two
 conditioning vectors, h_alpha (density) and h_rgb (view-dependent rgb).
 Global learnable base parameters (alpha_mean/std, rgb_mean/std) define
 N(mu, sigma^2); K base draws z0 = mu + sigma * eps, with eps SHARED across
-all points (models.py:234,246), go through two amortized triangular-Sylvester
-stacks.  Outputs are pre-softplus density and pre-sigmoid rgb; their
-activation log-det corrections fold into the entropy term.
+all points (models.py:234,246), go through two amortized flow stacks of the
+family `type_flows` (no_flow: none; it has no amortizers, its draws do not
+depend on x, and so the trunk gets no gradient, as in the JAX package).
+Outputs are pre-softplus density and pre-sigmoid rgb; their activation
+log-det corrections fold into the entropy term.
 
 The trunk runs as nn.Linear layers (trunk_impl="xla", the default, as in
 the JAX package), in f32 or, with compute_dtype=torch.bfloat16, in bf16 on
@@ -19,7 +22,9 @@ backward, within the kernels' domain (trunk.supported); trunk_impl=
 trunk (interpret_supported), which is wider.  The unfused forward's flow stacks run through the flow-stack
 kernel (flow_impl "auto" or "pallas") or its plain version ("xla" or
 "interpret"); the fused forward's render core through its kernel or, with
-interpret=True, its plain version.
+interpret=True, its plain version.  Both kernels are the triangular
+family's: the other families' flows are plain PyTorch (no Pallas kernel
+computes them either) and take the unfused forward only.
 
 Test mode uses fixed eps buffers with the LAST of the K draws zeroed (the
 mean sample) and skips the log-dets.  A fresh model draws its buffers from
@@ -29,12 +34,19 @@ differ from the JAX model's `_test_eps`.  Loading converted weights
 """
 from __future__ import annotations
 
+import copy
 from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from cfnerf_torch.flows.amortized import AmortizedTriangularSylvester
+from cfnerf_torch.flows.amortized import (
+    AmortizedGeneralSylvester,
+    AmortizedPlanar,
+    AmortizedTriangularSylvester,
+)
+from cfnerf_torch.flows.iaf import IAFNeRF
+from cfnerf_torch.flows.sylvester import general_sylvester_step, planar_step
 from cfnerf_torch.ops.compositing import softplus
 from cfnerf_torch.ops.kernels.flow_stack import fused_flow_stack, fused_flow_stack_plain
 from cfnerf_torch.ops.kernels.render_core import (
@@ -52,6 +64,9 @@ COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the flow-stack kernel ("auto", "pallas") or its plain version ("xla",
 # "interpret"), as cfnerf_tpu's --flow_impl picks the Pallas kernel or XLA
 FLOW_IMPLS = ("auto", "xla", "pallas", "interpret")
+
+FLOW_FAMILIES = ("triangular", "householder", "orthogonal", "planar", "IAF", "no_flow")
+INTERP_STEPS = 21  # the latent walk: 10 steps z1 -> mean, 11 mean -> z2
 
 Eps = Tuple[torch.Tensor, torch.Tensor]
 LANE = 128  # JAX's Pallas trunk tiles its widths by the TPU's 128 lanes
@@ -119,10 +134,14 @@ class NeRFFlows(nn.Module):
         compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        if type_flows != "triangular":
-            raise NotImplementedError(
-                f"type_flows={type_flows!r}: the port has the triangular family "
-                "only; the other flow families come with slice 7"
+        if type_flows not in FLOW_FAMILIES:
+            # realnvp / glow: the reference's CLI lists them, their sources
+            # were deleted upstream (the JAX package's message)
+            raise ValueError(
+                f"type_flows={type_flows!r} has no implementation "
+                "(the reference's realnvp/glow sources were deleted; its "
+                "CLI silently trained triangular instead). Supported: "
+                "triangular, householder, orthogonal, planar, IAF, no_flow."
             )
         if trunk_impl not in TRUNK_IMPLS:
             raise ValueError(f"trunk_impl must be one of {TRUNK_IMPLS}, got {trunk_impl!r}")
@@ -186,8 +205,24 @@ class NeRFFlows(nn.Module):
         self.rgb_mean = nn.Parameter(torch.zeros(Z_RGB))
         self.rgb_std = nn.Parameter(torch.ones(Z_RGB))
 
-        self.flows_alpha = AmortizedTriangularSylvester(h_alpha_size, Z_ALPHA, n_flows)
-        self.flows_rgb = AmortizedTriangularSylvester(h_rgb_size, Z_RGB, n_flows)
+        self.n_flows = n_flows
+        # no_flow has no amortizers: JAX never calls its flow submodules, so
+        # its params hold none
+        self.flows_alpha = self.flows_rgb = None
+        if type_flows == "triangular":
+            self.flows_alpha = AmortizedTriangularSylvester(h_alpha_size, Z_ALPHA, n_flows)
+            self.flows_rgb = AmortizedTriangularSylvester(h_rgb_size, Z_RGB, n_flows)
+        elif type_flows in ("householder", "orthogonal"):
+            self.flows_alpha = AmortizedGeneralSylvester(h_alpha_size, Z_ALPHA, n_flows,
+                                                         q_mode=type_flows)
+            self.flows_rgb = AmortizedGeneralSylvester(h_rgb_size, Z_RGB, n_flows,
+                                                       q_mode=type_flows)
+        elif type_flows == "planar":
+            self.flows_alpha = AmortizedPlanar(h_alpha_size, Z_ALPHA, n_flows)
+            self.flows_rgb = AmortizedPlanar(h_rgb_size, Z_RGB, n_flows)
+        elif type_flows == "IAF":
+            self.flows_alpha = IAFNeRF(h_alpha_size, Z_ALPHA, n_flows)
+            self.flows_rgb = IAFNeRF(h_rgb_size, Z_RGB, n_flows)
 
         eps_a, eps_r = fixed_eps(k_samples, test_eps_seed)
         self.register_buffer("test_eps_a", eps_a)
@@ -260,6 +295,23 @@ class NeRFFlows(nn.Module):
         eps_r = torch.randn(K, Z_RGB, generator=generator, device=generator.device)
         return eps_a.to(dev), eps_r.to(dev)
 
+    def train_eps(self, x: torch.Tensor, generator: Optional[torch.Generator],
+                  eps: Optional[Eps]) -> Eps:
+        """The draws of a training forward on x, made ahead of it (the step's
+        activation checkpointing replays them)."""
+        return self._draw_eps(False, generator, eps)
+
+    def at_k(self, k: int) -> "NeRFFlows":
+        """This net drawing k samples: a shallow copy that shares every
+        parameter, its own test-mode eps rebuilt at k from the same seed (the
+        mean draw last), as JAX's model.clone(k_samples=k) does."""
+        view = copy.copy(self)
+        view._buffers = dict(self._buffers)  # the eps below replace only the copy's
+        view.k_samples = k
+        dev = self.test_eps_a.device
+        view.test_eps_a, view.test_eps_r = (e.to(dev) for e in fixed_eps(k, self.test_eps_seed))
+        return view
+
     def _base_draws(self, eps_a, eps_r) -> Eps:
         return (eps_a * self.alpha_std + self.alpha_mean,
                 eps_r * self.rgb_std + self.rgb_mean)
@@ -273,6 +325,40 @@ class NeRFFlows(nn.Module):
         base_r = -0.5 * (2.0 * torch.log(self.rgb_std)
                          + (z0_r - self.rgb_mean) ** 2 / self.rgb_std ** 2)
         return base_a.mean(), base_r.mean()
+
+    def _apply_flows(self, z0: torch.Tensor, h: torch.Tensor, which: str,
+                     compute_log_det: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, K, Z) latents through the family's amortized flow stack
+        (cfnerf_tpu/models/nerf_flows.py:316-346).  Returns (z, log-det
+        (B, K)).  The triangular stack runs through `fused_flow_stack` (the
+        flow-stack kernels on the card) or, with flow_impl "xla" or
+        "interpret", its plain version; it gets z0 as given (an expanded z0
+        is read through a zero point stride) and its parameters contiguous
+        (r2 is built from a transpose)."""
+        zeros = torch.zeros(z0.shape[:-1], dtype=z0.dtype, device=z0.device)
+        if self.type_flows == "no_flow":
+            return z0, zeros
+        amor = self.flows_alpha if which == "alpha" else self.flows_rgb
+        if self.type_flows == "IAF":
+            return amor(z0, h, compute_log_det)
+        if self.type_flows == "planar":
+            u, w, b = amor(h)
+            z, ldj = z0, zeros
+            for k in range(self.n_flows):
+                z, ld = planar_step(z, u[..., k], w[..., k], b[..., k])
+                ldj = ldj + ld
+            return z, (ldj if compute_log_det else zeros)
+        if self.type_flows in ("householder", "orthogonal"):
+            r1, r2, q, b = amor(h)
+            z, ldj = z0, zeros
+            for k in range(self.n_flows):
+                z, ld = general_sylvester_step(z, r1[..., k], r2[..., k], q[..., k],
+                                               b[..., k], compute_log_det=compute_log_det)
+                ldj = ldj + ld
+            return z, ldj
+        stack = (fused_flow_stack if self.flow_impl in ("auto", "pallas")
+                 else fused_flow_stack_plain)
+        return stack(z0, *(t.contiguous() for t in amor(h)), compute_log_det)
 
     def forward(
         self,
@@ -294,17 +380,10 @@ class NeRFFlows(nn.Module):
         B, K = h_alpha.shape[0], self.k_samples
         z0_a, z0_r = self._base_draws(*self._draw_eps(is_test, generator, eps))
         compute_ld = not is_test
-        stack = (fused_flow_stack if self.flow_impl in ("auto", "pallas")
-                 else fused_flow_stack_plain)
-        # the shared draws go in expanded (the kernel reads them through a
-        # zero point stride); the kernel reads the parameters contiguous, and
-        # r2 is built from a transpose
-        z_alpha, ldj_alpha = stack(
-            z0_a[None].expand(B, K, Z_ALPHA),
-            *(t.contiguous() for t in self.flows_alpha(h_alpha)), compute_ld)
-        z_rgb, ldj_rgb = stack(
-            z0_r[None].expand(B, K, Z_RGB),
-            *(t.contiguous() for t in self.flows_rgb(h_rgb)), compute_ld)
+        z_alpha, ldj_alpha = self._apply_flows(
+            z0_a[None].expand(B, K, Z_ALPHA), h_alpha, "alpha", compute_ld)
+        z_rgb, ldj_rgb = self._apply_flows(
+            z0_r[None].expand(B, K, Z_RGB), h_rgb, "rgb", compute_ld)
         raw = torch.cat([z_rgb, z_alpha], -1)
         if is_test:
             return raw, torch.zeros((), dtype=raw.dtype, device=raw.device)
@@ -335,7 +414,12 @@ class NeRFFlows(nn.Module):
 
         x: (B, input_ch [+ views]), B = R * s_per_ray, sample minor;
         z_pts (B,) sample depths; d_pts (B,) interval * |rays_d|.
-        Returns (rgb_map (R, 3, K), depth (R, K), acc (R, K), entropy)."""
+        Returns (rgb_map (R, 3, K), depth (R, K), acc (R, K), entropy).
+        The triangular family only; any other raises ValueError."""
+        if self.type_flows != "triangular":
+            raise ValueError(
+                "forward_composited requires type_flows='triangular' "
+                f"(got {self.type_flows!r})")
         h_alpha, h_rgb = self.encode(x)
         B, K = h_alpha.shape[0], self.k_samples
         z0_a, z0_r = self._base_draws(*self._draw_eps(is_test, generator, eps))
@@ -354,3 +438,46 @@ class NeRFFlows(nn.Module):
         loss_entropy = (base_a - ldj_ray[0].sum() / denom
                         + base_r - ldj_ray[1].sum() / denom)
         return rgb_map, depth, acc, loss_entropy
+
+    # ---------------- latent-space diagnostics (models.py:69-163) ------ #
+
+    def sample(self, x: torch.Tensor) -> torch.Tensor:
+        """Density-only K draws through the alpha flow (models.py:69-96):
+        the test-mode eps buffers (mean draw last), no log-det.  Returns
+        (B, K, 1)."""
+        h_alpha, _ = self.encode(x)
+        z0_a = self.test_eps_a * self.alpha_std + self.alpha_mean
+        z0_a = z0_a[None].expand(h_alpha.shape[0], self.k_samples, Z_ALPHA)
+        return self._apply_flows(z0_a, h_alpha, "alpha", False)[0]
+
+    def interpolation(self, x: torch.Tensor, eps: Optional[Eps] = None) -> torch.Tensor:
+        """Latent walks z1 -> mean -> z2 through both flows
+        (models.py:98-163): 10 steps from z1 to the mean, then 11 from the
+        mean to z2, no log-det.  The two end draws eps ((2, 1), (2, 3))
+        default to torch.Generator(test_eps_seed + 1), which cannot
+        reproduce JAX's PRNGKey(test_eps_seed + 1): pass JAX's draws to match
+        it.  Returns (B, 21, 4): rgb then density."""
+        h_alpha, h_rgb = self.encode(x)
+        dev = self.alpha_mean.device
+        if eps is None:
+            g = torch.Generator().manual_seed(self.test_eps_seed + 1)
+            eps = (torch.randn(2, Z_ALPHA, generator=g), torch.randn(2, Z_RGB, generator=g))
+        eps_a, eps_r = (torch.as_tensor(e, dtype=torch.float32).to(dev) for e in eps)
+        betas1 = torch.arange(10, dtype=torch.float32, device=dev)[:, None] / 10.0
+        betas2 = torch.arange(11, dtype=torch.float32, device=dev)[:, None] / 10.0
+
+        def walk(e, mean, std, zdim):
+            z_ends = e * std + mean  # (2, Z)
+            mean_b = mean.expand(zdim)
+            seg1 = (1 - betas1) * z_ends[0] + betas1 * mean_b
+            seg2 = (1 - betas2) * mean_b + betas2 * z_ends[1]
+            return torch.cat([seg1, seg2], 0)  # (21, Z)
+
+        B = h_alpha.shape[0]
+        walk_a = walk(eps_a, self.alpha_mean, self.alpha_std, Z_ALPHA)
+        walk_r = walk(eps_r, self.rgb_mean, self.rgb_std, Z_RGB)
+        z_a, _ = self._apply_flows(walk_a[None].expand(B, INTERP_STEPS, Z_ALPHA),
+                                   h_alpha, "alpha", False)
+        z_r, _ = self._apply_flows(walk_r[None].expand(B, INTERP_STEPS, Z_RGB),
+                                   h_rgb, "rgb", False)
+        return torch.cat([z_r, z_a], -1)

@@ -456,7 +456,7 @@ def wrap_renderer_for_serving(render_rays_fn: Callable, args, scene: Mapping, mo
     impl = args.occ_impl
     if impl not in OCC_IMPLS:
         raise ValueError(f"--occ_impl must be one of {OCC_IMPLS}, got {impl!r}")
-    dev = model.alpha_mean.device
+    dev = next(model.parameters()).device
     lo, hi = aabb_from_scene(scene, args, dev)
     density_fn = make_density_fn(model, render_config)
     n_cand = serving_candidates(args)

@@ -14,6 +14,8 @@ checkpoints, test-set renders and videos.
     boundary; --occ_floor_anneal: its placement floor, linear from
     --occ_floor_start to --occ_floor (occ_floor_for_step), fed to the step
     as batch["occ_floor"];
+  * the loss follows --model (loss_mode_for_model): MSE for nerf and
+    nerf_dropout, the KDE NLL for the flow model and nerf_wild;
   * the step's metrics stay on the device and are read at i_print only, as
     the JAX loop's device_get, so the loop adds no synchronisation a step;
   * --profile_dir / --profile_start / --profile_steps: a torch.profiler
@@ -30,7 +32,6 @@ CUDA device unless train(args, device="cpu").
 """
 from __future__ import annotations
 
-import copy
 import dataclasses
 import os
 import time
@@ -52,8 +53,7 @@ from cfnerf_torch.data.sampler import (
     precompute_depth_rays,
     precompute_rays,
 )
-from cfnerf_torch.models.factory import create_nerf
-from cfnerf_torch.models.nerf_flows import fixed_eps
+from cfnerf_torch.models.factory import create_nerf, loss_mode_for_model
 from cfnerf_torch.ops.metrics import img2mse, mse2psnr, std_over_k, to8b
 from cfnerf_torch.render.renderer import make_render_rays, prepare_rays, render_image
 from cfnerf_torch.train import checkpoint as ckpt
@@ -270,19 +270,14 @@ def render_path(
 
 
 def _at_k(net, k: int):
-    """`net` drawing k samples: a shallow copy that shares every parameter
-    with `net`, its own test-mode eps rebuilt at k from the same seed (the
-    mean draw last), as JAX's model.clone(k_samples=k) does; the occ stage's
-    co-training target reads the field in test mode at the stage's K.  The
-    loop's test-mode renders use `net` itself."""
+    """`net` drawing k samples (net.at_k: a shallow copy that shares every
+    parameter, its own test-mode draws rebuilt at k from the same seed, as
+    JAX's model.clone(k_samples=k) does); the occ stage's co-training target
+    reads the field in test mode at the stage's K.  The loop's test-mode
+    renders use `net` itself."""
     if net is None or net.k_samples == k:
         return net
-    view = copy.copy(net)
-    view._buffers = dict(net._buffers)  # the eps below replace only the copy's
-    view.k_samples = k
-    dev = net.test_eps_a.device
-    view.test_eps_a, view.test_eps_r = (e.to(dev) for e in fixed_eps(k, net.test_eps_seed))
-    return view
+    return net.at_k(k)
 
 
 def _crossed(prev: int, cur: int, cadence: int) -> bool:
@@ -432,6 +427,7 @@ def train(args, device: DeviceLike = None) -> None:
         start_step=start,
         beta1=args.beta1,
         colmap_depth=args.colmap_depth, depth_lambda=args.depth_lambda,
+        loss_mode=loss_mode_for_model(getattr(args, "model", None)),
     )
 
     def val_metrics(batch):

@@ -105,9 +105,10 @@ def make_optimizer(params: Iterable, cfg: TrainConfig) -> Tuple[torch.optim.Adam
 
 class _Remat:
     """The model's train-mode forwards, fused and unfused, under activation
-    checkpointing.  The base draws are made before the checkpoint, so the
-    recompute in the backward sees the same eps (checkpoint restores the
-    default generators' state, not an explicit torch.Generator's)."""
+    checkpointing.  The draws (base eps, or a baseline's masks or eps) are
+    made before the checkpoint (model.train_eps), so the recompute in the
+    backward sees the same ones (checkpoint restores the default generators'
+    state, not an explicit torch.Generator's)."""
 
     def __init__(self, model):
         self.model = model
@@ -115,7 +116,7 @@ class _Remat:
     def __call__(self, x, *, is_test, generator=None, eps=None):
         if is_test:
             return self.model(x, is_test=True, eps=eps)
-        eps = self.model._draw_eps(False, generator, eps)
+        eps = self.model.train_eps(x, generator, eps)
         return checkpoint(self.model, x, is_test=False, eps=eps, use_reentrant=False)
 
     def forward_composited(self, x, z_pts, d_pts, s_per_ray, *, is_test,
@@ -210,7 +211,7 @@ def make_train_step(
         wrap(model), render_config,
         model_fine=None if model_fine is None else wrap(model_fine))
 
-    dev = model.alpha_mean.device
+    dev = next(model.parameters()).device
     if occ is not None:
         if proposal is None:
             net = ProposalMLP(occ.prop_width, occ.prop_depth, occ.prop_multires, device=dev)

@@ -154,8 +154,32 @@ final line):
                    bitwise the step-500 video's
  26. entry         cfnerf_torch.entry.entry() on the card against the same
                    fn on the CPU (rtol = atol = 1e-4)
- 27. rates         every path's rays/s of this run, side by side
- 28. kernels       per-kernel launches, error, time, plain time and bound;
+ 27. families_golden  each flow family (no_flow, householder, orthogonal,
+                   planar, IAF) and baseline (nerf, nerf_dropout on JAX's
+                   masks, nerf_wild, and nerf_wild in bf16) of a tiny JAX
+                   model (D4/W64, K8, F2; tests/fixtures): a test render and
+                   one training step's loss and gradients through the card's
+                   unfused path, no kernel of the port launched
+ 28. families_serve  one 8192-ray tile of the view (N128, K32) for each family
+                   and baseline at the flagship's widths, householder and IAF
+                   also with the trunk kernel: launches exact (render core
+                   and flow stack 0, trunk 1 a pallas tile), rays/s, peak
+                   memory, 64 rays against the CPU's plain path, a profiled
+                   householder tile
+ 29. families_train  the same cells, 10 steps (nerf_dropout 3) of 512 + 128
+                   rays in each model's loss mode: launches exact (a trunk
+                   forward and backward a pallas step, else none), finite
+                   metrics, rays/s, peak memory
+ 30. sample_interp NeRFFlows.sample on 2^20 points and interpolation (K = 21)
+                   on 2^18 through the flagship net: 1 and 2 flow-stack
+                   launches, each against the flow stack's plain version
+ 31. cli_families  the CLI (cli.train.main, scripts/train_NF.sh's flags on the
+                   capture, 100 steps) with --model nerf_wild, with
+                   --type_flows householder --trunk_impl pallas, and without
+                   --type_flows (the parser's no_flow); each evaluated at
+                   step 100: finite metrics, launches exact
+ 32. rates         every path's rays/s of this run, side by side
+ 33. kernels       per-kernel launches, error, time, plain time and bound;
                    trunk_fwd's entry also the training variant's
                    (fwd_save_*, at the flat training step)
 
@@ -188,6 +212,7 @@ from cfnerf_torch.convert import (
     nerf_flows_pair_state_dicts_from_jax,
     nerf_flows_state_dict_from_jax,
     proposal_state_dict_from_jax,
+    state_dict_from_jax,
 )
 from cfnerf_torch.data.blender import load_blender_data
 from cfnerf_torch.data.image_io import imread_png, imwrite_png
@@ -199,7 +224,8 @@ from cfnerf_torch.data.sampler import (
     precompute_depth_rays,
     precompute_rays,
 )
-from cfnerf_torch.models.factory import build_model, create_nerf
+from cfnerf_torch.models.baseline_adapter import KSampleBaseline
+from cfnerf_torch.models.factory import build_model, create_nerf, loss_mode_for_model
 from cfnerf_torch.models.nerf_flows import NeRFFlows
 from cfnerf_torch.ops.compositing import LAST_DIST
 from cfnerf_torch.ops.kernels import _build
@@ -3302,6 +3328,470 @@ def phase_entry():
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# slice 7: the other flow families, the baselines, sample / interpolation
+# ---------------------------------------------------------------------- #
+
+FAMILIES_GOLDEN = ROOT / "tests" / "fixtures" / "torch_port_families_golden.npz"
+FAMILY_NAMES = ("no_flow", "householder", "orthogonal", "planar", "IAF")
+BASELINE_NAMES = ("nerf", "nerf_dropout", "nerf_wild")
+# the golden's gates (tests/test_torch_families.py states each): maps and
+# metrics rtol = atol = 1e-4, bf16 2e-3; gradients per leaf relative RMS
+# 1e-3 and cosine 0.9999 (bf16 2e-2; planar 1e-2: at Z = 1 its u^ divides
+# by |w|^2, which the amortizer makes as a sum that cancels, so where |w|
+# is small the last bits of that sum move the point's density by O(1));
+# a leaf whose JAX gradient is rounding noise (every entry <= 1e-6: the
+# Z = 1 Householder / orthogonal amor_q, whose Q is +-1 whatever it
+# gives) by its absolute error, <= 1e-6
+FAM_TOL, FAM_BF16_TOL = 1e-4, 2e-3
+FAM_REL_RMS, FAM_BF16_REL_RMS, FAM_PLANAR_REL_RMS, FAM_MIN_COS = 1e-3, 2e-2, 1e-2, 0.9999
+FAM_NOISE = 1e-6
+FAM_MAPS = ("rgb_map", "depth_map", "acc_map")
+# tests/test_torch_train.py's TRAIN_KW, the step the golden was taken with
+FAM_TRAIN = dict(H=10, W=10, focal=10.0, ndc=False, near=2.0, far=6.0, k_samples=8,
+                 lrate=5e-4, beta1=0.01, colmap_depth=True, depth_lambda=0.01)
+FAM_VIEW = dict(H=10, W=10, focal=10.0, ndc=False, use_viewdirs=True, near=2.0, far=6.0)
+# families_serve / families_train: each family and baseline at the
+# flagship's widths, the f32 trunk; householder and IAF also with the trunk
+# kernels (one trunk forward a tile; a trunk forward and backward a step)
+FAMILY_CELLS = ([(f, dict(type_flows=f), "xla") for f in FAMILY_NAMES]
+                + [(f"{f} pallas", dict(type_flows=f), "pallas")
+                   for f in ("householder", "IAF")]
+                + [(m, dict(model=m), "xla") for m in BASELINE_NAMES])
+FAMILY_TRAIN_STEPS = {"nerf_dropout": 3}  # 32 trunk passes a step
+# sample / interpolation on the flagship net: their point counts
+SAMPLE_POINTS, INTERP_POINTS = 1 << 20, 1 << 18
+
+
+def golden_draws(g, prefix):
+    """tests/test_torch_families.py:load_draws on the card: the eps pair,
+    nerf_wild's (K, 3) eps, nerf_dropout's K mask lists, or None."""
+    keys = [k for k in g.files if k.startswith(prefix + "/")]
+    if not keys:
+        return None
+    if f"{prefix}/a" in keys:
+        return (g[f"{prefix}/a"], g[f"{prefix}/r"])
+    if f"{prefix}/wild" in keys:
+        return g[f"{prefix}/wild"]
+    n_k = 1 + max(int(k.split("/")[-2]) for k in keys)
+    n_j = 1 + max(int(k.split("/")[-1]) for k in keys)
+    return [[torch.as_tensor(g[f"{prefix}/{k}/{j}"], device="cuda") for j in range(n_j)]
+            for k in range(n_k)]
+
+
+def golden_family_model(g, name):
+    """The port's model of golden entry `name` on the card, JAX's weights
+    and test draws carried across by convert.state_dict_from_jax."""
+    D, Wd, K, F, ha, hr = (int(v) for v in g["config"][:6])
+    params = {}
+    for k in g.files:
+        if k.startswith(f"{name}/p/"):
+            node = params
+            *parents, leaf = k[len(name) + 3:].split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = g[k]
+    kind = name.replace("_bf16", "")
+    if name in FAMILY_NAMES:
+        model = NeRFFlows(net_depth=D, net_width=Wd, skips=(D // 2,), h_alpha_size=ha,
+                          h_rgb_size=hr, n_flows=F, k_samples=K, type_flows=name)
+        eps = (g[f"{name}/test_eps_a"], g[f"{name}/test_eps_r"])
+        model.load_state_dict(state_dict_from_jax(params, None, name, eps))
+        return model.cuda(), None
+    model = KSampleBaseline(kind, K, net_depth=D, net_width=Wd, skips=(D // 2,),
+                            compute_dtype=torch.bfloat16 if name.endswith("_bf16")
+                            else torch.float32)
+    eps = g[f"{name}/test_eps"] if f"{name}/test_eps" in g.files else None
+    model.load_state_dict(state_dict_from_jax(params, kind, test_eps=eps))
+    return model.cuda(), kind
+
+
+def phase_families_golden():
+    """Each family and baseline's JAX test render and training step (D4/W64,
+    K8, F2; tests/fixtures) through the card's unfused path: maps, metrics
+    and gradients against JAX's; no kernel of the port runs here."""
+    counters = (render_core.fused_flow_composite, render_core.fused_flow_composite_bwd,
+                flow_stack.fused_flow_stack, flow_stack.fused_flow_stack_bwd,
+                trunk.trunk_encode, trunk.trunk_encode_bwd)
+    results = {}
+    with np.load(FAMILIES_GOLDEN) as g:
+        S_render, S = (int(v) for v in g["config"][6:8])
+        names = sorted({k.split("/")[0] for k in g.files if "/p/" in k})
+        check(set(names) == set(FAMILY_NAMES + BASELINE_NAMES + ("nerf_wild_bf16",)),
+              f"families golden holds {names}")
+        for name in names:
+            before = [c.launches for c in counters]
+            model, kind = golden_family_model(g, name)
+            bf16 = name.endswith("_bf16")
+            tol = FAM_BF16_TOL if bf16 else FAM_TOL
+            rel_rms = (FAM_BF16_REL_RMS if bf16 else
+                       FAM_PLANAR_REL_RMS if name == "planar" else FAM_REL_RMS)
+            render = make_render_rays(model, RenderConfig(
+                n_samples=S_render, perturb=False, use_viewdirs=True, white_bkgd=True,
+                fused="off"))
+            rays = prepare_rays(torch.as_tensor(g["render/rays_o"], device="cuda"),
+                                torch.as_tensor(g["render/rays_d"], device="cuda"), **FAM_VIEW)
+            with torch.no_grad():
+                out = render(*rays, None, is_test=True,
+                             eps=golden_draws(g, f"{name}/render_draws"))
+            errs, bad = {}, []
+            for k in FAM_MAPS:
+                ref = torch.as_tensor(g[f"{name}/jax/{k}"], device="cuda")
+                d = (out[k] - ref).abs()
+                errs[k] = float(d.max())
+                if not bool((d <= tol + tol * ref.abs()).all()):
+                    bad.append(k)
+            cfg = TrainConfig(**FAM_TRAIN, loss_mode=loss_mode_for_model(kind))
+            step, _ = make_train_step(model, RenderConfig(n_samples=S, fused="off"), cfg)
+            t_rand = torch.as_tensor(g["t_rand"], device="cuda")
+            R = t_rand.shape[0]
+            z_vals = stratified_perturb(
+                sample_z_vals(torch.full((R, 1), FAM_TRAIN["near"], device="cuda"),
+                              torch.full((R, 1), FAM_TRAIN["far"], device="cuda"),
+                              S).expand(R, S), t_rand=t_rand)
+            batch = {k[6:]: g[k] for k in g.files if k.startswith("batch/")}
+            loss, metrics = step.loss_fn(batch, None, z_vals=z_vals,
+                                         eps=golden_draws(g, f"{name}/step_draws"))
+            loss.backward()
+            torch.cuda.synchronize()
+            for k in FLAT_METRICS:
+                ref = float(g[f"{name}/jax/{k}"])
+                errs[k] = abs(float(metrics[k].detach()) - ref)
+                if not errs[k] <= tol + tol * abs(ref):
+                    bad.append(k)
+            worst_rel, worst_cos = 0.0, 1.0
+            for n, p in model.named_parameters():
+                want = g[f"{name}/grad/{n}"].astype(np.float64)
+                got = (np.zeros_like(want) if p.grad is None
+                       else p.grad.detach().cpu().numpy().astype(np.float64))
+                if np.abs(want).max() <= FAM_NOISE:
+                    if np.abs(got - want).max() > FAM_NOISE:
+                        bad.append(f"grad/{n}")
+                    continue
+                rel = float(np.sqrt(np.mean((got - want) ** 2) / np.mean(want ** 2)))
+                cos = float(np.sum(got * want)
+                            / (np.linalg.norm(got) * np.linalg.norm(want) + 1e-30))
+                worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
+                if not (rel <= rel_rms and cos >= FAM_MIN_COS):
+                    bad.append(f"grad/{n}")
+            errs.update(grad_worst_rel_rms=worst_rel, grad_worst_cos=worst_cos)
+            check([c.launches for c in counters] == before,
+                  f"families_golden {name}: no kernel of the port on the unfused path")
+            check(not bad, f"families_golden {name} past the tolerance: {bad} ({errs})")
+            results[name] = errs
+            del model, step, loss
+    emit("families_golden", source=str(FAMILIES_GOLDEN.relative_to(ROOT)),
+         max_abs_err_vs_jax=results,
+         tolerance={"maps_metrics": FAM_TOL, "bf16_maps_metrics": FAM_BF16_TOL,
+                    "grad_rel_rms": FAM_REL_RMS, "bf16_grad_rel_rms": FAM_BF16_REL_RMS,
+                    "planar_grad_rel_rms": FAM_PLANAR_REL_RMS, "grad_min_cos": FAM_MIN_COS,
+                    "noise_leaf_atol": FAM_NOISE})
+
+
+def family_args(over, trunk_impl):
+    """The flagship's flags (scripts/train_NF.sh's widths) for one cell."""
+    return types.SimpleNamespace(**{**FLAGSHIP, **over, "trunk_impl": trunk_impl})
+
+
+def dropout_masks(model, n_points, seed):
+    """K draws' masks of a nerf_dropout net, drawn on the card: the same
+    masks for the card's and the CPU's forward."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [model.base.draw_masks(n_points, g) for _ in range(model.k_samples)]
+
+
+SERVE_COUNTERS = (render_core.fused_flow_composite, flow_stack.fused_flow_stack,
+                  trunk.trunk_encode)
+
+
+def phase_families_serve():
+    """One 8192-ray tile of the 400x400 view (N128, K32) for each family and
+    baseline at the flagship's widths: counted (render core 0, flow stack 0,
+    trunk forward 1 a pallas tile, else 0), timed, peak memory, 64 rays
+    against the CPU's plain path on the same weights (nerf_dropout on the
+    same masks); the householder f32 tile profiled."""
+    rays = view_rays(pose_spherical(30.0, -30.0, 4.0))
+    tile_rays = [t[:TILE] for t in rays]
+    pick = torch.randperm(H * W, generator=torch.Generator().manual_seed(4))[:64].cuda()
+    sub = [t[pick] for t in rays]
+    cells, launches = {}, {}
+    for label, over, impl in FAMILY_CELLS:
+        model, _, rc = build_model(family_args(over, impl))
+        model.eval()
+        check(rc.fused == "off", f"families_serve {label}: --fused_render auto is off")
+        render_rays = make_render_rays(model, rc)
+        torch.cuda.synchronize()
+        for c in SERVE_COUNTERS:
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = render_rays(*tile_rays, None, is_test=True)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = {c.__name__: c.launches for c in SERVE_COUNTERS}
+        want = {"fused_flow_composite": 0, "fused_flow_stack": 0,
+                "trunk_encode": 1 if impl == "pallas" else 0}
+        check(counts == want, f"families_serve {label}: launched {counts}, want {want}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        K = FLAGSHIP["K_samples"]
+        check(tuple(out["rgb_map"].shape) == (TILE, 3, K), f"{label} rgb_map shape")
+        for k, v in out.items():
+            check(bool(torch.isfinite(v).all()), f"families_serve {label}: {k} finite")
+        std = float(std_over_k(out["rgb_map"]).mean())
+        del out
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            render_rays(*tile_rays, None, is_test=True)
+        torch.cuda.synchronize()
+        tile_s = time.perf_counter() - t0
+        # 64 rays on the CPU through the plain versions, the same weights
+        # (and for nerf_dropout the same masks)
+        eps = (dropout_masks(model, 64 * FLAGSHIP["N_samples"], 5)
+               if over.get("model") == "nerf_dropout" else None)
+        cpu_model = copy.deepcopy(model).cpu()  # pallas: the trunk kernel's plain version
+        with torch.inference_mode():
+            a = render_rays(*sub, None, is_test=True, eps=eps)
+            b = make_render_rays(cpu_model, rc)(
+                *[t.cpu() for t in sub], None, is_test=True,
+                eps=None if eps is None else [[m.cpu() for m in ms] for ms in eps])
+        torch.cuda.synchronize()
+        tol = (TRUNK_MAP_RTOL, TRUNK_MAP_ATOL) if impl == "pallas" else (E2E_RTOL, E2E_ATOL)
+        errs = compare_maps(a, b, ("rgb_map", "depth_map", "acc_map"), *tol,
+                            f"families_serve {label}: card vs CPU plain path")
+        del cpu_model, a, b
+        if label == "householder":
+            def one_tile():
+                with torch.inference_mode():
+                    render_rays(*tile_rays, None, is_test=True)
+
+            emit("families_serve_profile", cell=label, tile_rays=TILE,
+                 **profile_device(one_tile))
+        RATES[f"families_serve ({label})"] = TILE / tile_s
+        cells[label] = dict(trunk_impl=impl, launches=counts, first_tile_s=first_s,
+                            tile_s=tile_s, rays_per_s=TILE / tile_s, peak_mem_gb=peak_gb,
+                            mean_std_over_k=std, card_vs_cpu_64_rays=errs,
+                            tolerance={"rtol": tol[0], "atol": tol[1]})
+        launches[label] = counts
+        del model, render_rays
+        torch.cuda.empty_cache()
+    emit("families_serve", nvidia_smi=nvidia_smi_line(), tile=TILE,
+         samples=FLAGSHIP["N_samples"], K=FLAGSHIP["K_samples"], cells=cells)
+    return launches
+
+
+def phase_families_train():
+    """Training steps of each family and baseline at the flagship's widths on
+    the flagship's batches (512 + 128 rays, N128, K32): 1 warm-up, then 10
+    counted and timed steps (nerf_dropout 3), finite metrics, the loss
+    mode of the model, exact launches (no render core, no flow stack; with
+    pallas a trunk forward and backward a step), peak memory."""
+    counters = (render_core.fused_flow_composite, render_core.fused_flow_composite_bwd,
+                flow_stack.fused_flow_stack, flow_stack.fused_flow_stack_bwd,
+                trunk.trunk_encode, trunk.trunk_encode_bwd)
+    next_batch = flagship_batches()
+    cells, launches = {}, {}
+    for label, over, impl in FAMILY_CELLS:
+        args = family_args(over, impl)
+        model, _, rc = build_model(args)
+        mode = loss_mode_for_model(over.get("model"))
+        cfg = TrainConfig(H=H, W=W, focal=FOCAL, ndc=False, near=NEAR, far=FAR,
+                          k_samples=FLAGSHIP["K_samples"], loss_mode=mode, **TRAIN_CFG)
+        step, _ = make_train_step(model, rc, cfg)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        step(next_batch(), gen)  # warm-up
+        torch.cuda.synchronize()
+        n_steps = FAMILY_TRAIN_STEPS.get(label, TRAIN_STEPS)
+        for c in counters:
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        times, metrics = [], []
+        for _ in range(n_steps):
+            batch = next_batch()
+            t0 = time.perf_counter()
+            m = step(batch, gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            metrics.append({k: float(v) for k, v in m.items()})
+        counts = {c.__name__: c.launches for c in counters}
+        per = n_steps if impl == "pallas" else 0
+        want = {"fused_flow_composite": 0, "fused_flow_composite_bwd": 0,
+                "fused_flow_stack": 0, "fused_flow_stack_bwd": 0,
+                "trunk_encode": per, "trunk_encode_bwd": per}
+        check(counts == want, f"families_train {label}: launched {counts}, want {want}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        for m in metrics:
+            check(all(math.isfinite(v) for v in m.values()),
+                  f"families_train {label}: finite metrics {m}")
+        check(set(metrics[0]) == set(FLAT_METRICS), f"{label}: metrics {sorted(metrics[0])}")
+        if mode == "mse":
+            check(all(m["loss_nll"] == 0.0 for m in metrics), f"{label}: the mse loss mode")
+        moved = sum(not torch.equal(p.detach(), start[n]) for n, p in model.named_parameters())
+        check(moved > 0, f"families_train {label}: no parameter moved")
+        step_s = statistics.median(times)
+        RATES[f"families_train ({label})"] = (N_RAND + N_DEPTH) / step_s
+        cells[label] = dict(trunk_impl=impl, loss_mode=mode, steps=n_steps, launches=counts,
+                            step_ms=1e3 * step_s, step_ms_all=[1e3 * t for t in times],
+                            train_rays_per_s=(N_RAND + N_DEPTH) / step_s,
+                            peak_mem_gb=peak_gb, first_loss=metrics[0]["loss"],
+                            last_metrics=metrics[-1],
+                            parameters_moved=f"{moved}/{len(start)}")
+        launches[label] = counts
+        del model, step, start
+        torch.cuda.empty_cache()
+    emit("families_train", nvidia_smi=nvidia_smi_line(), rays_per_step=N_RAND + N_DEPTH,
+         samples=FLAGSHIP["N_samples"], K=FLAGSHIP["K_samples"], cells=cells)
+    return launches
+
+
+def phase_sample_interp():
+    """NeRFFlows.sample on 2^20 points and interpolation (K = 21) on 2^18
+    through the flagship net: counted (1 and 2 flow-stack launches), timed,
+    and each against the same call with the flow stack's plain version on
+    the card (the trunk's outputs shared, so only the flow stack differs),
+    rtol = atol = 1e-5, the kernel phase's rule."""
+    model, _, _ = build_model(types.SimpleNamespace(**FLAGSHIP))
+    model.eval()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    fwd = flow_stack.fused_flow_stack
+    report, launches = {}, 0
+    for label, n, call, want in (("sample", SAMPLE_POINTS, model.sample, 1),
+                                 ("interpolation", INTERP_POINTS, model.interpolation, 2)):
+        x = torch.rand(n, 90, generator=g, device="cuda") * 2 - 1
+        torch.cuda.synchronize()
+        fwd.launches = 0
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = call(x)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counted = fwd.launches
+        check(counted == want, f"{label}: flow stack launched {counted}, want {want}")
+        launches += counted
+        K = model.k_samples if label == "sample" else 21
+        check(tuple(out.shape) == (n, K, 1 if label == "sample" else 4)
+              and bool(torch.isfinite(out).all()), f"{label}: shape {tuple(out.shape)}, finite")
+        # the flow stack's plain version on the same trunk outputs
+        with torch.inference_mode():
+            h = model.encode(x)
+            model.encode = lambda _x, h=h: h
+            try:
+                kernel = call(x)
+                model.flow_impl = "xla"
+                plain = call(x)
+            finally:
+                model.flow_impl = "auto"
+                del model.encode
+        d = (kernel - plain).abs()
+        check(bool((d <= FLOW_ATOL + FLOW_RTOL * plain.abs()).all()),
+              f"{label}: kernel vs plain flow stack, max abs err {float(d.max())}")
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            call(x)
+        torch.cuda.synchronize()
+        report[label] = dict(points=n, K=K, launches=counted, first_s=seconds,
+                             s=time.perf_counter() - t0, max_abs_err_vs_plain=float(d.max()))
+        del x, out, kernel, plain, h
+    emit("sample_interp", nvidia_smi=nvidia_smi_line(), **report,
+         tolerance={"rtol": FLOW_RTOL, "atol": FLOW_ATOL})
+    return launches
+
+
+CLI_FAMILY_STEPS, CLI_FAMILY_PRINT = 100, 50
+CLI_FAMILY_CADENCES = ["--n_iters", str(CLI_FAMILY_STEPS), "--i_print", str(CLI_FAMILY_PRINT),
+                       "--i_weights", str(CLI_FAMILY_STEPS), "--i_testset",
+                       str(CLI_FAMILY_STEPS), "--i_video", str(CLI_FAMILY_STEPS)]
+
+
+def cli_family_flags(datadir, basedir, expname, *extra, drop_type_flows=False):
+    flags = cli_flags(datadir, basedir, expname, *extra)
+    if drop_type_flows:  # the parser's default: no_flow
+        i = flags.index("--type_flows")
+        flags = flags[:i] + flags[i + 2:]
+    return flags
+
+
+def phase_cli_families(tmp):
+    """python -m cfnerf_torch.cli.train's path (cli.train.main) with
+    scripts/train_NF.sh's flags on a copy of the capture, 100 steps each:
+    (a) --model nerf_wild, (b) --type_flows householder --trunk_impl pallas,
+    (c) no --type_flows (the parser's no_flow); each then cli.eval at step
+    100: finite metrics, exact launches (no render core or flow stack; (b)
+    a trunk forward a step, val batch and rendered tile, a backward a
+    step)."""
+    datadir = shutil.copytree(CAPTURE, os.path.join(tmp, "minicapture"))
+    basedir = os.path.join(tmp, "logs")
+    counters = (render_core.fused_flow_composite, render_core.fused_flow_composite_bwd,
+                flow_stack.fused_flow_stack, flow_stack.fused_flow_stack_bwd,
+                trunk.trunk_encode, trunk.trunk_encode_bwd)
+    runs, launches = {}, {}
+    for label, expname, extra, drop in (
+            ("nerf_wild", "cli_wild", ("--model", "nerf_wild"), False),
+            ("householder pallas", "cli_householder",
+             ("--type_flows", "householder", "--trunk_impl", "pallas"), False),
+            ("no_flow (parser default)", "cli_noflow", (), True)):
+        flags = cli_family_flags(datadir, basedir, expname, *extra, drop_type_flows=drop)
+        args = parse_args(flags)
+        parts = {}
+        for part, fn, argv in (("train", cli_train.main, flags + ["--is_train"]
+                                + CLI_FAMILY_CADENCES),
+                               (f"eval_{CLI_FAMILY_STEPS}", cli_eval.evaluate,
+                                parse_args(flags))):
+            for c in counters:
+                c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result, _ = with_output(fn, argv)
+            torch.cuda.synchronize()
+            parts[part] = dict(seconds=time.perf_counter() - t0,
+                               launches={c.__name__: c.launches for c in counters},
+                               result=result)
+        summary = parts[f"eval_{CLI_FAMILY_STEPS}"]["result"]
+        check(summary["step"] == CLI_FAMILY_STEPS,
+              f"cli_families {label}: evaluated step {summary['step']}")
+        quality = quality_of(summary)
+        check(all(math.isfinite(v) for v in quality.values()),
+              f"cli_families {label}: finite metrics {quality}")
+        n_val = len(summary["views"])
+        pallas = "--trunk_impl" in extra
+        renders = CLI_FAMILY_STEPS // CLI_FAMILY_PRINT + n_val + CLI_SPIRAL_FRAMES
+        want = {"train": {"trunk_encode": CLI_FAMILY_STEPS + renders if pallas else 0,
+                          "trunk_encode_bwd": CLI_FAMILY_STEPS if pallas else 0},
+                f"eval_{CLI_FAMILY_STEPS}": {"trunk_encode": n_val if pallas else 0,
+                                             "trunk_encode_bwd": 0}}
+        for part, counts in want.items():
+            counts = dict(counts, fused_flow_composite=0, fused_flow_composite_bwd=0,
+                          fused_flow_stack=0, fused_flow_stack_bwd=0)
+            check(parts[part]["launches"] == counts,
+                  f"cli_families {label}: {part} launched {parts[part]['launches']}, "
+                  f"want {counts}")
+        rundir = ckpt.run_dir(args.basedir, args.dataname, args.type_flows, args.expname)
+        check(os.path.exists(os.path.join(rundir, f"{CLI_FAMILY_STEPS:06d}_01",
+                                          ckpt.STATE_FILE)),
+              f"cli_families {label}: checkpoint at step {CLI_FAMILY_STEPS}")
+        with open(os.path.join(args.basedir, args.dataname, "summaries", expname,
+                               "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        prints = list(range(CLI_FAMILY_PRINT, CLI_FAMILY_STEPS + 1, CLI_FAMILY_PRINT))
+        check([r["step"] for r in records] == prints
+              and all(math.isfinite(v) for r in records for v in r.values()),
+              f"cli_families {label}: metrics.jsonl {[r['step'] for r in records]}")
+        rays = N_RAND + N_DEPTH
+        loop_rate = CLI_FAMILY_PRINT * rays / (records[-1]["t"] - records[-2]["t"])
+        RATES[f"cli_families ({label})"] = loop_rate
+        runs[label] = dict(model=args.model, type_flows=args.type_flows,
+                           trunk_impl=args.trunk_impl, steps=CLI_FAMILY_STEPS,
+                           quality=quality, train_psnr=[r["train/psnr"] for r in records],
+                           seconds={p: v["seconds"] for p, v in parts.items()},
+                           launches={p: v["launches"] for p, v in parts.items()},
+                           loop_rays_per_s=loop_rate)
+        launches[label] = {c.__name__: sum(v["launches"][c.__name__] for v in parts.values())
+                           for c in counters}
+    emit("cli_families", nvidia_smi=nvidia_smi_line(), runs=runs)
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches_by_path, stats):
     """`launches` totals the per-path counts; `launches_by_path` keeps each
     path's own count, reset just before that path and read just after."""
@@ -3378,7 +3868,24 @@ def main() -> int:
         cli_runs = phase_cli(tmp)
         render_only_launches = phase_cli_render_only(cli_runs["cli_train"])
     entry_launches = phase_entry()
+    phase_families_golden()
+    fam_serve = phase_families_serve()
+    fam_train = phase_families_train()
+    sample_interp_launches = phase_sample_interp()
+    with tempfile.TemporaryDirectory(prefix="cfnerf_cli_families_") as tmp:
+        cli_fam = phase_cli_families(tmp)
     emit("rates", rays_per_s=RATES)
+
+    def fam(part, name):
+        return sum(counts[name] for counts in part.values())
+
+    # slice 7's paths: the families and baselines take the unfused path, so
+    # the render core runs on none of them (0, counted); the trunk kernels
+    # run in the pallas cells (a forward a tile; a forward and backward a
+    # step); sample and interpolation launch the flow stack (1 + 2)
+    core = render_core.fused_flow_composite.__name__
+    slice7_core = {"families_serve": fam(fam_serve, core),
+                   "families_train": fam(fam_train, core), "cli_families": fam(cli_fam, core)}
 
     def cli_launches(label, name):
         return sum(part[name] for part in cli_runs[label]["launches"].values())
@@ -3415,7 +3922,8 @@ def main() -> int:
                       "data_train": data_train["fused_flow_composite"],
                       "cli_train": cli_launches("cli_train", fwd_name),
                       "cli_train_pallas": cli_launches("cli_train_pallas", fwd_name),
-                      "cli_render_only": render_only_launches, "entry": entry_launches},
+                      "cli_render_only": render_only_launches, "entry": entry_launches,
+                      **slice7_core},
                      fwd_stats),
         kernel_entry("render_core_bwd", render_core.SOURCE_BWD, render_core.REPLACES_BWD,
                      {"train": train["fused_flow_composite_bwd"],
@@ -3424,7 +3932,9 @@ def main() -> int:
                       "occ_train": occ_train["fused_flow_composite_bwd"],
                       "data_train": data_train["fused_flow_composite_bwd"],
                       "cli_train": cli_launches("cli_train", bwd_name),
-                      "cli_train_pallas": cli_launches("cli_train_pallas", bwd_name)},
+                      "cli_train_pallas": cli_launches("cli_train_pallas", bwd_name),
+                      "families_train": fam(fam_train, "fused_flow_composite_bwd"),
+                      "cli_families": fam(cli_fam, "fused_flow_composite_bwd")},
                      bwd_stats),
         kernel_entry("flow_stack_fwd", flow_stack.SOURCE, flow_stack.REPLACES,
                      {"hier_serve": hier_serve_launches,
@@ -3432,7 +3942,11 @@ def main() -> int:
                       "serve_unfused_check": unfused_launches,
                       "trunk_hier_train": trunk_hier_train["fused_flow_stack"],
                       "occ_serve": occ_serve["bake"], "occ_prop_serve": occ_prop_serve["distill"],
-                      "occ_train": occ_train["fused_flow_stack"]},
+                      "occ_train": occ_train["fused_flow_stack"],
+                      "sample_interp": sample_interp_launches,
+                      "families_serve": fam(fam_serve, "fused_flow_stack"),
+                      "families_train": fam(fam_train, "fused_flow_stack"),
+                      "cli_families": fam(cli_fam, "fused_flow_stack")},
                      flow_stats["fwd"]),
         kernel_entry("flow_stack_bwd", flow_stack.SOURCE_BWD, flow_stack.REPLACES_BWD,
                      {"hier_train": hier_train["fused_flow_stack_bwd"],
@@ -3443,12 +3957,17 @@ def main() -> int:
                       "trunk_hier_serve": trunk_hier_launches,
                       "trunk_train": trunk_train["trunk_encode"],
                       "trunk_hier_train": trunk_hier_train["trunk_encode"],
-                      "cli_train_pallas": cli_launches("cli_train_pallas", "trunk_encode")},
+                      "cli_train_pallas": cli_launches("cli_train_pallas", "trunk_encode"),
+                      "families_serve": fam(fam_serve, "trunk_encode"),
+                      "families_train": fam(fam_train, "trunk_encode"),
+                      "cli_families": fam(cli_fam, "trunk_encode")},
                      trunk_stats),
         kernel_entry("trunk_bwd", trunk.SOURCE_BWD, ", ".join(trunk.REPLACES_BWD),
                      {"trunk_train": trunk_train["trunk_encode_bwd"],
                       "trunk_hier_train": trunk_hier_train["trunk_encode_bwd"],
-                      "cli_train_pallas": cli_launches("cli_train_pallas", "trunk_encode_bwd")},
+                      "cli_train_pallas": cli_launches("cli_train_pallas", "trunk_encode_bwd"),
+                      "families_train": fam(fam_train, "trunk_encode_bwd"),
+                      "cli_families": fam(cli_fam, "trunk_encode_bwd")},
                      trunk_bwd_stats),
     ]}), flush=True)
     emit("wall", seconds=time.perf_counter() - t_start)

@@ -7,8 +7,11 @@ FLAGS are the flags of the JAX run (e.g. --config configs/africa_ds.txt
 --netdepth 8 --netwidth 512 ... as scripts/train_NF.sh passes them): the
 JAX model is built from them, the checkpoint read as cfnerf_tpu's
 restore_checkpoint reads it (filtered into that model's fresh params), each
-network's test-mode eps taken from the JAX model (`_test_eps`), and the
-weights mapped through cfnerf_torch.convert into the port's state dicts.
+network's test-mode eps taken from the JAX model (NeRFFlows' `_test_eps`;
+nerf_wild's normal draws from PRNGKey(test_eps_seed); the other baselines
+have none), and the weights mapped through cfnerf_torch.convert's
+state_dict_from_jax, which picks the map from --model and --type_flows,
+into the port's state dicts.
 They are written with the port's save_checkpoint under the checkpoint's own
 {step:06d}_{ensemble:02d} name, into RUN_DIR, by default the run dir the
 flags name (basedir/dataname/type_flows/expname), where the port's
@@ -40,14 +43,10 @@ def convert(jax_ckpt: str, args, out: Optional[str] = None) -> str:
     from cfnerf_tpu.models import factory as jfactory
     from cfnerf_tpu.models.nerf_flows import NeRFFlows as JaxNeRFFlows
     from cfnerf_tpu.train import checkpoint as jckpt
-    from cfnerf_torch.convert import nerf_flows_state_dict_from_jax
+    from cfnerf_torch.convert import state_dict_from_jax
     from cfnerf_torch.train import checkpoint as tckpt
 
     model, model_fine, _ = jfactory.build_model(args)
-    if not isinstance(model, JaxNeRFFlows) or args.type_flows != "triangular":
-        raise NotImplementedError(
-            f"--model {args.model} --type_flows {args.type_flows}: the port converts "
-            "triangular NeRF_Flows checkpoints only")
     seed = getattr(args, "seed", 0)
     fresh = jfactory.init_params(model, seed)
     if model_fine is not None:
@@ -60,8 +59,15 @@ def convert(jax_ckpt: str, args, out: Optional[str] = None) -> str:
         nets.append(("fine", model_fine, params["fine"]))
     state = {}
     for name, net, p in nets:
-        eps = net.apply({"params": p}, method=JaxNeRFFlows._test_eps)
-        state[name] = nerf_flows_state_dict_from_jax(p, tuple(np.asarray(e) for e in eps))
+        if isinstance(net, JaxNeRFFlows):
+            eps = tuple(np.asarray(e) for e in
+                        net.apply({"params": p}, method=JaxNeRFFlows._test_eps))
+        elif net.kind == "nerf_wild":
+            eps = np.asarray(jax.random.normal(jax.random.PRNGKey(net.test_eps_seed),
+                                               (net.k_samples, 3)))
+        else:
+            eps = None
+        state[name] = state_dict_from_jax(p, args.model, args.type_flows, eps)
 
     m = tckpt._CKPT_RE.match(os.path.basename(os.path.normpath(jax_ckpt)))
     ensemble = int(m.group(2)) if m else args.index_ensembles

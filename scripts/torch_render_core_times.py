@@ -10,7 +10,8 @@ archive` into a directory that .gitignore lists, or a variant of a kernel).
 Each checkout is timed in a process of its own that imports that
 checkout's `cfnerf_torch` (its kernels built into its own build/kernels/),
 in the order DIR, DIR2, ..., this, this, ..., DIR2, DIR, on the same inputs
-as chip_smoke.py's `kernel_time` lines:
+as chip_smoke.py's `kernel_time` lines (this checkout's chip_smoke.py, or
+DIR's own where DIR's package lacks a name this one imports):
 
   fwd_serve  the forward at the flagship serving tile (R=8192, S=128, K=32,
              F=4, test mode), 20 launches, inputs larger than the L2;
@@ -104,10 +105,20 @@ def worker(tree: Path, label: str, checks: bool, sass: str | None,
     import torch
 
     # this checkout's chip_smoke.py (inputs, work model, timer, checks), on
-    # the other checkout's package when that one is timed
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    # the other checkout's package when that one is timed; where that package
+    # predates a name this chip_smoke.py imports, the other checkout's own
+    smokes = [ROOT / "chip_smoke.py"]
+    if (tree / "chip_smoke.py").exists() and tree.resolve() != ROOT:
+        smokes.append(tree / "chip_smoke.py")
+    for i, smoke in enumerate(smokes):
+        spec = importlib.util.spec_from_file_location("chip_smoke", smoke)
+        cs = importlib.util.module_from_spec(spec)
+        try:
+            spec.loader.exec_module(cs)
+            break
+        except ImportError:
+            if i == len(smokes) - 1:
+                raise
     from cfnerf_torch.ops.kernels import _build, flow_stack, render_core
 
     if not Path(render_core.__file__).resolve().is_relative_to(tree.resolve()):
