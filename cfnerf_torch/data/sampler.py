@@ -113,9 +113,17 @@ class RayBatcher:
     next() yields dict(rays_o (B,3), rays_d (B,3), target (B,3)) and
     reshuffles at each epoch boundary (reference :946-951).  Reshuffles
     permute an index array, never the data, so batches already handed out
-    stay as they were; every batch is an owned copy."""
+    stay as they were; every batch is an owned copy.  batch_size must be a
+    multiple of mesh_divisor, the ray axis's share count (1 on one card; the
+    ensemble trainer passes its data axis, as the JAX package does)."""
 
-    def __init__(self, rays_rgb: np.ndarray, batch_size: int, *, seed: int = 0):
+    def __init__(self, rays_rgb: np.ndarray, batch_size: int, *, seed: int = 0,
+                 mesh_divisor: int = 1):
+        if batch_size % mesh_divisor != 0:
+            raise ValueError(
+                f"batch_size={batch_size} must be divisible by the mesh data "
+                f"axis size ({mesh_divisor}) so the ray axis shards evenly"
+            )
         self.data = rays_rgb
         self.batch_size = batch_size
         self.i = 0

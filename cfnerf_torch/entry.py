@@ -9,7 +9,7 @@ disp_map (R, K), depth_map (R, K)).  The model is the first example
 argument, as the params are JAX's; its weights are init_params' from seed
 0.  On the CUDA device unless entry(device="cpu"); the same seed gives the
 same weights on both.  The multi-device dry run (JAX's dryrun_multichip)
-comes with slice 8.
+comes with slice 8c.
 """
 from __future__ import annotations
 

@@ -24,7 +24,7 @@ checkpoints, test-set renders and videos.
     loss or gradients hold a NaN / an inf, inner steps of --n_inner
     included (a host read each step, under those flags only);
   * --mesh_devices > 1 and --model_parallel > 1 raise NotImplementedError:
-    more than one device comes with slice 8.
+    more than one device comes with slice 8c.
 
 Test-mode renders (the val stream, i_img, the test set, the video, render
 only) run at --K_samples with the model's fixed eps.  The loop runs on the
@@ -298,11 +298,11 @@ def check_single_device(args) -> None:
     if int(getattr(args, "mesh_devices", 0) or 0) > 1:
         raise NotImplementedError(
             f"--mesh_devices {args.mesh_devices}: training and serving over a device "
-            "mesh come with slice 8")
+            "mesh come with slice 8c")
     if int(getattr(args, "model_parallel", 1) or 1) > 1:
         raise NotImplementedError(
             f"--model_parallel {args.model_parallel}: the tensor-parallel trunk comes "
-            "with slice 8")
+            "with slice 8c")
 
 
 def _to_device(batch: dict, dev: torch.device) -> dict:

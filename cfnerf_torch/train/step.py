@@ -188,7 +188,7 @@ def make_train_step(
     it survives a K boundary inside the occ stage.
     """
     if mesh is not None:
-        raise NotImplementedError("training over a device mesh comes with slice 8")
+        raise NotImplementedError("training over a device mesh comes with slice 8c")
     if model_fine is not None and render_config.n_importance == 0:
         raise ValueError("a fine network needs render_config.n_importance > 0")
     if cfg.loss_mode not in ("kde", "mse"):

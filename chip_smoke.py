@@ -178,8 +178,17 @@ final line):
                    --type_flows householder --trunk_impl pallas, and without
                    --type_flows (the parser's no_flow); each evaluated at
                    step 100: finite metrics, launches exact
- 32. rates         every path's rays/s of this run, side by side
- 33. kernels       per-kernel launches, error, time, plain time and bound;
+ 32. ensemble      cfnerf_torch.cli.ensemble on the capture at train_NF.sh's
+                   flags: (a) 3 members trained serially, 100 steps each;
+                   (b) the mixture eval of all three, of 1 and 3, of each
+                   alone, --members auto under train_psnr and val_nll; (c)
+                   --parallel in a fresh run dir, each member's checkpoint
+                   against its serial one (relative 1e-5 a tensor, 0
+                   expected), the tagged scalars, its mixture eval, its loop
+                   rate against (a)'s, peak memory; (d) --parallel
+                   --trunk_impl pallas, 2 members, 20 steps; launches exact
+ 33. rates         every path's rays/s of this run, side by side
+ 34. kernels       per-kernel launches, error, time, plain time and bound;
                    trunk_fwd's entry also the training variant's
                    (fwd_save_*, at the flat training step)
 
@@ -251,6 +260,7 @@ from cfnerf_torch.render.renderer import (
     render_image,
 )
 from cfnerf_torch.train import checkpoint as ckpt
+from cfnerf_torch.cli import ensemble as cli_ensemble
 from cfnerf_torch.cli import eval as cli_eval
 from cfnerf_torch.cli import train as cli_train
 from cfnerf_torch.entry import entry
@@ -3792,6 +3802,245 @@ def phase_cli_families(tmp):
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# ensemble: serial members, the mixture eval and the member axis (slice 8)
+# ---------------------------------------------------------------------- #
+
+ENS_MEMBERS = 3
+ENS_STEPS, ENS_PRINT = 100, 10
+# no image, video or test-set cadence: the val batch at each i_print and the
+# checkpoints at the last step
+ENS_CADENCES = ["--n_iters", str(ENS_STEPS), "--i_print", str(ENS_PRINT),
+                "--i_weights", str(ENS_STEPS), "--i_img", "0", "--i_testset", "0",
+                "--i_video", "0"]
+ENS_PALLAS_MEMBERS, ENS_PALLAS_STEPS = 2, 20
+# --parallel against the serial members' checkpoints, per tensor, relative
+# to its largest magnitude: the same steps through the same kernels in the
+# same order, so 0 is expected
+ENS_CKPT_RTOL = 1e-5
+# (c)'s loop rays/s against (a)'s: the same work, M single steps a call;
+# the floor leaves room for the host clocks' spread between two runs
+ENS_RATE_FLOOR = 0.95
+ENS_COUNTERS = (render_core.fused_flow_composite, render_core.fused_flow_composite_bwd,
+                flow_stack.fused_flow_stack, flow_stack.fused_flow_stack_bwd,
+                trunk.trunk_encode, trunk.trunk_encode_bwd)
+# eval label -> the flags that pick its members, and the members it must mix
+# (None: --members auto, whatever the gate keeps)
+ENS_EVALS = (("all", [], [1, 2, 3]), ("m1-3", ["--members", "1,3"], [1, 3]),
+             ("m1", ["--members", "1"], [1]), ("m2", ["--members", "2"], [2]),
+             ("m3", ["--members", "3"], [3]),
+             ("auto_train_psnr", ["--members", "auto"], None),
+             ("auto_val_nll", ["--members", "auto", "--gate_metric", "val_nll"], None))
+
+
+def ens_run(argv):
+    """cli.ensemble.main(argv) with every kernel's launches counted (reset
+    just before, read just after) and its seconds on the host clock."""
+    for c in ENS_COUNTERS:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result, text = with_output(cli_ensemble.main, argv)
+    torch.cuda.synchronize()
+    return dict(result=result, text=text, seconds=time.perf_counter() - t0,
+                launches={c.__name__: c.launches for c in ENS_COUNTERS})
+
+
+def ens_want(fwd=0, bwd=0, trunk_kernels=False):
+    counts = dict.fromkeys((c.__name__ for c in ENS_COUNTERS), 0)
+    counts[render_core.fused_flow_composite.__name__] = fwd
+    counts[render_core.fused_flow_composite_bwd.__name__] = bwd
+    if trunk_kernels:  # a trunk forward beside every render-core one
+        counts[trunk.trunk_encode.__name__] = fwd
+        counts[trunk.trunk_encode_bwd.__name__] = bwd
+    return counts
+
+
+def ens_records(basedir, expname="ens"):
+    with open(os.path.join(basedir, "minicapture", "summaries", expname, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def ens_train_checks(label, run, records, n_members, steps, parallel, trunk_kernels=False):
+    """A training run's gates: launches exact from the cadences (a render-core
+    forward and backward a member step, a forward a member's val batch),
+    the records at every i_print, finite; returns the loop's rays/s over
+    the records' clock (first to last i_print, every member)."""
+    prints = list(range(ENS_PRINT, steps + 1, ENS_PRINT))
+    want = ens_want(n_members * (steps + len(prints)), n_members * steps, trunk_kernels)
+    check(run["launches"] == want, f"ensemble {label}: launched {run['launches']}, want {want}")
+    rays = N_RAND + N_DEPTH
+    if parallel:
+        tagged = {f"{k}_m{m:02d}" for k in ("train/psnr", "val/psnr", "val/nll")
+                  for m in range(1, n_members + 1)}
+        check([r["step"] for r in records] == prints
+              and all(tagged | {"train/loss", "val/mse", "iter_time"} <= set(r)
+                      and all(math.isfinite(v) for v in r.values()) for r in records),
+              f"ensemble {label}: metrics.jsonl steps {[r['step'] for r in records]}")
+        segments = [records]
+    else:
+        check([r["step"] for r in records] == prints * n_members
+              and all({"train/psnr", "val/psnr", "val/nll"} <= set(r)
+                      and all(math.isfinite(v) for v in r.values()) for r in records),
+              f"ensemble {label}: metrics.jsonl steps {[r['step'] for r in records]}")
+        segments = [records[i:i + len(prints)] for i in range(0, len(records), len(prints))]
+    loop_s = sum(seg[-1]["t"] - seg[0]["t"] for seg in segments)
+    return (steps - ENS_PRINT) * n_members * rays / loop_s
+
+
+def ens_eval_checks(label, run, rundir, want_members, n_val):
+    summary = run["result"]
+    members = summary["members"]
+    if want_members is None:
+        check("--members auto:" in run["text"] and set(members) <= {1, 2, 3} and members,
+              f"ensemble eval {label}: --members auto kept {members}")
+    else:
+        check(members == want_members, f"ensemble eval {label}: members {members}")
+    check(all(math.isfinite(summary[k]) for k in QUALITY)
+          and all(math.isfinite(v[k]) for v in summary["views"] for k in QUALITY),
+          f"ensemble eval {label}: finite metrics {quality_of(summary)}")
+    want = ens_want(len(members) * n_val)  # one tile a member's view
+    check(run["launches"] == want,
+          f"ensemble eval {label}: launched {run['launches']}, want {want}")
+    tag = (f"eval_ensemble{ENS_MEMBERS}" if len(members) == ENS_MEMBERS
+           else "eval_ensemble_m" + "-".join(str(m) for m in members))
+    outdir = os.path.join(rundir, f"{tag}_{ENS_STEPS:06d}")
+    files = {f"{v['view']:03d}_{s}" for v in summary["views"] for s in ("pred.png", "std.png")}
+    check(set(os.listdir(outdir)) == files | {"metrics.json"},
+          f"ensemble eval {label}: {outdir} holds {sorted(os.listdir(outdir))}")
+    return {"members": members, **quality_of(summary), "seconds": run["seconds"],
+            "launches": run["launches"]}
+
+
+def ens_checkpoint_err(path_a, path_b):
+    """Largest per-tensor |a - b| / max|b| over two checkpoints' tensors
+    (weights, eps buffers, Adam's moments), and their step."""
+    a, b = (torch.load(os.path.join(p, ckpt.STATE_FILE), map_location="cpu",
+                       weights_only=True) for p in (path_a, path_b))
+    errs = []
+
+    def walk(x, y, where):
+        if isinstance(x, dict):
+            check(set(x) == set(y), f"checkpoint keys at {where}")
+            for k in x:
+                walk(x[k], y[k], f"{where}/{k}")
+        elif isinstance(x, torch.Tensor):
+            check(x.shape == y.shape, f"checkpoint shape at {where}")
+            scale = float(y.abs().max()) if y.numel() else 0.0
+            diff = float((x - y).abs().max()) if x.numel() else 0.0
+            errs.append(diff / scale if scale > 0 else diff)
+        else:
+            check(x == y, f"checkpoint value at {where}: {x} vs {y}")
+
+    walk(a["params"], b["params"], "params")
+    walk(a["opt_state"], b["opt_state"], "opt_state")
+    check(a["global_step"] == b["global_step"] == ENS_STEPS,
+          f"checkpoint steps {a['global_step']} / {b['global_step']}")
+    return max(errs), len(errs)
+
+
+def phase_ensemble(tmp):
+    """cfnerf_torch.cli.ensemble on a copy of the capture at
+    scripts/train_NF.sh's flags: (a) serial training of 3 members, 100
+    steps each; (b) the mixture eval of all three, of members 1 and 3, of
+    each alone and of --members auto under train_psnr and val_nll; (c)
+    --parallel training of 3 members in a fresh run dir, each member's
+    checkpoint against its serial one, the tagged scalars, its mixture
+    eval, its loop rate against (a)'s, its peak memory; (d) --parallel
+    --trunk_impl pallas, 2 members, 20 steps.  Launches exact everywhere.
+    Returns each kernel's launches over the phase."""
+    t_phase = time.perf_counter()
+    datadir = shutil.copytree(CAPTURE, os.path.join(tmp, "minicapture"))
+    n = ["--n_members", str(ENS_MEMBERS)]
+
+    # (a) serial
+    flags_a = cli_flags(datadir, os.path.join(tmp, "serial"), "ens") + n
+    args_a = cli_ensemble.parser().parse_args(flags_a)
+    rundir_a = ckpt.run_dir(args_a.basedir, args_a.dataname, args_a.type_flows, "ens")
+    serial = ens_run(["train", *flags_a, "--is_train", *ENS_CADENCES])
+    serial_records = ens_records(args_a.basedir)
+    serial_rate = ens_train_checks("serial", serial, serial_records, ENS_MEMBERS, ENS_STEPS,
+                                   parallel=False)
+    RATES["ensemble_serial"] = serial_rate
+
+    # (b) the mixture evals of the serial run
+    evals, runs = {}, [serial]
+    n_val = None
+    for label, extra, want_members in ENS_EVALS:
+        run = ens_run(["eval", *flags_a, *extra])
+        n_val = n_val or len(run["result"]["views"])
+        evals[label] = ens_eval_checks(label, run, rundir_a, want_members, n_val)
+        runs.append(run)
+
+    # (c) --parallel in a fresh run dir
+    flags_c = cli_flags(datadir, os.path.join(tmp, "parallel"), "ens") + n
+    args_c = cli_ensemble.parser().parse_args(flags_c)
+    rundir_c = ckpt.run_dir(args_c.basedir, args_c.dataname, args_c.type_flows, "ens")
+    torch.cuda.reset_peak_memory_stats()
+    parallel = ens_run(["train", *flags_c, "--is_train", "--parallel", *ENS_CADENCES])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    parallel_records = ens_records(args_c.basedir)
+    parallel_rate = ens_train_checks("parallel", parallel, parallel_records, ENS_MEMBERS,
+                                     ENS_STEPS, parallel=True)
+    RATES["ensemble_parallel"] = parallel_rate
+    runs.append(parallel)
+    ckpt_errs = {}
+    for m in range(1, ENS_MEMBERS + 1):
+        name = f"{ENS_STEPS:06d}_{m:02d}"
+        err, n_tensors = ens_checkpoint_err(os.path.join(rundir_c, name),
+                                            os.path.join(rundir_a, name))
+        ckpt_errs[f"m{m:02d}"] = {"max_rel_err": err, "tensors": n_tensors}
+        check(err <= ENS_CKPT_RTOL,
+              f"member {m}'s --parallel checkpoint vs its serial one: relative max {err}")
+    print(f"ensemble: --parallel vs serial checkpoints, largest per-tensor relative "
+          f"difference {max(e['max_rel_err'] for e in ckpt_errs.values())}", flush=True)
+    per_print = len(parallel_records)
+    psnr_diff = max(abs(r[f"train/psnr_m{m:02d}"] - serial_records[(m - 1) * per_print + i][
+        "train/psnr"]) for i, r in enumerate(parallel_records) for m in range(1, ENS_MEMBERS + 1))
+    check(parallel_rate >= ENS_RATE_FLOOR * serial_rate,
+          f"--parallel loop {parallel_rate} rays/s vs serial {serial_rate}")
+    run = ens_run(["eval", *flags_c])
+    parallel_eval = ens_eval_checks("parallel", run, rundir_c, [1, 2, 3], n_val)
+    runs.append(run)
+
+    # (d) --parallel through the trunk kernels
+    flags_d = (cli_flags(datadir, os.path.join(tmp, "pallas"), "ens", "--trunk_impl", "pallas")
+               + ["--n_members", str(ENS_PALLAS_MEMBERS)])
+    cad_d = ["--n_iters", str(ENS_PALLAS_STEPS), "--i_print", str(ENS_PRINT), "--i_weights",
+             str(ENS_PALLAS_STEPS), "--i_img", "0", "--i_testset", "0", "--i_video", "0"]
+    pallas = ens_run(["train", *flags_d, "--is_train", "--parallel", *cad_d])
+    args_d = cli_ensemble.parser().parse_args(flags_d)
+    pallas_rate = ens_train_checks("parallel pallas", pallas, ens_records(args_d.basedir),
+                                   ENS_PALLAS_MEMBERS, ENS_PALLAS_STEPS, parallel=True,
+                                   trunk_kernels=True)
+    rundir_d = ckpt.run_dir(args_d.basedir, args_d.dataname, args_d.type_flows, "ens")
+    check(all(os.path.exists(os.path.join(rundir_d, f"{ENS_PALLAS_STEPS:06d}_{m:02d}",
+                                          ckpt.STATE_FILE))
+              for m in range(1, ENS_PALLAS_MEMBERS + 1)), "(d)'s member checkpoints")
+    RATES["ensemble_parallel_pallas"] = pallas_rate
+    runs.append(pallas)
+
+    emit("ensemble", nvidia_smi=nvidia_smi_line(), members=ENS_MEMBERS, steps=ENS_STEPS,
+         rays_per_step=N_RAND + N_DEPTH, n_val=n_val,
+         serial={"seconds": serial["seconds"], "launches": serial["launches"],
+                 "loop_rays_per_s": serial_rate,
+                 "train_psnr": [r["train/psnr"] for r in serial_records]},
+         evals=evals,
+         parallel={"seconds": parallel["seconds"], "launches": parallel["launches"],
+                   "loop_rays_per_s": parallel_rate, "peak_gb": peak_gb,
+                   "rate_vs_serial": parallel_rate / serial_rate,
+                   "checkpoints_vs_serial": ckpt_errs,
+                   "train_psnr_max_abs_diff_vs_serial": psnr_diff,
+                   "eval": parallel_eval,
+                   "iter_time_ms": [1e3 * r["iter_time"] for r in parallel_records]},
+         parallel_pallas={"members": ENS_PALLAS_MEMBERS, "steps": ENS_PALLAS_STEPS,
+                          "seconds": pallas["seconds"], "launches": pallas["launches"],
+                          "loop_rays_per_s": pallas_rate},
+         phase_s=time.perf_counter() - t_phase,
+         gates={"checkpoint_rel_err": ENS_CKPT_RTOL, "parallel_rate_floor": ENS_RATE_FLOOR})
+    return {c.__name__: sum(r["launches"][c.__name__] for r in runs) for c in ENS_COUNTERS}
+
+
 def kernel_entry(name, source, replaces, launches_by_path, stats):
     """`launches` totals the per-path counts; `launches_by_path` keeps each
     path's own count, reset just before that path and read just after."""
@@ -3874,6 +4123,8 @@ def main() -> int:
     sample_interp_launches = phase_sample_interp()
     with tempfile.TemporaryDirectory(prefix="cfnerf_cli_families_") as tmp:
         cli_fam = phase_cli_families(tmp)
+    with tempfile.TemporaryDirectory(prefix="cfnerf_ensemble_") as tmp:
+        ens = phase_ensemble(tmp)
     emit("rates", rays_per_s=RATES)
 
     def fam(part, name):
@@ -3907,7 +4158,10 @@ def main() -> int:
     # cli_train and cli_train_pallas: a render-core forward and backward a
     # step and a forward a val batch, a test-set view, a spiral frame and an
     # evaluated view (a trunk forward beside each with pallas, a trunk
-    # backward a step); cli_render_only: a forward a spiral frame; entry: one
+    # backward a step); cli_render_only: a forward a spiral frame; entry: one;
+    # ensemble: a render-core forward and backward a member step, a forward
+    # a member's val batch and a member's evaluated view, a trunk forward and
+    # backward beside them in its pallas run, no flow stack
     fwd_name, bwd_name = (render_core.fused_flow_composite.__name__,
                           render_core.fused_flow_composite_bwd.__name__)
     print(json.dumps({"kernels": [
@@ -3923,7 +4177,7 @@ def main() -> int:
                       "cli_train": cli_launches("cli_train", fwd_name),
                       "cli_train_pallas": cli_launches("cli_train_pallas", fwd_name),
                       "cli_render_only": render_only_launches, "entry": entry_launches,
-                      **slice7_core},
+                      **slice7_core, "ensemble": ens[fwd_name]},
                      fwd_stats),
         kernel_entry("render_core_bwd", render_core.SOURCE_BWD, render_core.REPLACES_BWD,
                      {"train": train["fused_flow_composite_bwd"],
@@ -3934,7 +4188,8 @@ def main() -> int:
                       "cli_train": cli_launches("cli_train", bwd_name),
                       "cli_train_pallas": cli_launches("cli_train_pallas", bwd_name),
                       "families_train": fam(fam_train, "fused_flow_composite_bwd"),
-                      "cli_families": fam(cli_fam, "fused_flow_composite_bwd")},
+                      "cli_families": fam(cli_fam, "fused_flow_composite_bwd"),
+                      "ensemble": ens[bwd_name]},
                      bwd_stats),
         kernel_entry("flow_stack_fwd", flow_stack.SOURCE, flow_stack.REPLACES,
                      {"hier_serve": hier_serve_launches,
@@ -3946,11 +4201,13 @@ def main() -> int:
                       "sample_interp": sample_interp_launches,
                       "families_serve": fam(fam_serve, "fused_flow_stack"),
                       "families_train": fam(fam_train, "fused_flow_stack"),
-                      "cli_families": fam(cli_fam, "fused_flow_stack")},
+                      "cli_families": fam(cli_fam, "fused_flow_stack"),
+                      "ensemble": ens["fused_flow_stack"]},
                      flow_stats["fwd"]),
         kernel_entry("flow_stack_bwd", flow_stack.SOURCE_BWD, flow_stack.REPLACES_BWD,
                      {"hier_train": hier_train["fused_flow_stack_bwd"],
-                      "trunk_hier_train": trunk_hier_train["fused_flow_stack_bwd"]},
+                      "trunk_hier_train": trunk_hier_train["fused_flow_stack_bwd"],
+                      "ensemble": ens["fused_flow_stack_bwd"]},
                      flow_stats["bwd"]),
         kernel_entry("trunk_fwd", trunk.SOURCE, trunk.REPLACES,
                      {"trunk_serve": trunk_flat_launches,
@@ -3960,14 +4217,16 @@ def main() -> int:
                       "cli_train_pallas": cli_launches("cli_train_pallas", "trunk_encode"),
                       "families_serve": fam(fam_serve, "trunk_encode"),
                       "families_train": fam(fam_train, "trunk_encode"),
-                      "cli_families": fam(cli_fam, "trunk_encode")},
+                      "cli_families": fam(cli_fam, "trunk_encode"),
+                      "ensemble": ens["trunk_encode"]},
                      trunk_stats),
         kernel_entry("trunk_bwd", trunk.SOURCE_BWD, ", ".join(trunk.REPLACES_BWD),
                      {"trunk_train": trunk_train["trunk_encode_bwd"],
                       "trunk_hier_train": trunk_hier_train["trunk_encode_bwd"],
                       "cli_train_pallas": cli_launches("cli_train_pallas", "trunk_encode_bwd"),
                       "families_train": fam(fam_train, "trunk_encode_bwd"),
-                      "cli_families": fam(cli_fam, "trunk_encode_bwd")},
+                      "cli_families": fam(cli_fam, "trunk_encode_bwd"),
+                      "ensemble": ens["trunk_encode_bwd"]},
                      trunk_bwd_stats),
     ]}), flush=True)
     emit("wall", seconds=time.perf_counter() - t_start)
