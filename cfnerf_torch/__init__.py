@@ -17,6 +17,8 @@ Layout mirrors cfnerf_tpu so each module's counterpart is easy to find:
   data/         LLFF and Blender loaders, COLMAP files, pose math, PNG I/O
                 and the two resamplers (image_io), host-side ray precompute,
                 batch samplers and the batch prefetcher
+  parallel/     several devices over torch.distributed (the mesh, its
+                launch) and the ensemble's member axis
   utils/        the flag parser (the JAX package's flags), device selection
   convert.py    weights (and gradients) carried across from a cfnerf_tpu
                 params pytree

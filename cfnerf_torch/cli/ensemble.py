@@ -16,7 +16,11 @@ The reference has ensembles only as checkpoint-name indices
           members that pass a gate on the run's own logged scalars
 
 Runs on the CUDA device; main(argv, device="cpu") and the functions'
-device="cpu" run the same paths on the CPU.
+device="cpu" run the same paths on the CPU.  --mesh_devices N (0: every
+visible card) runs on N ranks: --parallel over the (ensemble, data) mesh of
+parallel/ensemble.py (gcd(M, N) ranks on the member axis, each rank its
+block of members and its rows of their rays), eval over the data mesh, the
+serial trainer each member's run over the (data, model) mesh.
 """
 from __future__ import annotations
 
@@ -30,7 +34,9 @@ from typing import List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from cfnerf_torch.parallel.mesh import launch, rank_device
 from cfnerf_torch.utils.config import config_parser
 from cfnerf_torch.utils.device import DeviceLike, resolve_device
 
@@ -62,7 +68,13 @@ def train_ensemble_parallel(args, n_members: int, device: DeviceLike = None) -> 
     stages and the occ stage (each member's proposal distilled at the
     boundary from its own generator).  --N_importance and --render_only
     raise, as in JAX; the render cadences (i_img / i_video / i_testset) are
-    left to the serial path, eval_ensemble renders."""
+    left to the serial path, eval_ensemble renders.
+
+    With --mesh_devices > 1 the run is launched on that many ranks over
+    create_ensemble_mesh(M, N): a rank trains its block of members on its
+    rows of their batches, a member's gradient reduced over its data ranks;
+    data rank 0 of each ensemble group writes its members' checkpoints and
+    global rank 0 the log, every member's scalars gathered to it."""
     from cfnerf_torch.data.prefetch import BatchPrefetcher
     from cfnerf_torch.data.sampler import (
         N_DEPTH,
@@ -75,10 +87,13 @@ def train_ensemble_parallel(args, n_members: int, device: DeviceLike = None) -> 
     from cfnerf_torch.models.factory import create_nerf, loss_mode_for_model
     from cfnerf_torch.ops.metrics import img2mse, mse2psnr
     from cfnerf_torch.parallel.ensemble import (
+        create_ensemble_mesh,
         make_ensemble_train_loop,
         make_ensemble_train_step,
         member_generators,
+        shard_members,
     )
+    from cfnerf_torch.parallel.mesh import gcd_split, is_writer, mean_over, replicate, shard_batch
     from cfnerf_torch.render.renderer import make_render_rays, prepare_rays
     from cfnerf_torch.train import checkpoint as ckpt
     from cfnerf_torch.train.logging import MetricsLogger
@@ -87,9 +102,10 @@ def train_ensemble_parallel(args, n_members: int, device: DeviceLike = None) -> 
         _crossed,
         _snapshot_args,
         _to_device,
-        check_single_device,
         k_for_step,
         load_dataset,
+        mesh_devices,
+        needs_launch,
         occ_floor_for_step,
         parse_k_schedule,
     )
@@ -97,9 +113,6 @@ def train_ensemble_parallel(args, n_members: int, device: DeviceLike = None) -> 
     from cfnerf_torch.train.step import OccTrainConfig, TrainConfig, make_optimizer
     from cfnerf_torch.utils.config import warn_ignored_flags
 
-    dev = resolve_device(device)
-    warn_ignored_flags(args)
-    check_single_device(args)
     if args.N_importance > 0:
         raise ValueError(
             "--parallel ensemble training does not take the hierarchical "
@@ -109,19 +122,56 @@ def train_ensemble_parallel(args, n_members: int, device: DeviceLike = None) -> 
     if args.render_only:
         raise ValueError("--render_only has no parallel-ensemble mode; use "
                          "cli.ensemble eval")
+    n_devices = mesh_devices(args, device)
+    n_ens, n_data = gcd_split(n_members, n_devices)
+    if args.N_rand % n_data != 0:
+        raise ValueError(
+            f"N_rand={args.N_rand} must be divisible by the mesh data axis "
+            f"({n_data}; ensemble axis took {n_ens})"
+        )
+    if needs_launch(n_devices):
+        launch(_train_ensemble_rank, n_devices, args, n_members, device, device=device)
+        return
+    dev = resolve_device(device)
+    warn_ignored_flags(args)
 
     scene = load_dataset(args)
     H, W, focal = scene["H"], scene["W"], scene["focal"]
     rundir = ckpt.run_dir(args.basedir, args.dataname, args.type_flows, args.expname)
-    _snapshot_args(args, rundir)
-    n_data = 1  # the ray axis's share: one device
+    writer = is_writer()
+    if writer:
+        _snapshot_args(args, rundir)
+    mesh = create_ensemble_mesh(n_members, n_devices) if dist.is_initialized() else None
+    # this rank's members (1-based), a contiguous block as P('ensemble') lays them
+    mine = [int(m) for m in (range(1, n_members + 1) if mesh is None
+                             else shard_members(mesh, np.arange(1, n_members + 1)))]
+    n_mine = len(mine)
+    # the member checkpoints' writer: data rank 0 of each ensemble group
+    member_writer = mesh is None or mesh.index("data") == 0
+
+    def shard(batch):
+        return batch if mesh is None else shard_batch(mesh, batch)
+
+    def gather_members(values: np.ndarray) -> np.ndarray:
+        """(my members, ...) -> (M, ...): every ensemble group's, in order."""
+        if mesh is None:
+            return values
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, values)
+        return np.concatenate(every[::n_data])
 
     # per-member build + resume (the serial path's seeds and checkpoint indices)
     models, starts = [], []
-    for m in range(1, n_members + 1):
+    for m in mine:
         model, _fine, render_config, start_m = create_nerf(_member_args(args, m), dev)
+        if mesh is not None:
+            replicate(mesh, model)
         models.append(model)
         starts.append(start_m)
+    if mesh is not None:
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, starts)
+        starts = [s for ranks_starts in every[::n_data] for s in ranks_starts]
     if len(set(starts)) > 1:
         raise ValueError(
             f"ensemble members resume at different steps {starts}; finish "
@@ -130,14 +180,15 @@ def train_ensemble_parallel(args, n_members: int, device: DeviceLike = None) -> 
         )
     start = starts[0]
     n_params = sum(p.numel() for p in models[0].parameters())
-    print(f"ensemble-parallel: {n_members} members x {n_params:,} params on {dev} "
+    where = dev if mesh is None else f"mesh {dict(mesh.shape)}"
+    print(f"ensemble-parallel: {n_members} members x {n_params:,} params on {where} "
           f"(resume step {start})")
 
     # per-member ray streams (each member sees the stream its serial run
     # would: precompute + batcher seeded with the member seed)
     use_batching = not args.no_batching
     member_batchers, member_depth = [], []
-    for m in range(1, n_members + 1):
+    for m in mine:
         seed_m = args.seed + 1000 * m
         if use_batching:
             rays_m = precompute_rays(scene["images"], scene["poses"], focal, scene["i_train"],
@@ -182,9 +233,12 @@ def train_ensemble_parallel(args, n_members: int, device: DeviceLike = None) -> 
             render_val = [make_render_rays(m, render_config) for m in models]
 
     def val_fn(batch):
-        """Each member's test-mode mse, psnr and KDE NLL of one val batch."""
+        """Each member's test-mode mse, psnr and KDE NLL of one val batch
+        (under a mesh each rank scores its rows; the means over the data
+        axis, every member's gathered)."""
         with torch.inference_mode():
-            b = {k: torch.as_tensor(v, dtype=torch.float32, device=dev) for k, v in batch.items()}
+            b = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+                 for k, v in shard(batch).items()}
             ro, rd, vd, near_v, far_v = prepare_rays(
                 b["rays_o"], b["rays_d"], H=H, W=W, focal=focal, ndc=tc.ndc,
                 use_viewdirs=args.use_viewdirs, near=scene["near"], far=scene["far"])
@@ -192,9 +246,11 @@ def train_ensemble_parallel(args, n_members: int, device: DeviceLike = None) -> 
             for rr in render_val:
                 rgb = rr(ro, rd, vd, near_v, far_v, None, is_test=True)["rgb_map"]
                 mse = img2mse(rgb.mean(-1), b["target"])
-                out.append((float(mse), float(mse2psnr(mse)),
-                            float(kde_nll(rgb, b["target"], args.K_samples))))
-            return [np.asarray(v) for v in zip(*out)]
+                nll = kde_nll(rgb, b["target"], args.K_samples)
+                if mesh is not None:
+                    mse, nll = mean_over([mse, nll], mesh)
+                out.append((float(mse), float(mse2psnr(mse)), float(nll)))
+            return [gather_members(np.asarray(v)) for v in zip(*out)]
 
     # --- stage machinery (K schedule / occ), ensemble-step flavoured ---
     occ_n = int(getattr(args, "occ_train", 0) or 0)
@@ -237,37 +293,37 @@ def train_ensemble_parallel(args, n_members: int, device: DeviceLike = None) -> 
             views = [_at_k(m, k) for m in models]
             tc_k = dataclasses.replace(tc, k_samples=k)
             if n_inner > 1:
-                fn, _ = make_ensemble_train_loop(views, rc_k, tc_k, n_members, n_inner=n_inner,
+                fn, _ = make_ensemble_train_loop(views, rc_k, tc_k, n_mine, mesh=mesh,
+                                                 n_inner=n_inner, occ=occ_arg,
+                                                 optimizers=carried, proposals=carried_props)
+            else:
+                fn, _ = make_ensemble_train_step(views, rc_k, tc_k, n_mine, mesh=mesh,
                                                  occ=occ_arg, optimizers=carried,
                                                  proposals=carried_props)
-            else:
-                fn, _ = make_ensemble_train_step(views, rc_k, tc_k, n_members, occ=occ_arg,
-                                                 optimizers=carried, proposals=carried_props)
             if occ_on:
                 carried_props = list(zip(fn.proposals, fn.prop_optimizers))
             stages[key] = fn
         return stages[key]
 
-    logger = MetricsLogger(args.basedir, args.dataname, args.expname)
+    logger = MetricsLogger(args.basedir, args.dataname, args.expname) if writer else None
     # member m's generator: what its serial run seeds (train/loop.py)
-    generators = member_generators(
-        [args.seed + 1000 * m + start for m in range(1, n_members + 1)], dev)
+    generators = member_generators([args.seed + 1000 * m + start for m in mine], dev)
 
-    def member_batch(m, step):
-        b = (member_batchers[m].next(step) if not use_batching
-             else member_batchers[m].next())
+    def member_batch(j, step):
+        b = (member_batchers[j].next(step) if not use_batching
+             else member_batchers[j].next())
         if member_depth:
-            b.update(member_depth[m].next())
+            b.update(member_depth[j].next())
             b.pop("ray_weights")  # loaded-but-unused in the reference loss
-        return b
+        return shard(b)
 
     def stacked_batch(step):
-        bs = [member_batch(m, step) for m in range(n_members)]
+        bs = [member_batch(j, step) for j in range(n_mine)]
         return {k: np.stack([b[k] for b in bs]) for k in bs[0]}
 
     def floors(step):
         f = occ_floor_for_step(step, occ_from, occ_anneal, occ_floor_start, args.occ_floor)
-        return np.full((n_members,), f, np.float32)
+        return np.full((n_mine,), f, np.float32)
 
     prefetcher = None
     if n_inner == 1:
@@ -299,10 +355,10 @@ def train_ensemble_parallel(args, n_members: int, device: DeviceLike = None) -> 
                 lo = torch.tensor(occ_cfg.lo, device=dev)
                 hi = torch.tensor(occ_cfg.hi, device=dev)
                 props = []
-                for m, model in enumerate(models):
+                for m, model in zip(mine, models):
                     prop, _ = distill_proposal(
                         make_density_fn(model, render_config), lo, hi,
-                        torch.Generator(device=dev).manual_seed(args.seed + 1000 * (m + 1) + 77),
+                        torch.Generator(device=dev).manual_seed(args.seed + 1000 * m + 77),
                         width=occ_cfg.prop_width, depth=occ_cfg.prop_depth,
                         multires=occ_cfg.prop_multires, n_points=1 << 18, epochs=2,
                     )
@@ -326,14 +382,15 @@ def train_ensemble_parallel(args, n_members: int, device: DeviceLike = None) -> 
                 metrics = step_fn(_to_device(stacked, dev), generators)
                 metrics = {k: v[-1] for k, v in metrics.items()}  # last inner step
 
-            if _crossed(i_prev, i, args.i_weights):
-                for m, model in enumerate(models):
+            if _crossed(i_prev, i, args.i_weights) and member_writer:
+                for j, (m, model) in enumerate(zip(mine, models)):
                     ckpt.save_checkpoint(rundir, i, {"coarse": model.state_dict()},
-                                         optimizers[m].state_dict(), m + 1)
+                                         optimizers[j].state_dict(), m)
                 print(f"Saved {n_members} member checkpoints at step {i}")
 
             if _crossed(i_prev, i, args.i_print):
-                metrics = {k: v.cpu().numpy() for k, v in metrics.items()}  # the host read
+                # the host read, every member's
+                metrics = {k: gather_members(v.cpu().numpy()) for k, v in metrics.items()}
                 scalars = {
                     "train/loss": float(np.mean(metrics["loss"])),
                     "train/psnr": float(np.mean(metrics["psnr"])),
@@ -348,14 +405,20 @@ def train_ensemble_parallel(args, n_members: int, device: DeviceLike = None) -> 
                     for m in range(n_members):
                         scalars[f"val/psnr_m{m + 1:02d}"] = float(v_psnr[m])
                         scalars[f"val/nll_m{m + 1:02d}"] = float(v_nll[m])
-                logger.scalars(i, scalars)
+                if writer:
+                    logger.scalars(i, scalars)
                 print(f"[ensemble-parallel] step {i}: loss={scalars['train/loss']:.4f} "
                       f"psnr/member=" + "/".join(f"{float(p):.2f}" for p in metrics["psnr"]))
     finally:
         if prefetcher is not None:
             prefetcher.close()
-        logger.close()
+        if logger is not None:
+            logger.close()
     print("Ensemble-parallel training complete.")
+
+
+def _train_ensemble_rank(rank: int, args, n_members: int, device: DeviceLike) -> None:
+    train_ensemble_parallel(args, n_members, device=rank_device(device, rank))
 
 
 def member_metric_medians(metrics_path: str, n_members: int,
@@ -496,8 +559,9 @@ def eval_ensemble(args, n_members: int, members=None, device: DeviceLike = None)
     from cfnerf_torch.models.factory import create_nerf
     from cfnerf_torch.ops.metrics import sparsification_plot, ssim, std_over_k, to8b
     from cfnerf_torch.render.renderer import make_render_rays, render_image
+    from cfnerf_torch.parallel.mesh import create_mesh, is_writer
     from cfnerf_torch.train import checkpoint as ckpt
-    from cfnerf_torch.train.loop import check_single_device, load_dataset
+    from cfnerf_torch.train.loop import load_dataset, mesh_devices, needs_launch
 
     if members is None:
         members = list(range(1, n_members + 1))
@@ -506,8 +570,14 @@ def eval_ensemble(args, n_members: int, members=None, device: DeviceLike = None)
         raise ValueError(
             f"--members must pick from 1..{n_members}, got {members}"
         )
+    n_devices = mesh_devices(args, device)
+    if needs_launch(n_devices):
+        return launch(_eval_ensemble_rank, n_devices, args, n_members, members, device,
+                      device=device)[0]
     dev = resolve_device(device)
-    check_single_device(args)
+    # every member's views render over the data mesh (JAX :576-577)
+    mesh = create_mesh(n_devices) if dist.is_initialized() else None
+    writer = is_writer()
 
     scene = load_dataset(args)
     H, W, focal = scene["H"], scene["W"], scene["focal"]
@@ -536,7 +606,7 @@ def eval_ensemble(args, n_members: int, members=None, device: DeviceLike = None)
                 rr, scene["poses"][view], H=He, W=We, focal=fe,
                 ndc=(args.dataset_type == "llff" and not args.no_ndc),
                 use_viewdirs=args.use_viewdirs, near=scene["near"], far=scene["far"],
-                tile=args.chunk, device=dev,
+                tile=args.chunk, device=dev, mesh=mesh,
             )
             renders[view] = out["rgb_map"].cpu().numpy()  # (H, W, 3, K)
         member_renders.append(renders)
@@ -552,7 +622,8 @@ def eval_ensemble(args, n_members: int, members=None, device: DeviceLike = None)
     tag = (f"eval_ensemble{n_members}" if len(members) == n_members
            else "eval_ensemble_m" + "-".join(str(m) for m in members))
     outdir = os.path.join(rundir, f"{tag}_{start:06d}")
-    os.makedirs(outdir, exist_ok=True)
+    if writer:
+        os.makedirs(outdir, exist_ok=True)
 
     per_view = []
     for view in scene["i_val"]:
@@ -572,6 +643,8 @@ def eval_ensemble(args, n_members: int, members=None, device: DeviceLike = None)
         oracle, by_var = sparsification_plot(var, err)
         ause = float(np.mean(by_var - oracle))
         per_view.append(dict(view=int(view), psnr=psnr, ssim=ssim_v, nll=nll, ause=ause))
+        if not writer:
+            continue
         imwrite_png(os.path.join(outdir, f"{view:03d}_pred.png"), to8b(rgb_mean))
         imwrite_png(os.path.join(outdir, f"{view:03d}_std.png"),
                     to8b(rgb_std / (rgb_std.max() + 1e-8)))
@@ -585,10 +658,15 @@ def eval_ensemble(args, n_members: int, members=None, device: DeviceLike = None)
         "ause": float(np.mean([v["ause"] for v in per_view])),
         "views": per_view,
     }
-    with open(os.path.join(outdir, "metrics.json"), "w") as f:
-        json.dump(summary, f, indent=2)
+    if writer:
+        with open(os.path.join(outdir, "metrics.json"), "w") as f:
+            json.dump(summary, f, indent=2)
     print(json.dumps({k: v for k, v in summary.items() if k != "views"}))
     return summary
+
+
+def _eval_ensemble_rank(rank: int, args, n_members: int, members, device: DeviceLike) -> dict:
+    return eval_ensemble(args, n_members, members=members, device=rank_device(device, rank))
 
 
 def parser():

@@ -21,7 +21,9 @@ metrics.json; the summary's last line is printed as JSON.
 network, --render_factor renders at 1/factor resolution against the
 ground truth shrunk by cv2's INTER_AREA (data/image_io.resize_area).
 Runs on the CUDA device; evaluate(args, device="cpu") / main(argv,
-device="cpu") on the CPU.
+device="cpu") on the CPU.  --mesh_devices N (0: every visible card) renders
+each view's tiles over N ranks (render_image's mesh path, as JAX's eval
+does); rank 0 writes the files.
 """
 from __future__ import annotations
 
@@ -34,13 +36,15 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cfnerf_torch.data.image_io import imwrite_png, resize_area
 from cfnerf_torch.models.factory import create_nerf
 from cfnerf_torch.ops.metrics import sparsification_plot, ssim, std_over_k, to8b
+from cfnerf_torch.parallel.mesh import create_mesh, is_writer, launch, rank_device
 from cfnerf_torch.render.renderer import make_render_rays, render_image
 from cfnerf_torch.train import checkpoint as ckpt
-from cfnerf_torch.train.loop import check_single_device, load_dataset
+from cfnerf_torch.train.loop import load_dataset, mesh_devices, needs_launch
 from cfnerf_torch.utils.config import parse_args
 from cfnerf_torch.utils.device import DeviceLike, resolve_device
 from cfnerf_torch.utils.pointcloud import depth_uncertainty_pointcloud
@@ -66,9 +70,15 @@ def evaluate(args, device: DeviceLike = None) -> Dict[str, float]:
     step 0 with fresh weights when there is none).  Returns the summary
     written to metrics.json: step, the mean psnr / ssim / nll over the
     views, the AUSE of all views' pixels together, and the per-view
-    records."""
+    records.  With --mesh_devices > 1: launched on that many ranks, each
+    rendering its share of every tile (the data mesh; --model_parallel is
+    a training flag, as in JAX's eval); rank 0's summary is returned."""
+    n_devices = mesh_devices(args, device)
+    if needs_launch(n_devices):
+        return launch(_evaluate_rank, n_devices, args, device, device=device)[0]
     dev = resolve_device(device)
-    check_single_device(args)
+    mesh = create_mesh(n_devices) if dist.is_initialized() else None
+    writer = is_writer()
     scene = load_dataset(args)
     H, W, focal = scene["H"], scene["W"], scene["focal"]
 
@@ -108,7 +118,8 @@ def evaluate(args, device: DeviceLike = None) -> Dict[str, float]:
 
     rundir = ckpt.run_dir(args.basedir, args.dataname, args.type_flows, args.expname)
     outdir = os.path.join(rundir, f"eval_{start:06d}")
-    os.makedirs(outdir, exist_ok=True)
+    if writer:
+        os.makedirs(outdir, exist_ok=True)
 
     rf = args.render_factor
     He, We, fe = (H, W, focal) if rf == 0 else (H // rf, W // rf, focal / rf)
@@ -121,7 +132,7 @@ def evaluate(args, device: DeviceLike = None) -> Dict[str, float]:
             render_rays_fn, scene["poses"][view], H=He, W=We, focal=fe,
             ndc=(args.dataset_type == "llff" and not args.no_ndc),
             use_viewdirs=args.use_viewdirs, near=scene["near"], far=scene["far"],
-            tile=args.chunk, device=dev,
+            tile=args.chunk, device=dev, mesh=mesh,
         )
         rgb_k = out["rgb_map"].cpu().numpy()   # (H, W, 3, K)
         disp_k = out["disp_map"].cpu().numpy()
@@ -148,6 +159,8 @@ def evaluate(args, device: DeviceLike = None) -> Dict[str, float]:
             dict(view=int(view), psnr=psnr, ssim=ssim_v, nll=nll, ause=ause, mse=mse)
         )
         print(f"view {view}: PSNR {psnr:.2f}  SSIM {ssim_v:.4f}  NLL {nll:.4f}  AUSE {ause:.4f}")
+        if not writer:
+            continue
 
         imwrite_png(os.path.join(outdir, f"{view:03d}_pred.png"), to8b(rgb_mean))
         imwrite_png(os.path.join(outdir, f"{view:03d}_std.png"),
@@ -172,15 +185,20 @@ def evaluate(args, device: DeviceLike = None) -> Dict[str, float]:
         "ause": float(np.mean(by_var - oracle)),
         "views": per_view,
     }
-    with open(os.path.join(outdir, "metrics.json"), "w") as f:
-        json.dump(summary, f, indent=2)
+    if writer:
+        with open(os.path.join(outdir, "metrics.json"), "w") as f:
+            json.dump(summary, f, indent=2)
     print(json.dumps({k: v for k, v in summary.items() if k != "views"}))
     return summary
 
 
-def main(argv=None, device: DeviceLike = None):
+def _evaluate_rank(rank: int, args, device: DeviceLike) -> Dict[str, float]:
+    return evaluate(args, device=rank_device(device, rank))
+
+
+def main(argv=None, device: DeviceLike = None) -> Dict[str, float]:
     args = parse_args(argv)
-    evaluate(args, device=device)
+    return evaluate(args, device=device)
 
 
 if __name__ == "__main__":

@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from cfnerf_torch.models.nerf_flows import _dense_bf16, _dense_f32
+from cfnerf_torch.ops.sampling import per_ray
 
 
 class _Trunk(nn.Module):
@@ -144,7 +145,8 @@ class NeRFDropout(NeRF):
         """One draw's masks from `generator`, on its device: keep each unit
         with probability 1 - dropout_rate."""
         keep = 1.0 - self.dropout_rate
-        return [torch.rand(shape, generator=generator, device=generator.device) < keep
+        return [per_ray(lambda s: torch.rand(s, generator=generator,
+                                             device=generator.device), shape) < keep
                 for shape in self.mask_shapes(n_points)]
 
     def forward(self, x: torch.Tensor, *, masks: Optional[Sequence[torch.Tensor]] = None,

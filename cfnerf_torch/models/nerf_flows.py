@@ -94,7 +94,12 @@ def _dense_bf16(layer: nn.Linear, parts: Sequence[torch.Tensor]) -> torch.Tensor
     weight and bias cast per call, y = bias + p0 @ W0 + p1 @ W1 + ..., one
     product per part of the concatenation over its columns of the weight,
     each product and each add rounded to bf16 in that order.  addmm would
-    add the bias before the rounding and differ from JAX in the last bit."""
+    add the bias before the rounding and differ from JAX in the last bit.
+    A column-parallel layer (parallel/mesh.py) computes its own columns so
+    and gathers them: a column split changes no column's arithmetic."""
+    enter = getattr(layer, "enter", None)
+    if enter is not None:
+        parts = [enter(p) for p in parts]
     w = layer.weight.to(torch.bfloat16)
     y = layer.bias.to(torch.bfloat16)
     off = 0
@@ -102,7 +107,7 @@ def _dense_bf16(layer: nn.Linear, parts: Sequence[torch.Tensor]) -> torch.Tensor
         n = p.shape[-1]
         y = y + p @ w[:, off:off + n].T
         off += n
-    return y
+    return y if enter is None else layer.leave(y)
 
 
 def fixed_eps(k_samples: int, seed: int) -> Eps:

@@ -23,6 +23,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from cfnerf_torch.ops.sampling import per_ray
+
 LAST_DIST = 1e1    # reference quirk: 10.0, not 1e10 (:427)
 TRANS_EPS = 1e-10  # reference :443 (1 - alpha + 1e-10)
 
@@ -91,8 +93,9 @@ def raw2outputs(
     density = raw[..., 3]  # (R, S, K)
     if apply_noise and raw_noise_std > 0.0:
         if noise is None and generator is not None:
-            noise = torch.randn(density.shape, generator=generator,
-                                device=generator.device).to(density)
+            noise = per_ray(lambda shape: torch.randn(
+                shape, generator=generator, device=generator.device), density.shape
+            ).to(density)
         if noise is not None:
             density = density + noise.to(density) * raw_noise_std
     alpha = 1.0 - torch.exp(-softplus(density) * dists[..., None])  # (R, S, K)

@@ -42,6 +42,7 @@ from torch import nn
 from cfnerf_torch.ops.compositing import softplus
 from cfnerf_torch.ops.embed import positional_encoding
 from cfnerf_torch.ops.rays import get_rays
+from cfnerf_torch.ops.sampling import per_ray
 from cfnerf_torch.render.renderer import prepare_rays
 from cfnerf_torch.utils.device import DeviceLike, resolve_device
 
@@ -180,8 +181,9 @@ def place_from_sigma(
                            device=dev).expand(R, n_samples)
     else:
         if u is None:
-            u = torch.rand((R, n_samples), generator=generator, dtype=torch.float32,
-                           device=generator.device)
+            u = per_ray(lambda shape: torch.rand(shape, generator=generator,
+                                                 dtype=torch.float32,
+                                                 device=generator.device), (R, n_samples))
         u = (torch.arange(n_samples, dtype=torch.float32, device=dev)
              + torch.as_tensor(u, dtype=torch.float32, device=dev)) / n_samples
     # the piecewise-linear inverse CDF over uniform bins, one fused pass

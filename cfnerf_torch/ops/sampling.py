@@ -4,14 +4,54 @@
     run_nerf_uncertainty_NF.py:510-516);
   * stratified jitter (:518-532), drawn from an explicit torch.Generator;
   * sample_pdf, the inverse-CDF resampling of hierarchical sampling
-    (nerf-pytorch semantics, cfnerf_tpu/ops/sampling.py:73-124).
+    (nerf-pytorch semantics, cfnerf_tpu/ops/sampling.py:73-124);
+  * per_ray / ray_rows: a draw with one row (or a block of rows) per ray,
+    as a data-parallel rank takes it: under ray_rows the draw is made at
+    the shape of every rank's rays together and this rank's rows are kept,
+    so N ranks draw what one run over the whole batch draws.
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import contextvars
+from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
+
+# (this rank's global row indices, the global ray count) while a data-
+# parallel step renders; None elsewhere
+_RAY_ROWS: contextvars.ContextVar = contextvars.ContextVar("ray_rows", default=None)
+
+
+@contextlib.contextmanager
+def ray_rows(index: torch.Tensor, n_global: int) -> Iterator[None]:
+    """Within the block, per_ray draws are made for n_global rays and cut to
+    the rows `index` (this rank's rays' places in the whole batch)."""
+    token = _RAY_ROWS.set((index, int(n_global)))
+    try:
+        yield
+    finally:
+        _RAY_ROWS.reset(token)
+
+
+def per_ray(draw: Callable[[Sequence[int]], torch.Tensor], shape: Sequence[int]) -> torch.Tensor:
+    """draw(shape), whose leading axis holds the rays (or a block of rows a
+    ray, ray-major: a ray's samples).  Under ray_rows: draw at the whole
+    batch's shape, then keep this rank's rows, so the values and the
+    generator's state after the draw are those of the run over every ray."""
+    rows = _RAY_ROWS.get()
+    if rows is None:
+        return draw(shape)
+    index, n_global = rows
+    per, rest = divmod(int(shape[0]), index.numel())
+    if rest or per == 0:
+        raise ValueError(f"a per-ray draw of {shape[0]} rows for {index.numel()} rays")
+    full = draw((n_global * per, *shape[1:]))
+    index = index.to(full.device)
+    if per > 1:
+        index = (index[:, None] * per + torch.arange(per, device=full.device)).reshape(-1)
+    return full[index]
 
 
 def cf_nerf_t_vals(
@@ -67,8 +107,8 @@ def stratified_perturb(
     lower = torch.cat([z_vals[..., :1], mids], -1)
     if t_rand is None:
         device = z_vals.device if generator is None else generator.device
-        t_rand = torch.rand(
-            z_vals.shape, generator=generator, dtype=z_vals.dtype, device=device
+        t_rand = per_ray(lambda shape: torch.rand(
+            shape, generator=generator, dtype=z_vals.dtype, device=device), z_vals.shape
         ).to(z_vals)
     return lower + (upper - lower) * t_rand
 
@@ -104,8 +144,8 @@ def sample_pdf(
         u = torch.linspace(0.0, 1.0, n_samples, dtype=cdf.dtype,
                            device=cdf.device).expand(shape)
     elif u is None:
-        u = torch.rand(shape, generator=generator, dtype=cdf.dtype,
-                       device=generator.device).to(cdf)
+        u = per_ray(lambda s: torch.rand(s, generator=generator, dtype=cdf.dtype,
+                                         device=generator.device), shape).to(cdf)
     u = u.to(cdf).contiguous()
 
     m = cdf.shape[-1] - 1

@@ -16,21 +16,79 @@ vmap rule, and the CUDA kernels take no member axis.
   * member_generators: the members' generators, JAX's member_keys;
   * make_ensemble_train_step / make_ensemble_train_loop: the step over
     (M, R, ...) batches and M generators, metrics stacked to (M,) (the loop:
-    (n_inner, M)).
-
-A device mesh (JAX's create_ensemble_mesh, shard_members,
-shard_member_batch, shard_member_stacked_batch) comes with slice 8c.
+    (n_inner, M));
+  * create_ensemble_mesh / shard_members / shard_member_batch /
+    shard_member_stacked_batch: the (ensemble, data) mesh over several
+    devices (parallel/mesh.py).  A rank holds a contiguous block of the
+    members, as P('ensemble') places them, and its rows of their ray axis;
+    its members' steps run one after another on its data shard, each
+    member's gradient all-reduced over that member's data ranks only: no
+    collective crosses members.
 """
 from __future__ import annotations
 
 from typing import Callable, List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 from torch.optim.lr_scheduler import LambdaLR
 
+from cfnerf_torch.parallel.mesh import (
+    DATA_AXIS,
+    ENSEMBLE_AXIS,
+    Mesh,
+    map_leaves,
+    block,
+    gcd_split,
+)
 from cfnerf_torch.render.renderer import RenderConfig
 from cfnerf_torch.train.step import Metrics, TrainConfig, make_train_step
 from cfnerf_torch.utils.device import DeviceLike, resolve_device
+
+
+def create_ensemble_mesh(n_members: int, n_devices: Optional[int] = None) -> Mesh:
+    """The (ensemble, data) mesh for M members over the group's ranks: the
+    ensemble axis gets gcd(M, n) ranks, so the members split evenly over it
+    (several a rank when M exceeds it), the rest form each member's data
+    axis.  M = 1 is the plain data mesh (an ensemble axis of 1).  n_devices
+    defaults to, and must equal, the group's size."""
+    world = dist.get_world_size()
+    n = world if n_devices is None else int(n_devices)
+    if n != world:
+        raise ValueError(f"a mesh of {n} devices in a group of {world} ranks")
+    return Mesh((ENSEMBLE_AXIS, DATA_AXIS), gcd_split(n_members, n))
+
+
+def shard_members(mesh: Mesh, tree):
+    """This rank's contiguous block of the member axis (axis 0) of every
+    leaf of a stacked (M, ...) tree, P('ensemble')'s placement; rank-0
+    leaves are kept whole."""
+    e, i = mesh.shape[ENSEMBLE_AXIS], mesh.index(ENSEMBLE_AXIS)
+    return map_leaves(lambda x: block(x, 0, i, e) if np.ndim(x) >= 1 else x, tree)
+
+
+def shard_member_batch(mesh: Mesh, batch):
+    """A stacked batch's share: (M, R, ...) leaves to this rank's members and
+    its rows of their ray axis; (M,) leaves (per-member scalars, e.g. an
+    annealed occ floor) to its members."""
+    n, d = mesh.shape[DATA_AXIS], mesh.index(DATA_AXIS)
+    batch = shard_members(mesh, batch)
+    return map_leaves(lambda x: block(x, 1, d, n) if np.ndim(x) >= 2 else x, batch)
+
+
+def shard_member_stacked_batch(mesh: Mesh, batches):
+    """The same for (n_inner, M, R, ...) leaves: the inner-step axis whole."""
+    e, i = mesh.shape[ENSEMBLE_AXIS], mesh.index(ENSEMBLE_AXIS)
+    n, d = mesh.shape[DATA_AXIS], mesh.index(DATA_AXIS)
+
+    def share(x):
+        if np.ndim(x) < 2:
+            return x
+        x = block(x, 1, i, e)
+        return block(x, 2, d, n) if np.ndim(x) >= 3 else x
+
+    return map_leaves(share, batches)
 
 
 def stack_members(trees: Sequence[Mapping]) -> dict:
@@ -110,15 +168,17 @@ def make_ensemble_train_step(
     (a ProposalMLP or its state dict) and restarts its Adam, JAX's
     _wrap_state.  step.members holds the single-member steps.
 
-    mesh: a device mesh raises NotImplementedError (slice 8c)."""
-    if mesh is not None:
-        raise NotImplementedError("an ensemble over a device mesh comes with slice 8c")
+    With `mesh` (create_ensemble_mesh) the members are this rank's block
+    (shard_members) and n_members their count; the batch is its share
+    (shard_member_batch), and each member's step is make_train_step's over
+    the mesh's data axis: its gradient all-reduced over the member's data
+    ranks only, its metrics their means."""
     models = _per_member(model, n_members, "model")
     fines = _per_member(model_fine, n_members, "model_fine")
     carried = _per_member(optimizers, n_members, "optimizers")
     props = _per_member(proposals, n_members, "proposals")
-    members = [make_train_step(models[m], render_config, cfg, model_fine=fines[m], occ=occ,
-                               optimizer=carried[m], proposal=props[m])[0]
+    members = [make_train_step(models[m], render_config, cfg, mesh=mesh, model_fine=fines[m],
+                               occ=occ, optimizer=carried[m], proposal=props[m])[0]
                for m in range(n_members)]
 
     def step(batch: Mapping, generators: Sequence[Optional[torch.Generator]], **seams) -> Metrics:

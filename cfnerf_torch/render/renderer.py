@@ -237,14 +237,30 @@ def render_image(
     far: float,
     tile: int = 4096,
     device: DeviceLike = None,
+    mesh=None,
 ) -> Dict[str, torch.Tensor]:
     """Full-image test-mode render, in tiles of `tile` rays.
 
     Pads the ray count up to a tile multiple by repeating the last ray,
     renders each tile in turn and strips the padding after.  Runs under
     torch.inference_mode() on the CUDA device unless device="cpu".
-    Returns per-pixel maps: rgb_map (H, W, 3, K), disp/depth/acc (H, W, K)."""
+    Returns per-pixel maps: rgb_map (H, W, 3, K), disp/depth/acc (H, W, K).
+
+    With `mesh` (parallel/mesh.py; every rank calls it) the tile is rounded
+    up to a multiple of the data axis and each tile's rays are split over
+    the data ranks: each renders its part and the parts are all-gathered,
+    so every rank returns the whole image (JAX's mesh render,
+    cfnerf_tpu/render/renderer.py:327-395).  A tensor-parallel net's model
+    ranks render the same part together."""
     dev = resolve_device(device)
+    part, lo = tile, 0
+    if mesh is not None:
+        from cfnerf_torch.parallel.mesh import DATA_AXIS, all_gather
+
+        n_data = mesh.shape[DATA_AXIS]
+        tile = -(-tile // n_data) * n_data  # round up: the tile splits evenly
+        part = tile // n_data
+        lo = mesh.index(DATA_AXIS) * part
     with torch.inference_mode():
         c2w = torch.as_tensor(c2w, dtype=torch.float32, device=dev)
         rays_o, rays_d = get_rays(H, W, focal, c2w)
@@ -264,7 +280,7 @@ def render_image(
 
         pieces: Dict[str, list] = {}
         for start in range(0, n + n_pad, tile):
-            sl = slice(start, start + tile)
+            sl = slice(start + lo, start + lo + part)
             out = render_rays_fn(
                 rays_o[sl], rays_d[sl],
                 viewdirs[sl] if viewdirs is not None else None,
@@ -272,7 +288,9 @@ def render_image(
             )
             for key, v in out.items():
                 # per-ray outputs only; scalars (loss_entropy) are dropped
-                if v.ndim >= 1 and v.shape[0] == tile:
+                if v.ndim >= 1 and v.shape[0] == part:
+                    if mesh is not None:
+                        v = all_gather(v, mesh.group(DATA_AXIS))
                     pieces.setdefault(key, []).append(v)
         result = {}
         for key, vs in pieces.items():

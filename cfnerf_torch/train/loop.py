@@ -23,8 +23,14 @@ checkpoints, test-set renders and videos.
   * --debug_nans / --debug_infs: FloatingPointError at the first step whose
     loss or gradients hold a NaN / an inf, inner steps of --n_inner
     included (a host read each step, under those flags only);
-  * --mesh_devices > 1 and --model_parallel > 1 raise NotImplementedError:
-    more than one device comes with slice 8c.
+  * --mesh_devices N (0: every visible card, 1 on the CPU) and
+    --model_parallel P: N ranks (parallel/mesh.py:launch; NCCL, one card a
+    rank, or gloo on the CPU), an (N / P, P) (data, model) mesh, each step's
+    batch sharded over the data axis, the trunk's widths over the model
+    axis with P > 1 (shard_params_tp); the renders split each tile's rays
+    over the data axis.  Every rank reads the resumed checkpoint; rank 0
+    alone writes checkpoints, metrics, args.txt, images and videos.  With N
+    = P = 1 no process group is made: the one-device path.
 
 Test-mode renders (the val stream, i_img, the test set, the video, render
 only) run at --K_samples with the model's fixed eps.  The loop runs on the
@@ -39,6 +45,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cfnerf_torch.data.blender import load_blender_data
 from cfnerf_torch.data.image_io import imwrite_png
@@ -55,6 +62,21 @@ from cfnerf_torch.data.sampler import (
 )
 from cfnerf_torch.models.factory import create_nerf, loss_mode_for_model
 from cfnerf_torch.ops.metrics import img2mse, mse2psnr, std_over_k, to8b
+from cfnerf_torch.parallel.mesh import (
+    check_mesh_size,
+    check_tensor_parallel,
+    create_mesh,
+    full_optimizer_state,
+    full_state_dict,
+    is_writer,
+    launch,
+    mean_over,
+    rank_device,
+    replicate,
+    shard_batch,
+    shard_params_tp,
+    shard_stacked_batch,
+)
 from cfnerf_torch.render.renderer import make_render_rays, prepare_rays, render_image
 from cfnerf_torch.train import checkpoint as ckpt
 from cfnerf_torch.train.logging import MetricsLogger
@@ -240,11 +262,13 @@ def render_path(
     savedir: Optional[str] = None,
     render_factor: int = 0,
     device: DeviceLike = None,
+    mesh=None,
 ):
     """Render a pose path in test mode (the reference's render_path,
     :173-244, with its crashes fixed), each view through render_image in
-    --chunk tiles; with `savedir` write NNN.png (the mean) and NNN_std.png
-    (the std over K, divided by its maximum).
+    --chunk tiles (over `mesh`'s data axis where given); with `savedir`
+    write NNN.png (the mean) and NNN_std.png (the std over K, divided by
+    its maximum).
 
     Returns numpy (rgbs_mean (P,H,W,3), disps_mean (P,H,W), stds (P,H,W,3))."""
     H, W, focal = scene["H"], scene["W"], scene["focal"]
@@ -257,7 +281,7 @@ def render_path(
             render_rays_fn, c2w[:3, :4], H=H, W=W, focal=focal,
             ndc=(args.dataset_type == "llff" and not args.no_ndc),
             use_viewdirs=args.use_viewdirs, near=scene["near"], far=scene["far"],
-            tile=args.chunk, device=device,
+            tile=args.chunk, device=device, mesh=mesh,
         )
         rgbs.append(out["rgb_map"].mean(-1).cpu().numpy())  # (H, W, 3, K) -> (H, W, 3)
         disps.append(out["disp_map"].mean(-1).cpu().numpy())
@@ -294,15 +318,45 @@ def _check_finite(step: int, loss: torch.Tensor, params, nans: bool, infs: bool)
         raise FloatingPointError(f"inf in the loss or a gradient at step {step} (--debug_infs)")
 
 
-def check_single_device(args) -> None:
-    if int(getattr(args, "mesh_devices", 0) or 0) > 1:
-        raise NotImplementedError(
-            f"--mesh_devices {args.mesh_devices}: training and serving over a device "
-            "mesh come with slice 8c")
-    if int(getattr(args, "model_parallel", 1) or 1) > 1:
-        raise NotImplementedError(
-            f"--model_parallel {args.model_parallel}: the tensor-parallel trunk comes "
-            "with slice 8c")
+def mesh_devices(args, device: DeviceLike = None) -> int:
+    """--mesh_devices, where 0 means every device: the group's ranks inside
+    a launch, else the visible CUDA devices, or 1 on the CPU."""
+    n = int(getattr(args, "mesh_devices", 0) or 0)
+    if n > 0:
+        return n
+    if dist.is_initialized():
+        return dist.get_world_size()
+    if torch.device("cuda" if device is None else device).type == "cuda":
+        return max(1, torch.cuda.device_count())
+    return 1
+
+
+def mesh_plan(args, device: DeviceLike = None) -> Tuple[int, int]:
+    """(devices, model_parallel) of --mesh_devices / --model_parallel.
+    Raises JAX's ValueError when the devices do not divide by
+    model_parallel, and ValueError for a model axis with the trunk
+    kernels."""
+    n = mesh_devices(args, device)
+    mp = max(1, int(getattr(args, "model_parallel", 1) or 1))
+    check_mesh_size(n, mp)
+    check_tensor_parallel(mp, getattr(args, "trunk_impl", "xla"))
+    return n, mp
+
+
+def needs_launch(n_devices: int) -> bool:
+    """More than one device asked for, and no process group yet."""
+    return n_devices > 1 and not dist.is_initialized()
+
+
+def check_n_rand(n_rand: int, n_data: int) -> None:
+    if n_rand % n_data != 0:
+        raise ValueError(
+            f"N_rand={n_rand} must be divisible by the mesh data axis ({n_data})"
+        )
+
+
+def _train_rank(rank: int, args, device: DeviceLike) -> None:
+    train(args, device=rank_device(device, rank))
 
 
 def _to_device(batch: dict, dev: torch.device) -> dict:
@@ -320,10 +374,18 @@ def train(args, device: DeviceLike = None) -> None:
     --render_test), batched rays or --no_batching with precrop, the
     internal-val stream, COLMAP depth, the K schedule and the occ stage,
     --n_inner, the cadences i_weights / i_print / i_img / i_testset /
-    i_video, --early_stop_val.  On the CUDA device unless device="cpu"."""
+    i_video, --early_stop_val.  On the CUDA device unless device="cpu".
+    More than one device (--mesh_devices, --model_parallel): the run is
+    launched on that many ranks, each calling train again inside the group
+    (mesh_plan, parallel/mesh.py:launch)."""
+    n_devices, mp = mesh_plan(args, device)
+    if needs_launch(n_devices):
+        if not args.render_only:
+            check_n_rand(args.N_rand, n_devices // mp)
+        launch(_train_rank, n_devices, args, device, device=device)
+        return
     dev = resolve_device(device)
     warn_ignored_flags(args)
-    check_single_device(args)
     debug_nans = bool(getattr(args, "debug_nans", False))
     debug_infs = bool(getattr(args, "debug_infs", False))
 
@@ -335,12 +397,23 @@ def train(args, device: DeviceLike = None) -> None:
     print("VAL views are", scene["i_val"])
 
     rundir = ckpt.run_dir(args.basedir, args.dataname, args.type_flows, args.expname)
-    _snapshot_args(args, rundir)
+    writer = is_writer()
+    if writer:
+        _snapshot_args(args, rundir)
 
     model, model_fine, render_config, start = create_nerf(args, dev)
     nets = [model] if model_fine is None else [model, model_fine]
+    print(f"model params: {sum(p.numel() for net in nets for p in net.parameters()):,}")
+    mesh = None
+    if dist.is_initialized():
+        mesh = create_mesh(n_devices, model_parallel=mp)
+        for net in nets:
+            replicate(mesh, net)
+            shard_params_tp(mesh, net)
+        if mp > 1:
+            print(f"tensor-parallel trunk over mesh {dict(mesh.shape)}")
+    n_data = 1 if mesh is None else mesh.shape["data"]
     params = [p for net in nets for p in net.parameters()]
-    print(f"model params: {sum(p.numel() for p in params):,}")
 
     # test-mode renderer (perturb off comes from is_test; fixed-eps draws)
     render_rays_test = make_render_rays(model, render_config, model_fine)
@@ -362,23 +435,28 @@ def train(args, device: DeviceLike = None) -> None:
         )
         tag = "test" if args.render_test else "path"
         testsavedir = os.path.join(rundir, f"renderonly_{tag}_{start:06d}")
-        os.makedirs(testsavedir, exist_ok=True)
+        if writer:
+            os.makedirs(testsavedir, exist_ok=True)
         rgbs, _, _ = render_path(
-            render_poses, scene, args, render_rays_test, savedir=testsavedir,
-            render_factor=args.render_factor, device=dev,
+            render_poses, scene, args, render_rays_test,
+            savedir=testsavedir if writer else None,
+            render_factor=args.render_factor, device=dev, mesh=mesh,
         )
-        _save_video(rgbs, os.path.join(testsavedir, "video.mp4"))
+        if writer:
+            _save_video(rgbs, os.path.join(testsavedir, "video.mp4"))
         print("Done rendering", testsavedir)
         return
 
     # --- ray precompute (reference :859-919) ---
+    check_n_rand(args.N_rand, n_data)
     use_batching = not args.no_batching
     if use_batching:
         rays_rgb_train = precompute_rays(
             scene["images"], scene["poses"], focal, scene["i_train"], seed=args.seed
         )
         print("rays_rgb_train:", rays_rgb_train.shape)
-        train_batcher = RayBatcher(rays_rgb_train, args.N_rand, seed=args.seed)
+        train_batcher = RayBatcher(rays_rgb_train, args.N_rand, seed=args.seed,
+                                   mesh_divisor=n_data)
     else:
         # --no_batching: sample from one image per step with precrop warmup
         train_batcher = SingleImageSampler(
@@ -398,7 +476,8 @@ def train(args, device: DeviceLike = None) -> None:
         )
         if rays_rgb_val.shape[0] >= args.N_rand:
             print("rays_rgb_val:", rays_rgb_val.shape)
-            val_batcher = RayBatcher(rays_rgb_val, args.N_rand, seed=args.seed + 1)
+            val_batcher = RayBatcher(rays_rgb_val, args.N_rand, seed=args.seed + 1,
+                                     mesh_divisor=n_data)
 
     depth_batcher = None
     if args.colmap_depth and not use_batching:
@@ -417,6 +496,9 @@ def train(args, device: DeviceLike = None) -> None:
         print("rays_depth:", rays_depth.shape)
         depth_batcher = DepthRayBatcher(rays_depth, N_DEPTH, seed=args.seed)
 
+    def shard(batch):
+        return batch if mesh is None else shard_batch(mesh, batch)
+
     # --- train step ---
     tc = TrainConfig(
         H=H, W=W, focal=focal,
@@ -431,15 +513,19 @@ def train(args, device: DeviceLike = None) -> None:
     )
 
     def val_metrics(batch):
-        """Test-mode mse, psnr and KDE NLL of a held-out ray batch."""
+        """Test-mode mse, psnr and KDE NLL of a held-out ray batch (its
+        shard's, averaged over the data axis, under a mesh)."""
         with torch.inference_mode():
-            b = {k: torch.as_tensor(v, dtype=torch.float32, device=dev) for k, v in batch.items()}
+            b = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+                 for k, v in shard(batch).items()}
             ro, rd, vd, near_v, far_v = prepare_rays(
                 b["rays_o"], b["rays_d"], H=H, W=W, focal=focal, ndc=tc.ndc,
                 use_viewdirs=args.use_viewdirs, near=scene["near"], far=scene["far"])
             out = render_rays_test(ro, rd, vd, near_v, far_v, None, is_test=True)
             mse = img2mse(out["rgb_map"].mean(-1), b["target"])
             nll = kde_nll(out["rgb_map"], b["target"], args.K_samples)
+            if mesh is not None:
+                mse, nll = mean_over([mse, nll], mesh)
             return float(mse), float(mse2psnr(mse)), float(nll)
 
     # --- occ stage config (proposal-placed training, step.OccTrainConfig) ---
@@ -509,23 +595,24 @@ def train(args, device: DeviceLike = None) -> None:
             m_k, fine_k = _at_k(model, k), _at_k(model_fine, k)
             tc_k = dataclasses.replace(tc, k_samples=k)
             if n_inner > 1:
-                fn, _ = make_train_loop(m_k, rc_k, tc_k, n_inner=n_inner, model_fine=fine_k,
-                                        occ=occ_arg, optimizer=carried, proposal=carried_prop)
+                fn, _ = make_train_loop(m_k, rc_k, tc_k, mesh=mesh, n_inner=n_inner,
+                                        model_fine=fine_k, occ=occ_arg, optimizer=carried,
+                                        proposal=carried_prop)
             else:
-                fn, _ = make_train_step(m_k, rc_k, tc_k, model_fine=fine_k, occ=occ_arg,
-                                        optimizer=carried, proposal=carried_prop)
+                fn, _ = make_train_step(m_k, rc_k, tc_k, mesh=mesh, model_fine=fine_k,
+                                        occ=occ_arg, optimizer=carried, proposal=carried_prop)
             if occ_on:
                 carried_prop = (fn.proposal, fn.prop_optimizer)
             stages[key] = fn
         return stages[key]
 
-    logger = MetricsLogger(args.basedir, args.dataname, args.expname)
+    logger = MetricsLogger(args.basedir, args.dataname, args.expname) if writer else None
     generator = torch.Generator(device=dev).manual_seed(args.seed + start)
 
     n_iters = args.n_iters + 1
     print("Begin")
     img_log_idx = 0
-    profile_dir = getattr(args, "profile_dir", None)
+    profile_dir = getattr(args, "profile_dir", None) if writer else None
 
     def _sample_batch(step):
         batch = train_batcher.next(step) if not use_batching else train_batcher.next()
@@ -538,7 +625,7 @@ def train(args, device: DeviceLike = None) -> None:
     if n_inner == 1:
         # batch n+1 is sampled and copied on a worker thread while the
         # device runs step n
-        prefetcher = BatchPrefetcher(lambda step: _to_device(_sample_batch(step), dev),
+        prefetcher = BatchPrefetcher(lambda step: _to_device(shard(_sample_batch(step)), dev),
                                      start, device=dev)
 
     early_stop = None
@@ -554,12 +641,15 @@ def train(args, device: DeviceLike = None) -> None:
                   f"min delta {args.early_stop_min_delta} dB")
 
     def save(step):
-        state = {"coarse": model.state_dict()}
+        # whole tensors from a tensor-parallel net's shards (every rank
+        # takes part), written by rank 0
+        state = {"coarse": full_state_dict(model)}
         if model_fine is not None:
-            state["fine"] = model_fine.state_dict()
-        path = ckpt.save_checkpoint(rundir, step, state, optimizer.state_dict(),
-                                    args.index_ensembles)
-        print("Saved checkpoints at", path)
+            state["fine"] = full_state_dict(model_fine)
+        opt_state = full_optimizer_state(optimizer, *nets)
+        if writer:
+            path = ckpt.save_checkpoint(rundir, step, state, opt_state, args.index_ensembles)
+            print("Saved checkpoints at", path)
 
     check_step = None
     if debug_nans or debug_infs:
@@ -642,6 +732,8 @@ def train(args, device: DeviceLike = None) -> None:
                         [occ_floor_for_step(i + 1 + j, occ_from, occ_anneal,
                                             occ_floor_start, args.occ_floor)
                          for j in range(n_inner)], np.float32)
+                if mesh is not None:
+                    stacked = shard_stacked_batch(mesh, stacked)
                 i += n_inner
                 after = None if check_step is None else (
                     lambda j, m: check_step(i_prev + 1 + j, m))  # each inner step
@@ -673,8 +765,9 @@ def train(args, device: DeviceLike = None) -> None:
                     scalars["val/mse"] = v_mse
                     scalars["val/psnr"] = v_psnr
                     scalars["val/nll"] = v_nll
-                logger.scalars(i, scalars)
-                logger.console(i, scalars, args.colmap_depth)
+                if writer:
+                    logger.scalars(i, scalars)
+                    logger.console(i, scalars, args.colmap_depth)
 
                 if early_stop is not None and early_stop.update(scalars["val/psnr"]):
                     print(f"early stop at step {i}: val/psnr stale for "
@@ -691,28 +784,32 @@ def train(args, device: DeviceLike = None) -> None:
                     out = render_image(
                         render_rays_test, scene["poses"][view], H=H, W=W, focal=focal,
                         ndc=tc.ndc, use_viewdirs=args.use_viewdirs, near=scene["near"],
-                        far=scene["far"], tile=args.chunk, device=dev,
+                        far=scene["far"], tile=args.chunk, device=dev, mesh=mesh,
                     )
-                    logger.image_panel(
-                        i, prefix, gt=scene["images"][view],
-                        rgb_k=out["rgb_map"].cpu().numpy(),
-                        disp_k=out["disp_map"].cpu().numpy(),
-                    )
+                    if writer:
+                        logger.image_panel(
+                            i, prefix, gt=scene["images"][view],
+                            rgb_k=out["rgb_map"].cpu().numpy(),
+                            disp_k=out["disp_map"].cpu().numpy(),
+                        )
                 img_log_idx += 1
 
             if i > start and _crossed(i_prev, i, args.i_testset) and len(scene["i_val"]) > 0:
                 testsavedir = os.path.join(rundir, f"testset_{i:06d}")
-                os.makedirs(testsavedir, exist_ok=True)
+                if writer:
+                    os.makedirs(testsavedir, exist_ok=True)
                 render_path(scene["poses"][scene["i_val"]], scene, args, render_rays_test,
-                            savedir=testsavedir, render_factor=args.render_factor, device=dev)
+                            savedir=testsavedir if writer else None,
+                            render_factor=args.render_factor, device=dev, mesh=mesh)
                 print("Saved test set renders to", testsavedir)
 
             if i > 0 and _crossed(i_prev, i, args.i_video):
                 rgbs, disps, _ = render_path(scene["render_poses"], scene, args,
-                                             render_rays_test, device=dev)
+                                             render_rays_test, device=dev, mesh=mesh)
                 moviebase = os.path.join(rundir, f"{args.expname}_spiral_{i:06d}_")
-                _save_video(rgbs, moviebase + "rgb.mp4")
-                _save_video(disps / (np.max(disps) + 1e-8), moviebase + "disp.mp4")
+                if writer:
+                    _save_video(rgbs, moviebase + "rgb.mp4")
+                    _save_video(disps / (np.max(disps) + 1e-8), moviebase + "disp.mp4")
     finally:
         # the worker thread must stop even when a step or a render raises
         if prefetcher is not None:
@@ -721,5 +818,6 @@ def train(args, device: DeviceLike = None) -> None:
             # training ended (or raised) inside the profile window: close
             # the trace so it is written
             stop_profiler()
-        logger.close()
+        if logger is not None:
+            logger.close()
     print("Training complete.")

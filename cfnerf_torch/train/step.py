@@ -19,7 +19,12 @@ lr = lrate * 0.1^(step / (lrate_decay*1000)) (:1072-1077)).
     (torch.utils.checkpoint, the counterpart of jax.checkpoint);
   * with `occ` (OccTrainConfig) the step trains on proposal-placed depths and
     co-trains the proposal after the field's update
-    (cfnerf_tpu/train/step.py:36-60, :193-248, :318-354).
+    (cfnerf_tpu/train/step.py:36-60, :193-248, :318-354);
+  * with `mesh` (parallel/mesh.py) the batch is this rank's shard of the
+    ray axis (the caller shards it, as in JAX): the step draws what the
+    one-device step draws over the whole batch and keeps its rows
+    (ops/sampling.py:per_ray), all-reduces the mean gradient over the data
+    axis once a step and returns the global mean metrics.
 
 PyTorch runs eagerly: there is no jit, and `make_train_loop` is a Python
 loop where the JAX package scans on the device.
@@ -30,6 +35,7 @@ import dataclasses
 from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.optim.lr_scheduler import LambdaLR
 from torch.utils.checkpoint import checkpoint
 
@@ -40,6 +46,7 @@ from cfnerf_torch.ops.occupancy import (
     make_proposal_sigma_fn,
     place_from_sigma,
 )
+from cfnerf_torch.ops.sampling import ray_rows
 from cfnerf_torch.render.renderer import RenderConfig, make_render_rays, prepare_rays
 from cfnerf_torch.train.loss import kde_nll, total_loss
 
@@ -158,8 +165,9 @@ def make_train_step(
 
     The two halves are callable apart, so that the gradients can be read
     before the update: train_step.loss_fn(batch, generator, *, z_vals, eps,
-    eps_fine, pdf_u, noise, place_u) -> (loss, metrics) renders and scores;
-    train_step.update() takes the optimizer step on the gradients in .grad
+    eps_fine, pdf_u, noise, place_u) -> (loss, metrics) renders and scores
+    (this rank's share under a mesh); train_step.update() takes the
+    optimizer step on the gradients in .grad (under a mesh, reduced first)
     and advances the schedule.
 
     With `occ` (OccTrainConfig; no fine pass, ValueError otherwise) the step
@@ -186,9 +194,22 @@ def make_train_step(
     same way (an earlier occ step's train_step.proposal and
     train_step.prop_optimizer): JAX's opt_state holds the proposal too, so
     it survives a K boundary inside the occ stage.
+
+    `mesh` (parallel/mesh.py: a (data, model) mesh, or an (ensemble, data)
+    one for a member's step) makes the step one rank's share of a data-
+    parallel step: batch holds this rank's rows (parallel.mesh.shard_batch)
+    and the nets are replicated or tensor-parallel (shard_params_tp).  Every
+    per-ray draw (jitter, pdf_u, noise, place_u, dropout masks) is made at
+    the whole batch's shape and cut to this rank's rows, rgb rays then depth
+    rays; the seams z_vals, pdf_u, noise and place_u take the whole batch's
+    arrays and are cut the same way (eps and eps_fine are shared by every
+    ray and pass whole).  update() all-reduces the mean of every gradient
+    over the data axis, in one flat bucket, before Adam's step, so .grad
+    holds the global gradient after train_step; the metrics are the global
+    means (psnr from the global mse).  The occ co-training fits the
+    proposal on points drawn alike on every rank, and raises unless its
+    gradient is equal on every data rank.
     """
-    if mesh is not None:
-        raise NotImplementedError("training over a device mesh comes with slice 8c")
     if model_fine is not None and render_config.n_importance == 0:
         raise ValueError("a fine network needs render_config.n_importance > 0")
     if cfg.loss_mode not in ("kde", "mse"):
@@ -223,9 +244,15 @@ def make_train_step(
         sigma_fn = make_proposal_sigma_fn(proposal, occ_lo, occ_hi)
         density_fn = density_query(model, render_config)
 
-    def loss_fn(batch: Mapping, generator: Optional[torch.Generator] = None, *,
-                z_vals=None, eps=None, eps_fine=None, pdf_u=None,
-                noise=None, place_u=None) -> Tuple[torch.Tensor, Metrics]:
+    if mesh is not None:
+        from cfnerf_torch.parallel.mesh import DATA_AXIS, mean_over
+
+        n_data, data_index = mesh.shape[DATA_AXIS], mesh.index(DATA_AXIS)
+        data_group = mesh.group(DATA_AXIS)
+
+    def _loss(batch: Mapping, generator: Optional[torch.Generator] = None, *,
+              z_vals=None, eps=None, eps_fine=None, pdf_u=None,
+              noise=None, place_u=None) -> Tuple[torch.Tensor, Metrics]:
         b = {k: torch.as_tensor(v, dtype=torch.float32, device=dev) for k, v in batch.items()}
         rays_o, rays_d = b["rays_o"], b["rays_d"]
         n_rgb = rays_o.shape[0]
@@ -282,7 +309,56 @@ def make_train_step(
         metrics["psnr"] = mse2psnr(mse)
         return loss, metrics
 
+    def loss_fn(batch: Mapping, generator: Optional[torch.Generator] = None, *,
+                z_vals=None, eps=None, eps_fine=None, pdf_u=None,
+                noise=None, place_u=None) -> Tuple[torch.Tensor, Metrics]:
+        if mesh is None:
+            return _loss(batch, generator, z_vals=z_vals, eps=eps, eps_fine=eps_fine,
+                         pdf_u=pdf_u, noise=noise, place_u=place_u)
+        # this rank's rows among the whole batch's: its rgb rays, then its
+        # depth rays after every rank's rgb rays
+        n_rgb = len(batch["rays_o"])
+        n_depth = len(batch["depth_rays_o"]) if cfg.colmap_depth else 0
+        at = dev if generator is None else generator.device
+        rows = torch.cat([torch.arange(n_rgb, device=at) + data_index * n_rgb,
+                          torch.arange(n_depth, device=at) + n_data * n_rgb
+                          + data_index * n_depth])
+        n_global = n_data * (n_rgb + n_depth)
+
+        def mine(x):
+            if x is None:
+                return None
+            if isinstance(x, (tuple, list)):
+                return type(x)(mine(v) for v in x)
+            x = torch.as_tensor(x)
+            return x[rows.to(x.device)]
+
+        with ray_rows(rows, n_global):
+            return _loss(batch, generator, z_vals=mine(z_vals), eps=eps, eps_fine=eps_fine,
+                         pdf_u=mine(pdf_u), noise=mine(noise), place_u=mine(place_u))
+
+    def reduce_grads() -> None:
+        """The mean gradient over the data axis, in place, one all-reduce."""
+        grads = [p.grad for p in params if p.grad is not None]
+        if not grads:
+            return
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=data_group)
+        flat.div_(n_data)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
+
+    def global_metrics(metrics: Metrics) -> Metrics:
+        """The data axis's mean of each metric; psnr of the mean mse."""
+        keys = [k for k in metrics if k not in ("psnr", "prop_loss")]
+        out = dict(metrics)
+        out.update(zip(keys, mean_over([metrics[k] for k in keys], mesh)))
+        out["psnr"] = mse2psnr(out["mse"])
+        return out
+
     def update() -> None:
+        if mesh is not None:
+            reduce_grads()
         optimizer.step()
         scheduler.step()
 
@@ -297,8 +373,21 @@ def make_train_step(
         prop_optimizer.zero_grad(set_to_none=True)
         prop_loss = torch.mean((torch.log1p(proposal(pts_unit)) - target) ** 2)
         prop_loss.backward()
+        if mesh is not None:
+            check_replicated([p.grad for p in proposal.parameters() if p.grad is not None])
         prop_optimizer.step()
         return prop_loss.detach()
+
+    def check_replicated(grads) -> None:
+        """Raise unless `grads` are equal on every data rank: the proposal's
+        co-training runs on replicated points and an updated field that the
+        all-reduce made equal, so it must not need a reduction."""
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        first = flat.clone()
+        dist.broadcast(first, src=mesh.ranks(DATA_AXIS)[0], group=data_group)
+        if not torch.equal(first, flat):
+            raise RuntimeError("the proposal's co-training gradient differs between the "
+                               "data ranks; the field or the points are not replicated")
 
     def train_step(batch: Mapping, generator: Optional[torch.Generator], *,
                    z_vals=None, eps=None, eps_fine=None, pdf_u=None,
@@ -310,6 +399,8 @@ def make_train_step(
         loss.backward()
         update()
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh is not None:
+            metrics = global_metrics(metrics)
         if occ is not None:
             metrics["prop_loss"] = cotrain(generator, prop_pts=prop_pts)
         return metrics

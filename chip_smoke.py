@@ -187,8 +187,21 @@ final line):
                    expected), the tagged scalars, its mixture eval, its loop
                    rate against (a)'s, peak memory; (d) --parallel
                    --trunk_impl pallas, 2 members, 20 steps; launches exact
- 33. rates         every path's rays/s of this run, side by side
- 34. kernels       per-kernel launches, error, time, plain time and bound;
+ 33. mesh          the several-device paths (cfnerf_torch/parallel/mesh.py)
+                   on the one card: (a) a one-rank NCCL group through
+                   cli.train's mesh path (10 steps of train_NF.sh's flags on
+                   the capture) and a mesh render of one view, against the
+                   same without a group (relative 1e-6 a tensor, 0
+                   expected); (b) two ranks on the card over gloo: the
+                   flagship data-parallel step (1024 + 128 rays), the same
+                   with the trunk kernels, cli.ensemble train --parallel
+                   with 2 members on create_ensemble_mesh(2, 2) (each
+                   member's checkpoint against its serial run) and the
+                   (data 1, model 2) tensor-parallel step in f32, each
+                   against one process (the first step's gradients, the
+                   parameters' change); launches exact on every rank
+ 34. rates         every path's rays/s of this run, side by side
+ 35. kernels       per-kernel launches, error, time, plain time and bound;
                    trunk_fwd's entry also the training variant's
                    (fwd_save_*, at the flat training step)
 
@@ -3912,9 +3925,9 @@ def ens_eval_checks(label, run, rundir, want_members, n_val):
             "launches": run["launches"]}
 
 
-def ens_checkpoint_err(path_a, path_b):
+def ens_checkpoint_err(path_a, path_b, steps=ENS_STEPS):
     """Largest per-tensor |a - b| / max|b| over two checkpoints' tensors
-    (weights, eps buffers, Adam's moments), and their step."""
+    (weights, eps buffers, Adam's moments), both at step `steps`."""
     a, b = (torch.load(os.path.join(p, ckpt.STATE_FILE), map_location="cpu",
                        weights_only=True) for p in (path_a, path_b))
     errs = []
@@ -3934,7 +3947,7 @@ def ens_checkpoint_err(path_a, path_b):
 
     walk(a["params"], b["params"], "params")
     walk(a["opt_state"], b["opt_state"], "opt_state")
-    check(a["global_step"] == b["global_step"] == ENS_STEPS,
+    check(a["global_step"] == b["global_step"] == steps,
           f"checkpoint steps {a['global_step']} / {b['global_step']}")
     return max(errs), len(errs)
 
@@ -4041,6 +4054,363 @@ def phase_ensemble(tmp):
     return {c.__name__: sum(r["launches"][c.__name__] for r in runs) for c in ENS_COUNTERS}
 
 
+# the mesh phase: the port's several-device paths on one card.  (a) a one-rank NCCL group through cli.train's mesh path
+# against the same run without a group: the same kernels on the same
+# inputs in the same order, a one-rank all-reduce copies, so 0 is expected;
+# the gate is 1e-6 of each tensor's largest magnitude.  (b) two ranks on
+# the card over gloo (NCCL takes one rank a GPU): the first step's reduced
+# gradients against one process's at 1e-5 of each leaf's largest magnitude
+# (the batch's sums split in two halves and added in another order; with
+# the trunk kernels by relative RMS, their weight-gradient pass rounding
+# its accumulator not to nearest: twice trunk_wgrad_rel of the rows); the
+# parameters' change over the run by relative RMS and cosine (Adam turns a
+# near-zero gradient's rounding into a whole step of lr, as the *_golden
+# phases' rule says); each --parallel ensemble member's checkpoint against
+# its serial run at ENS_CKPT_RTOL (one member a rank, a data axis of 1: 0
+# expected)
+MESH_STEPS, MESH_PRINT = 10, 5
+MESH_A_RTOL = 1e-6
+MESH_GRAD_RTOL = 1e-5
+MESH_PALLAS_MIN_COS = 0.99999
+MESH_REL_RMS, MESH_MIN_COS = 2.5e-2, 0.9995
+MESH_N_RAND = 1024  # (b): 512 rays a rank, beside 128 depth rays (64 a rank)
+MESH_PALLAS_STEPS = 5
+# the tensor-parallel step gathers every layer's output over gloo through the
+# host: fewer rays, the flagship's widths
+MESH_TP_RAYS, MESH_TP_DEPTH, MESH_TP_STEPS = 128, 32, 3
+MESH_LAUNCH_S = 400
+MESH_COUNTERS = (render_core.fused_flow_composite, render_core.fused_flow_composite_bwd,
+                 flow_stack.fused_flow_stack, flow_stack.fused_flow_stack_bwd,
+                 trunk.trunk_encode, trunk.trunk_encode_bwd)
+
+
+def mesh_counts():
+    return {c.__name__: c.launches for c in MESH_COUNTERS}
+
+
+def mesh_reset():
+    for c in MESH_COUNTERS:
+        c.launches = 0
+
+
+def mesh_want(fwd=0, bwd=0, trunk_kernels=False):
+    counts = dict.fromkeys((c.__name__ for c in MESH_COUNTERS), 0)
+    counts.update(fused_flow_composite=fwd, fused_flow_composite_bwd=bwd)
+    if trunk_kernels:
+        counts.update(trunk_encode=fwd, trunk_encode_bwd=bwd)
+    return counts
+
+
+def mesh_cli_flags(datadir, basedir, *extra):
+    return cli_flags(datadir, basedir, "mesh", "--is_train", "--n_iters", str(MESH_STEPS),
+                     "--i_print", str(MESH_PRINT), "--i_weights", str(MESH_STEPS),
+                     "--i_img", "0", "--i_testset", "0", "--i_video", "0", *extra)
+
+
+def mesh_view(flags, mesh):
+    """The first held-out view of the run of `flags`, from its checkpoint,
+    over `mesh` (None: no group), counted: (rgb_map, launches)."""
+    args = parse_args(flags)
+    scene = load_dataset(args)
+    model, model_fine, rc, start = create_nerf(args)
+    check(start == MESH_STEPS, f"mesh view: resumed at {start}")
+    view = scene["i_val"][0]
+    mesh_reset()
+    out = render_image(make_render_rays(model, rc, model_fine), scene["poses"][view],
+                       H=scene["H"], W=scene["W"], focal=scene["focal"],
+                       ndc=args.dataset_type == "llff" and not args.no_ndc,
+                       use_viewdirs=args.use_viewdirs, near=scene["near"], far=scene["far"],
+                       tile=args.chunk, mesh=mesh)
+    torch.cuda.synchronize()
+    return out["rgb_map"].cpu(), mesh_counts()
+
+
+def mesh_cli_run(flags):
+    """cli.train.main(flags), counted and timed, and its metrics records."""
+    mesh_reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli_train.main(flags)
+    torch.cuda.synchronize()
+    seconds, launches = time.perf_counter() - t0, mesh_counts()
+    args = parse_args(flags)
+    with open(os.path.join(args.basedir, args.dataname, "summaries", "mesh",
+                           "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    return dict(seconds=seconds, launches=launches, records=records)
+
+
+def _mesh_a_rank(rank, flags):
+    """(a) in its one-rank NCCL group: cli.train's mesh path (create_mesh(1))
+    and one view through render_image's mesh path."""
+    from cfnerf_torch.parallel.mesh import create_mesh
+
+    run = mesh_cli_run(flags)
+    rgb, view_launches = mesh_view(flags, create_mesh(1))
+    return dict(run, rgb=rgb, view_launches=view_launches)
+
+
+def mesh_batches(n_rand, n_depth):
+    """next_batch() over the synthetic scene: n_rand rgb and n_depth depth
+    rays, the same stream on every rank."""
+    images, poses, depth_gts = synthetic_scene(seed=0)
+    i_train = list(range(len(images)))
+    rays = RayBatcher(precompute_rays(images, poses, FOCAL, i_train, seed=0), n_rand, seed=0)
+    depth_rays = DepthRayBatcher(
+        precompute_depth_rays(depth_gts, poses, H, W, FOCAL, i_train, seed=0), n_depth, seed=0)
+
+    def next_batch():
+        batch = rays.next()
+        batch.update(depth_rays.next())
+        batch.pop("ray_weights")
+        return batch
+
+    return next_batch
+
+
+def mesh_steps(mesh, n_rand, n_depth, steps, trunk_impl="xla"):
+    """`steps` flagship training steps over `mesh` (None: this process
+    alone, no group) on the synthetic scene's batches, this rank's share:
+    the first step's (reduced) gradients, the parameters at the start and
+    the end, whole (a tensor-parallel net's gathered), the metrics, the
+    step times after the first, the launches."""
+    from cfnerf_torch.parallel import mesh as pmesh
+
+    model, _, rc = build_model(types.SimpleNamespace(**FLAGSHIP, trunk_impl=trunk_impl))
+    if mesh is not None:
+        pmesh.replicate(mesh, model)
+        pmesh.shard_params_tp(mesh, model)
+    cfg = TrainConfig(H=H, W=W, focal=FOCAL, ndc=False, near=NEAR, far=FAR,
+                      k_samples=FLAGSHIP["K_samples"], **TRAIN_CFG)
+    step, _ = make_train_step(model, rc, cfg, mesh=mesh)
+    next_batch = mesh_batches(n_rand, n_depth)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    start = {k: v.detach().cpu().clone() for k, v in pmesh.full_state_dict(model).items()}
+
+    def whole_grads():
+        grads = {}
+        for name, m in model.named_modules():
+            for leaf, p in m.named_parameters(recurse=False):
+                if p.grad is None:
+                    continue
+                g = p.grad
+                if isinstance(m, pmesh.ColumnParallelLinear):
+                    g = pmesh.all_gather(g, m.tp_group, dim=0)
+                grads[f"{name}.{leaf}" if name else leaf] = g.detach().cpu().clone()
+        return grads
+
+    mesh_reset()
+    torch.cuda.synchronize()
+    times, metrics, first = [], [], None
+    for i in range(steps):
+        batch = next_batch()
+        if mesh is not None:
+            batch = pmesh.shard_batch(mesh, batch)
+        t0 = time.perf_counter()
+        m = step(batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            first = whole_grads()
+    launches = mesh_counts()
+    end = {k: v.detach().cpu().clone() for k, v in pmesh.full_state_dict(model).items()}
+    return dict(grads=first, start=start, end=end, metrics=metrics, times=times[1:],
+                launches=launches)
+
+
+def _mesh_b_rank(rank, ens_flags):
+    """(b): two ranks on the card over gloo.  Returns each part's launches
+    (every rank) and, from rank 0, the parts' results."""
+    from cfnerf_torch.parallel.mesh import create_mesh
+
+    out = {}
+    dp = mesh_steps(create_mesh(2), MESH_N_RAND, N_DEPTH, MESH_STEPS)
+    pallas = mesh_steps(create_mesh(2), MESH_N_RAND, N_DEPTH, MESH_PALLAS_STEPS,
+                        trunk_impl="pallas")
+    mesh_reset()
+    t0 = time.perf_counter()
+    cli_ensemble.main(["train", *ens_flags])
+    torch.cuda.synchronize()
+    ens = dict(seconds=time.perf_counter() - t0, launches=mesh_counts())
+    tp = mesh_steps(create_mesh(2, model_parallel=2), MESH_TP_RAYS, MESH_TP_DEPTH,
+                    MESH_TP_STEPS)
+    for name, part in (("dp", dp), ("pallas", pallas), ("ensemble", ens), ("tp", tp)):
+        out[name] = part if rank == 0 else {"launches": part["launches"]}
+    return out
+
+
+def mesh_gates(part, ref, label, trunk_rows=None):
+    """(b)'s gates for one part against its one-process run: the first
+    step's gradients per leaf against 1e-5 of the leaf's largest magnitude
+    (with the trunk kernels, whose weight-gradient pass rounds its
+    accumulator not to nearest, by relative RMS against twice
+    trunk_wgrad_rel of the step's rows, cosine MESH_PALLAS_MIN_COS), the
+    parameters' change over the run by relative RMS and cosine, the metrics
+    finite.  Returns what the phase reports."""
+    check(set(part["grads"]) == set(ref["grads"]), f"{label}: the same leaves get gradients")
+    worst = 0.0
+    for name, want in ref["grads"].items():
+        scale = float(want.abs().max())
+        diff = float((part["grads"][name] - want).abs().max())
+        rel = diff / scale if scale > 0 else diff
+        worst = max(worst, rel)
+        if trunk_rows is None:
+            check(rel <= MESH_GRAD_RTOL,
+                  f"{label}: first step's gradient {name}: relative {rel}")
+    first = None
+    if trunk_rows is not None:
+        first = gate_leaves(leaf_errors(part["grads"], ref["grads"]),
+                            2 * trunk_wgrad_rel(trunk_rows), MESH_PALLAS_MIN_COS,
+                            f"{label}: the first step's gradients")
+    moved = {k: part["end"][k] - part["start"][k] for k in ref["end"]}
+    moved_ref = {k: ref["end"][k] - ref["start"][k] for k in ref["end"]}
+    change = gate_leaves(leaf_errors(moved, moved_ref), MESH_REL_RMS, MESH_MIN_COS,
+                         f"{label}: the parameters' change over the run")
+    check(all(math.isfinite(v) for m in part["metrics"] for v in m.values()),
+          f"{label}: finite metrics")
+    return {"first_step_grad_max_rel": worst, "first_step_grads": first,
+            "change_vs_one_process": change,
+            "loss": [m["loss"] for m in part["metrics"]],
+            "loss_one_process": [m["loss"] for m in ref["metrics"]]}
+
+
+def phase_mesh(tmp):
+    """The port's several-device paths on the one card: (a) a one-rank NCCL
+    group (launch(..., 1), create_mesh(1), cli.train's mesh path) against
+    the same run without a group, and a mesh render of one view; (b) two
+    ranks on the card over gloo: the flagship data-parallel step (1024 +
+    128 rays, 512 + 64 a rank), the same with the trunk kernels, cli.ensemble
+    train --parallel with 2 members on create_ensemble_mesh(2, 2), and the
+    (data 1, model 2) tensor-parallel step in f32, each against one process.
+    Launches exact on every rank.  Returns each kernel's launches over the
+    phase's ranks."""
+    from cfnerf_torch.parallel.mesh import launch
+
+    t_phase = time.perf_counter()
+    datadir = shutil.copytree(CAPTURE, os.path.join(tmp, "minicapture"))
+    rays = N_RAND + N_DEPTH
+    fwd_name, bwd_name = "fused_flow_composite", "fused_flow_composite_bwd"
+    prints = MESH_STEPS // MESH_PRINT
+    want_train = mesh_want(MESH_STEPS + prints, MESH_STEPS)
+
+    # (a) the one-rank group against no group
+    flags_ref = mesh_cli_flags(datadir, os.path.join(tmp, "a_ref"), "--mesh_devices", "1")
+    ref = mesh_cli_run(flags_ref)
+    ref_rgb, _ = mesh_view(flags_ref, None)
+    flags_grp = mesh_cli_flags(datadir, os.path.join(tmp, "a_group"), "--mesh_devices", "1")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (grp,) = launch(_mesh_a_rank, 1, flags_grp, timeout=MESH_LAUNCH_S)
+    a_call_s = time.perf_counter() - t0
+    for label, run in (("no group", ref), ("one-rank group", grp)):
+        check(run["launches"] == want_train,
+              f"mesh (a) {label}: launched {run['launches']}, want {want_train}")
+    want_view = mesh_want(1)  # the 48x64 view is one tile of --chunk rays
+    check(grp["view_launches"] == want_view,
+          f"mesh (a) view: launched {grp['view_launches']}, want {want_view}")
+    name = f"{MESH_STEPS:06d}_01"
+    rundir = ckpt.run_dir(os.path.join(tmp, "a_ref"), "minicapture", "triangular", "mesh")
+    a_ckpt_err, n_tensors = ens_checkpoint_err(
+        os.path.join(ckpt.run_dir(os.path.join(tmp, "a_group"), "minicapture", "triangular",
+                                  "mesh"), name), os.path.join(rundir, name), MESH_STEPS)
+    check(a_ckpt_err <= MESH_A_RTOL, f"mesh (a): checkpoint vs no group, relative {a_ckpt_err}")
+    a_metrics_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                        for a, b in zip(grp["records"], ref["records"])
+                        for k in b if k.startswith(("train/", "val/")))
+    check(len(grp["records"]) == len(ref["records"]) == prints
+          and a_metrics_err <= MESH_A_RTOL,
+          f"mesh (a): metrics vs no group, relative {a_metrics_err}")
+    a_view_err = float((grp["rgb"] - ref_rgb).abs().max())
+    check(a_view_err <= MESH_A_RTOL * float(ref_rgb.abs().max()),
+          f"mesh (a): the mesh render vs no group, max abs {a_view_err}")
+
+    def loop_rate(records):
+        t = {r["step"]: r["t"] for r in records}
+        return (MESH_STEPS - MESH_PRINT) * rays / (t[MESH_STEPS] - t[MESH_PRINT])
+
+    a_rate, ref_rate = loop_rate(grp["records"]), loop_rate(ref["records"])
+    RATES["mesh_a_one_rank_group"] = a_rate
+
+    # (b) two ranks on the card over gloo, each part against one process
+    ens_common = ["--n_members", "2", "--n_iters", str(MESH_STEPS), "--i_print",
+                  str(MESH_PRINT), "--i_weights", str(MESH_STEPS), "--i_img", "0",
+                  "--i_testset", "0", "--i_video", "0", "--is_train"]
+    ens_serial = cli_flags(datadir, os.path.join(tmp, "ens_serial"), "mesh") + ens_common + [
+        "--mesh_devices", "1"]
+    ens_mesh = cli_flags(datadir, os.path.join(tmp, "ens_mesh"), "mesh") + ens_common + [
+        "--parallel", "--mesh_devices", "2"]
+    ref_dp = mesh_steps(None, MESH_N_RAND, N_DEPTH, MESH_STEPS)
+    ref_pallas = mesh_steps(None, MESH_N_RAND, N_DEPTH, MESH_PALLAS_STEPS, trunk_impl="pallas")
+    ref_tp = mesh_steps(None, MESH_TP_RAYS, MESH_TP_DEPTH, MESH_TP_STEPS)
+    cli_ensemble.main(["train", *ens_serial])
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch(_mesh_b_rank, 2, ens_mesh, device="cuda:0", timeout=MESH_LAUNCH_S)
+    b_call_s = time.perf_counter() - t0
+    b = ranks[0]
+    want_b = {"dp": mesh_want(MESH_STEPS, MESH_STEPS),
+              "pallas": mesh_want(MESH_PALLAS_STEPS, MESH_PALLAS_STEPS, trunk_kernels=True),
+              "ensemble": mesh_want(MESH_STEPS + prints, MESH_STEPS),  # one member a rank
+              "tp": mesh_want(MESH_TP_STEPS, MESH_TP_STEPS)}
+    for r, res in enumerate(ranks):
+        for part, want in want_b.items():
+            check(res[part]["launches"] == want,
+                  f"mesh (b) {part}, rank {r}: launched {res[part]['launches']}, want {want}")
+    dp = mesh_gates(b["dp"], ref_dp, "mesh (b) data-parallel")
+    pallas = mesh_gates(b["pallas"], ref_pallas, "mesh (b) data-parallel, trunk kernels",
+                        trunk_rows=(MESH_N_RAND + N_DEPTH) * FLAGSHIP["N_samples"])
+    tp = mesh_gates(b["tp"], ref_tp, "mesh (b) tensor-parallel")
+    ens_errs = {}
+    for m in (1, 2):
+        rundir_of = lambda base: ckpt.run_dir(os.path.join(tmp, base), "minicapture",
+                                              "triangular", "mesh")
+        err, _ = ens_checkpoint_err(os.path.join(rundir_of("ens_mesh"), f"{name[:-2]}{m:02d}"),
+                                    os.path.join(rundir_of("ens_serial"), f"{name[:-2]}{m:02d}"),
+                                    MESH_STEPS)
+        ens_errs[f"m{m:02d}"] = err
+        check(err <= ENS_CKPT_RTOL,
+              f"mesh (b) ensemble: member {m}'s checkpoint vs its serial run, relative {err}")
+    b_rate = (MESH_N_RAND + N_DEPTH) / statistics.median(b["dp"]["times"])
+    b_ref_rate = (MESH_N_RAND + N_DEPTH) / statistics.median(ref_dp["times"])
+    RATES["mesh_b_two_ranks_gloo"] = b_rate
+    launches = {c: sum(r[p]["launches"][c] for r in ranks for p in want_b)
+                + grp["launches"][c] + grp["view_launches"][c] for c in want_train}
+    emit("mesh", nvidia_smi=nvidia_smi_line(),
+         a={"ranks": 1, "backend": "nccl", "steps": MESH_STEPS, "rays_per_step": rays,
+            "launches_per_rank": {"train": grp["launches"], "view": grp["view_launches"]},
+            "checkpoint_max_rel_err_vs_no_group": a_ckpt_err, "tensors": n_tensors,
+            "metrics_max_rel_err_vs_no_group": a_metrics_err,
+            "view_max_abs_err_vs_no_group": a_view_err,
+            "loop_rays_per_s": a_rate, "loop_rays_per_s_no_group": ref_rate,
+            "train_phase_rays_per_s": RATES.get("train"), "call_s": a_call_s},
+         b={"ranks": 2, "backend": "gloo", "device": "cuda:0",
+            "launches_per_rank": [{p: r[p]["launches"] for p in want_b} for r in ranks],
+            "data_parallel": dict(dp, rays_per_step=MESH_N_RAND + N_DEPTH,
+                                  step_ms=1e3 * statistics.median(b["dp"]["times"]),
+                                  step_ms_one_process=1e3 * statistics.median(ref_dp["times"]),
+                                  rays_per_s=b_rate, rays_per_s_one_process=b_ref_rate),
+            "data_parallel_trunk_kernels": dict(
+                pallas, step_ms=1e3 * statistics.median(b["pallas"]["times"]),
+                step_ms_one_process=1e3 * statistics.median(ref_pallas["times"])),
+            "ensemble": {"members": 2, "mesh": {"ensemble": 2, "data": 1},
+                         "checkpoint_max_rel_err_vs_serial": ens_errs,
+                         "seconds": b["ensemble"]["seconds"]},
+            "tensor_parallel": dict(tp, rays_per_step=MESH_TP_RAYS + MESH_TP_DEPTH,
+                                    step_ms=1e3 * statistics.median(b["tp"]["times"]),
+                                    step_ms_one_process=1e3 * statistics.median(
+                                        ref_tp["times"])),
+            "call_s": b_call_s},
+         phase_s=time.perf_counter() - t_phase,
+         gates={"a_rel": MESH_A_RTOL, "b_first_step_grad_rel": MESH_GRAD_RTOL,
+                "b_pallas_first_step_rel_rms": 2 * trunk_wgrad_rel(
+                    (MESH_N_RAND + N_DEPTH) * FLAGSHIP["N_samples"]),
+                "b_pallas_first_step_min_cos": MESH_PALLAS_MIN_COS,
+                "b_change_rel_rms": MESH_REL_RMS, "b_change_min_cos": MESH_MIN_COS,
+                "ensemble_ckpt_rel": ENS_CKPT_RTOL})
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches_by_path, stats):
     """`launches` totals the per-path counts; `launches_by_path` keeps each
     path's own count, reset just before that path and read just after."""
@@ -4125,6 +4495,8 @@ def main() -> int:
         cli_fam = phase_cli_families(tmp)
     with tempfile.TemporaryDirectory(prefix="cfnerf_ensemble_") as tmp:
         ens = phase_ensemble(tmp)
+    with tempfile.TemporaryDirectory(prefix="cfnerf_mesh_") as tmp:
+        mesh = phase_mesh(tmp)
     emit("rates", rays_per_s=RATES)
 
     def fam(part, name):
@@ -4161,7 +4533,8 @@ def main() -> int:
     # backward a step); cli_render_only: a forward a spiral frame; entry: one;
     # ensemble: a render-core forward and backward a member step, a forward
     # a member's val batch and a member's evaluated view, a trunk forward and
-    # backward beside them in its pallas run, no flow stack
+    # backward beside them in its pallas run, no flow stack; mesh: the same
+    # per rank on each of its paths, summed over the ranks (phase_mesh)
     fwd_name, bwd_name = (render_core.fused_flow_composite.__name__,
                           render_core.fused_flow_composite_bwd.__name__)
     print(json.dumps({"kernels": [
@@ -4177,7 +4550,7 @@ def main() -> int:
                       "cli_train": cli_launches("cli_train", fwd_name),
                       "cli_train_pallas": cli_launches("cli_train_pallas", fwd_name),
                       "cli_render_only": render_only_launches, "entry": entry_launches,
-                      **slice7_core, "ensemble": ens[fwd_name]},
+                      **slice7_core, "ensemble": ens[fwd_name], "mesh": mesh[fwd_name]},
                      fwd_stats),
         kernel_entry("render_core_bwd", render_core.SOURCE_BWD, render_core.REPLACES_BWD,
                      {"train": train["fused_flow_composite_bwd"],
@@ -4189,7 +4562,7 @@ def main() -> int:
                       "cli_train_pallas": cli_launches("cli_train_pallas", bwd_name),
                       "families_train": fam(fam_train, "fused_flow_composite_bwd"),
                       "cli_families": fam(cli_fam, "fused_flow_composite_bwd"),
-                      "ensemble": ens[bwd_name]},
+                      "ensemble": ens[bwd_name], "mesh": mesh[bwd_name]},
                      bwd_stats),
         kernel_entry("flow_stack_fwd", flow_stack.SOURCE, flow_stack.REPLACES,
                      {"hier_serve": hier_serve_launches,
@@ -4202,12 +4575,13 @@ def main() -> int:
                       "families_serve": fam(fam_serve, "fused_flow_stack"),
                       "families_train": fam(fam_train, "fused_flow_stack"),
                       "cli_families": fam(cli_fam, "fused_flow_stack"),
-                      "ensemble": ens["fused_flow_stack"]},
+                      "ensemble": ens["fused_flow_stack"], "mesh": mesh["fused_flow_stack"]},
                      flow_stats["fwd"]),
         kernel_entry("flow_stack_bwd", flow_stack.SOURCE_BWD, flow_stack.REPLACES_BWD,
                      {"hier_train": hier_train["fused_flow_stack_bwd"],
                       "trunk_hier_train": trunk_hier_train["fused_flow_stack_bwd"],
-                      "ensemble": ens["fused_flow_stack_bwd"]},
+                      "ensemble": ens["fused_flow_stack_bwd"],
+                      "mesh": mesh["fused_flow_stack_bwd"]},
                      flow_stats["bwd"]),
         kernel_entry("trunk_fwd", trunk.SOURCE, trunk.REPLACES,
                      {"trunk_serve": trunk_flat_launches,
@@ -4218,7 +4592,7 @@ def main() -> int:
                       "families_serve": fam(fam_serve, "trunk_encode"),
                       "families_train": fam(fam_train, "trunk_encode"),
                       "cli_families": fam(cli_fam, "trunk_encode"),
-                      "ensemble": ens["trunk_encode"]},
+                      "ensemble": ens["trunk_encode"], "mesh": mesh["trunk_encode"]},
                      trunk_stats),
         kernel_entry("trunk_bwd", trunk.SOURCE_BWD, ", ".join(trunk.REPLACES_BWD),
                      {"trunk_train": trunk_train["trunk_encode_bwd"],
@@ -4226,7 +4600,7 @@ def main() -> int:
                       "cli_train_pallas": cli_launches("cli_train_pallas", "trunk_encode_bwd"),
                       "families_train": fam(fam_train, "trunk_encode_bwd"),
                       "cli_families": fam(cli_fam, "trunk_encode_bwd"),
-                      "ensemble": ens["trunk_encode_bwd"]},
+                      "ensemble": ens["trunk_encode_bwd"], "mesh": mesh["trunk_encode_bwd"]},
                      trunk_bwd_stats),
     ]}), flush=True)
     emit("wall", seconds=time.perf_counter() - t_start)

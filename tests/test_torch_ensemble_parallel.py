@@ -399,14 +399,19 @@ def test_parallel_cli_refuses_as_jax_does(scene, extra, error, match):
 
 
 def test_parallel_refuses_a_mesh_and_straggling_members(scene):
-    with pytest.raises(NotImplementedError, match="slice 8c"):
-        tens.train_ensemble_parallel(tens.parser().parse_args(
-            _flags(scene, "refused", "--mesh_devices", "2")), 2, device="cpu")
+    # a mesh whose data axis does not divide N_rand: JAX's refusal, before
+    # any rank is launched ((ensemble 2, data 2) over 4 devices)
+    flags = _flags(scene, "refused", "--mesh_devices", "4", "--N_rand", "15")
+    with pytest.raises(ValueError) as port:
+        tens.train_ensemble_parallel(tens.parser().parse_args(flags), 2, device="cpu")
+    jp = jparser()
+    jp.add_argument("--n_members", type=int, default=2)
+    with pytest.raises(ValueError) as ref:
+        jens.train_ensemble_parallel(jp.parse_args(flags), 2)
+    assert str(port.value) == str(ref.value)
+    assert "ensemble axis took 2" in str(port.value)
     members = _members()
     models = [port_nerf_flows(CFG, p, e) for p, e in members]
-    with pytest.raises(NotImplementedError, match="slice 8c"):
-        make_ensemble_train_step(models, RenderConfig(n_samples=8), TrainConfig(**TRAIN_KW), M,
-                                 mesh=object())
     with pytest.raises(ValueError, match="1 given for 2 members"):
         make_ensemble_train_step(models[:1], RenderConfig(n_samples=8), TrainConfig(**TRAIN_KW),
                                  M)

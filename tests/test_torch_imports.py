@@ -43,7 +43,7 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     # every module of the port was imported
-    assert int(proc.stdout.split()[-1]) >= 54
+    assert int(proc.stdout.split()[-1]) >= 55
 
 
 def test_port_modules_mirror_the_jax_layout():
@@ -59,7 +59,7 @@ def test_port_modules_mirror_the_jax_layout():
                 "train/logging.py", "utils/pointcloud.py", "utils/visualization.py",
                 "cli/train.py", "cli/eval.py", "flows/iaf.py", "flows/conv_layers.py",
                 "models/nerf.py", "models/baseline_adapter.py", "cli/ensemble.py",
-                "parallel/ensemble.py"):
+                "parallel/ensemble.py", "parallel/mesh.py"):
         assert mod in port and (ROOT / "cfnerf_tpu" / mod).exists(), mod
     # each Pallas kernel module has its wrapper under ops/kernels/
     for mod in ("render_core.py", "flow_stack.py", "trunk.py"):

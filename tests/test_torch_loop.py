@@ -23,6 +23,7 @@ from cfnerf_torch.data.image_io import imread_png
 from cfnerf_torch.data.sampler import RayBatcher, precompute_rays
 from cfnerf_torch.models.factory import create_nerf
 from cfnerf_torch.ops.metrics import to8b
+from cfnerf_torch.parallel import mesh as tmesh
 from cfnerf_torch.render.renderer import make_render_rays
 from cfnerf_torch.train import checkpoint as tckpt
 from cfnerf_torch.train import loop as tloop
@@ -194,10 +195,23 @@ def test_colmap_depth_needs_batching(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--mesh_devices", "2"], ["--model_parallel", "2"]])
-def test_more_than_one_device_waits_for_slice_8(tmp_path, flag):
-    args = tparse(_flags(tmp_path / "none", tmp_path / "logs", *flag, "--is_train"))
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        tloop.train(args, device="cpu")
+def test_more_than_one_device_waits_for_slice_8(tmp_path, monkeypatch, flag):
+    """The flags that asked for several devices before they were ported:
+    --mesh_devices 2 now trains on 2 gloo ranks (rank 0 writing the one
+    metrics stream), --model_parallel 2 on the CPU's one device raises
+    JAX's ValueError."""
+    monkeypatch.setattr(tmesh, "DEFAULT_TIMEOUT_S", 240)
+    datadir = make_blender_dataset(str(tmp_path / "lego"), H=8, W=8, n_val=1)
+    args = tparse(_flags(datadir, tmp_path / "logs", *flag, "--n_iters", "2", "--i_print",
+                         "2", "--i_weights", "2", "--i_img", "0", "--i_testset", "0",
+                         "--i_video", "0", "--is_train"))
+    if flag[0] == "--model_parallel":
+        with pytest.raises(ValueError, match="1 devices not divisible by model_parallel=2"):
+            tloop.train(args, device="cpu")
+        return
+    tloop.train(args, device="cpu")
+    assert [r["step"] for r in _jsonl(tmp_path / "logs")] == [2]
+    assert os.path.exists(tmp_path / "logs" / "tiny" / "triangular" / "e" / "000002_01")
 
 
 def _hand_run(args, k_schedule, carry):

@@ -25,6 +25,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch.distributed as dist
 
 from cfnerf_tpu.render import renderer as jrender
 from cfnerf_tpu.train import loss as jloss
@@ -32,6 +33,7 @@ from cfnerf_tpu.train import step as jstep
 from cfnerf_torch.convert import nerf_flows_state_dict_from_jax
 from cfnerf_torch.models.nerf_flows import NeRFFlows
 from cfnerf_torch.ops.sampling import sample_z_vals, stratified_perturb
+from cfnerf_torch.parallel.mesh import create_mesh
 from cfnerf_torch.render.renderer import RenderConfig
 from cfnerf_torch.train import loss as tloss
 from cfnerf_torch.train.step import (
@@ -322,12 +324,26 @@ def _port_model():
     return port_nerf_flows(CFG, params, test_eps)
 
 
-@pytest.mark.parametrize("render_config,kw,slice_no", [
-    (RenderConfig(n_samples=13), dict(mesh=object()), "slice 8"),
-], ids=["mesh"])
-def test_later_slices_raise(render_config, kw, slice_no):
-    with pytest.raises(NotImplementedError, match=slice_no):
-        make_train_step(_port_model(), render_config, TrainConfig(**TRAIN_KW), **kw)
+@pytest.mark.parametrize("render_config", [RenderConfig(n_samples=13)], ids=["mesh"])
+def test_later_slices_raise(render_config, tmp_path):
+    """The device mesh, which the step refused before it was ported: over a
+    one-rank gloo group (create_mesh(1)) the step takes the one-device
+    step bitwise, its draws, gradient all-reduce and metric means
+    included."""
+    batch = make_batch(16, 8, seed=4)
+    runs = []
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg", rank=0, world_size=1)
+    try:
+        for mesh in (None, create_mesh(1)):
+            model = _port_model()
+            step, _ = make_train_step(model, render_config, TrainConfig(**TRAIN_KW), mesh=mesh)
+            metrics = step(batch, torch.Generator().manual_seed(3))
+            runs.append((metrics, {k: p.detach().clone() for k, p in model.named_parameters()}))
+    finally:
+        dist.destroy_process_group()
+    (m0, p0), (m1, p1) = runs
+    assert set(m0) == set(m1) and all(torch.equal(m0[k], m1[k]) for k in m0)
+    assert all(torch.equal(p0[k], p1[k]) for k in p0)
 
 
 def test_occ_step_trains_on_cpu():
