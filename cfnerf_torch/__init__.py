@@ -15,8 +15,9 @@ Layout mirrors cfnerf_tpu so each module's counterpart is easy to find:
                 (and its occ stage), the stage schedules, the dataset
                 dispatch, checkpoints and resume
   data/         LLFF and Blender loaders, COLMAP files, pose math, PNG I/O
-                and the two resamplers (image_io), host-side ray precompute,
-                batch samplers and the batch prefetcher
+                and the two resamplers (image_io), the JPEG decoder (jpeg),
+                host-side ray precompute, batch samplers and the batch
+                prefetcher
   parallel/     several devices over torch.distributed (the mesh, its
                 launch) and the ensemble's member axis
   utils/        the flag parser (the JAX package's flags), device selection

@@ -12,9 +12,10 @@ this module computes the same results itself:
     gray image as uint16; a 16-bit colour image as its high bytes, which is
     what Pillow decodes, gray + alpha then as RGBA).  An interlaced (Adam7)
     PNG raises;
-  * imread: imread_png for a PNG, imageio (imported on use) for any other
-    format where imageio is installed; without it a non-PNG file raises,
-    naming the file;
+  * imread: imread_png for a PNG, data/jpeg.py's imread_jpeg (Pillow's
+    libjpeg-turbo pixels, bit for bit) for a JPEG, chosen by the file's
+    signature; any other file raises, naming it.  image_shape gives the
+    shape imread returns from the PNG IHDR or the JPEG frame header alone;
   * resize_area: cv2.resize(img, (W, H), interpolation=cv2.INTER_AREA) of a
     float image: cv2's pixel-overlap weights (the block mean at an integer
     factor), in float64, returned as float32;
@@ -32,7 +33,10 @@ import zlib
 
 import numpy as np
 
+from cfnerf_torch.data.jpeg import imread_jpeg, jpeg_shape
+
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+JPEG_SIGNATURE = b"\xff\xd8\xff"
 # colour type -> samples a pixel
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
@@ -105,22 +109,14 @@ def imread_png(path) -> np.ndarray:
     header, palette, idat = None, None, []
     for kind, body in _chunks(data, path):
         if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
+            header = body
         elif kind == b"PLTE":
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
     if header is None:
         raise ValueError(f"{path}: PNG has no IHDR chunk")
-    W, H, depth, ctype, _, _, interlace = header
-    if interlace:
-        raise ValueError(f"{path}: interlaced (Adam7) PNG files are not supported; "
-                         "save it without interlacing")
-    if ctype not in _CHANNELS:
-        raise ValueError(f"{path}: unknown PNG colour type {ctype}")
-    if depth not in (8, 16) and not (ctype == 3 and depth in (1, 2, 4)):
-        raise ValueError(f"{path}: PNG of colour type {ctype} at {depth} bits is not "
-                         "supported (8 or 16 bits; 1-8 for palette images)")
+    W, H, depth, ctype = _png_header(path, header)
     ch = _CHANNELS[ctype]
     stride = (W * ch * depth + 7) // 8
     bpp = max(1, ch * depth // 8)
@@ -183,20 +179,54 @@ def imwrite_png(path, arr: np.ndarray) -> None:
         f.write(_chunk(b"IEND", b""))
 
 
-def imread(path) -> np.ndarray:
-    """Read an image as imageio.v2.imread does: PNG files here, any other
-    format through imageio where it is installed."""
+def _png_header(path, ihdr: bytes) -> tuple:
+    """IHDR's (W, H, depth, colour type), refusing what imread_png refuses."""
+    W, H, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB", ihdr)
+    if interlace:
+        raise ValueError(f"{path}: interlaced (Adam7) PNG files are not supported; "
+                         "save it without interlacing")
+    if ctype not in _CHANNELS:
+        raise ValueError(f"{path}: unknown PNG colour type {ctype}")
+    if depth not in (8, 16) and not (ctype == 3 and depth in (1, 2, 4)):
+        raise ValueError(f"{path}: PNG of colour type {ctype} at {depth} bits is not "
+                         "supported (8 or 16 bits; 1-8 for palette images)")
+    return W, H, depth, ctype
+
+
+def _kind(path) -> str:
     with open(path, "rb") as f:
-        is_png = f.read(len(PNG_SIGNATURE)) == PNG_SIGNATURE
-    if is_png:
-        return imread_png(path)
-    try:
-        import imageio.v2 as imageio
-    except ImportError:
-        raise ValueError(
-            f"{os.fspath(path)} is not a PNG file and imageio, which reads other "
-            "formats, is not installed: convert the image to PNG") from None
-    return imageio.imread(path)
+        head = f.read(len(PNG_SIGNATURE))
+    if head == PNG_SIGNATURE:
+        return "png"
+    if head[:3] == JPEG_SIGNATURE:
+        return "jpeg"
+    raise ValueError(f"{os.fspath(path)} is neither a PNG nor a JPEG file")
+
+
+def imread(path) -> np.ndarray:
+    """Read a PNG or JPEG file into the array imageio.v2.imread returns,
+    choosing the decoder by the file's signature."""
+    return imread_png(path) if _kind(path) == "png" else imread_jpeg(path)
+
+
+def image_shape(path) -> tuple:
+    """imread(path).shape, from the PNG IHDR or the JPEG frame header only:
+    (H, W) gray, otherwise (H, W, C) with C as imread gives it."""
+    if _kind(path) == "jpeg":
+        return jpeg_shape(path)
+    with open(path, "rb") as f:
+        head = f.read(33)  # the signature, then IHDR: length, type, 13 bytes, CRC
+    if len(head) < 33 or head[8:16] != b"\x00\x00\x00\x0dIHDR":
+        raise ValueError(f"{path}: PNG does not start with its IHDR chunk")
+    ihdr = head[16:29]
+    if zlib.crc32(b"IHDR" + ihdr) != struct.unpack(">I", head[29:33])[0]:
+        raise ValueError(f"{path}: PNG chunk b'IHDR' fails its CRC")
+    W, H, depth, ctype = _png_header(path, ihdr)
+    if ctype == 0:
+        return (H, W)
+    # palette -> RGB; 16-bit gray + alpha opens as RGBA (imread_png)
+    channels = {2: 3, 3: 3, 4: 4 if depth == 16 else 2, 6: 4}[ctype]
+    return (H, W, channels)
 
 
 # ---------------------------------------------------------------------- #

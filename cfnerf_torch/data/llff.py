@@ -1,9 +1,11 @@
 """LLFF dataset loading (host-side, numpy); counterpart of
-cfnerf_tpu/data/llff.py.  Images are read by data/image_io.imread (PNG
-itself; other formats through imageio where it is installed) and minified
-by image_io.resize_lanczos + imwrite_png, which give the bytes of the JAX
+cfnerf_tpu/data/llff.py.  Images are read by data/image_io.imread (PNG and
+JPEG, the pixels imageio / Pillow give) and minified by
+image_io.resize_lanczos + imwrite_png, which give the bytes of the JAX
 loader's Pillow Lanczos resize and PNG save, so no image library is needed
-for a PNG capture.
+for a capture as released (full-size JPGs in images/).  The first image's
+shape comes from its header (image_io.image_shape): a scene whose
+images_{factor}/ exists decodes no original.
 
 Capability parity with the reference's load_llff.py:
   * poses_bounds.npy parsing (:66-123), axis swap [-y x z] -> [x y z] (:284),
@@ -27,7 +29,7 @@ from pathlib import Path
 import numpy as np
 
 from cfnerf_torch.data.colmap import read_images_binary, read_points3d_binary
-from cfnerf_torch.data.image_io import imread, imwrite_png, resize_lanczos
+from cfnerf_torch.data.image_io import image_shape, imread, imwrite_png, resize_lanczos
 from cfnerf_torch.data.poses import (
     _unit,
     average_pose,
@@ -91,7 +93,7 @@ def _load_data(basedir, factor=None, width=None, height=None, load_imgs=True):
         for f in sorted(os.listdir(imgdir0))
         if f.endswith(("JPG", "jpg", "png"))
     )
-    sh = _imread(img0).shape
+    sh = image_shape(img0)
 
     sfx = ""
     if factor is not None and factor != 1:

@@ -135,7 +135,20 @@ final line):
                    Adam at the decayed lr, one more step), and a Blender
                    scene written by imwrite_png and read back, half_res
                    against a 2x2 block mean
- 23. cli_train     the loop through the CLI on a copy of the capture:
+ 23. jpeg          JPEG captures with imageio, Pillow and cv2 blocked:
+                   every checked-in JPEG fixture (tests/fixtures/jpeg: the
+                   subsampling x progression matrix, grayscale, restarts,
+                   optimized and 16-bit tables, RGB, EXIF, a 1 MP photo)
+                   decoded by cfnerf_torch/data/jpeg.py bitwise its golden
+                   (imageio.v2.imread's array; the photo's SHA-256) and
+                   image_shape its shape; cli.train with train_NF.sh's
+                   flags and factor 2 on a copy of
+                   tests/fixtures/minicapture_jpg: each JPG decoded once,
+                   images_2 bitwise the JAX loader's minify (golden), COLMAP
+                   depth, 10 flagship steps, the checkpoint, the held-out
+                   view, launches exact; the photo's decode time (median of
+                   3; seconds, us a pixel, MB/s of entropy-coded bytes)
+ 24. cli_train     the loop through the CLI on a copy of the capture:
                    cfnerf_torch.cli.eval.evaluate at step 0 (random
                    weights), cli.train.main with train_NF.sh's flags and
                    500 steps (the val stream at each i_print, a checkpoint,
@@ -144,41 +157,41 @@ final line):
                    rise by 3 dB and its NLL fall; the files of each; render-
                    core launches exact, predicted from the cadences; the
                    loop's rays/s beside the train phase's
- 24. cli_train_pallas  the same with --trunk_impl pallas in a fresh run dir
+ 25. cli_train_pallas  the same with --trunk_impl pallas in a fresh run dir
                    (trunk launches exact too); both trunks again at seeds 1
                    and 2, each run held to cli_train's gates, and the
                    quality side by side with its seed-to-seed spread and
                    the per-seed pallas - f32 difference (cli_quality)
- 25. cli_render_only  the CLI without --is_train on the f32 run: resumes at
+ 26. cli_render_only  the CLI without --is_train on the f32 run: resumes at
                    step 500, renders the spiral (30 launches), its frames
                    bitwise the step-500 video's
- 26. entry         cfnerf_torch.entry.entry() on the card against the same
+ 27. entry         cfnerf_torch.entry.entry() on the card against the same
                    fn on the CPU (rtol = atol = 1e-4)
- 27. families_golden  each flow family (no_flow, householder, orthogonal,
+ 28. families_golden  each flow family (no_flow, householder, orthogonal,
                    planar, IAF) and baseline (nerf, nerf_dropout on JAX's
                    masks, nerf_wild, and nerf_wild in bf16) of a tiny JAX
                    model (D4/W64, K8, F2; tests/fixtures): a test render and
                    one training step's loss and gradients through the card's
                    unfused path, no kernel of the port launched
- 28. families_serve  one 8192-ray tile of the view (N128, K32) for each family
+ 29. families_serve  one 8192-ray tile of the view (N128, K32) for each family
                    and baseline at the flagship's widths, householder and IAF
                    also with the trunk kernel: launches exact (render core
                    and flow stack 0, trunk 1 a pallas tile), rays/s, peak
                    memory, 64 rays against the CPU's plain path, a profiled
                    householder tile
- 29. families_train  the same cells, 10 steps (nerf_dropout 3) of 512 + 128
+ 30. families_train  the same cells, 10 steps (nerf_dropout 3) of 512 + 128
                    rays in each model's loss mode: launches exact (a trunk
                    forward and backward a pallas step, else none), finite
                    metrics, rays/s, peak memory
- 30. sample_interp NeRFFlows.sample on 2^20 points and interpolation (K = 21)
+ 31. sample_interp NeRFFlows.sample on 2^20 points and interpolation (K = 21)
                    on 2^18 through the flagship net: 1 and 2 flow-stack
                    launches, each against the flow stack's plain version
- 31. cli_families  the CLI (cli.train.main, scripts/train_NF.sh's flags on the
+ 32. cli_families  the CLI (cli.train.main, scripts/train_NF.sh's flags on the
                    capture, 100 steps) with --model nerf_wild, with
                    --type_flows householder --trunk_impl pallas, and without
                    --type_flows (the parser's no_flow); each evaluated at
                    step 100: finite metrics, launches exact
- 32. ensemble      cfnerf_torch.cli.ensemble on the capture at train_NF.sh's
+ 33. ensemble      cfnerf_torch.cli.ensemble on the capture at train_NF.sh's
                    flags: (a) 3 members trained serially, 100 steps each;
                    (b) the mixture eval of all three, of 1 and 3, of each
                    alone, --members auto under train_psnr and val_nll; (c)
@@ -187,7 +200,7 @@ final line):
                    expected), the tagged scalars, its mixture eval, its loop
                    rate against (a)'s, peak memory; (d) --parallel
                    --trunk_impl pallas, 2 members, 20 steps; launches exact
- 33. mesh          the several-device paths (cfnerf_torch/parallel/mesh.py)
+ 34. mesh          the several-device paths (cfnerf_torch/parallel/mesh.py)
                    on the one card: (a) a one-rank NCCL group through
                    cli.train's mesh path (10 steps of train_NF.sh's flags on
                    the capture) and a mesh render of one view, against the
@@ -200,8 +213,8 @@ final line):
                    (data 1, model 2) tensor-parallel step in f32, each
                    against one process (the first step's gradients, the
                    parameters' change); launches exact on every rank
- 34. rates         every path's rays/s of this run, side by side
- 35. kernels       per-kernel launches, error, time, plain time and bound;
+ 35. rates         every path's rays/s of this run, side by side
+ 36. kernels       per-kernel launches, error, time, plain time and bound;
                    trunk_fwd's entry also the training variant's
                    (fwd_save_*, at the flat training step)
 
@@ -213,6 +226,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import hashlib
 import importlib.util
 import io
 import json
@@ -220,6 +234,7 @@ import math
 import os
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -237,6 +252,7 @@ from cfnerf_torch.convert import (
     state_dict_from_jax,
 )
 from cfnerf_torch.data.blender import load_blender_data
+from cfnerf_torch.data import image_io, jpeg
 from cfnerf_torch.data.image_io import imread_png, imwrite_png
 from cfnerf_torch.data.prefetch import BatchPrefetcher
 from cfnerf_torch.data.sampler import (
@@ -3094,6 +3110,178 @@ def phase_data_train():
 
 
 # ---------------------------------------------------------------------- #
+# jpeg: JPEG captures read by the port itself (slice 9)
+# ---------------------------------------------------------------------- #
+
+JPEG_FIXTURES = ROOT / "tests" / "fixtures" / "jpeg"
+JPEG_CAPTURE = ROOT / "tests" / "fixtures" / "minicapture_jpg"
+JPEG_CAPTURE_GOLDEN = ROOT / "tests" / "fixtures" / "minicapture_jpg_golden" / "images_2"
+JPEG_PHOTO = "photo_1mp"
+JPEG_STEPS = 10
+JPEG_TIMED_DECODES = 3
+# the libraries the JAX loader reads images with; blocked in sys.modules for
+# the phase, so that any import of them on the port's path raises
+IMAGE_LIBRARIES = ("imageio", "PIL", "cv2")
+
+
+@contextlib.contextmanager
+def image_libraries_blocked():
+    saved = {name: sys.modules.get(name, False) for name in IMAGE_LIBRARIES}
+    for name in IMAGE_LIBRARIES:
+        sys.modules[name] = None
+    try:
+        yield
+    finally:
+        for name, mod in saved.items():
+            if mod is False:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = mod
+
+
+def jpeg_entropy_bytes(data: bytes) -> int:
+    """The bytes of a one-scan JPEG between its SOS header and its EOI."""
+    sos = data.index(b"\xff\xda")
+    (length,) = struct.unpack(">H", data[sos + 2:sos + 4])
+    return data.rindex(b"\xff\xd9") - (sos + 2 + length)
+
+
+def phase_jpeg():
+    """JPEG captures on the card, imageio, Pillow and cv2 blocked: (a) every
+    checked-in JPEG fixture decoded by the port bitwise its golden (made by
+    imageio.v2.imread), image_shape its shape; (b) cli.train with
+    scripts/train_NF.sh's flags (and the factor 2 of
+    configs/minicapture_ds.txt) on a copy of the JPEG capture: images_2
+    minified from the JPGs bitwise the JAX loader's golden, COLMAP depth, 10
+    flagship steps (a render-core forward and backward each) with a finite
+    loss, the checkpoint, the held-out view (one tile), launches exact; (c)
+    the decode time of the 1 MP photo, median of 3.  Returns the launches
+    of (b) by kernel."""
+    t_phase = time.perf_counter()
+    importable = {name: importlib.util.find_spec(name) is not None
+                  for name in ("imageio", "PIL")}
+    golden = np.load(JPEG_FIXTURES / "golden.npz")
+    decoded = {}
+
+    def counting_decode(data, name="JPEG data"):
+        decoded[name] = decoded.get(name, 0) + 1
+        return real_decode(data, name)
+
+    real_decode = jpeg.decode
+    counters = (render_core.fused_flow_composite, render_core.fused_flow_composite_bwd,
+                flow_stack.fused_flow_stack, flow_stack.fused_flow_stack_bwd,
+                trunk.trunk_encode, trunk.trunk_encode_bwd)
+    with image_libraries_blocked():
+        # (a) the fixtures
+        fixtures = sorted(JPEG_FIXTURES.glob("*.jpg"))
+        for path in fixtures:
+            arr = image_io.imread(path)
+            stem = path.stem
+            if stem in golden:
+                same = arr.dtype == golden[stem].dtype and np.array_equal(arr, golden[stem])
+            else:  # the photo's golden is its shape and the SHA-256 of its bytes
+                same = (arr.dtype == np.uint8 and tuple(golden[stem + "_shape"]) == arr.shape
+                        and hashlib.sha256(np.ascontiguousarray(arr).tobytes()).digest()
+                        == golden[stem + "_sha256"].tobytes())
+            check(same, f"jpeg: {path.name} decodes bitwise to its golden")
+            check(image_io.image_shape(path) == arr.shape,
+                  f"jpeg: image_shape({path.name}) {image_io.image_shape(path)} vs {arr.shape}")
+
+        # (b) the JPEG capture through the CLI
+        with tempfile.TemporaryDirectory(prefix="cfnerf_jpeg_") as tmp:
+            datadir = shutil.copytree(JPEG_CAPTURE, os.path.join(tmp, "minicapture_jpg"))
+            basedir = os.path.join(tmp, "logs")
+            flags = ([f for f in TRAIN_NF_FLAGS if f != "--is_train"]
+                     + ["--datadir", datadir, "--basedir", basedir, "--dataname", "minicapture",
+                        "--expname", "jpeg", "--factor", "2"])
+            cadences = ["--n_iters", str(JPEG_STEPS), "--i_print", str(JPEG_STEPS),
+                        "--i_weights", str(JPEG_STEPS), "--i_testset", str(JPEG_STEPS),
+                        "--i_video", str(10 * JPEG_STEPS)]
+            for c in counters:
+                c.launches = 0  # the main path, counted
+            jpeg.decode = counting_decode
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, text = with_output(cli_train.main, flags + ["--is_train"] + cadences)
+                torch.cuda.synchronize()
+                train_s = time.perf_counter() - t0
+            finally:
+                jpeg.decode = real_decode
+            launches = {c.__name__: c.launches for c in counters}
+            originals = sorted(os.listdir(os.path.join(datadir, "images")))
+            check(sorted(decoded) == sorted(os.path.join(datadir, "images", f)
+                                            for f in originals)
+                  and set(decoded.values()) == {1},
+                  f"jpeg: the port decoded each original JPG once: {decoded}")
+            minified = os.path.join(datadir, "images_2")
+            written = sorted(os.listdir(minified))
+            want = sorted(os.listdir(JPEG_CAPTURE_GOLDEN))
+            check(written == want, f"jpeg: images_2 holds {written}, want {want}")
+            for name in written:
+                got = imread_png(os.path.join(minified, name))
+                ref = imread_png(JPEG_CAPTURE_GOLDEN / name)
+                check(got.shape == ref.shape == (48, 64, 3) and np.array_equal(got, ref),
+                      f"jpeg: images_2/{name} bitwise the JAX loader's minify")
+            depth = np.load(os.path.join(datadir, "colmap_depth.npy"), allow_pickle=True)
+            depth_points = int(sum(len(d["depth"]) for d in depth))
+            check(len(depth) == len(originals) and depth_points > 0,
+                  f"jpeg: COLMAP depth for {len(depth)} views, {depth_points} points")
+            args = parse_args(flags)
+            rundir = ckpt.run_dir(args.basedir, args.dataname, args.type_flows, args.expname)
+            check(os.path.exists(os.path.join(rundir, f"{JPEG_STEPS:06d}_01", ckpt.STATE_FILE)),
+                  f"jpeg: checkpoint {JPEG_STEPS:06d}_01")
+            testset = os.path.join(rundir, f"testset_{JPEG_STEPS:06d}")
+            views = sorted(os.listdir(testset))
+            n_val = len(views) // 2
+            check(n_val == 1 and views == ["000.png", "000_std.png"],
+                  f"jpeg: the held-out view's PNGs {views}")
+            with open(os.path.join(basedir, "minicapture", "summaries", "jpeg",
+                                   "metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+            check([r["step"] for r in records] == [JPEG_STEPS]
+                  and all(math.isfinite(v) for v in records[0].values()),
+                  f"jpeg: finite metrics at step {JPEG_STEPS}: {records}")
+            # a render-core forward and backward a step, a forward for the val
+            # batch at i_print and for the held-out view (48x64: one tile)
+            want_launches = {"fused_flow_composite": JPEG_STEPS + 1 + n_val,
+                             "fused_flow_composite_bwd": JPEG_STEPS, "fused_flow_stack": 0,
+                             "fused_flow_stack_bwd": 0, "trunk_encode": 0,
+                             "trunk_encode_bwd": 0}
+            check(launches == want_launches,
+                  f"jpeg: launches {launches}, want {want_launches}")
+
+        # (c) the decode time of the 1 MP photo
+        photo = JPEG_FIXTURES / f"{JPEG_PHOTO}.jpg"
+        data = photo.read_bytes()
+        times = []
+        for _ in range(JPEG_TIMED_DECODES):
+            t0 = time.perf_counter()
+            arr = jpeg.imread_jpeg(photo)
+            times.append(time.perf_counter() - t0)
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in IMAGE_LIBRARIES
+                    and sys.modules[m] is not None)
+    decode_s = statistics.median(times)
+    pixels = arr.shape[0] * arr.shape[1]
+    entropy = jpeg_entropy_bytes(data)
+    emit("jpeg", nvidia_smi=nvidia_smi_line(), importable=importable,
+         image_libraries_loaded=leaked,
+         fixtures={"files": len(fixtures), "bitwise_golden": True},
+         capture={"views": len(originals), "jpg_decodes": len(decoded),
+                  "images_2": "bitwise the JAX loader's minify",
+                  "colmap_depth_points": depth_points, "steps": JPEG_STEPS,
+                  "train_loss": records[0].get("train/loss"), "cli_train_s": train_s,
+                  "launches": launches, "held_out_views": n_val},
+         decode={"file": photo.name, "shape": list(arr.shape), "bytes": len(data),
+                 "entropy_coded_bytes": entropy, "seconds": decode_s,
+                 "seconds_all": times, "us_per_pixel": 1e6 * decode_s / pixels,
+                 "entropy_mb_per_s": entropy / decode_s / 1e6,
+                 "host": "the card's host CPU, one Python thread"},
+         phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+# ---------------------------------------------------------------------- #
 # cli_train, cli_train_pallas, cli_render_only, entry: the loop, the CLI,
 # evaluation and the flagship entry (slice 6b)
 # ---------------------------------------------------------------------- #
@@ -4483,6 +4671,7 @@ def main() -> int:
     occ_train = phase_occ_train()
     phase_occ_golden()
     data_train = phase_data_train()
+    jpeg_train = phase_jpeg()
     with tempfile.TemporaryDirectory(prefix="cfnerf_cli_") as tmp:
         cli_runs = phase_cli(tmp)
         render_only_launches = phase_cli_render_only(cli_runs["cli_train"])
@@ -4527,6 +4716,8 @@ def main() -> int:
     # and backward a step, and two flow-stack launches for the co-training
     # target; data_train: a render-core forward and backward in each of its
     # 10 steps and its resumed step, a forward in each tile of its two views;
+    # jpeg_train: a render-core forward and backward in each of its 10 CLI
+    # steps, a forward for the val batch and the held-out view, nothing else;
     # cli_train and cli_train_pallas: a render-core forward and backward a
     # step and a forward a val batch, a test-set view, a spiral frame and an
     # evaluated view (a trunk forward beside each with pallas, a trunk
@@ -4547,6 +4738,7 @@ def main() -> int:
                       "occ_serve": occ_serve["view"], "occ_prop_serve": occ_prop_serve["view"],
                       "occ_train": occ_train["fused_flow_composite"],
                       "data_train": data_train["fused_flow_composite"],
+                      "jpeg_train": jpeg_train[fwd_name],
                       "cli_train": cli_launches("cli_train", fwd_name),
                       "cli_train_pallas": cli_launches("cli_train_pallas", fwd_name),
                       "cli_render_only": render_only_launches, "entry": entry_launches,
@@ -4558,6 +4750,7 @@ def main() -> int:
                       "bf16_train": bf16_train["fused_flow_composite_bwd"],
                       "occ_train": occ_train["fused_flow_composite_bwd"],
                       "data_train": data_train["fused_flow_composite_bwd"],
+                      "jpeg_train": jpeg_train[bwd_name],
                       "cli_train": cli_launches("cli_train", bwd_name),
                       "cli_train_pallas": cli_launches("cli_train_pallas", bwd_name),
                       "families_train": fam(fam_train, "fused_flow_composite_bwd"),
@@ -4572,6 +4765,7 @@ def main() -> int:
                       "occ_serve": occ_serve["bake"], "occ_prop_serve": occ_prop_serve["distill"],
                       "occ_train": occ_train["fused_flow_stack"],
                       "sample_interp": sample_interp_launches,
+                      "jpeg_train": jpeg_train["fused_flow_stack"],
                       "families_serve": fam(fam_serve, "fused_flow_stack"),
                       "families_train": fam(fam_train, "fused_flow_stack"),
                       "cli_families": fam(cli_fam, "fused_flow_stack"),
@@ -4580,6 +4774,7 @@ def main() -> int:
         kernel_entry("flow_stack_bwd", flow_stack.SOURCE_BWD, flow_stack.REPLACES_BWD,
                      {"hier_train": hier_train["fused_flow_stack_bwd"],
                       "trunk_hier_train": trunk_hier_train["fused_flow_stack_bwd"],
+                      "jpeg_train": jpeg_train["fused_flow_stack_bwd"],
                       "ensemble": ens["fused_flow_stack_bwd"],
                       "mesh": mesh["fused_flow_stack_bwd"]},
                      flow_stats["bwd"]),
@@ -4589,6 +4784,7 @@ def main() -> int:
                       "trunk_train": trunk_train["trunk_encode"],
                       "trunk_hier_train": trunk_hier_train["trunk_encode"],
                       "cli_train_pallas": cli_launches("cli_train_pallas", "trunk_encode"),
+                      "jpeg_train": jpeg_train["trunk_encode"],
                       "families_serve": fam(fam_serve, "trunk_encode"),
                       "families_train": fam(fam_train, "trunk_encode"),
                       "cli_families": fam(cli_fam, "trunk_encode"),
@@ -4598,6 +4794,7 @@ def main() -> int:
                      {"trunk_train": trunk_train["trunk_encode_bwd"],
                       "trunk_hier_train": trunk_hier_train["trunk_encode_bwd"],
                       "cli_train_pallas": cli_launches("cli_train_pallas", "trunk_encode_bwd"),
+                      "jpeg_train": jpeg_train["trunk_encode_bwd"],
                       "families_train": fam(fam_train, "trunk_encode_bwd"),
                       "cli_families": fam(cli_fam, "trunk_encode_bwd"),
                       "ensemble": ens["trunk_encode_bwd"], "mesh": mesh["trunk_encode_bwd"]},

@@ -197,12 +197,20 @@ def test_imread_png_refuses_interlaced_files(tmp_path):
 
 
 def test_imread_reads_other_formats_through_imageio_or_names_the_file(tmp_path, monkeypatch):
+    """A JPEG reads as imageio reads it, with imageio blocked on the port's
+    side (the port decodes it itself); a file that is neither PNG nor JPEG
+    raises, naming the file."""
     path = str(tmp_path / "photo.jpg")
     imageio.imwrite(path, _smooth((16, 24, 3)))
-    np.testing.assert_array_equal(image_io.imread(path), imageio.imread(path))
+    want = imageio.imread(path)
     monkeypatch.setitem(sys.modules, "imageio.v2", None)  # imageio not installed
-    with pytest.raises(ValueError, match="photo.jpg.*convert the image to PNG"):
-        image_io.imread(path)
+    got = image_io.imread(path)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    other = tmp_path / "photo.bmp"
+    Image.fromarray(_smooth((16, 24, 3))).save(other)
+    with pytest.raises(ValueError, match="photo.bmp is neither a PNG nor a JPEG file"):
+        image_io.imread(other)
 
 
 # ---------------------------------------------------------------------- #

@@ -1,8 +1,8 @@
 """The port stands alone: no module of cfnerf_torch, and not chip_smoke.py,
 imports jax or cfnerf_tpu, nor the image, plotting and logging libraries
 the port must not need (imageio, Pillow, cv2, matplotlib, tensorboard,
-tensorboardX; the card has no imageio and no matplotlib).  The port's
-image_io reaches imageio only on use, for a file that is not a PNG; the
+tensorboardX; the card has no imageio and no matplotlib).  The port
+reads PNG and JPEG files itself (data/image_io.py, data/jpeg.py); the
 logger reaches tensorboard and the video writer imageio only where they
 import.
 Checked in a fresh interpreter whose import system refuses those names."""
@@ -43,7 +43,7 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     # every module of the port was imported
-    assert int(proc.stdout.split()[-1]) >= 55
+    assert int(proc.stdout.split()[-1]) >= 56
 
 
 def test_port_modules_mirror_the_jax_layout():
@@ -61,6 +61,11 @@ def test_port_modules_mirror_the_jax_layout():
                 "models/nerf.py", "models/baseline_adapter.py", "cli/ensemble.py",
                 "parallel/ensemble.py", "parallel/mesh.py"):
         assert mod in port and (ROOT / "cfnerf_tpu" / mod).exists(), mod
+    # the port's own modules, with no counterpart in the JAX package: the
+    # image codecs that stand in for imageio / Pillow / cv2, the colour maps,
+    # the device default
+    for mod in ("data/image_io.py", "data/jpeg.py", "utils/colormap.py", "utils/device.py"):
+        assert mod in port and not (ROOT / "cfnerf_tpu" / mod).exists(), mod
     # each Pallas kernel module has its wrapper under ops/kernels/
     for mod in ("render_core.py", "flow_stack.py", "trunk.py"):
         assert f"ops/kernels/{mod}" in port, mod
