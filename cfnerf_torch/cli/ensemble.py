@@ -7,8 +7,11 @@ The reference has ensembles only as checkpoint-name indices
   train:  python -m cfnerf_torch.cli.ensemble train --n_members 3 <flags...>
           trains members 1..N one after another (member m: seed
           args.seed + 1000*m, checkpoint index m); with --parallel all
-          members advance together, each step one call of every member's
-          step (parallel/ensemble.py), on the same per-member streams
+          members advance together, each dispatch one call of the ensemble
+          step (parallel/ensemble.py: for the flagship triangular model the
+          member-batched step, JAX's vmapped one, its trunk and render-core
+          kernels launched once for all members), on the same per-member
+          streams
   eval:   python -m cfnerf_torch.cli.ensemble eval --n_members 3 <flags...>
           renders each member's K draws of every held-out view and scores
           the MIXTURE: the mean and std over the M*K draws, PSNR, SSIM, the
@@ -58,7 +61,9 @@ def train_ensemble(args, n_members: int, device: DeviceLike = None) -> None:
 
 def train_ensemble_parallel(args, n_members: int, device: DeviceLike = None) -> None:
     """All M members advance in lockstep, each dispatch one call of the
-    ensemble step (parallel/ensemble.py).  Member m keeps the serial
+    ensemble step (parallel/ensemble.py: the member-batched step where it
+    takes the configuration, else the members' steps in turn; it says
+    which).  Member m keeps the serial
     workflow's semantics: seed args.seed + 1000*m, its own ray stream and
     generator, checkpoints as ensemble index m in the shared run dir, so
     eval_ensemble reads either.  With --n_inner 1 on the batching path,

@@ -55,14 +55,15 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// One TMA copy of the box at (col, row) of `map` (its box size) into shared
-// memory, completing on `bar`.
+// One TMA copy of the box at (col, row) of matrix `member` of `map` (an
+// encode_members map; its box size) into shared memory, completing on `bar`.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int col, int row,
-                                         uint64_t* bar) {
+                                         int member, uint64_t* bar) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row)
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row),
+      "r"(member)
       : "memory");
 }
 
@@ -73,15 +74,16 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// One TMA store of the box at (col, row) of `map` (its box size) from shared
-// memory, in the issuing thread's current bulk group; elements past the
-// tensor's edge are not written.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, int col, int row,
+// One TMA store of the box at (col, row) of matrix `member` of `map` (an
+// encode_members map; its box size) from shared memory, in the issuing
+// thread's current bulk group; elements past the tensor's edge are not
+// written.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, int col, int row, int member,
                                           const void* src) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(col), "r"(row)
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(col), "r"(row), "r"(member)
       : "memory");
 }
 
@@ -366,18 +368,21 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map of a (rows, cols) row-major bf16 matrix, copied in boxes of
-// box_rows x box_cols (box_cols <= 64) with the 128-byte swizzle; loads read
-// elements past the edge as zero, stores skip them.
-bool encode_2d(CUtensorMap* map, const void* base, long long rows, int cols, int box_cols,
-               int box_rows) {
+// A tensor map of `members` (rows, cols) row-major bf16 matrices, member m's
+// at base + m * member_bytes (a multiple of 16, at least a matrix's bytes):
+// the ensemble members' copies of one operand (one member: members = 1),
+// addressed by (col, row, member).  Copied in boxes of box_rows x box_cols
+// (box_cols <= 64) within one member, with the 128-byte swizzle; loads read
+// elements past a matrix's edge as zero, stores skip them.
+bool encode_members(CUtensorMap* map, const void* base, int members, long long member_bytes,
+                    long long rows, int cols, int box_cols, int box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)members};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)member_bytes};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -14,6 +14,11 @@
 //   w = alpha * T;  rgb[r,c,k] += w * sigmoid(z_rgb_c);  depth += w * z_pts[p];
 //   acc += w;  train mode: ldj[0,r] / ldj[1,r] sum the flow log-dets and the
 //   softplus / sigmoid log-det corrections over all (s, k) of the ray.
+// Members: a launch may cover M ensemble members, as the vmap of JAX's
+// ensemble step gives the Pallas kernel a leading member axis in its grid.
+// Rays are member-major, `rpm` rays a member (rpm = R: one member), and ray
+// r draws from member r / rpm's z0 rows (z0_a (M, K, 1), z0_r (M, K, 3)).
+// Nothing else in a ray's arithmetic depends on its member.
 //
 // What bounds it on an H100.  By chip_smoke.py's bound, bytes: each point
 // carries 24F+2 f32 inputs (r1/r2/b of both families + depth + interval:
@@ -107,7 +112,7 @@ render_core_fwd_kernel(const float* __restrict__ z0a,
                        float* __restrict__ depth,
                        float* __restrict__ acc,
                        float* __restrict__ ldj,
-                       int R, int S, int K, int F_rt, int seg, int rounds, int ch) {
+                       int R, int rpm, int S, int K, int F_rt, int seg, int rounds, int ch) {
   extern __shared__ __align__(16) float smem[];
   const int F = FC > 0 ? FC : F_rt;
   const int warp = threadIdx.x >> 5;
@@ -119,6 +124,8 @@ render_core_fwd_kernel(const float* __restrict__ z0a,
   float* part = smem + (size_t)kSegWarps * kStages * sf;  // [kSegWarps][kOuts][32]
 
   float lane_la = 0.f, lane_lr = 0.f;  // warp 0: this lane's log-det sums
+  z0a += (size_t)(ray / rpm) * K;  // this ray's member's draws
+  z0r += (size_t)(ray / rpm) * K * 3;
 
   for (int kb = 0; kb < K; kb += 32) {
     const int k = kb + lane;
@@ -295,14 +302,14 @@ cudaError_t launch_fwd(size_t smem, cudaStream_t st, const float* z0a,
                        const float* z0r, const float* r1r, const float* r2r,
                        const float* br, const float* zpts, const float* dpts,
                        float* rgb, float* depth, float* acc, float* ldj, int R,
-                       int S, int K, int F, int ch) {
+                       int rpm, int S, int K, int F, int ch) {
   auto kern = render_core_fwd_kernel<FC, CLD>;
   const cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const SegPlan pl = seg_plan(S);
   kern<<<R, kSegThreads, smem, st>>>(z0a, r1a, r2a, ba, z0r, r1r, r2r, br, zpts,
-                                     dpts, rgb, depth, acc, ldj, R, S, K, F, pl.seg,
+                                     dpts, rgb, depth, acc, ldj, R, rpm, S, K, F, pl.seg,
                                      pl.rounds, ch);
   return cudaGetLastError();
 }
@@ -310,9 +317,11 @@ cudaError_t launch_fwd(size_t smem, cudaStream_t st, const float* z0a,
 }  // namespace
 
 // C entry point (bound with ctypes).  Pointers are device pointers to
-// contiguous f32 arrays; the caller checks shapes.  Launches on `stream` and
-// returns cudaGetLastError() (0 on success); it never synchronises.  Returns
-// cudaErrorInvalidValue when F is too large to stage one sample a stage.
+// contiguous f32 arrays; the caller checks shapes.  R rays in all, `members`
+// members of R / members rays each (1: z0 is (K, .)).  Launches on `stream`
+// and returns cudaGetLastError() (0 on success); it never synchronises.
+// Returns cudaErrorInvalidValue when F is too large to stage one sample a
+// stage, or the rays do not split evenly over the members.
 extern "C" int render_core_fwd(const float* z0a, const float* r1a,
                                const float* r2a, const float* ba,
                                const float* z0r, const float* r1r,
@@ -320,8 +329,10 @@ extern "C" int render_core_fwd(const float* z0a, const float* r1a,
                                const float* zpts, const float* dpts,
                                float* rgb, float* depth, float* acc,
                                float* ldj, int R, int S, int K, int F,
-                               int compute_log_det, void* stream) {
-  if (R < 0 || S < 1 || K < 1 || F < 1) return (int)cudaErrorInvalidValue;
+                               int compute_log_det, int members, void* stream) {
+  if (R < 0 || S < 1 || K < 1 || F < 1 || members < 1 || R % members != 0)
+    return (int)cudaErrorInvalidValue;
+  const int rpm = R / members;
   if (R == 0) return 0;
   int ch = kChunk;  // the largest stage that fits
   while (ch > 1 && fwd_smem_bytes(ch, F) > (size_t)kMaxDynSmem) --ch;
@@ -332,15 +343,15 @@ extern "C" int render_core_fwd(const float* z0a, const float* r1a,
   if (F == 4) {
     err = compute_log_det
               ? launch_fwd<4, true>(smem, st, z0a, r1a, r2a, ba, z0r, r1r, r2r, br,
-                                    zpts, dpts, rgb, depth, acc, ldj, R, S, K, F, ch)
+                                    zpts, dpts, rgb, depth, acc, ldj, R, rpm, S, K, F, ch)
               : launch_fwd<4, false>(smem, st, z0a, r1a, r2a, ba, z0r, r1r, r2r, br,
-                                     zpts, dpts, rgb, depth, acc, ldj, R, S, K, F, ch);
+                                     zpts, dpts, rgb, depth, acc, ldj, R, rpm, S, K, F, ch);
   } else {
     err = compute_log_det
               ? launch_fwd<0, true>(smem, st, z0a, r1a, r2a, ba, z0r, r1r, r2r, br,
-                                    zpts, dpts, rgb, depth, acc, ldj, R, S, K, F, ch)
+                                    zpts, dpts, rgb, depth, acc, ldj, R, rpm, S, K, F, ch)
               : launch_fwd<0, false>(smem, st, z0a, r1a, r2a, ba, z0r, r1r, r2r, br,
-                                     zpts, dpts, rgb, depth, acc, ldj, R, S, K, F, ch);
+                                     zpts, dpts, rgb, depth, acc, ldj, R, rpm, S, K, F, ch);
   }
   return (int)err;
 }

@@ -20,6 +20,10 @@
 //   terms weighted by g_ldj in train mode.  Per-point gradients of r1/r2/b
 //   are sums over the K draws; the z0 gradients are sums over all points.
 //   The lower triangles of g_r1_r / g_r2_r are zero.
+// Members: as the forward (render_core.cu), a launch may cover M ensemble
+// members, member-major rays, rpm a member, each reading its member's z0
+// rows; the z0 gradients are then each member's sums over its own points,
+// (M, K, 1) and (M, K, 3), reduced in the same fixed order as one member's.
 //
 // What bounds it on an H100: operations.  It reads the forward's 24F+2
 // floats per point and writes 24F gradients per point: at the flagship train
@@ -271,7 +275,7 @@ render_core_bwd_kernel(const float* __restrict__ z0a,
                        float* __restrict__ g_r2r,
                        float* __restrict__ g_br,
                        float* __restrict__ z0_part,
-                       int R, int S, int K, int F_rt, int seg, int rounds,
+                       int R, int rpm, int S, int K, int F_rt, int seg, int rounds,
                        int compute_log_det) {
   constexpr bool kStaged = FMAX > 0;
   extern __shared__ float smem[];
@@ -281,6 +285,8 @@ render_core_bwd_kernel(const float* __restrict__ z0a,
   const int ray = blockIdx.x;
   const int RL = kSegWarps * seg;  // samples a round covers
   const bool cld = compute_log_det != 0;
+  z0a += (size_t)(ray / rpm) * K;  // this ray's member's draws
+  z0r += (size_t)(ray / rpm) * K * 3;
 
   // this warp's area: the staged segment (staged path), laid out as one
   // run per array, then its local transmittance and reduction rows
@@ -554,17 +560,22 @@ render_core_bwd_kernel(const float* __restrict__ z0a,
 }
 
 
-// g_z0: column `blockIdx.x` of the (R, 4K) partials summed over the rays in a
-// fixed order (strided per thread, then a tree), so every run gives the
-// same bits.
+// g_z0: column `blockIdx.x` of member `blockIdx.y`'s rows of the (R, 4K)
+// partials, its rpm rays, summed in a fixed order (strided per thread, then
+// a tree), so every run gives the same bits, and a member's sums the bits
+// of a launch of that member alone.
 __global__ void __launch_bounds__(kReduceThreads)
 render_core_bwd_reduce_kernel(const float* __restrict__ z0_part,
                               float* __restrict__ g_z0a,
-                              float* __restrict__ g_z0r, int R, int K) {
+                              float* __restrict__ g_z0r, int rpm, int K) {
   __shared__ float buf[kReduceThreads];
   const int col = blockIdx.x;
+  const size_t member = blockIdx.y;
+  z0_part += member * rpm * 4 * K;
+  g_z0a += member * K;
+  g_z0r += member * K * 3;
   float v = 0.f;
-  for (int r = threadIdx.x; r < R; r += kReduceThreads) {
+  for (int r = threadIdx.x; r < rpm; r += kReduceThreads) {
     v += z0_part[(size_t)r * 4 * K + col];
   }
   buf[threadIdx.x] = v;
@@ -591,8 +602,8 @@ cudaError_t launch_bwd(size_t smem, cudaStream_t st, const float* z0a,
                        const float* g_rgb, const float* g_depth,
                        const float* g_acc, const float* g_ldj, float* g_r1a,
                        float* g_r2a, float* g_ba, float* g_r1r, float* g_r2r,
-                       float* g_br, float* z0_part, int R, int S, int K, int F,
-                       int compute_log_det) {
+                       float* g_br, float* z0_part, int R, int rpm, int S, int K,
+                       int F, int compute_log_det) {
   auto kern = render_core_bwd_kernel<FMAX, EXACT>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -600,7 +611,7 @@ cudaError_t launch_bwd(size_t smem, cudaStream_t st, const float* z0a,
   const SegPlan pl = seg_plan(S);
   kern<<<R, kSegThreads, smem, st>>>(
       z0a, r1a, r2a, ba, z0r, r1r, r2r, br, zpts, dpts, g_rgb, g_depth, g_acc,
-      g_ldj, g_r1a, g_r2a, g_ba, g_r1r, g_r2r, g_br, z0_part, R, S, K, F,
+      g_ldj, g_r1a, g_r2a, g_ba, g_r1r, g_r2r, g_br, z0_part, R, rpm, S, K, F,
       pl.seg, pl.rounds, compute_log_det);
   return cudaGetLastError();
 }
@@ -609,7 +620,9 @@ cudaError_t launch_bwd(size_t smem, cudaStream_t st, const float* z0a,
 
 // C entry point (bound with ctypes).  Pointers are device pointers to
 // contiguous f32 arrays; the caller checks shapes and allocates the scratch
-// `z0_part` (R*4*K floats).  F = 4 takes the compile-time kernel, F <= 8
+// `z0_part` (R*4*K floats).  R rays in all, `members` members of R /
+// members rays each; g_z0a and g_z0r hold each member's K rows, in order.
+// F = 4 takes the compile-time kernel, F <= 8
 // the staged one with a runtime F, any larger F the generic one.  A ray's
 // rounds must fit shared memory (S up to ~10^5); otherwise it returns
 // cudaErrorInvalidValue.  Launches both kernels on `stream` and returns the
@@ -625,8 +638,10 @@ extern "C" int render_core_bwd(const float* z0a, const float* r1a,
                                float* g_ba, float* g_z0r, float* g_r1r,
                                float* g_r2r, float* g_br, float* z0_part,
                                int R, int S, int K, int F, int compute_log_det,
-                               void* stream) {
-  if (R < 0 || S < 1 || K < 1 || F < 1) return (int)cudaErrorInvalidValue;
+                               int members, void* stream) {
+  if (R < 0 || S < 1 || K < 1 || F < 1 || members < 1 || R % members != 0)
+    return (int)cudaErrorInvalidValue;
+  const int rpm = R / members;
   const size_t smem = bwd_smem_bytes(S, F);
   if (smem > (size_t)kMaxDynSmem) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -636,11 +651,11 @@ extern "C" int render_core_bwd(const float* z0a, const float* r1a,
                                      : &launch_bwd<0, false>;
     const cudaError_t err = launch(smem, st, z0a, r1a, r2a, ba, z0r, r1r, r2r, br, zpts,
                                    dpts, g_rgb, g_depth, g_acc, g_ldj, g_r1a, g_r2a, g_ba,
-                                   g_r1r, g_r2r, g_br, z0_part, R, S, K, F,
+                                   g_r1r, g_r2r, g_br, z0_part, R, rpm, S, K, F,
                                    compute_log_det);
     if (err != cudaSuccess) return (int)err;
   }
-  render_core_bwd_reduce_kernel<<<4 * K, kReduceThreads, 0, st>>>(
-      z0_part, g_z0a, g_z0r, R, K);
+  render_core_bwd_reduce_kernel<<<dim3(4 * K, members), kReduceThreads, 0, st>>>(
+      z0_part, g_z0a, g_z0r, rpm, K);
   return (int)cudaGetLastError();
 }

@@ -86,6 +86,16 @@
 // 81,920 rows, ~0.24 ms at 3.35 TB/s) and no arithmetic; measured, it
 // costs ~0.45 ms over the serving variant at that step.
 //
+// Members: one launch may run M ensemble members' trunks, as the vmap of
+// JAX's ensemble step gives the Pallas kernel a leading member axis in its
+// grid.  The grid is (row tiles, M); member m's weights and biases are the
+// m-th copies in the packed buffers (M x w_total, M x b_total), its rows
+// B of the embedding after the earlier members' (B a member), its saved
+// activations the m-th ActPlan block of the workspace.  Every tensor map
+// holds all M copies, addressed by a member coordinate (hopper.cuh's
+// encode_members), so the kernel's parameters do not grow with M.  A
+// member's arithmetic is that of a launch of it alone.
+//
 // What is left: each CTA reads all the weights from L2 for its 64 rows,
 // and a layer's epilogue does not overlap the next layer's products (a
 // persistent grid would); the saves cost twice their bytes' time.
@@ -112,10 +122,11 @@ constexpr int kMaxOps = kMaxDepth + 6;
 
 __host__ __device__ inline int boxes(int cols) { return (cols + kBox - 1) / kBox; }
 
-// The tensor maps, all with the 128-byte swizzle: the weights, read in
-// kChunk x kBlock boxes (w0, wsx, every W-wide matrix from w1 through wvf
-// as one (rows, W) matrix, wvv, whr); the saved activations, written in
-// kBox x kRows boxes (x, v, h_0..h_{D-1} and f as one matrix, hv).
+// The tensor maps, all with the 128-byte swizzle and a member coordinate:
+// the weights, read in kChunk x kBlock boxes (w0, wsx, every W-wide matrix
+// from w1 through wvf as one (rows, W) matrix, wvv, whr); the saved
+// activations, written in kBox x kRows boxes (x, v, h_0..h_{D-1} and f as
+// one matrix, hv).
 enum MapId { kMapW0, kMapWsx, kMapW, kMapWvv, kMapWhr, kMapX, kMapV, kMapH, kMapHv, kMaps };
 
 // A product's operand B: rows [row0, row0 + n) and columns [0, k) of
@@ -186,6 +197,7 @@ __device__ __forceinline__ void stage_inputs(const float* __restrict__ emb, int 
 // up) at its start and warpgroup 1's at kWgStageBytes.
 __device__ __forceinline__ void produce(const FwdParams& P, unsigned char* stages, uint64_t* full,
                                         uint64_t* empty) {
+  const int member = blockIdx.y;
   int c = 0;
   for (int i = 0; i < P.n_ops; ++i) {
     const Op& o = P.op[i];
@@ -198,7 +210,7 @@ __device__ __forceinline__ void produce(const FwdParams& P, unsigned char* stage
       for (int b = 0; b < nb; ++b) {
         unsigned char* dst =
             b < nb0 ? s + b * kWBoxBytes : s + kWgStageBytes + (b - nb0) * kWBoxBytes;
-        tma_load(dst, &P.map[o.map], k0, o.row0 + b * kBlock, &full[st]);
+        tma_load(dst, &P.map[o.map], k0, o.row0 + b * kBlock, member, &full[st]);
       }
     }
   }
@@ -325,6 +337,7 @@ struct Consumer {
 // heads in order, and (kSave) the activations saved.  Every layer reads
 // the activation buffer and overwrites it: its epilogue waits until both
 // warpgroups' products are done.  The consumers meet at named barrier 1.
+// Pointers and B are the CTA's member's (trunk_fwd_kernel offsets them).
 template <bool kSave>
 __device__ __forceinline__ void consume(const FwdParams& P, unsigned char* smem, const FwdSmem& M,
                                         uint64_t* full, uint64_t* empty,
@@ -332,6 +345,7 @@ __device__ __forceinline__ void consume(const FwdParams& P, unsigned char* smem,
                                         const float* __restrict__ bias, float* __restrict__ h_alpha,
                                         float* __restrict__ h_rgb, int rows_pad, int depth,
                                         int width, int input_ch, int views_ch, int ha, int hr) {
+  const int member = blockIdx.y;
   auto consumers_sync = [] { asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory"); };
   Consumer C(P, smem + M.off_stage, full, empty);
   const int in_pad = round16(input_ch), v_pad = round16(views_ch);
@@ -360,7 +374,8 @@ __device__ __forceinline__ void consume(const FwdParams& P, unsigned char* smem,
     fence_proxy_async();
     consumers_sync();
     if (saver) {
-      for (int b = 0; b < boxes(cols); ++b) tma_store(&P.map[m], b * kBox, row, buf + b * kBoxBytes);
+      for (int b = 0; b < boxes(cols); ++b)
+        tma_store(&P.map[m], b * kBox, row, member, buf + b * kBoxBytes);
       bulk_commit();
     }
   };
@@ -368,9 +383,9 @@ __device__ __forceinline__ void consume(const FwdParams& P, unsigned char* smem,
   consumers_sync();
   if (saver) {
     for (int b = 0; b < boxes(in_pad); ++b)
-      tma_store(&P.map[kMapX], b * kBox, r0, xs + b * kBoxBytes);
+      tma_store(&P.map[kMapX], b * kBox, r0, member, xs + b * kBoxBytes);
     for (int b = 0; b < boxes(v_pad); ++b)
-      tma_store(&P.map[kMapV], b * kBox, r0, vs + b * kBoxBytes);
+      tma_store(&P.map[kMapV], b * kBox, r0, member, vs + b * kBoxBytes);
     bulk_commit();
   }
 
@@ -398,10 +413,12 @@ __device__ __forceinline__ void consume(const FwdParams& P, unsigned char* smem,
   if (saver) bulk_wait_all();
 }
 
+// Grid (row tiles, members); B rows a member, bias_stride floats of biases
+// a member.
 template <bool kSave>
 __global__ void __launch_bounds__(kThreads, 1)
 trunk_fwd_kernel(const __grid_constant__ FwdParams P, const float* __restrict__ emb,
-                 int emb_stride, int B, const float* __restrict__ bias,
+                 int emb_stride, int B, const float* __restrict__ bias, int bias_stride,
                  float* __restrict__ h_alpha, float* __restrict__ h_rgb, int rows_pad, int depth,
                  int width, int input_ch, int views_ch, int ha, int hr) {
   extern __shared__ unsigned char smem_raw[];
@@ -424,8 +441,10 @@ trunk_fwd_kernel(const __grid_constant__ FwdParams P, const float* __restrict__ 
     if (threadIdx.x == kConsumers) produce(P, smem + M.off_stage, full, empty);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    consume<kSave>(P, smem, M, full, empty, emb, emb_stride, B, bias, h_alpha, h_rgb, rows_pad,
-                   depth, width, input_ch, views_ch, ha, hr);
+    const long long rows_before = (long long)blockIdx.y * B;  // the earlier members' rows
+    consume<kSave>(P, smem, M, full, empty, emb + rows_before * emb_stride, emb_stride, B,
+                   bias + (size_t)blockIdx.y * bias_stride, h_alpha + rows_before * ha,
+                   h_rgb + rows_before * hr, rows_pad, depth, width, input_ch, views_ch, ha, hr);
   }
 }
 
@@ -437,14 +456,17 @@ bool shape_ok(int B, int depth, int width, int input_ch, int views_ch, int ha, i
 
 // The kernel's parameters: the weights' tensor maps and the operands in the
 // order the layers multiply them; with `acts` (kSave) the saved
-// activations' tensor maps.  false if a tensor map cannot be made.
+// activations' tensor maps; every map over the `members` copies.  false if
+// a tensor map cannot be made.
 bool make_params(FwdParams& p, const bf16* w, const unsigned char* acts, const ActPlan& A,
-                 int depth, int width, int in_pad, int v_pad, int ha, int hr, int stages) {
+                 int members, int depth, int width, int in_pad, int v_pad, int ha, int hr,
+                 int stages) {
   const Layout L(depth, width, in_pad, v_pad, ha, hr);
   const int half = width / 2;
   const long long base = L.w[1];
   auto wmap = [&](int id, long long off, long long rows, int cols) {
-    return encode_2d(&p.map[id], w + off, rows, cols, kChunk, kBlock);
+    return encode_members(&p.map[id], w + off, members, L.w_total * 2, rows, cols, kChunk,
+                          kBlock);
   };
   if (!wmap(kMapW0, L.w[0], width, in_pad) || !wmap(kMapWsx, L.wsx, width, in_pad) ||
       !wmap(kMapW, base, (L.wvv - base) / width, width) || !wmap(kMapWvv, L.wvv, half, v_pad) ||
@@ -454,7 +476,7 @@ bool make_params(FwdParams& p, const bf16* w, const unsigned char* acts, const A
   if (acts != nullptr) {
     const long long R = A.rows_pad;
     auto amap = [&](int id, long long off, long long rows, int cols) {
-      return encode_2d(&p.map[id], acts + off, rows, cols, kBox, kRows);
+      return encode_members(&p.map[id], acts + off, members, A.bytes, rows, cols, kBox, kRows);
     };
     if (!amap(kMapX, A.x, R, in_pad) || !amap(kMapV, A.v, R, v_pad) ||
         !amap(kMapH, A.h, (depth + 1) * R, width) || !amap(kMapHv, A.hv, R, half)) {
@@ -480,8 +502,8 @@ bool make_params(FwdParams& p, const bf16* w, const unsigned char* acts, const A
 
 template <bool kSave>
 int launch(const float* emb, int emb_stride, const void* w, const float* bias, float* h_alpha,
-           float* h_rgb, unsigned char* acts, int B, int depth, int width, int input_ch,
-           int views_ch, int ha, int hr, void* stream) {
+           float* h_rgb, unsigned char* acts, int B, int members, int depth, int width,
+           int input_ch, int views_ch, int ha, int hr, void* stream) {
   const int in_pad = round16(input_ch), v_pad = round16(views_ch);
   const FwdSmem M(width, in_pad, v_pad);
   if (M.stages < 2 || M.bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
@@ -493,23 +515,26 @@ int launch(const float* emb, int emb_stride, const void* w, const float* bias, f
   if (attr != cudaSuccess) return (int)attr;
   const ActPlan A(B, depth, width, in_pad, v_pad);
   FwdParams p;
-  if (!make_params(p, static_cast<const bf16*>(w), acts, A, depth, width, in_pad, v_pad, ha, hr,
-                   M.stages)) {
+  if (!make_params(p, static_cast<const bf16*>(w), acts, A, members, depth, width, in_pad, v_pad,
+                   ha, hr, M.stages)) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid((unsigned)((B + kRows - 1) / kRows));
+  const Layout L(depth, width, in_pad, v_pad, ha, hr);
+  const dim3 grid((unsigned)((B + kRows - 1) / kRows), (unsigned)members);
   trunk_fwd_kernel<kSave><<<grid, kThreads, M.bytes, static_cast<cudaStream_t>(stream)>>>(
-      p, emb, emb_stride, B, bias, h_alpha, h_rgb, (int)A.rows_pad, depth, width, input_ch,
-      views_ch, ha, hr);
+      p, emb, emb_stride, B, bias, L.b_total, h_alpha, h_rgb, (int)A.rows_pad, depth, width,
+      input_ch, views_ch, ha, hr);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry points (bound with ctypes).  emb: device f32 (B, input_ch +
-// views_ch) with row stride `emb_stride` floats, columns contiguous; w:
-// device bf16 weights and bias: device f32 biases, as laid out above;
-// h_alpha (B, ha) and h_rgb (B, hr): device f32, contiguous.  The caller
+// C entry points (bound with ctypes).  `members` trunks of B rows each (1:
+// one trunk).  emb: device f32 (members x B, input_ch + views_ch), a
+// member's rows after the earlier members', row stride `emb_stride` floats,
+// columns contiguous; w: device bf16 weights and bias: device f32 biases, as
+// laid out above, the members' copies back to back; h_alpha (members x B,
+// ha) and h_rgb (members x B, hr): device f32, contiguous.  The caller
 // checks shapes and types; these check what the kernel's layout needs.
 // Each launches on `stream` and returns the CUDA error of the launch (0 on
 // success); none synchronises.
@@ -518,17 +543,17 @@ int launch(const float* emb, int emb_stride, const void* w, const float* bias, f
 extern "C" int trunk_fwd(const float* emb, int emb_stride, const void* w,
                          const float* bias, float* h_alpha, float* h_rgb, int B,
                          int depth, int width, int input_ch, int views_ch, int ha,
-                         int hr, void* stream) {
+                         int hr, int members, void* stream) {
   if (!shape_ok(B, depth, width, input_ch, views_ch, ha, hr) ||
-      emb_stride < input_ch + views_ch) {
+      emb_stride < input_ch + views_ch || members < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  return launch<false>(emb, emb_stride, w, bias, h_alpha, h_rgb, nullptr, B, depth, width,
-                       input_ch, views_ch, ha, hr, stream);
+  return launch<false>(emb, emb_stride, w, bias, h_alpha, h_rgb, nullptr, B, members, depth,
+                       width, input_ch, views_ch, ha, hr, stream);
 }
 
 // The bytes of activations trunk_fwd_save writes for B rows of this trunk
-// (ActPlan); -1 for a shape it does not take.
+// (ActPlan), a member's; -1 for a shape it does not take.
 extern "C" long long trunk_fwd_workspace(int B, int depth, int width, int input_ch,
                                          int views_ch) {
   if (!shape_ok(B, depth, width, input_ch, views_ch, 16, 16)) return -1;
@@ -548,19 +573,20 @@ extern "C" int trunk_fwd_act_plan(int B, int depth, int width, int input_ch, int
 }
 
 // The training forward: as trunk_fwd, and every bf16 activation into
-// `acts` (device memory of trunk_fwd_workspace's bytes, ActPlan's layout),
-// which trunk_bwd reads.
+// `acts` (device memory of members x trunk_fwd_workspace's bytes, a
+// member's ActPlan block after another), which trunk_bwd reads.
 extern "C" int trunk_fwd_save(const float* emb, int emb_stride, const void* w,
                               const float* bias, float* h_alpha, float* h_rgb, void* acts,
                               long long acts_bytes, int B, int depth, int width,
-                              int input_ch, int views_ch, int ha, int hr, void* stream) {
+                              int input_ch, int views_ch, int ha, int hr, int members,
+                              void* stream) {
   if (!shape_ok(B, depth, width, input_ch, views_ch, ha, hr) ||
-      emb_stride < input_ch + views_ch) {
+      emb_stride < input_ch + views_ch || members < 1) {
     return (int)cudaErrorInvalidValue;
   }
   const ActPlan P(B, depth, width, round16(input_ch), round16(views_ch));
-  if (acts_bytes < P.bytes) return (int)cudaErrorInvalidValue;
+  if (acts_bytes < members * P.bytes) return (int)cudaErrorInvalidValue;
   return launch<true>(emb, emb_stride, w, bias, h_alpha, h_rgb,
-                      static_cast<unsigned char*>(acts), B, depth, width, input_ch, views_ch,
-                      ha, hr, stream);
+                      static_cast<unsigned char*>(acts), B, members, depth, width, input_ch,
+                      views_ch, ha, hr, stream);
 }

@@ -59,6 +59,16 @@
 //   * two reductions add the partials, dW over the row ranges and db over
 //     the CTAs, in a fixed order.  No atomics: two launches give the same
 //     bits.
+// Members: one call may run M ensemble members' backwards, as the vmap of
+// JAX's ensemble step gives the Pallas kernels a leading member axis in
+// their grids.  Every kernel's grid gains a member axis (the data pass
+// (CTAs, M), the weight-gradient pass (tiles, row ranges, M), both
+// reductions); member m reads its copy of the weights, its rows of the
+// cotangents and its ActPlan block of the saved activations, and writes
+// its block of the scratch (a member's Plan, the same as a launch of it
+// alone: the same row ranges, the same sums in the same order) and its
+// rows of dW (M x w_total) and db (M x b_total).  The tensor maps hold
+// every member's copy, addressed by a member coordinate.
 // The tensor maps come from cuTensorMapEncodeTiled, fetched through
 // cudaGetDriverEntryPoint (no libcuda link), and ride in the kernels'
 // __grid_constant__ parameters.  A barrier wait that lasts ~10 s traps, so
@@ -223,15 +233,32 @@ __device__ __forceinline__ void stage_cotangent(const float* __restrict__ g, int
     db[c] = ((part[c] + part[n + c]) + part[2 * n + c]) + part[3 * n + c];
 }
 
+// A member's scratch; `member_bytes` apart from the next member's.
 struct Scratch {
   bf16 *g, *gf, *gv, *ga, *gr;
   float* db_part;
+  long long member_bytes;
+
+  __device__ Scratch member(int m) const {
+    const long long off = m * member_bytes;
+    auto at = [off](auto* p) { return reinterpret_cast<decltype(p)>(
+                                   reinterpret_cast<unsigned char*>(p) + off); };
+    return Scratch{at(g), at(gf), at(gv), at(ga), at(gr), at(db_part), member_bytes};
+  }
 };
 
-// The saved activations the data pass reads: the relu masks.
+// The saved activations the data pass reads: the relu masks, a member's;
+// `member_bytes` apart from the next member's.
 struct SavedActs {
   const bf16 *h, *hv;
-  long long rows_pad;
+  long long rows_pad, member_bytes;
+
+  __device__ SavedActs member(int m) const {
+    const long long off = m * member_bytes;
+    auto at = [off](const bf16* p) { return reinterpret_cast<const bf16*>(
+                                         reinterpret_cast<const unsigned char*>(p) + off); };
+    return SavedActs{at(h), at(hv), rows_pad, member_bytes};
+  }
 };
 
 // The producer warp's lane 0: the whole stream of B chunks, in the order
@@ -240,6 +267,7 @@ struct SavedActs {
 // two rings one after the other, full and empty their barriers likewise.
 __device__ __forceinline__ void data_produce(const DataParams& P, unsigned char* stages,
                                              uint64_t* full, uint64_t* empty) {
+  const int member = blockIdx.y;
   int c = 0;
   for (int i = 0; i < P.n_ops; ++i) {
     const DOp& o = P.op[i];
@@ -252,7 +280,7 @@ __device__ __forceinline__ void data_produce(const DataParams& P, unsigned char*
         mbar_expect_tx(&full[bar], nb * kDataBoxBytes);
         for (int b = 0; b < nb; ++b)
           tma_load(stages + bar * kDataStageBytes + b * kDataBoxBytes, &P.map[o.map],
-                   o.col0 + (wg + 2 * b) * kBox, o.row0 + kc * kDataChunk, &full[bar]);
+                   o.col0 + (wg + 2 * b) * kBox, o.row0 + kc * kDataChunk, member, &full[bar]);
       }
     }
   }
@@ -434,9 +462,11 @@ struct DataWarpgroup {
   }
 };
 
+// Grid (CTAs, members): B rows a member, g_ha and g_hr the members' rows
+// one after another.
 __global__ void __launch_bounds__(kDataThreads, 1)
 trunk_bwd_data(const __grid_constant__ DataParams P, const float* __restrict__ g_ha,
-               const float* __restrict__ g_hr, int B, SavedActs A, Scratch S,
+               const float* __restrict__ g_hr, int B, SavedActs A_all, Scratch S_all,
                const __grid_constant__ Layout L, int depth, int width, int ha, int hr) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -471,6 +501,11 @@ trunk_bwd_data(const __grid_constant__ DataParams P, const float* __restrict__ g
 
   const long long row0 = (long long)blockIdx.x * kRows;
   const int rows_valid = (int)min((long long)kRows, (long long)B - row0);
+  // this CTA's member: its saved activations, scratch and cotangent rows
+  const SavedActs A = A_all.member(blockIdx.y);
+  const Scratch S = S_all.member(blockIdx.y);
+  g_ha += (long long)blockIdx.y * B * ha;
+  g_hr += (long long)blockIdx.y * B * hr;
   const long long R = A.rows_pad;
   auto act = [&](bf16* base, int cols) { return base + row0 * cols; };  // this tile's rows
   auto layer_h = [&](int i) { return A.h + (long long)i * R * width + row0 * width; };
@@ -539,7 +574,8 @@ struct alignas(64) WgradParams {
   Job job[kMaxJobs];
   int n_jobs, rows_pad, rows_per_split;
   long long w_total;
-  float* dw_part;
+  float* dw_part;              // member 0's partials
+  long long dw_member_floats;  // from one member's partials to the next's
 };
 
 // the dW tile's width for an n_in: the wgmma N that covers it, at most 256
@@ -585,7 +621,7 @@ __device__ __forceinline__ void wgrad_consume(const WgradParams& p, const Job& j
   if (!active) return;
   const int warp = (threadIdx.x >> 5) & 3;
   const int split = blockIdx.y;
-  float* out = p.dw_part + split * p.w_total + job.out;
+  float* out = p.dw_part + blockIdx.z * p.dw_member_floats + split * p.w_total + job.out;
 #pragma unroll
   for (int j = 0; j < N / 8; ++j)
 #pragma unroll
@@ -599,7 +635,7 @@ __device__ __forceinline__ void wgrad_consume(const WgradParams& p, const Job& j
 }
 
 // One CTA: a kWgradM x n_tile tile of one dW over one range of rows
-// (blockIdx.y), into that range's partial.  Warpgroup 0 is the producer:
+// (blockIdx.y) of one member (blockIdx.z), into that range's partial.  Warpgroup 0 is the producer:
 // one thread keeps up to kWgradStages chunks of G's and H's boxes in
 // flight by TMA, each stage completing on its `full` barrier; warpgroups 1
 // and 2 consume (wgrad_consume) and free a stage through its `empty`
@@ -639,6 +675,7 @@ trunk_bwd_wgrad(const __grid_constant__ WgradParams p) {
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (threadIdx.x == 0) {
+      const int member = blockIdx.z;
       const uint32_t bytes = (g_boxes + h_boxes) * kBoxBytes;
       for (int c = 0; c < n_chunks; ++c) {
         const int st = c % kWgradStages;
@@ -647,11 +684,11 @@ trunk_bwd_wgrad(const __grid_constant__ WgradParams p) {
         const int r = r_begin + c * kWgradChunk;
         unsigned char* sg = stages + st * kWgradStageBytes;
         for (int b = 0; b < g_boxes; ++b)
-          tma_load(sg + b * kBoxBytes, &p.map[job.g_map], o0 + b * kBox, job.g_row0 + r,
+          tma_load(sg + b * kBoxBytes, &p.map[job.g_map], o0 + b * kBox, job.g_row0 + r, member,
                    &full[st]);
         for (int b = 0; b < h_boxes; ++b)
           tma_load(sg + kStageGBytes + b * kBoxBytes, &p.map[job.h_map], i0 + b * kBox,
-                   job.h_row0 + r, &full[st]);
+                   job.h_row0 + r, member, &full[st]);
       }
     }
   } else {
@@ -667,23 +704,30 @@ trunk_bwd_wgrad(const __grid_constant__ WgradParams p) {
   }
 }
 
-// dW = the row ranges' partials added in order.
+// dW = the row ranges' partials added in order, member by member (a
+// member's partials `member_floats` apart, its dW w_total).
 __global__ void trunk_bwd_reduce_dw(const float* __restrict__ part, int splits,
-                                    long long w_total, float* __restrict__ dw) {
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < w_total;
-       e += (long long)gridDim.x * blockDim.x) {
+                                    long long w_total, long long member_floats, int members,
+                                    float* __restrict__ dw) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < members * w_total;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long m = i / w_total, e = i - m * w_total;
+    const float* q = part + m * member_floats;
     float s = 0.f;
-    for (int k = 0; k < splits; ++k) s += part[k * w_total + e];
-    dw[e] = s;
+    for (int k = 0; k < splits; ++k) s += q[k * w_total + e];
+    dw[i] = s;
   }
 }
 
 // db = the CTAs' partials added in a fixed order: lane = column, warp k
-// adds CTAs k, k + 8, ..., then the 8 warps' sums in order.
+// adds CTAs k, k + 8, ..., then the 8 warps' sums in order; member
+// blockIdx.y's partials `member_floats` after member 0's.
 __global__ void __launch_bounds__(256)
 trunk_bwd_reduce_db(const float* __restrict__ part, int n_ctas, int b_total,
-                    float* __restrict__ db) {
+                    long long member_floats, float* __restrict__ db) {
   __shared__ float sums[8][32];
+  part += blockIdx.y * member_floats;
+  db += (long long)blockIdx.y * b_total;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int col = blockIdx.x * 32 + lane;
   float s = 0.f;
@@ -705,23 +749,24 @@ bool shape_ok(int B, int depth, int width, int input_ch, int views_ch, int ha, i
 }
 
 
-// A tensor map of a (rows, cols) row-major bf16 matrix, read in boxes of
-// box_rows rows x kBox columns with the 128-byte swizzle; elements past the
-// edge read as zero.
-bool encode_map(CUtensorMap* map, const void* base, long long rows, int cols,
-                int box_rows = kWgradChunk) {
-  return encode_2d(map, base, rows, cols, kBox, box_rows);
+// A tensor map of `members` (rows, cols) row-major bf16 matrices,
+// member_bytes apart, read in boxes of box_rows rows x kBox columns with the
+// 128-byte swizzle; elements past the edge read as zero.
+bool encode_map(CUtensorMap* map, const void* base, int members, long long member_bytes,
+                long long rows, int cols, int box_rows = kWgradChunk) {
+  return encode_members(map, base, members, member_bytes, rows, cols, kBox, box_rows);
 }
 
 // The data pass's parameters: tensor maps of the weights it multiplies
 // (every W-wide matrix from w1 through wvf as one (rows, W) matrix, and
 // whr) and its operands in order.  false if a tensor map cannot be made.
-bool make_data(DataParams& p, const Layout& L, const bf16* w, int depth, int width, int ha,
-               int hr) {
+bool make_data(DataParams& p, const Layout& L, const bf16* w, int members, int depth, int width,
+               int ha, int hr) {
   const int half = width / 2;
-  const long long base = L.w[1];
-  if (!encode_map(&p.map[kDMapW], w + base, (L.wvv - base) / width, width, kDataChunk) ||
-      !encode_map(&p.map[kDMapHr], w + L.whr, hr, half, kDataChunk)) {
+  const long long base = L.w[1], wb = L.w_total * 2;
+  if (!encode_map(&p.map[kDMapW], w + base, members, wb, (L.wvv - base) / width, width,
+                  kDataChunk) ||
+      !encode_map(&p.map[kDMapHr], w + L.whr, members, wb, hr, half, kDataChunk)) {
     return false;
   }
   auto row = [&](long long off) { return (int)((off - base) / width); };
@@ -770,18 +815,19 @@ int add_job(WgradParams& p, int tiles, int g_map, long long g_row0, int h_map,
 // the scratch) and H (in the saved activations), and every matrix's job.
 // Returns the tiles, or -1 if a tensor map cannot be made.
 int make_wgrad(WgradParams& p, const Layout& L, const Plan& P, const ActPlan& A,
-               unsigned char* ws, const unsigned char* acts, int depth, int width, int in_pad,
-               int v_pad, int ha, int hr) {
+               unsigned char* ws, const unsigned char* acts, int members, int depth, int width,
+               int in_pad, int v_pad, int ha, int hr) {
   const long long R = P.rows_pad;
   const int skip = depth / 2, half = width / 2;
-  const bool ok = encode_map(&p.map[kMapGW], ws + P.g, (depth + 1) * R, width) &&
-                  encode_map(&p.map[kMapGV], ws + P.gv, R, half) &&
-                  encode_map(&p.map[kMapGA], ws + P.ga, R, ha) &&
-                  encode_map(&p.map[kMapGR], ws + P.gr, R, hr) &&
-                  encode_map(&p.map[kMapHW], acts + A.h, (depth + 1) * R, width) &&
-                  encode_map(&p.map[kMapX], acts + A.x, R, in_pad) &&
-                  encode_map(&p.map[kMapV], acts + A.v, R, v_pad) &&
-                  encode_map(&p.map[kMapHV], acts + A.hv, R, half);
+  const int n = members;
+  const bool ok = encode_map(&p.map[kMapGW], ws + P.g, n, P.bytes, (depth + 1) * R, width) &&
+                  encode_map(&p.map[kMapGV], ws + P.gv, n, P.bytes, R, half) &&
+                  encode_map(&p.map[kMapGA], ws + P.ga, n, P.bytes, R, ha) &&
+                  encode_map(&p.map[kMapGR], ws + P.gr, n, P.bytes, R, hr) &&
+                  encode_map(&p.map[kMapHW], acts + A.h, n, A.bytes, (depth + 1) * R, width) &&
+                  encode_map(&p.map[kMapX], acts + A.x, n, A.bytes, R, in_pad) &&
+                  encode_map(&p.map[kMapV], acts + A.v, n, A.bytes, R, v_pad) &&
+                  encode_map(&p.map[kMapHV], acts + A.hv, n, A.bytes, R, half);
   if (!ok) return -1;
   p.n_jobs = 0;
   int t = add_job(p, 0, kMapGW, 0, kMapX, 0, L.w[0], width, in_pad);
@@ -798,6 +844,7 @@ int make_wgrad(WgradParams& p, const Layout& L, const Plan& P, const ActPlan& A,
   p.rows_per_split = P.rows_per_split;
   p.w_total = L.w_total;
   p.dw_part = reinterpret_cast<float*>(ws + P.dw_part);
+  p.dw_member_floats = P.bytes / 4;
   return t;
 }
 
@@ -815,8 +862,9 @@ cudaError_t wgrad_attribute() {
                               kWgradSmem);
 }
 
-cudaError_t launch_wgrad(const WgradParams& p, int tiles, int splits, cudaStream_t s) {
-  trunk_bwd_wgrad<<<dim3(tiles, splits), kWgradThreads, kWgradSmem, s>>>(p);
+cudaError_t launch_wgrad(const WgradParams& p, int tiles, int splits, int members,
+                         cudaStream_t s) {
+  trunk_bwd_wgrad<<<dim3(tiles, splits, members), kWgradThreads, kWgradSmem, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -830,49 +878,53 @@ Plan plan_for(int B, int depth, int width, int input_ch, int views_ch, int ha, i
 }  // namespace
 
 // The bytes of scratch trunk_bwd needs for B rows of this trunk (beside the
-// forward's saved activations); -1 for a shape it does not take.
+// forward's saved activations), a member's; -1 for a shape it does not take.
 extern "C" long long trunk_bwd_workspace(int B, int depth, int width, int input_ch,
                                          int views_ch, int ha, int hr) {
   if (!shape_ok(B, depth, width, input_ch, views_ch, ha, hr)) return -1;
   return plan_for(B, depth, width, input_ch, views_ch, ha, hr).bytes;
 }
 
-// C entry point (bound with ctypes).  acts: the activations trunk.cu's
-// trunk_fwd_save wrote for these B rows (its trunk_fwd_workspace's bytes,
-// ActPlan's layout), read only; w: device bf16 weights, as trunk.cu reads
-// them; g_ha (B, ha), g_hr (B, hr): device f32 cotangents, contiguous; dw,
-// db: device f32 outputs laid out as the weights and the biases; workspace:
-// device memory of trunk_bwd_workspace's bytes.  The caller checks shapes
-// and types; this checks what the kernels' layout needs.  Launches the four
-// kernels on `stream` and returns the first CUDA error (0 on success); it
-// never synchronises.
+// C entry point (bound with ctypes).  `members` trunks of B rows each (1:
+// one trunk).  acts: the activations trunk.cu's trunk_fwd_save wrote for
+// these rows (members x its trunk_fwd_workspace's bytes, a member's ActPlan
+// block after another), read only; w: device bf16 weights, as trunk.cu
+// reads them, the members' copies back to back; g_ha (members x B, ha),
+// g_hr (members x B, hr): device f32 cotangents, contiguous; dw, db: device
+// f32 outputs laid out as the weights and the biases, a member's after
+// another; workspace: device memory of members x trunk_bwd_workspace's
+// bytes.  The caller checks shapes and types; this checks what the kernels'
+// layout needs.  Launches the four kernels on `stream` and returns the first
+// CUDA error (0 on success); it never synchronises.
 extern "C" int trunk_bwd(const void* acts, long long acts_bytes, const void* w,
                          const float* g_ha, const float* g_hr, float* dw, float* db,
                          void* workspace, long long workspace_bytes, int B, int depth,
-                         int width, int input_ch, int views_ch, int ha, int hr,
+                         int width, int input_ch, int views_ch, int ha, int hr, int members,
                          void* stream) {
-  if (!shape_ok(B, depth, width, input_ch, views_ch, ha, hr)) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(B, depth, width, input_ch, views_ch, ha, hr) || members < 1)
+    return (int)cudaErrorInvalidValue;
   const int in_pad = round16(input_ch), v_pad = round16(views_ch);
   const DataSmem M(width, ha);
   const Plan P = plan_for(B, depth, width, input_ch, views_ch, ha, hr);
   const ActPlan A(B, depth, width, in_pad, v_pad);
-  if (M.bytes > kMaxSmem || workspace_bytes < P.bytes || acts_bytes < A.bytes) {
+  if (M.bytes > kMaxSmem || workspace_bytes < members * P.bytes ||
+      acts_bytes < members * A.bytes) {
     return (int)cudaErrorInvalidValue;
   }
   const Layout L(depth, width, in_pad, v_pad, ha, hr);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0) {
-    cudaError_t e = cudaMemsetAsync(dw, 0, L.w_total * sizeof(float), s);
-    if (e == cudaSuccess) e = cudaMemsetAsync(db, 0, L.b_total * sizeof(float), s);
+    cudaError_t e = cudaMemsetAsync(dw, 0, members * L.w_total * sizeof(float), s);
+    if (e == cudaSuccess) e = cudaMemsetAsync(db, 0, members * L.b_total * sizeof(float), s);
     return (int)e;
   }
   unsigned char* ws = static_cast<unsigned char*>(workspace);
   const unsigned char* ab = static_cast<const unsigned char*>(acts);
   auto at = [ws](long long off) { return reinterpret_cast<bf16*>(ws + off); };
   const Scratch S{at(P.g), at(P.gf), at(P.gv), at(P.ga), at(P.gr),
-                  reinterpret_cast<float*>(ws + P.db_part)};
+                  reinterpret_cast<float*>(ws + P.db_part), P.bytes};
   const SavedActs SA{reinterpret_cast<const bf16*>(ab + A.h),
-                     reinterpret_cast<const bf16*>(ab + A.hv), A.rows_pad};
+                     reinterpret_cast<const bf16*>(ab + A.hv), A.rows_pad, A.bytes};
 
   // runtime calls first: they make the device's context current on this
   // thread (autograd runs the backward on a thread of its own), which the
@@ -882,22 +934,24 @@ extern "C" int trunk_bwd(const void* acts, long long acts_bytes, const void* w,
   if (e == cudaSuccess) e = wgrad_attribute();
   if (e != cudaSuccess) return (int)e;
   DataParams dp;
-  if (!make_data(dp, L, static_cast<const bf16*>(w), depth, width, ha, hr)) {
+  if (!make_data(dp, L, static_cast<const bf16*>(w), members, depth, width, ha, hr)) {
     return (int)cudaErrorInvalidValue;
   }
-  trunk_bwd_data<<<P.n_ctas, kDataThreads, M.bytes, s>>>(dp, g_ha, g_hr, B, SA, S, L, depth,
-                                                         width, ha, hr);
+  trunk_bwd_data<<<dim3(P.n_ctas, members), kDataThreads, M.bytes, s>>>(
+      dp, g_ha, g_hr, B, SA, S, L, depth, width, ha, hr);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
   WgradParams wp;
-  const int tiles = make_wgrad(wp, L, P, A, ws, ab, depth, width, in_pad, v_pad, ha, hr);
+  const int tiles =
+      make_wgrad(wp, L, P, A, ws, ab, members, depth, width, in_pad, v_pad, ha, hr);
   if (tiles < 0) return (int)cudaErrorInvalidValue;
-  if ((e = launch_wgrad(wp, tiles, P.splits, s)) != cudaSuccess) return (int)e;
+  if ((e = launch_wgrad(wp, tiles, P.splits, members, s)) != cudaSuccess) return (int)e;
 
-  trunk_bwd_reduce_dw<<<1024, 256, 0, s>>>(wp.dw_part, P.splits, L.w_total, dw);
+  trunk_bwd_reduce_dw<<<1024, 256, 0, s>>>(wp.dw_part, P.splits, L.w_total, P.bytes / 4,
+                                           members, dw);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  trunk_bwd_reduce_db<<<(L.b_total + 31) / 32, 256, 0, s>>>(
-      reinterpret_cast<const float*>(ws + P.db_part), P.n_ctas, L.b_total, db);
+  trunk_bwd_reduce_db<<<dim3((L.b_total + 31) / 32, members), 256, 0, s>>>(
+      reinterpret_cast<const float*>(ws + P.db_part), P.n_ctas, L.b_total, P.bytes / 4, db);
   return (int)cudaGetLastError();
 }
 
@@ -914,8 +968,8 @@ extern "C" int trunk_bwd_wgrad_one(const void* g, const void* h, int rows, int n
   const cudaError_t e = wgrad_attribute();
   if (e != cudaSuccess) return (int)e;
   WgradParams wp{};
-  if (!encode_map(&wp.map[kMapGW], g, rows, n_out) ||
-      !encode_map(&wp.map[kMapHW], h, rows, n_in)) {
+  if (!encode_map(&wp.map[kMapGW], g, 1, (long long)rows * n_out * 2, rows, n_out) ||
+      !encode_map(&wp.map[kMapHW], h, 1, (long long)rows * n_in * 2, rows, n_in)) {
     return (int)cudaErrorInvalidValue;
   }
   const int tiles = add_job(wp, 0, kMapGW, 0, kMapHW, 0, 0, n_out, n_in);
@@ -923,5 +977,6 @@ extern "C" int trunk_bwd_wgrad_one(const void* g, const void* h, int rows, int n
   wp.rows_per_split = rows;
   wp.w_total = (long long)n_out * n_in;
   wp.dw_part = dw;
-  return (int)launch_wgrad(wp, tiles, 1, static_cast<cudaStream_t>(stream));
+  wp.dw_member_floats = 0;
+  return (int)launch_wgrad(wp, tiles, 1, 1, static_cast<cudaStream_t>(stream));
 }

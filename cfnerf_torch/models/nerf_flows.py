@@ -26,6 +26,11 @@ interpret=True, its plain version.  Both kernels are the triangular
 family's: the other families' flows are plain PyTorch (no Pallas kernel
 computes them either) and take the unfused forward only.
 
+`forward_composited_members` runs M ensemble members' fused forwards at
+once: the trunk kernels and the render core launched once for all of them
+(a member axis), the xla trunk and the amortizers member by member through
+each member's own modules; forward_composited is it at one member.
+
 Test mode uses fixed eps buffers with the LAST of the K draws zeroed (the
 mean sample) and skips the log-dets.  A fresh model draws its buffers from
 torch.Generator(test_eps_seed); torch cannot reproduce JAX's PRNG, so these
@@ -53,7 +58,12 @@ from cfnerf_torch.ops.kernels.render_core import (
     fused_flow_composite,
     fused_flow_composite_plain,
 )
-from cfnerf_torch.ops.kernels.trunk import MAX_WIDTH, pack_trunk_weights, trunk_encode
+from cfnerf_torch.ops.kernels.trunk import (
+    MAX_WIDTH,
+    pack_member_trunk_weights,
+    pack_trunk_weights,
+    trunk_encode,
+)
 from cfnerf_torch.ops.kernels.trunk import supported as trunk_supported
 
 Z_ALPHA = 1  # density latent dim
@@ -425,24 +435,11 @@ class NeRFFlows(nn.Module):
             raise ValueError(
                 "forward_composited requires type_flows='triangular' "
                 f"(got {self.type_flows!r})")
-        h_alpha, h_rgb = self.encode(x)
-        B, K = h_alpha.shape[0], self.k_samples
-        z0_a, z0_r = self._base_draws(*self._draw_eps(is_test, generator, eps))
-        # the kernel reads contiguous arrays; r2 is built from a transpose
-        flat = [t.contiguous() for t in (
-            z0_a, *self.flows_alpha(h_alpha), z0_r, *self.flows_rgb(h_rgb),
-            z_pts, d_pts)]
-        core = fused_flow_composite_plain if interpret else fused_flow_composite
-        rgb_map, depth, acc, ldj_ray = core(*flat, s_per_ray, not is_test)
-        if is_test:
-            return rgb_map, depth, acc, torch.zeros((), dtype=acc.dtype, device=acc.device)
-        # same normalisations as forward(): base terms mean over (K, Z),
-        # log-det terms mean over (B, K) (the core returns per-ray sums)
-        base_a, base_r = self._base_log_density_mean(z0_a, z0_r)
-        denom = B * K
-        loss_entropy = (base_a - ldj_ray[0].sum() / denom
-                        + base_r - ldj_ray[1].sum() / denom)
-        return rgb_map, depth, acc, loss_entropy
+        eps = self._draw_eps(is_test, generator, eps)
+        rgb_map, depth, acc, entropy = forward_composited_members(
+            [self], x[None], z_pts[None], d_pts[None], s_per_ray, [eps], is_test=is_test,
+            interpret=interpret)
+        return rgb_map, depth, acc, entropy[0]
 
     # ---------------- latent-space diagnostics (models.py:69-163) ------ #
 
@@ -486,3 +483,63 @@ class NeRFFlows(nn.Module):
         z_r, _ = self._apply_flows(walk_r[None].expand(B, INTERP_STEPS, Z_RGB),
                                    h_rgb, "rgb", False)
         return torch.cat([z_r, z_a], -1)
+
+
+def forward_composited_members(
+    models: Sequence[NeRFFlows],
+    x: torch.Tensor,
+    z_pts: torch.Tensor,
+    d_pts: torch.Tensor,
+    s_per_ray: int,
+    eps: Sequence[Eps],
+    *,
+    is_test: bool = False,
+    interpret: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, list]:
+    """The fused forward (NeRFFlows.forward_composited) of M triangular
+    NeRFFlows of one shape at once, the member axis first: x (M, B,
+    input_ch [+ views]), z_pts and d_pts (M, B), eps each member's base
+    draws (NeRFFlows._draw_eps).  Member m's arithmetic is its own
+    forward_composited's: a "pallas" or "interpret" trunk runs the members'
+    stacked trunks in one call of the trunk kernels
+    (pack_member_trunk_weights), an "xla" trunk (and one member's trunk)
+    and the amortizers run member by member through each member's modules;
+    the render core takes every member's draws and flow parameters in one
+    call.  NeRFFlows.forward_composited is this at one member.  Returns rgb_map
+    (M * R, 3, K), depth and acc (M * R, K), the rays member-major, and the
+    M entropies (0 in test mode)."""
+    first = models[0]
+    if any(m.type_flows != "triangular" for m in models):
+        raise ValueError("forward_composited_members requires type_flows='triangular'")
+    M, B = x.shape[:2]
+    if first.trunk_impl == "xla" or M == 1:  # one member: its own encode
+        heads = [m.encode(x[i]) for i, m in enumerate(models)]
+    else:
+        h_alpha, h_rgb = trunk_encode(pack_member_trunk_weights(models), x,
+                                      interpret=first.trunk_impl == "interpret")
+        heads = list(zip(h_alpha, h_rgb))
+    z0 = [m._base_draws(*e) for m, e in zip(models, eps)]
+    flows_a = [m.flows_alpha(h[0]) for m, h in zip(models, heads)]
+    flows_r = [m.flows_rgb(h[1]) for m, h in zip(models, heads)]
+
+    def joined(parts):
+        # the kernel reads contiguous arrays (r2 is built from a transpose):
+        # cat copies each member's share in
+        return parts[0].contiguous() if len(parts) == 1 else torch.cat(parts)
+
+    flat = [torch.stack([z[0] for z in z0]), *(joined(t) for t in zip(*flows_a)),
+            torch.stack([z[1] for z in z0]), *(joined(t) for t in zip(*flows_r)),
+            z_pts.reshape(-1).contiguous(), d_pts.reshape(-1).contiguous()]
+    core = fused_flow_composite_plain if interpret else fused_flow_composite
+    rgb_map, depth, acc, ldj = core(*flat, s_per_ray, not is_test)
+    if is_test:
+        return rgb_map, depth, acc, [torch.zeros((), dtype=acc.dtype, device=acc.device)] * M
+    # as forward(): base terms mean over (K, Z), log-det terms mean over
+    # (B, K), each member's rays (the core returns per-ray sums)
+    R, denom = B // s_per_ray, B * first.k_samples
+    entropy = []
+    for i, m in enumerate(models):
+        base_a, base_r = m._base_log_density_mean(*z0[i])
+        rays = slice(i * R, (i + 1) * R)
+        entropy.append(base_a - ldj[0, rays].sum() / denom + base_r - ldj[1, rays].sum() / denom)
+    return rgb_map, depth, acc, entropy

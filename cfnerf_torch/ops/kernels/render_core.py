@@ -19,6 +19,14 @@ Where a gradient is needed, the CUDA route goes through an autograd
 Function whose forward is the forward kernel and whose backward is the
 backward kernel.  The plain version differentiates through autograd
 (cumprod, no closed-form division).
+
+A member axis: z0_a (M, K, 1) and z0_r (M, K, 3) instead of (K, 1) and
+(K, 3) make one call cover M ensemble members, as the vmap of JAX's
+ensemble step batches the Pallas kernel.  The M * R rays are member-major
+(R a member, the same S, K and F for all), each drawing its member's z0;
+the outputs keep the ray axis (M * R, ...) and the z0 gradients come out
+(M, K, .), each member's sum over its own points.  One launch of each
+kernel covers them all; the plain versions run member by member.
 """
 from __future__ import annotations
 
@@ -47,15 +55,22 @@ Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 Grads = Tuple[torch.Tensor, ...]  # the 8 flow-input gradients, z0_a ... b_r
 
 
+def members_of(z0_a) -> int:
+    """The member count of a call: M for z0_a (M, K, 1), 1 for (K, 1)."""
+    return z0_a.shape[0] if z0_a.dim() == 3 else 1
+
+
 def _shapes(z0_a, r1_a, r2_a, b_a, z0_r, r1_r, r2_r, b_r, z_pts, d_pts, s_per_ray):
-    """Validate the argument shapes; returns (R, S, K, F)."""
-    K = z0_a.shape[0]
+    """Validate the argument shapes; returns (R, S, K, F), R the rays of
+    all members."""
+    lead = tuple(z0_a.shape[:-2]) if z0_a.dim() == 3 else ()
+    K = z0_a.shape[-2]
     B, F = r1_a.shape[0], r1_a.shape[-1]
     S = int(s_per_ray)
     want = {
-        "z0_a": (z0_a, (K, 1)), "r1_a": (r1_a, (B, 1, 1, F)),
+        "z0_a": (z0_a, (*lead, K, 1)), "r1_a": (r1_a, (B, 1, 1, F)),
         "r2_a": (r2_a, (B, 1, 1, F)), "b_a": (b_a, (B, 1, F)),
-        "z0_r": (z0_r, (K, 3)), "r1_r": (r1_r, (B, 3, 3, F)),
+        "z0_r": (z0_r, (*lead, K, 3)), "r1_r": (r1_r, (B, 3, 3, F)),
         "r2_r": (r2_r, (B, 3, 3, F)), "b_r": (b_r, (B, 3, F)),
         "z_pts": (z_pts, (B,)), "d_pts": (d_pts, (B,)),
     }
@@ -66,7 +81,18 @@ def _shapes(z0_a, r1_a, r2_a, b_a, z0_r, r1_r, r2_r, b_r, z_pts, d_pts, s_per_ra
         raise ValueError(f"B={B} points do not split into rays of S={S} samples")
     if K < 1 or F < 1:
         raise ValueError(f"need K >= 1 draws and F >= 1 flow steps (K={K}, F={F})")
+    M = members_of(z0_a)
+    if M < 1 or (B // S) % M:
+        raise ValueError(f"{B // S} rays do not split over {M} members")
     return B // S, S, K, F
+
+
+def _member_slices(args, m: int, M: int):
+    """Member m's share of a member-batched call's 10 arguments: its z0
+    rows and its points."""
+    n = args[1].shape[0] // M
+    rows = slice(m * n, (m + 1) * n)
+    return [t[m] if i in (0, 4) else t[rows] for i, t in enumerate(args)]
 
 
 def fused_flow_composite_plain(
@@ -86,9 +112,23 @@ def fused_flow_composite_plain(
     Returns rgb (R, 3, K), depth (R, K), acc (R, K), ldj (2, R): per-ray sums
     over (s, k) of the flow log-dets + final-activation corrections, density
     row then rgb row; zeros when compute_log_det is False.
+
+    With z0_a (M, K, 1) and z0_r (M, K, 3) (a member axis), the rays are
+    M members' in turn and each member runs through the one-member version
+    on its share; the outputs are the members' joined along the ray axis.
     """
     R, S, K, _ = _shapes(z0_a, r1_a, r2_a, b_a, z0_r, r1_r, r2_r, b_r,
                          z_pts, d_pts, s_per_ray)
+    M = members_of(z0_a)
+    if z0_a.dim() == 3:
+        args = (z0_a, r1_a, r2_a, b_a, z0_r, r1_r, r2_r, b_r, z_pts, d_pts)
+        outs = [fused_flow_composite_plain(*_member_slices(args, m, M), s_per_ray,
+                                           compute_log_det) for m in range(M)]
+        rgb, depth, acc, ldj = zip(*outs)
+        # rgb joined in the one-member version's memory layout, (R, K, 3)
+        # transposed, so that later reductions over K sum in its order
+        rgb = torch.cat([r.transpose(1, 2) for r in rgb]).transpose(1, 2)
+        return rgb, torch.cat(depth), torch.cat(acc), torch.cat(ldj, 1)
     B = R * S
     z_a, ldj_a = triangular_sylvester_stack(
         z0_a[None].expand(B, K, 1), r1_a, r2_a, b_a,
@@ -127,7 +167,21 @@ def fused_flow_composite_bwd_plain(
     `fused_flow_composite_plain`.  `inputs` are its 10 arguments, `cotangents`
     the cotangents of (rgb, depth, acc, ldj), None for an unused output.
     Returns the gradients of z0_a, r1_a, r2_a, b_a, z0_r, r1_r, r2_r, b_r;
-    z_pts and d_pts get none (the kernel's VJP treats them as constants)."""
+    z_pts and d_pts get none (the kernel's VJP treats them as constants).
+    With a member axis, member by member: the z0 gradients (M, K, .), each
+    member's own."""
+    if inputs[0].dim() == 3:
+        M = members_of(inputs[0])
+        per = _shapes(*inputs, s_per_ray)[0] // M
+        grads = []
+        for m in range(M):
+            rays = slice(m * per, (m + 1) * per)  # the ray axis: the maps' first, ldj's second
+            cots = [None if g is None else (g[:, rays] if i == 3 else g[rays])
+                    for i, g in enumerate(cotangents)]
+            grads.append(fused_flow_composite_bwd_plain(_member_slices(inputs, m, M), cots,
+                                                        s_per_ray, compute_log_det))
+        return tuple(torch.stack(g) if i in (0, 4) else torch.cat(g)
+                     for i, g in enumerate(zip(*grads)))
     with torch.enable_grad():
         xs = [t.detach().requires_grad_() for t in inputs[:8]]
         outs = fused_flow_composite_plain(
@@ -295,7 +349,8 @@ def fused_flow_composite(
     s_per_ray: int, compute_log_det: bool,
 ) -> Outputs:
     """Render-core forward.  Arguments and outputs as in
-    `fused_flow_composite_plain`.  CPU tensors take the plain version (and
+    `fused_flow_composite_plain`, with or without a member axis (one launch
+    covers every member).  CPU tensors take the plain version (and
     autograd through it); CUDA tensors launch the kernel or raise, through
     `_RenderCore` when a gradient is needed, so that the backward launches
     the backward kernel; anything else raises."""
@@ -344,10 +399,11 @@ fused_flow_composite_bwd.launches = 0  # backward kernel launches
 
 class _RenderCore(torch.autograd.Function):
     """The CUDA route with a gradient: the forward kernel, then the backward
-    kernel on the saved inputs.  The backward returns the 8 flow-input
-    gradients and None for z_pts and d_pts: the JAX backward returns zeros
-    for those two (render_core.py:684-685), since the stratified depths and
-    the ray geometry carry no parameters upstream."""
+    kernel on the saved inputs, one launch each for all members.  The
+    backward returns the 8 flow-input gradients and None for z_pts and
+    d_pts: the JAX backward returns zeros for those two
+    (render_core.py:684-685), since the stratified depths and the ray
+    geometry carry no parameters upstream."""
 
     @staticmethod
     def forward(ctx, s_per_ray, compute_log_det, *args):
@@ -398,14 +454,15 @@ def _launch(args, s_per_ray: int, compute_log_det: bool) -> Outputs:
     depth = like.new_empty((R, K))
     acc = like.new_empty((R, K))
     ldj = like.new_empty((2, R))
+    M = members_of(args[0])
     with _on_device(like.device) as stream:
         err = fn(*(t.data_ptr() for t in args),
                  rgb.data_ptr(), depth.data_ptr(), acc.data_ptr(), ldj.data_ptr(),
-                 R, S, K, F, int(bool(compute_log_det)), stream)
+                 R, S, K, F, int(bool(compute_log_det)), M, stream)
     if err != 0:
         raise RuntimeError(
             f"render_core_fwd launch failed: CUDA error {err} "
-            f"(R={R}, S={S}, K={K}, F={F})"
+            f"(R={R}, members={M}, S={S}, K={K}, F={F})"
         )
     fused_flow_composite.launches += 1
     return rgb, depth, acc, ldj
@@ -430,13 +487,14 @@ def _launch_bwd(inputs, cotangents, s_per_ray: int, compute_log_det: bool) -> Gr
     fn = _entry_bwd()
     grads = tuple(x.new_empty(x.shape) for x in inputs[:8])
     z0_part = like.new_empty((R * 4 * K,))  # per-ray z0 gradient partials
+    M = members_of(inputs[0])
     with _on_device(like.device) as stream:
         err = fn(*(t.data_ptr() for t in (*inputs, *cots, *grads, z0_part)),
-                 R, S, K, F, int(bool(compute_log_det)), stream)
+                 R, S, K, F, int(bool(compute_log_det)), M, stream)
     if err != 0:
         raise RuntimeError(
             f"render_core_bwd launch failed: CUDA error {err} "
-            f"(R={R}, S={S}, K={K}, F={F})"
+            f"(R={R}, members={M}, S={S}, K={K}, F={F})"
         )
     fused_flow_composite_bwd.launches += 1
     return grads
@@ -445,7 +503,7 @@ def _launch_bwd(inputs, cotangents, s_per_ray: int, compute_log_det: bool) -> Gr
 def _bind(name: str, symbol: str, n_ptrs: int):
     fn = getattr(_build.load(name), symbol)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 

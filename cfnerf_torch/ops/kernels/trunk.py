@@ -31,6 +31,13 @@ weights stay f32 up to the Function and are rounded to bf16 inside it, as
 _trunk_fwd_impl casts them inside the custom VJP: so the weight gradients
 reach the nn.Linear leaves in f32 (autograd would round a gradient to the
 dtype of the tensor it belongs to).
+
+A member axis: `pack_member_trunk_weights` stacks M ensemble members'
+packed trunks to (M, ...) buffers, and x (M, B, input_ch + views_ch) then
+runs each member's B rows through its own trunk, as the vmap of JAX's
+ensemble step batches pallas_encode.  On the card one launch of each kernel
+covers every member (grids with a member axis); the plain versions run
+member by member.  Outputs and gradients keep the member axis first.
 """
 from __future__ import annotations
 
@@ -101,7 +108,8 @@ def _layout(depth, width, input_ch, views_ch, h_alpha, h_rgb):
 @dataclasses.dataclass(frozen=True)
 class TrunkWeights:
     """The packed trunk: `w` the f32 matrices, `b` the f32 biases, each one
-    flat buffer in `_layout` order; the ints are the trunk's shape."""
+    flat buffer in `_layout` order, or (M, ...) for M members' trunks of one
+    shape (`pack_member_trunk_weights`); the ints are the trunk's shape."""
 
     depth: int
     width: int
@@ -115,6 +123,19 @@ class TrunkWeights:
     def _shape(self):
         return (self.depth, self.width, self.input_ch, self.views_ch, self.h_alpha,
                 self.h_rgb)
+
+    @property
+    def stacked(self) -> bool:
+        """True for the members' trunks stacked on a member axis."""
+        return self.w.dim() == 2
+
+    @property
+    def members(self) -> int:
+        return self.w.shape[0] if self.stacked else 1
+
+    def member(self, m: int) -> "TrunkWeights":
+        """Member m's trunk out of stacked ones."""
+        return TrunkWeights(*self._shape(), w=self.w[m], b=self.b[m])
 
     def matrices(self) -> Dict[str, torch.Tensor]:
         """Views of `w`: name -> (out, in_padded) f32."""
@@ -181,6 +202,18 @@ def pack_trunk_weights(model) -> TrunkWeights:
     return TrunkWeights(*shape, w=w, b=b)
 
 
+def pack_member_trunk_weights(models) -> TrunkWeights:
+    """Ensemble members' trunks (NeRFFlows of one shape) packed each as
+    `pack_trunk_weights` does and stacked on a leading member axis, with
+    differentiable ops: each member's gradients flow back to its own
+    weights."""
+    packed = [pack_trunk_weights(m) for m in models]
+    if len({p._shape() for p in packed}) != 1:
+        raise ValueError(f"members' trunks differ in shape: {[p._shape() for p in packed]}")
+    return TrunkWeights(*packed[0]._shape(), w=torch.stack([p.w for p in packed]),
+                        b=torch.stack([p.b for p in packed]))
+
+
 def _bf(t: torch.Tensor) -> torch.Tensor:
     """t's values rounded to bf16, held in f32: products of two such values
     are exact in f32, so an f32 product of them is a bf16 x bf16 product
@@ -194,10 +227,14 @@ def _dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _check_x(packed: TrunkWeights, x: torch.Tensor) -> int:
-    if x.ndim != 2 or x.shape[1] != packed.input_ch + packed.views_ch:
-        raise ValueError(
-            f"x: expected (B, {packed.input_ch + packed.views_ch}), got {tuple(x.shape)}")
-    return x.shape[0]
+    """The rows of x, a member's for stacked trunks."""
+    cols = packed.input_ch + packed.views_ch
+    if packed.stacked:
+        if x.ndim != 3 or x.shape[0] != packed.members or x.shape[2] != cols:
+            raise ValueError(f"x: expected ({packed.members}, B, {cols}), got {tuple(x.shape)}")
+    elif x.ndim != 2 or x.shape[1] != cols:
+        raise ValueError(f"x: expected (B, {cols}), got {tuple(x.shape)}")
+    return x.shape[-2]
 
 
 def _inputs(packed: TrunkWeights, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -271,10 +308,14 @@ def workspace_views(packed: TrunkWeights, B: int, acts: torch.Tensor,
 def trunk_encode_plain(packed: TrunkWeights, x: torch.Tensor) -> Outputs:
     """The trunk forward in eager PyTorch, with the kernel's arithmetic.
     x (B, input_ch + views_ch) f32 -> (h_alpha (B, h_alpha), h_rgb (B,
-    h_rgb)) f32.  Differentiable by autograd, but autograd rounds the weight
+    h_rgb)) f32; stacked trunks: x (M, B, .) -> (M, B, .), member by
+    member.  Differentiable by autograd, but autograd rounds the weight
     gradients to bf16 and takes its products in f32: `_Trunk` differentiates
     it with `trunk_encode_bwd_plain` instead."""
     _check_x(packed, x)
+    if packed.stacked:
+        outs = [trunk_encode_plain(packed.member(m), x[m]) for m in range(packed.members)]
+        return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
     m, b = packed.matrices(), packed.biases()
     _, _, hs, _, hv = _forward(packed, x)
     return _dot(hs[-1], m["wha"]) + b["bha"], _dot(hv, m["whr"]) + b["bhr"]
@@ -287,8 +328,15 @@ def trunk_encode_bwd_plain(packed: TrunkWeights, x: torch.Tensor,
     (cfnerf_tpu/ops/pallas/trunk.py:170-262): the forward recomputed, then
     the heads and layers in reverse.  g_h_alpha (B, h_alpha), g_h_rgb (B,
     h_rgb) f32, None for an unused head.  Returns (dw, db), f32, laid out as
-    `packed.w` and `packed.b`; x gets no gradient."""
+    `packed.w` and `packed.b`; x gets no gradient.  Stacked trunks: x and
+    the cotangents (M, B, .), member by member."""
     B = _check_x(packed, x)
+    if packed.stacked:
+        grads = [trunk_encode_bwd_plain(packed.member(m), x[m],
+                                        None if g_h_alpha is None else g_h_alpha[m],
+                                        None if g_h_rgb is None else g_h_rgb[m])
+                 for m in range(packed.members)]
+        return torch.stack([g[0] for g in grads]), torch.stack([g[1] for g in grads])
     with torch.no_grad():
         m, b = packed.matrices(), packed.biases()
         skip = packed.depth // 2
@@ -340,9 +388,10 @@ def _devices(what: str, tensors) -> str:
 
 
 def trunk_encode(packed: TrunkWeights, x: torch.Tensor, *, interpret: bool = False) -> Outputs:
-    """Trunk forward.  Arguments and outputs as in `trunk_encode_plain`.
-    CPU tensors, and with interpret=True tensors on either device, take the
-    plain version; CUDA tensors launch the kernel or raise; anything else
+    """Trunk forward.  Arguments and outputs as in `trunk_encode_plain`,
+    stacked trunks included (one launch covers every member).  CPU tensors,
+    and with interpret=True tensors on either device, take the plain
+    version; CUDA tensors launch the kernel or raise; anything else
     raises.  Where a gradient is required the call goes through `_Trunk`,
     whose backward is the backward kernel or, on the plain route,
     `trunk_encode_bwd_plain`."""
@@ -372,7 +421,8 @@ def trunk_encode_bwd(packed: TrunkWeights, x: torch.Tensor,
     if _devices("trunk backward", (x, packed.w, packed.b, g_h_alpha, g_h_rgb)) == "cpu":
         return trunk_encode_bwd_plain(packed, x, g_h_alpha, g_h_rgb)
     B, _ = _kernel_args(packed, x, "trunk backward kernel")
-    cots = _cotangents(packed._shape(), B, x, g_h_alpha, g_h_rgb)
+    cots = _cotangents(packed._shape(), B, packed.members if packed.stacked else None, x,
+                       g_h_alpha, g_h_rgb)
     w16 = packed.w.to(torch.bfloat16)
     _, _, acts = _launch(packed, x, save=True, w16=w16)
     return _launch_bwd(packed._shape(), w16, acts, B, *cots)
@@ -391,7 +441,7 @@ class _Trunk(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, shape, plain, x, w, b):
-        ctx.shape, ctx.plain, ctx.rows = shape, plain, x.shape[0]
+        ctx.shape, ctx.plain, ctx.rows = shape, plain, x.shape[-2]
         ctx.set_materialize_grads(False)  # an unused head's cotangent arrives as None
         packed = TrunkWeights(*shape, w=w, b=b)
         if plain:
@@ -416,20 +466,25 @@ class _Trunk(torch.autograd.Function):
 
 
 def _kernel_args(packed: TrunkWeights, x: torch.Tensor, what: str):
-    """Checks what the kernels take; returns (B, x's row stride)."""
+    """Checks what the kernels take; returns (B, x's row stride), B a
+    member's rows for stacked trunks, whose rows must follow one another
+    through the members at that stride."""
     B = _check_x(packed, x)
     dev = x.device
     for name, t in (("x", x), ("w", packed.w), ("b", packed.b)):
         if t.device != dev or t.dtype != torch.float32:
             raise ValueError(f"{what}: {name} must be float32 on {dev}, "
                              f"got {t.dtype} on {t.device}")
-    if not (packed.w.is_contiguous() and packed.b.is_contiguous() and x.stride(1) == 1):
+    if not (packed.w.is_contiguous() and packed.b.is_contiguous() and x.stride(-1) == 1):
         raise ValueError(f"{what} takes contiguous weights and x with contiguous "
                          f"rows (got x strides {x.stride()})")
     if not supported(packed.depth, packed.width, True, (packed.depth // 2,), packed.h_alpha,
                      packed.h_rgb, packed.input_ch, packed.views_ch):
         raise ValueError(f"{what}: unsupported shape {packed._shape()}")
-    row_stride = x.stride(0) if B > 1 else x.shape[1]  # a single row's stride is arbitrary
+    row_stride = x.stride(-2) if B > 1 else x.shape[-1]  # a single row's stride is arbitrary
+    if packed.members > 1 and x.stride(0) != B * row_stride:
+        raise ValueError(f"{what}: the members' rows must follow one another at one stride "
+                         f"(got x strides {x.stride()} for {B} rows a member)")
     return B, row_stride
 
 
@@ -440,37 +495,40 @@ def _launch(packed: TrunkWeights, x: torch.Tensor, save: bool = False,
     (h_alpha, h_rgb, workspace).  `w16`: the weights already cast."""
     B, row_stride = _kernel_args(packed, x, "trunk kernel")
     w16 = packed.w.to(torch.bfloat16) if w16 is None else w16
-    h_alpha = x.new_empty((B, packed.h_alpha))
-    h_rgb = x.new_empty((B, packed.h_rgb))
+    M, lead = packed.members, x.shape[:-2]
+    h_alpha = x.new_empty((*lead, B, packed.h_alpha))
+    h_rgb = x.new_empty((*lead, B, packed.h_rgb))
     shape = packed._shape()
     if save:
         fn, workspace_bytes = _entry_save()
-        acts = x.new_empty((workspace_bytes(B, *shape[:4]),), dtype=torch.uint8)
+        acts = x.new_empty((M * workspace_bytes(B, *shape[:4]),), dtype=torch.uint8)
         extra = (acts.data_ptr(), acts.numel())
     else:
         fn, extra = _entry(), ()
     with _on_device(x.device) as stream:
         err = fn(x.data_ptr(), row_stride, w16.data_ptr(), packed.b.data_ptr(),
-                 h_alpha.data_ptr(), h_rgb.data_ptr(), *extra, B, *shape, stream)
+                 h_alpha.data_ptr(), h_rgb.data_ptr(), *extra, B, *shape, M, stream)
     if err != 0:
         raise RuntimeError(f"trunk_fwd{'_save' if save else ''} launch failed: CUDA error "
-                           f"{err} (B={B}, shape {shape})")
+                           f"{err} (B={B}, members={M}, shape {shape})")
     trunk_encode.launches += 1
     return (h_alpha, h_rgb, acts) if save else (h_alpha, h_rgb)
 
 
-def _cotangents(shape, B: int, like: torch.Tensor, g_h_alpha: Optional[torch.Tensor],
-                g_h_rgb: Optional[torch.Tensor]) -> Outputs:
+def _cotangents(shape, B: int, members: Optional[int], like: torch.Tensor,
+                g_h_alpha: Optional[torch.Tensor], g_h_rgb: Optional[torch.Tensor]) -> Outputs:
     """The two heads' cotangents as the backward kernels take them: f32
-    (B, width) on `like`'s device, contiguous, zeros for an unused head
-    (None)."""
+    (B, width), or (members, B, width) for stacked trunks, on `like`'s
+    device, contiguous, zeros for an unused head (None)."""
     dev = like.device
+    lead = () if members is None else (members,)
     cots = []
     for name, g, cols in (("h_alpha", g_h_alpha, shape[4]), ("h_rgb", g_h_rgb, shape[5])):
+        want = (*lead, B, cols)
         if g is None:
-            g = like.new_zeros((B, cols), dtype=torch.float32)
-        elif tuple(g.shape) != (B, cols) or g.dtype != torch.float32 or g.device != dev:
-            raise ValueError(f"cotangent of {name}: expected float32 {(B, cols)} on "
+            g = like.new_zeros(want, dtype=torch.float32)
+        elif tuple(g.shape) != want or g.dtype != torch.float32 or g.device != dev:
+            raise ValueError(f"cotangent of {name}: expected float32 {want} on "
                              f"{dev}, got {g.dtype} {tuple(g.shape)} on {g.device}")
         cots.append(g.contiguous())  # autograd may hand over expanded views
     return cots[0], cots[1]
@@ -480,20 +538,24 @@ def _launch_bwd(shape, w16: torch.Tensor, acts: torch.Tensor, B: int,
                 g_h_alpha: Optional[torch.Tensor], g_h_rgb: Optional[torch.Tensor]) -> Outputs:
     """The backward kernels of the trunk `shape` (TrunkWeights._shape) on
     the activations the training forward saved for B rows (`acts`), with the
-    bf16 weights `w16`.  Returns (dw, db) in f32."""
-    g_ha, g_hr = _cotangents(shape, B, acts, g_h_alpha, g_h_rgb)
+    bf16 weights `w16`; (M, ...) weights for M stacked members, B rows
+    each.  Returns (dw, db) in f32, (M, ...) for stacked members."""
+    members = w16.shape[0] if w16.dim() == 2 else None
+    M = members or 1
+    g_ha, g_hr = _cotangents(shape, B, members, acts, g_h_alpha, g_h_rgb)
     fn, workspace_bytes = _entry_bwd()
-    workspace = acts.new_empty((workspace_bytes(B, *shape),))
+    workspace = acts.new_empty((M * workspace_bytes(B, *shape),))
     mats, biases = _layout(*shape)
-    dw = acts.new_empty(sum(r * c for _, r, c in mats), dtype=torch.float32)
-    db = acts.new_empty(sum(n for _, n in biases), dtype=torch.float32)
+    lead = w16.shape[:-1]
+    dw = acts.new_empty((*lead, sum(r * c for _, r, c in mats)), dtype=torch.float32)
+    db = acts.new_empty((*lead, sum(n for _, n in biases)), dtype=torch.float32)
     with _on_device(acts.device) as stream:
         err = fn(acts.data_ptr(), acts.numel(), w16.data_ptr(), g_ha.data_ptr(),
                  g_hr.data_ptr(), dw.data_ptr(), db.data_ptr(), workspace.data_ptr(),
-                 workspace.numel(), B, *shape, stream)
+                 workspace.numel(), B, *shape, M, stream)
     if err != 0:
         raise RuntimeError(
-            f"trunk_bwd launch failed: CUDA error {err} (B={B}, shape {shape})"
+            f"trunk_bwd launch failed: CUDA error {err} (B={B}, members={M}, shape {shape})"
         )
     trunk_encode_bwd.launches += 1
     return dw, db
@@ -501,12 +563,12 @@ def _launch_bwd(shape, w16: torch.Tensor, acts: torch.Tensor, B: int,
 
 def _entry():
     """The ctypes entry of the serving forward: emb, its row stride, w, b,
-    h_alpha, h_rgb, then B, depth, width, input_ch, views_ch, h_alpha, h_rgb
-    and the stream."""
+    h_alpha, h_rgb, then B (a member's), depth, width, input_ch, views_ch,
+    h_alpha, h_rgb, the members and the stream."""
     fn = getattr(_build.load(NAME), "trunk_fwd")
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -514,13 +576,13 @@ def _entry():
 def _entry_save():
     """The ctypes entries of the training forward: trunk_fwd_save (as
     trunk_fwd, with the activation workspace and its bytes after h_rgb) and
-    trunk_fwd_workspace (B, depth, width, input_ch, views_ch -> the
-    workspace's bytes)."""
+    trunk_fwd_workspace (B, depth, width, input_ch, views_ch -> a member's
+    workspace bytes)."""
     lib = _build.load(NAME)
     fn, size = lib.trunk_fwd_save, lib.trunk_fwd_workspace
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
-                       + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                       + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     if size.argtypes is None:
         size.argtypes = [ctypes.c_int] * 5
@@ -531,14 +593,14 @@ def _entry_save():
 def _entry_bwd():
     """The ctypes entries of the backward: trunk_bwd (the saved activations
     and their bytes, w, g_h_alpha, g_h_rgb, dw, db, the workspace and its
-    bytes, then B, depth, width, input_ch, views_ch, h_alpha, h_rgb and the
-    stream) and trunk_bwd_workspace (B and the six shape ints -> the bytes
-    of scratch trunk_bwd needs)."""
+    bytes, then B (a member's), depth, width, input_ch, views_ch, h_alpha,
+    h_rgb, the members and the stream) and trunk_bwd_workspace (B and the six
+    shape ints -> the bytes of scratch trunk_bwd needs a member)."""
     lib = _build.load(NAME_BWD)
     fn, size = lib.trunk_bwd, lib.trunk_bwd_workspace
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 6
-                       + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                       + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     if size.argtypes is None:
         size.argtypes = [ctypes.c_int] * 7

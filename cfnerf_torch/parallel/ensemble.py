@@ -3,13 +3,36 @@ of cfnerf_tpu/parallel/ensemble.py.
 
 Ensemble members are independent until the mixture eval: no math crosses
 members in training.  The JAX package stacks a member axis onto params,
-optimizer state, batches and keys and vmaps its step over it.  Here each
-member keeps its own nets, Adam, schedule and generator, and the ensemble
-step runs the M single-member steps of train/step.py:make_train_step one
-after another inside one call: what the vmap computes, member by member.
-torch.func.vmap cannot take that step: the port's autograd Functions
-(render core, flow stack, trunk) have old-style forward(ctx, ...) and no
-vmap rule, and the CUDA kernels take no member axis.
+optimizer state, batches and keys and vmaps its step over it, and where the
+step reaches a Pallas kernel, pallas_call's batching rule gives that kernel
+a leading member axis in its grid: one launch covers every member.  Here
+each member keeps its own nets, Adam, schedule, generator and checkpoint
+format, and the ensemble step is one of two, chosen once when it is built
+(printed, and kept as step.batched):
+
+  * the member-batched step, JAX's vmap written out, for the flagship
+    triangular NeRFFlows on the fused render (no occ stage, no fine pass,
+    no remat; train/step.py:batched_step_refusal), its loss
+    train/step.py:make_batched_loss, which is also the one-member step of
+    these configurations: each member's draws from its own generator in
+    its serial step's order (the jitter, then the base draws); the rays' preparation,
+    the positional encoding, the sample intervals and the composite's
+    finishing once over all M members' rays; the trunk ("pallas" and
+    "interpret": the members' stacked trunks through the trunk kernels, one
+    launch forward and one backward) and the render core (one launch
+    forward, one backward, the z0 gradients per member) with a member axis;
+    the "xla" trunk's and the amortizers' products member by member through
+    each member's own modules, which keeps their bits; each member's loss
+    scored on its own rays, one backward on their sum, then each member's
+    own update (its Adam and schedule; under a mesh its gradient's
+    all-reduce over its data ranks first).  Member m's parameters get the
+    gradients of its serial step: on the CPU, where the kernels' plain
+    versions run member by member, bitwise.  A batched launch that fails
+    raises; nothing falls back to the loop;
+  * the per-member loop for every other configuration (the occ stage,
+    hierarchical sampling, the other flow families, the baselines, the
+    unfused render, remat): the M single-member steps of
+    train/step.py:make_train_step one after another inside one call.
 
   * stack_members / unstack_member: a list of (nested) state dicts to one of
     (M, ...) tensors and back, JAX's host-side stacking;
@@ -21,9 +44,9 @@ vmap rule, and the CUDA kernels take no member axis.
     shard_member_stacked_batch: the (ensemble, data) mesh over several
     devices (parallel/mesh.py).  A rank holds a contiguous block of the
     members, as P('ensemble') places them, and its rows of their ray axis;
-    its members' steps run one after another on its data shard, each
-    member's gradient all-reduced over that member's data ranks only: no
-    collective crosses members.
+    its members' step runs on its data shard, each member's gradient
+    all-reduced over that member's data ranks only: no collective crosses
+    members.
 """
 from __future__ import annotations
 
@@ -42,8 +65,15 @@ from cfnerf_torch.parallel.mesh import (
     block,
     gcd_split,
 )
+from cfnerf_torch.models.nerf_flows import NeRFFlows
 from cfnerf_torch.render.renderer import RenderConfig
-from cfnerf_torch.train.step import Metrics, TrainConfig, make_train_step
+from cfnerf_torch.train.step import (
+    Metrics,
+    TrainConfig,
+    batched_step_refusal,
+    make_batched_loss,
+    make_train_step,
+)
 from cfnerf_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -136,6 +166,36 @@ def _per_member(x, n_members: int, what: str) -> list:
     return x
 
 
+def _batched_step(members: Sequence[Callable], models: Sequence[NeRFFlows],
+                  render_config: RenderConfig, cfg: TrainConfig, mesh) -> Callable:
+    """The member-batched step (the module docstring) over the members'
+    single-member steps `members`, whose updates it calls."""
+    loss_fn = make_batched_loss(models, render_config, cfg, mesh)
+    M = len(models)
+
+    def step(batch: Mapping, generators: Sequence[Optional[torch.Generator]], *,
+             z_vals=None, eps=None, **seams) -> Metrics:
+        given = sorted(k for k, v in seams.items() if v is not None)
+        if given:
+            raise ValueError(f"the member-batched step has no draws for the seams {given}")
+        for s in members:
+            s.optimizer.zero_grad(set_to_none=True)
+        eps = None if eps is None else tuple(eps)
+        scored = loss_fn(batch, _per_member(generators, M, "generators"),
+                         z_vals=[_member(z_vals, m) for m in range(M)],
+                         eps=[_member(eps, m) for m in range(M)])
+        # d(sum)/d(loss_m) is exactly 1: each member's gradients are its own step's
+        torch.stack([loss for loss, _ in scored]).sum().backward()
+        out = []
+        for s, (_, metrics) in zip(members, scored):
+            s.update()
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            out.append(metrics if mesh is None else s.global_metrics(metrics))
+        return {k: torch.stack([o[k] for o in out]) for k in out[0]}
+
+    return step
+
+
 def make_ensemble_train_step(
     model: Sequence[torch.nn.Module],
     render_config: RenderConfig,
@@ -163,10 +223,14 @@ def make_ensemble_train_step(
     member m's step on batch leaves [m] ((M, R, ...) rays and targets; an
     (M,) occ_floor is each member's floor) with generators[m], and returns
     each metric stacked to (M,).  A seam, where given, has the member axis
-    first (eps: a pair of (M, K, 1) and (M, K, 3)).  With `occ`,
-    step.install_proposals(props) loads each member's distilled proposal
-    (a ProposalMLP or its state dict) and restarts its Adam, JAX's
-    _wrap_state.  step.members holds the single-member steps.
+    first (eps: a pair of (M, K, 1) and (M, K, 3)); the member-batched step
+    takes z_vals and eps only, the draws its configurations make.  With
+    `occ`, step.install_proposals(props) loads each member's distilled
+    proposal (a ProposalMLP or its state dict) and restarts its Adam, JAX's
+    _wrap_state.  step.members holds the single-member steps, whose
+    optimizers, schedules and updates both flavours use; step.batched
+    says which flavour runs (the module docstring), chosen here once and
+    printed.
 
     With `mesh` (create_ensemble_mesh) the members are this rank's block
     (shard_members) and n_members their count; the batch is its share
@@ -180,13 +244,21 @@ def make_ensemble_train_step(
     members = [make_train_step(models[m], render_config, cfg, mesh=mesh, model_fine=fines[m],
                                occ=occ, optimizer=carried[m], proposal=props[m])[0]
                for m in range(n_members)]
+    refusal = batched_step_refusal(models, render_config, cfg, model_fine, occ)
+    if refusal is None:
+        step = _batched_step(members, models, render_config, cfg, mesh)
+        print(f"ensemble step: {n_members} members batched (one trunk and render-core "
+              "launch a pass for all)", flush=True)
+    else:
+        def step(batch: Mapping, generators: Sequence[Optional[torch.Generator]],
+                 **seams) -> Metrics:
+            gens = _per_member(generators, n_members, "generators")
+            out = [s(_member(batch, m), gens[m], **{k: _member(v, m) for k, v in seams.items()})
+                   for m, s in enumerate(members)]
+            return {k: torch.stack([o[k] for o in out]) for k in out[0]}
 
-    def step(batch: Mapping, generators: Sequence[Optional[torch.Generator]], **seams) -> Metrics:
-        gens = _per_member(generators, n_members, "generators")
-        out = [s(_member(batch, m), gens[m], **{k: _member(v, m) for k, v in seams.items()})
-               for m, s in enumerate(members)]
-        return {k: torch.stack([o[k] for o in out]) for k in out[0]}
-
+        print(f"ensemble step: {n_members} members one after another ({refusal})", flush=True)
+    step.batched = refusal is None
     step.members = members
     if occ is not None:
         def install_proposals(props) -> None:
@@ -225,6 +297,7 @@ def make_ensemble_train_loop(
         return {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
 
     loop.members = step.members
+    loop.batched = step.batched
     if occ is not None:
         loop.install_proposals = step.install_proposals
         loop.proposals = step.proposals

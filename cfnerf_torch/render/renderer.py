@@ -70,6 +70,44 @@ class RenderConfig:
 RenderRays = Callable[..., Dict[str, torch.Tensor]]
 
 
+def embed_samples(config: RenderConfig, embedders, z_vals: torch.Tensor,
+                  rays_o: torch.Tensor, rays_d: torch.Tensor,
+                  viewdirs: Optional[torch.Tensor]) -> torch.Tensor:
+    """The positional encoding of every sample of every ray, (R * S, C),
+    sample minor: the points, then the ray's view directions beside each
+    sample's.  `embedders` is config.embedders()."""
+    embedder, embedder_dirs = embedders
+    R, S = z_vals.shape
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+    emb = embedder(pts.reshape(R * S, 3))
+    if config.use_viewdirs and viewdirs is not None:
+        emb_dirs = embedder_dirs(viewdirs)  # (R, Dv)
+        emb_dirs = emb_dirs[:, None, :].expand(R, S, emb_dirs.shape[-1])
+        emb = torch.cat([emb, emb_dirs.reshape(R * S, -1)], -1)
+    return emb
+
+
+def schedule_z_vals(config: RenderConfig, near: torch.Tensor, far: torch.Tensor,
+                    generator: Optional[torch.Generator], is_test: bool) -> torch.Tensor:
+    """The rays' sample depths (R, config.n_samples): the z schedule
+    between near and far (R, 1), jittered by stratified_perturb from
+    `generator` in a perturbed train-mode render."""
+    R, S = near.shape[0], config.n_samples
+    z_vals = sample_z_vals(near, far, S, lindisp=config.lindisp,
+                           uniform=config.uniform).expand(R, S)
+    if config.perturb and not is_test and generator is not None:
+        z_vals = stratified_perturb(z_vals, generator)
+    return z_vals
+
+
+def point_intervals(z_vals: torch.Tensor, rays_d: torch.Tensor) -> torch.Tensor:
+    """The render core's d_pts: each sample's interval to the next (the
+    last LAST_DIST) times |rays_d|, (R, S)."""
+    dists = z_vals[..., 1:] - z_vals[..., :-1]
+    dists = torch.cat([dists, torch.full_like(dists[..., :1], LAST_DIST)], -1)
+    return dists * torch.linalg.norm(rays_d.float(), dim=-1, keepdim=True)
+
+
 def make_render_rays(model, config: RenderConfig, model_fine=None) -> RenderRays:
     """Build the per-batch renderer around a NeRFFlows `model`.
 
@@ -100,19 +138,12 @@ def make_render_rays(model, config: RenderConfig, model_fine=None) -> RenderRays
     if config.fused not in FUSED_MODES:
         raise ValueError(f"RenderConfig.fused must be one of {FUSED_MODES}, "
                          f"got {config.fused!r}")
-    embedder, embedder_dirs = config.embedders()
+    embedders = config.embedders()
     noisy = config.apply_noise and config.raw_noise_std > 0
     unfused = config.fused == "off" or config.n_importance > 0 or noisy
 
     def _embed(z_vals, rays_o, rays_d, viewdirs):
-        R, S = z_vals.shape
-        pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
-        emb = embedder(pts.reshape(R * S, 3))
-        if config.use_viewdirs and viewdirs is not None:
-            emb_dirs = embedder_dirs(viewdirs)  # (R, Dv)
-            emb_dirs = emb_dirs[:, None, :].expand(R, S, emb_dirs.shape[-1])
-            emb = torch.cat([emb, emb_dirs.reshape(R * S, -1)], -1)
-        return emb
+        return embed_samples(config, embedders, z_vals, rays_o, rays_d, viewdirs)
 
     def _pass(net, z_vals, rays_o, rays_d, viewdirs, generator, is_test, eps, noise):
         """One unfused query + composite: (maps..., weights, entropy)."""
@@ -143,19 +174,12 @@ def make_render_rays(model, config: RenderConfig, model_fine=None) -> RenderRays
         pdf_u: Optional[torch.Tensor] = None,
         noise: Optional[Sequence[torch.Tensor]] = None,
     ) -> Dict[str, torch.Tensor]:
-        R = rays_o.shape[0]
         if z_vals is None:
-            S = config.n_samples
-            z_vals = sample_z_vals(near, far, S, lindisp=config.lindisp,
-                                   uniform=config.uniform).expand(R, S)
-            if config.perturb and not is_test and generator is not None:
-                z_vals = stratified_perturb(z_vals, generator)
+            z_vals = schedule_z_vals(config, near, far, generator, is_test)
         S = z_vals.shape[1]
 
         if not unfused:
-            dists = z_vals[..., 1:] - z_vals[..., :-1]
-            dists = torch.cat([dists, torch.full_like(dists[..., :1], LAST_DIST)], -1)
-            d_pts = dists * torch.linalg.norm(rays_d.float(), dim=-1, keepdim=True)
+            d_pts = point_intervals(z_vals, rays_d)
             rgb_map, depth_map, acc_map, loss_entropy = model.forward_composited(
                 _embed(z_vals, rays_o, rays_d, viewdirs), z_vals.reshape(-1),
                 d_pts.reshape(-1), S, is_test=is_test, generator=generator, eps=eps,

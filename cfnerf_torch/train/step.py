@@ -6,8 +6,10 @@ lr = lrate * 0.1^(step / (lrate_decay*1000)) (:1072-1077)).
   * the COLMAP depth rays are concatenated to the rgb rays before the render
     and split after, as in the reference (:1011, :1020-1024);
   * the render is the fused train-mode path (the render core's forward
-    kernel on the card, its backward kernel through autograd) or, with
-    N_importance > 0, the hierarchical coarse + fine render, whose flow
+    kernel on the card, its backward kernel through autograd; for the
+    flagship triangular NeRFFlows without remat the member-batched loss,
+    make_batched_loss, at one member, which the ensemble step runs at M)
+    or, with N_importance > 0, the hierarchical coarse + fine render, whose flow
     stacks run through the flow-stack kernels; its coarse loss is added as
     in cfnerf_tpu/train/step.py:290-304;
   * a trunk_impl="pallas" net's trunk runs through the trunk kernels, its
@@ -31,14 +33,17 @@ loop where the JAX package scans on the device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 from torch.optim.lr_scheduler import LambdaLR
 from torch.utils.checkpoint import checkpoint
 
+from cfnerf_torch.models.nerf_flows import NeRFFlows, forward_composited_members
+from cfnerf_torch.ops.compositing import finalize_k_maps
 from cfnerf_torch.ops.metrics import img2mse, mse2psnr
 from cfnerf_torch.ops.occupancy import (
     ProposalMLP,
@@ -47,7 +52,14 @@ from cfnerf_torch.ops.occupancy import (
     place_from_sigma,
 )
 from cfnerf_torch.ops.sampling import ray_rows
-from cfnerf_torch.render.renderer import RenderConfig, make_render_rays, prepare_rays
+from cfnerf_torch.render.renderer import (
+    RenderConfig,
+    embed_samples,
+    make_render_rays,
+    point_intervals,
+    prepare_rays,
+    schedule_z_vals,
+)
 from cfnerf_torch.train.loss import kde_nll, total_loss
 
 Metrics = Dict[str, torch.Tensor]
@@ -108,6 +120,164 @@ def make_optimizer(params: Iterable, cfg: TrainConfig) -> Tuple[torch.optim.Adam
     scheduler = LambdaLR(
         optimizer, lambda t: 0.1 ** ((cfg.start_step + t) / decay_steps))
     return optimizer, scheduler
+
+
+def score_render(out: Mapping[str, torch.Tensor], b: Mapping[str, torch.Tensor], n_rgb: int,
+                 cfg: TrainConfig, dev) -> Tuple[torch.Tensor, Metrics]:
+    """A step's loss and metrics from its render `out` (rgb_map, depth_map,
+    loss_entropy[, loss_entropy0, rgb0]) of the batch `b` (tensors), the
+    first n_rgb rays the rgb rays, the rest COLMAP depth rays."""
+    rgbs, depth = out["rgb_map"], out["depth_map"]  # (R+D, 3, K), (R+D, K)
+    depth_k = target_depth = None
+    if cfg.colmap_depth:
+        rgbs, depth_k = rgbs[:n_rgb], depth[n_rgb:]
+        target_depth = b["target_depth"]
+    entropy = out["loss_entropy"]
+    if "loss_entropy0" in out:
+        entropy = entropy + out["loss_entropy0"]
+
+    if cfg.loss_mode == "mse":
+        loss = img2mse(rgbs.mean(-1), b["target"])
+        metrics = {"loss_nll": torch.zeros((), device=dev), "loss_entropy": entropy}
+        if depth_k is not None:
+            d = img2mse(depth_k.mean(-1), target_depth)
+            loss = loss + cfg.depth_lambda * d
+            metrics["depth_loss"] = d
+        metrics["loss"] = loss
+    else:
+        loss, metrics = total_loss(
+            rgbs, b["target"], entropy, k_samples=cfg.k_samples, beta1=cfg.beta1,
+            depth_k=depth_k, target_depth=target_depth,
+            depth_lambda=cfg.depth_lambda)
+    if "rgb0" in out:
+        # the coarse loss, in the family of the fine one
+        rgbs0 = out["rgb0"][:n_rgb]
+        if cfg.loss_mode == "mse":
+            loss0 = img2mse(rgbs0.mean(-1), b["target"])
+        else:
+            loss0 = kde_nll(rgbs0, b["target"], cfg.k_samples)
+        loss = loss + loss0
+        metrics["loss_nll0"] = loss0
+        metrics["loss"] = loss
+    mse = img2mse(rgbs.mean(-1), b["target"])
+    metrics["mse"] = mse
+    metrics["psnr"] = mse2psnr(mse)
+    return loss, metrics
+
+
+def mesh_rows(mesh, n_rgb: int, n_depth: int, device) -> Tuple[torch.Tensor, int]:
+    """This data rank's rows among the whole batch's, for ray_rows: its
+    n_rgb rgb rays, then its n_depth depth rays after every rank's rgb
+    rays; and the whole batch's ray count."""
+    from cfnerf_torch.parallel.mesh import DATA_AXIS
+
+    n_data, data_index = mesh.shape[DATA_AXIS], mesh.index(DATA_AXIS)
+    rows = torch.cat([torch.arange(n_rgb, device=device) + data_index * n_rgb,
+                      torch.arange(n_depth, device=device) + n_data * n_rgb
+                      + data_index * n_depth])
+    return rows, n_data * (n_rgb + n_depth)
+
+
+def batch_rays(batch: Mapping, cfg: TrainConfig, render_config: RenderConfig, dev):
+    """The batch's leaves as f32 tensors on dev, and its rays prepared for
+    the render (prepare_rays): the rgb rays, then the COLMAP depth rays,
+    flattened over any leading member axis, member-major."""
+    b = {k: torch.as_tensor(v, dtype=torch.float32, device=dev) for k, v in batch.items()}
+    rays_o, rays_d = b["rays_o"], b["rays_d"]
+    if cfg.colmap_depth:
+        rays_o = torch.cat([rays_o, b["depth_rays_o"]], -2)
+        rays_d = torch.cat([rays_d, b["depth_rays_d"]], -2)
+    return b, prepare_rays(rays_o, rays_d, H=cfg.H, W=cfg.W, focal=cfg.focal, ndc=cfg.ndc,
+                           use_viewdirs=render_config.use_viewdirs, near=cfg.near, far=cfg.far)
+
+
+def batched_step_refusal(models: Sequence[torch.nn.Module], render_config: RenderConfig,
+                         cfg: TrainConfig, model_fine=None, occ=None) -> Optional[str]:
+    """None where make_batched_loss takes these nets (one, or an ensemble's
+    members), else what leaves them to the render of make_render_rays (an
+    ensemble: to its members' steps in turn)."""
+    if occ is not None:
+        return "the occ stage"
+    if render_config.n_importance > 0 or any(f is not None for f in model_fine or ()):
+        return "hierarchical sampling"
+    if render_config.fused == "off":
+        return "the unfused render"
+    if render_config.apply_noise and render_config.raw_noise_std > 0:
+        return "applied density noise"
+    if cfg.remat:
+        return "remat"
+    if not all(isinstance(m, NeRFFlows) for m in models):
+        return "a baseline model"
+    families = sorted({m.type_flows for m in models})
+    if families != ["triangular"]:
+        return f"the {'/'.join(families)} flow family"
+    shapes = {(m.trunk_impl, m.compute_dtype, m.k_samples, m.net_depth, m.net_width,
+               m.input_ch, m.input_ch_views, m.skips, m.use_viewdirs, m.n_flows,
+               m.h_alpha_linear.out_features, m.h_rgb_linear.out_features) for m in models}
+    if len(shapes) > 1:
+        return "members of different configurations"
+    return None
+
+
+def make_batched_loss(models: Sequence[NeRFFlows], render_config: RenderConfig,
+                      cfg: TrainConfig, mesh=None) -> Callable:
+    """The fused train-mode render and loss of M nets at once (members of an
+    ensemble; batched_step_refusal says which configurations), JAX's
+    vmapped loss written out: loss(batch, generators, *, z_vals, eps) ->
+    [(loss, metrics)], a pair a member.  The batch's leaves have the member
+    axis first ((M, R, 3) rays, ...); generators, z_vals and eps are lists
+    of each member's (a seam None is drawn).  Member m's draws come from
+    generators[m] in its single step's order (the jitter, then the base
+    draws); the rays' preparation, the encoding, the intervals and the
+    composite's finish run once over all members' rays, member-major; the
+    nets run through forward_composited_members (the trunk kernels and the
+    render core with a member axis); each member's loss is scored on its
+    own rays.  make_train_step runs it at one member, the ensemble step
+    (parallel/ensemble.py) at M.  Under a mesh each per-ray draw is made at
+    the whole batch's shape and cut to this rank's rows, and a z_vals seam
+    holds the whole batch's, as in make_train_step."""
+    rc = render_config
+    embedders = rc.embedders()
+    dev = next(models[0].parameters()).device
+
+    def loss(batch: Mapping, generators: Sequence[Optional[torch.Generator]], *,
+             z_vals: Sequence, eps: Sequence) -> List[Tuple[torch.Tensor, Metrics]]:
+        M = len(models)
+        b, (rays_o, rays_d, viewdirs, near_v, far_v) = batch_rays(batch, cfg, rc, dev)
+        n_rgb, n_rays = b["rays_o"].shape[1], rays_o.shape[0] // M
+        if mesh is not None:
+            rows, n_global = mesh_rows(mesh, n_rgb, n_rays - n_rgb, dev)
+        zs, draws = [], []
+        for m, (net, gen) in enumerate(zip(models, generators)):
+            ray = slice(m * n_rays, (m + 1) * n_rays)
+            z_m = (None if z_vals[m] is None
+                   else torch.as_tensor(z_vals[m], dtype=torch.float32, device=dev))
+            draw_rows = contextlib.nullcontext()
+            if mesh is not None:
+                draw_rows = ray_rows(rows.to(dev if gen is None else gen.device), n_global)
+                z_m = None if z_m is None else z_m[rows]
+            with draw_rows:
+                if z_m is None:
+                    z_m = schedule_z_vals(rc, near_v[ray], far_v[ray], gen, is_test=False)
+                zs.append(z_m)
+                draws.append(net.train_eps(None, gen, eps[m]))
+        z_all = torch.stack(zs).reshape(M * n_rays, -1)
+        S = z_all.shape[1]
+        d_pts = point_intervals(z_all, rays_d)
+        emb = embed_samples(rc, embedders, z_all, rays_o, rays_d, viewdirs)
+        rgb, depth, acc, entropy = forward_composited_members(
+            models, emb.view(M, n_rays * S, -1), z_all.view(M, -1), d_pts.view(M, -1), S,
+            draws, interpret=rc.fused == "interpret")
+        rgb, _ = finalize_k_maps(rgb, depth, acc, rc.white_bkgd)
+        scored = []
+        for m in range(M):
+            ray = slice(m * n_rays, (m + 1) * n_rays)
+            render = dict(rgb_map=rgb[ray], depth_map=depth[ray], loss_entropy=entropy[m])
+            scored.append(score_render(render, {k: v[m] for k, v in b.items()}, n_rgb, cfg,
+                                       dev))
+        return scored
+
+    return loss
 
 
 class _Remat:
@@ -206,7 +376,8 @@ def make_train_step(
     ray and pass whole).  update() all-reduces the mean of every gradient
     over the data axis, in one flat bucket, before Adam's step, so .grad
     holds the global gradient after train_step; the metrics are the global
-    means (psnr from the global mse).  The occ co-training fits the
+    means (psnr from the global mse; train_step.global_metrics takes a
+    rank's metrics to them).  The occ co-training fits the
     proposal on points drawn alike on every rank, and raises unless its
     gradient is equal on every data rank.
     """
@@ -233,6 +404,11 @@ def make_train_step(
         model_fine=None if model_fine is None else wrap(model_fine))
 
     dev = next(model.parameters()).device
+    # the flagship's fused step is the ensemble's member-batched loss at one
+    # member: one code path for both
+    batched = (make_batched_loss([model], render_config, cfg, mesh)
+               if batched_step_refusal([model], render_config, cfg, model_fine, occ) is None
+               else None)
     if occ is not None:
         if proposal is None:
             net = ProposalMLP(occ.prop_width, occ.prop_depth, occ.prop_multires, device=dev)
@@ -247,21 +423,14 @@ def make_train_step(
     if mesh is not None:
         from cfnerf_torch.parallel.mesh import DATA_AXIS, mean_over
 
-        n_data, data_index = mesh.shape[DATA_AXIS], mesh.index(DATA_AXIS)
+        n_data = mesh.shape[DATA_AXIS]
         data_group = mesh.group(DATA_AXIS)
 
     def _loss(batch: Mapping, generator: Optional[torch.Generator] = None, *,
               z_vals=None, eps=None, eps_fine=None, pdf_u=None,
               noise=None, place_u=None) -> Tuple[torch.Tensor, Metrics]:
-        b = {k: torch.as_tensor(v, dtype=torch.float32, device=dev) for k, v in batch.items()}
-        rays_o, rays_d = b["rays_o"], b["rays_d"]
-        n_rgb = rays_o.shape[0]
-        if cfg.colmap_depth:
-            rays_o = torch.cat([rays_o, b["depth_rays_o"]], 0)
-            rays_d = torch.cat([rays_d, b["depth_rays_d"]], 0)
-        rays_o, rays_d, viewdirs, near_v, far_v = prepare_rays(
-            rays_o, rays_d, H=cfg.H, W=cfg.W, focal=cfg.focal, ndc=cfg.ndc,
-            use_viewdirs=render_config.use_viewdirs, near=cfg.near, far=cfg.far)
+        b, (rays_o, rays_d, viewdirs, near_v, far_v) = batch_rays(batch, cfg, render_config,
+                                                                 dev)
         if occ is not None and z_vals is None:
             with torch.no_grad():
                 z_vals = place_from_sigma(
@@ -271,59 +440,20 @@ def make_train_step(
         out = render_rays(rays_o, rays_d, viewdirs, near_v, far_v, generator,
                           is_test=False, z_vals=z_vals, eps=eps, eps_fine=eps_fine,
                           pdf_u=pdf_u, noise=noise)
-
-        rgbs, depth = out["rgb_map"], out["depth_map"]  # (R+D, 3, K), (R+D, K)
-        depth_k = target_depth = None
-        if cfg.colmap_depth:
-            rgbs, depth_k = rgbs[:n_rgb], depth[n_rgb:]
-            target_depth = b["target_depth"]
-        entropy = out["loss_entropy"]
-        if "loss_entropy0" in out:
-            entropy = entropy + out["loss_entropy0"]
-
-        if cfg.loss_mode == "mse":
-            loss = img2mse(rgbs.mean(-1), b["target"])
-            metrics = {"loss_nll": torch.zeros((), device=dev), "loss_entropy": entropy}
-            if depth_k is not None:
-                d = img2mse(depth_k.mean(-1), target_depth)
-                loss = loss + cfg.depth_lambda * d
-                metrics["depth_loss"] = d
-            metrics["loss"] = loss
-        else:
-            loss, metrics = total_loss(
-                rgbs, b["target"], entropy, k_samples=cfg.k_samples, beta1=cfg.beta1,
-                depth_k=depth_k, target_depth=target_depth,
-                depth_lambda=cfg.depth_lambda)
-        if "rgb0" in out:
-            # the coarse loss, in the family of the fine one
-            rgbs0 = out["rgb0"][:n_rgb]
-            if cfg.loss_mode == "mse":
-                loss0 = img2mse(rgbs0.mean(-1), b["target"])
-            else:
-                loss0 = kde_nll(rgbs0, b["target"], cfg.k_samples)
-            loss = loss + loss0
-            metrics["loss_nll0"] = loss0
-            metrics["loss"] = loss
-        mse = img2mse(rgbs.mean(-1), b["target"])
-        metrics["mse"] = mse
-        metrics["psnr"] = mse2psnr(mse)
-        return loss, metrics
+        return score_render(out, b, b["rays_o"].shape[0], cfg, dev)
 
     def loss_fn(batch: Mapping, generator: Optional[torch.Generator] = None, *,
                 z_vals=None, eps=None, eps_fine=None, pdf_u=None,
                 noise=None, place_u=None) -> Tuple[torch.Tensor, Metrics]:
+        if batched is not None:  # this configuration draws none of the other seams
+            one = {k: torch.as_tensor(v)[None] for k, v in batch.items()}
+            return batched(one, [generator], z_vals=[z_vals], eps=[eps])[0]
         if mesh is None:
             return _loss(batch, generator, z_vals=z_vals, eps=eps, eps_fine=eps_fine,
                          pdf_u=pdf_u, noise=noise, place_u=place_u)
-        # this rank's rows among the whole batch's: its rgb rays, then its
-        # depth rays after every rank's rgb rays
-        n_rgb = len(batch["rays_o"])
         n_depth = len(batch["depth_rays_o"]) if cfg.colmap_depth else 0
-        at = dev if generator is None else generator.device
-        rows = torch.cat([torch.arange(n_rgb, device=at) + data_index * n_rgb,
-                          torch.arange(n_depth, device=at) + n_data * n_rgb
-                          + data_index * n_depth])
-        n_global = n_data * (n_rgb + n_depth)
+        rows, n_global = mesh_rows(mesh, len(batch["rays_o"]), n_depth,
+                                   dev if generator is None else generator.device)
 
         def mine(x):
             if x is None:
@@ -407,6 +537,8 @@ def make_train_step(
 
     train_step.loss_fn = loss_fn
     train_step.update = update
+    if mesh is not None:
+        train_step.global_metrics = global_metrics
     train_step.optimizer = optimizer
     train_step.scheduler = scheduler
     if occ is not None:

@@ -43,7 +43,14 @@ final line):
                    through the training forward's saved workspace bitwise
                    equal to the standalone entry; its weight-gradient pass
                    alone at 64 x 64 x 64 and the flat step's matrix shapes
-                   against a float64 product
+                   against a float64 product; the member axis
+                   (kernel_members): the render core forward and backward at
+                   3 members' flagship train tiles and trunk_fwd,
+                   trunk_fwd_save and trunk_bwd at 2 members' flat training
+                   steps, one launch for all, against the plain versions and
+                   bitwise against one launch a member (outputs, z0
+                   gradients, saved activations, dW and db), each timed
+                   beside those M launches
   4. kernel_time   each kernel's ms, plain ms, bytes, operations and bound
                    (train-tile launches rotate over inputs larger than L2;
                    the render-core backward also at F=12; every flow-stack
@@ -198,8 +205,12 @@ final line):
                    --parallel in a fresh run dir, each member's checkpoint
                    against its serial one (relative 1e-5 a tensor, 0
                    expected), the tagged scalars, its mixture eval, its loop
-                   rate against (a)'s, peak memory; (d) --parallel
-                   --trunk_impl pallas, 2 members, 20 steps; launches exact
+                   rate against (a)'s, peak memory; (d) --trunk_impl pallas,
+                   2 members, 20 steps, serially and --parallel, each
+                   --parallel checkpoint against its serial one; --parallel
+                   is the member-batched step: one render-core forward and
+                   backward (and trunk forward and backward) a dispatch for
+                   all members; launches exact
  34. mesh          the several-device paths (cfnerf_torch/parallel/mesh.py)
                    on the one card: (a) a one-rank NCCL group through
                    cli.train's mesh path (10 steps of train_NF.sh's flags on
@@ -216,7 +227,10 @@ final line):
  35. rates         every path's rays/s of this run, side by side
  36. kernels       per-kernel launches, error, time, plain time and bound;
                    trunk_fwd's entry also the training variant's
-                   (fwd_save_*, at the flat training step)
+                   (fwd_save_*, at the flat training step); the render core's
+                   and the trunk's entries their member-batched launch's
+                   (members); launches_by_path splits the ensemble phase into
+                   its serial runs, its evals and its --parallel runs
 
 then the script's wall time, the `nvidia-smi` name/power line and, last, the
 `ok` line.
@@ -268,7 +282,7 @@ from cfnerf_torch.models.nerf_flows import NeRFFlows
 from cfnerf_torch.ops.compositing import LAST_DIST
 from cfnerf_torch.ops.kernels import _build
 from cfnerf_torch.ops.kernels import flow_stack, render_core, trunk
-from cfnerf_torch.ops.kernels.trunk import pack_trunk_weights
+from cfnerf_torch.ops.kernels.trunk import pack_member_trunk_weights, pack_trunk_weights
 from cfnerf_torch.ops.metrics import std_over_k
 from cfnerf_torch.ops.occupancy import (
     aabb_from_scene,
@@ -1626,6 +1640,174 @@ def phase_trunk_bwd_time(flat_err):
 # ---------------------------------------------------------------------- #
 # serving
 # ---------------------------------------------------------------------- #
+
+
+# ---------------------------------------------------------------------- #
+# the member axis (slice 10): one launch for every ensemble member
+# ---------------------------------------------------------------------- #
+
+# the member-batched launches at the batched ensemble step's shapes: the
+# render core at three members' flagship train tiles, the trunk kernels at
+# two members' flat training steps.  Each against its
+# plain version at the one-member checks' tolerances, and bitwise against
+# one launch per member: a member's arithmetic is that of a launch of it
+# alone (the same z0 reduction order, the same trunk row ranges)
+MEMBER_CORE_M, MEMBER_TRUNK_M = 3, 2
+
+
+def member_core_inputs(M, R, S, K, F, seed):
+    """M members' render-core inputs (bounded diagonals) and the batched
+    call's: z0 stacked, the points joined."""
+    per = [bounded_diagonals(render_core_inputs(R, S, K, F, seed=seed + m)) for m in range(M)]
+    return per, [torch.stack([p[i] for p in per]) if i in (0, 4)
+                 else torch.cat([p[i] for p in per]) for i in range(10)]
+
+
+def member_bound(work, M, *args, ops_per_s=F32_OPS_PER_S):
+    """The bound of M members' work: M times one member's bytes and
+    operations (each member's weights, inputs and outputs its own)."""
+    nbytes, ops = work(*args)
+    return bound_ms(M * nbytes, M * ops, ops_per_s)
+
+
+def phase_member_kernels():
+    """Each member-batched launch against its plain version and against one
+    launch per member (bitwise), timed beside those M launches.  Returns
+    per kernel the stats the kernels line carries under "members"."""
+    out = {}
+    M, R, S, K, F = MEMBER_CORE_M, N_RAND + N_DEPTH, 128, 32, 4
+    case = f"M={M} x R={R} S={S} K={K} F={F}"
+    per, x = member_core_inputs(M, R, S, K, F, seed=2100)
+    with torch.inference_mode():
+        got = render_core.fused_flow_composite(*x, S, True)
+        ref = render_core.fused_flow_composite_plain(*x, S, True)
+        alone = [render_core.fused_flow_composite(*p, S, True) for p in per]
+    torch.cuda.synchronize()
+    check(tuple(got[0].shape) == (M * R, 3, K), f"member render core rgb {tuple(got[0].shape)}")
+    errs = compare(got, ref, MAP_RTOL, MAP_ATOL, LDJ_RTOL)
+    same = all(torch.equal(got[i][m * R:(m + 1) * R] if i < 3 else got[3][:, m * R:(m + 1) * R],
+                           alone[m][i]) for m in range(M) for i in range(4))
+    check(same, "member-batched render-core forward vs one launch per member: bitwise")
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: render_core.fused_flow_composite(*x, S, True), 21)
+        single_ms = cuda_ms(lambda: [render_core.fused_flow_composite(*p, S, True)
+                                     for p in per], 21)
+        plain_ms = cuda_ms(lambda: render_core.fused_flow_composite_plain(*x, S, True), 3)
+    b_ms, b_by = member_bound(render_core_work, M, R, S, K, F, True)
+    out["render_core_fwd"] = dict(case=case, max_abs_err=max(e["max_abs"] for e in errs.values()),
+                                  ms=ms, single_launches_ms=single_ms, plain_ms=plain_ms,
+                                  bound_ms=b_ms, bound_by=b_by,
+                                  bitwise_vs_one_launch_a_member=same)
+    emit("kernel_members", kernel="render_core_fwd", case=case, errors=errs,
+         tolerance={"rtol": MAP_RTOL, "atol": MAP_ATOL, "ldj_rtol": LDJ_RTOL},
+         **{k: v for k, v in out["render_core_fwd"].items() if k != "case"})
+
+    cots_per = [render_core_cotangents(R, K, seed=2200 + m) for m in range(M)]
+    cots = [torch.cat([c[i] for c in cots_per], 1 if i == 3 else 0) for i in range(4)]
+    got = render_core.fused_flow_composite_bwd(x, cots, S, True)
+    ref = render_core.fused_flow_composite_bwd_plain(x, cots, S, True)
+    alone = [render_core.fused_flow_composite_bwd(p, c, S, True) for p, c in zip(per, cots_per)]
+    torch.cuda.synchronize()
+    check(tuple(got[0].shape) == (M, K, 1) and tuple(got[4].shape) == (M, K, 3),
+          f"member z0 gradients {tuple(got[0].shape)} {tuple(got[4].shape)}")
+    errs, bad = compare_grads(got, ref)
+    check(not bad, f"member-batched render_core_bwd vs plain: {bad} past the tolerance")
+    B = R * S
+    same = all(torch.equal(got[i][m] if i in (0, 4) else got[i][m * B:(m + 1) * B], alone[m][i])
+               for m in range(M) for i in range(8))
+    check(same, "member-batched render-core backward vs one launch per member: bitwise")
+    ms = cuda_ms(lambda: render_core.fused_flow_composite_bwd(x, cots, S, True), 21)
+    single_ms = cuda_ms(lambda: [render_core.fused_flow_composite_bwd(p, c, S, True)
+                                 for p, c in zip(per, cots_per)], 21)
+    plain_ms = cuda_ms(lambda: render_core.fused_flow_composite_bwd_plain(x, cots, S, True), 3)
+    b_ms, b_by = member_bound(render_core_bwd_work, M, R, S, K, F, True)
+    out["render_core_bwd"] = dict(case=case, max_abs_err=max(e["max_abs"] for e in errs.values()),
+                                  ms=ms, single_launches_ms=single_ms, plain_ms=plain_ms,
+                                  bound_ms=b_ms, bound_by=b_by,
+                                  bitwise_vs_one_launch_a_member=same)
+    emit("kernel_members", kernel="render_core_bwd", case=case, errors=errs,
+         tolerance={"rtol": BWD_RTOL, "atol": BWD_ATOL, "z0_rel_to_max": Z0_REL},
+         **{k: v for k, v in out["render_core_bwd"].items() if k != "case"})
+    del per, x, cots, cots_per, got, ref, alone
+
+    M, B, D, Wd = MEMBER_TRUNK_M, TRAIN_FLAT_PTS, 8, 512
+    case = f"M={M} x B={B} D{D}/W{Wd}"
+    models = [build_model(types.SimpleNamespace(**dict(vars(trunk_args(D, Wd)), seed=31 + m)))[0]
+              for m in range(M)]
+    x = trunk_inputs(M * B, seed=2300).reshape(M, B, 90)
+    g_ha, g_hr = (t.reshape(M, B, 64) for t in trunk_cotangents(M * B, seed=2301))
+    with torch.no_grad():
+        packed = pack_member_trunk_weights(models)
+        w16 = packed.w.to(torch.bfloat16)
+        serve = trunk._launch(packed, x, w16=w16)
+        ha, hr, acts = trunk._launch(packed, x, save=True, w16=w16)
+        ref = trunk.trunk_encode_plain(packed, x)
+        dw, db = trunk._launch_bwd(packed._shape(), w16, acts, B, g_ha, g_hr)
+        dref = trunk.trunk_encode_bwd_plain(packed, x, g_ha, g_hr)
+        ones = [packed.member(m) for m in range(M)]
+        alone = [trunk._launch(p, x[m], w16=w16[m]) for m, p in enumerate(ones)]
+        alone_save = [trunk._launch(p, x[m], save=True, w16=w16[m]) for m, p in enumerate(ones)]
+        alone_bwd = [trunk._launch_bwd(p._shape(), w16[m], a[2], B, g_ha[m], g_hr[m])
+                     for m, (p, a) in enumerate(zip(ones, alone_save))]
+    torch.cuda.synchronize()
+    errs = compare_trunk(serve, ref, "member-batched trunk_fwd vs plain")
+    check(torch.equal(ha, serve[0]) and torch.equal(hr, serve[1]),
+          "member-batched trunk_fwd_save's outputs vs trunk_fwd's: bitwise")
+    per_bytes = acts.numel() // M
+    same_fwd = all(torch.equal(serve[i][m], alone[m][i]) for m in range(M) for i in range(2))
+    same_save = all(
+        torch.equal(a, b) for m in range(M) for a, b in zip(
+            flat_acts(trunk.workspace_views(ones[m], B, acts[m * per_bytes:(m + 1) * per_bytes])),
+            flat_acts(trunk.workspace_views(ones[m], B, alone_save[m][2]))))
+    same_bwd = all(torch.equal(dw[m], alone_bwd[m][0]) and torch.equal(db[m], alone_bwd[m][1])
+                   for m in range(M))
+    check(same_fwd and same_save and same_bwd,
+          f"member-batched trunk launches vs one launch per member: bitwise (forward "
+          f"{same_fwd}, saved activations {same_save}, backward {same_bwd})")
+    worst = [gate_leaves(leaf_errors(trunk_leaves(ones[m], dw[m], db[m]),
+                                     trunk_leaves(ones[m], dref[0][m], dref[1][m])),
+                         TRUNK_BWD_REL_RMS, TRUNK_BWD_MIN_COS,
+                         f"member-batched trunk_bwd vs plain (member {m})") for m in range(M)]
+    del acts, alone_save, alone_bwd, dref
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: trunk._launch(packed, x, w16=w16), 10)
+        fwd_single = cuda_ms(lambda: [trunk._launch(p, x[m], w16=w16[m])
+                                      for m, p in enumerate(ones)], 10)
+        save_ms = cuda_ms(lambda: trunk._launch(packed, x, save=True, w16=w16), 10)
+        save_single = cuda_ms(lambda: [trunk._launch(p, x[m], save=True, w16=w16[m])
+                                       for m, p in enumerate(ones)], 10)
+        acts = trunk._launch(packed, x, save=True, w16=w16)[2]
+        singles = [(p, trunk._launch(p, x[m], save=True, w16=w16[m])[2])
+                   for m, p in enumerate(ones)]
+        bwd_ms = cuda_ms(lambda: trunk._launch_bwd(packed._shape(), w16, acts, B, g_ha, g_hr),
+                         10)
+        bwd_single = cuda_ms(lambda: [trunk._launch_bwd(p._shape(), w16[m], a, B, g_ha[m],
+                                                        g_hr[m])
+                                      for m, (p, a) in enumerate(singles)], 10)
+        fwd_plain = cuda_ms(lambda: trunk.trunk_encode_plain(packed, x), 3)
+        bwd_plain = cuda_ms(lambda: trunk.trunk_encode_bwd_plain(packed, x, g_ha, g_hr), 3)
+    shape = (B, D, Wd, 63, 27, 64, 64)
+    f_ms, f_by = member_bound(trunk_work, M, *shape, ops_per_s=BF16_OPS_PER_S)
+    s_ms, s_by = member_bound(trunk_fwd_save_work, M, *shape, ops_per_s=BF16_OPS_PER_S)
+    bw_ms, bw_by = member_bound(trunk_bwd_work, M, *shape, ops_per_s=BF16_OPS_PER_S)
+    out["trunk_fwd"] = dict(case=case, max_abs_err=max(e["max_abs"] for e in errs.values()),
+                            ms=fwd_ms, single_launches_ms=fwd_single, plain_ms=fwd_plain,
+                            bound_ms=f_ms, bound_by=f_by, save_ms=save_ms,
+                            save_single_launches_ms=save_single, save_bound_ms=s_ms,
+                            save_bound_by=s_by, bitwise_vs_one_launch_a_member=True)
+    out["trunk_bwd"] = dict(case=case, max_abs_err=max(w["max_abs"] for w in worst),
+                            worst_rel_rms=max(w["worst_rel_rms"] for w in worst),
+                            min_cos=min(w["min_cos"] for w in worst), ms=bwd_ms,
+                            single_launches_ms=bwd_single, plain_ms=bwd_plain, bound_ms=bw_ms,
+                            bound_by=bw_by, bitwise_vs_one_launch_a_member=True)
+    for name in ("trunk_fwd", "trunk_bwd"):
+        emit("kernel_members", kernel=name, **out[name],
+             tolerance=({"rtol": TRUNK_RTOL, "atol": TRUNK_ATOL} if name == "trunk_fwd" else
+                        {"rel_rms": TRUNK_BWD_REL_RMS, "min_cos": TRUNK_BWD_MIN_COS}))
+    del models, packed, w16, acts, singles, x, g_ha, g_hr
+    torch.cuda.empty_cache()
+    return out
 
 
 def pose_spherical(theta, phi, radius):
@@ -4014,13 +4196,14 @@ ENS_STEPS, ENS_PRINT = 100, 10
 ENS_CADENCES = ["--n_iters", str(ENS_STEPS), "--i_print", str(ENS_PRINT),
                 "--i_weights", str(ENS_STEPS), "--i_img", "0", "--i_testset", "0",
                 "--i_video", "0"]
-ENS_PALLAS_MEMBERS, ENS_PALLAS_STEPS = 2, 20
 # --parallel against the serial members' checkpoints, per tensor, relative
-# to its largest magnitude: the same steps through the same kernels in the
-# same order, so 0 is expected
+# to its largest magnitude: the same steps, each member's arithmetic in the
+# member-batched launches that of its own launches (phase_member_kernels
+# holds them bitwise), so 0 is expected
 ENS_CKPT_RTOL = 1e-5
-# (c)'s loop rays/s against (a)'s: the same work, M single steps a call;
-# the floor leaves room for the host clocks' spread between two runs
+# (c)'s loop rays/s against (a)'s: the same work, (c) one member-batched
+# step a dispatch for all members where (a) takes M single steps; the floor
+# leaves room for the host clocks' spread between two runs
 ENS_RATE_FLOOR = 0.95
 ENS_COUNTERS = (render_core.fused_flow_composite, render_core.fused_flow_composite_bwd,
                 flow_stack.fused_flow_stack, flow_stack.fused_flow_stack_bwd,
@@ -4063,13 +4246,19 @@ def ens_records(basedir, expname="ens"):
 
 
 def ens_train_checks(label, run, records, n_members, steps, parallel, trunk_kernels=False):
-    """A training run's gates: launches exact from the cadences (a render-core
-    forward and backward a member step, a forward a member's val batch),
-    the records at every i_print, finite; returns the loop's rays/s over
-    the records' clock (first to last i_print, every member)."""
+    """A training run's gates: launches exact from the cadences (serial: a
+    render-core forward and backward a member step; --parallel: one of each
+    a dispatch for all members, the member-batched step; both: a forward a
+    member's val batch), the records at every i_print, finite; returns the
+    loop's rays/s over the records' clock (first to last i_print, every
+    member)."""
     prints = list(range(ENS_PRINT, steps + 1, ENS_PRINT))
-    want = ens_want(n_members * (steps + len(prints)), n_members * steps, trunk_kernels)
+    steps_launches = steps if parallel else n_members * steps
+    want = ens_want(steps_launches + n_members * len(prints), steps_launches, trunk_kernels)
     check(run["launches"] == want, f"ensemble {label}: launched {run['launches']}, want {want}")
+    if parallel:
+        check(f"ensemble step: {n_members} members batched" in run["text"],
+              f"ensemble {label}: the member-batched step ran")
     rays = N_RAND + N_DEPTH
     if parallel:
         tagged = {f"{k}_m{m:02d}" for k in ("train/psnr", "val/psnr", "val/nll")
@@ -4147,9 +4336,13 @@ def phase_ensemble(tmp):
     each alone and of --members auto under train_psnr and val_nll; (c)
     --parallel training of 3 members in a fresh run dir, each member's
     checkpoint against its serial one, the tagged scalars, its mixture
-    eval, its loop rate against (a)'s, its peak memory; (d) --parallel
-    --trunk_impl pallas, 2 members, 20 steps.  Launches exact everywhere.
-    Returns each kernel's launches over the phase."""
+    eval, its loop rate against (a)'s, its peak memory; (d) --trunk_impl
+    pallas, 3 members, 100 steps, serial and --parallel, each --parallel
+    checkpoint against its serial one, both loops' rates.  --parallel runs the member-batched
+    step: one render-core forward and backward (and, with pallas, one trunk
+    forward and backward) a dispatch for all members.  Launches exact
+    everywhere.  Returns each kernel's launches by path: its serial runs,
+    the mixture evals, the --parallel runs."""
     t_phase = time.perf_counter()
     datadir = shutil.copytree(CAPTURE, os.path.join(tmp, "minicapture"))
     n = ["--n_members", str(ENS_MEMBERS)]
@@ -4165,13 +4358,13 @@ def phase_ensemble(tmp):
     RATES["ensemble_serial"] = serial_rate
 
     # (b) the mixture evals of the serial run
-    evals, runs = {}, [serial]
+    evals, eval_runs = {}, []
     n_val = None
     for label, extra, want_members in ENS_EVALS:
         run = ens_run(["eval", *flags_a, *extra])
         n_val = n_val or len(run["result"]["views"])
         evals[label] = ens_eval_checks(label, run, rundir_a, want_members, n_val)
-        runs.append(run)
+        eval_runs.append(run)
 
     # (c) --parallel in a fresh run dir
     flags_c = cli_flags(datadir, os.path.join(tmp, "parallel"), "ens") + n
@@ -4184,7 +4377,6 @@ def phase_ensemble(tmp):
     parallel_rate = ens_train_checks("parallel", parallel, parallel_records, ENS_MEMBERS,
                                      ENS_STEPS, parallel=True)
     RATES["ensemble_parallel"] = parallel_rate
-    runs.append(parallel)
     ckpt_errs = {}
     for m in range(1, ENS_MEMBERS + 1):
         name = f"{ENS_STEPS:06d}_{m:02d}"
@@ -4202,24 +4394,34 @@ def phase_ensemble(tmp):
           f"--parallel loop {parallel_rate} rays/s vs serial {serial_rate}")
     run = ens_run(["eval", *flags_c])
     parallel_eval = ens_eval_checks("parallel", run, rundir_c, [1, 2, 3], n_val)
-    runs.append(run)
+    eval_runs.append(run)
 
-    # (d) --parallel through the trunk kernels
-    flags_d = (cli_flags(datadir, os.path.join(tmp, "pallas"), "ens", "--trunk_impl", "pallas")
-               + ["--n_members", str(ENS_PALLAS_MEMBERS)])
-    cad_d = ["--n_iters", str(ENS_PALLAS_STEPS), "--i_print", str(ENS_PRINT), "--i_weights",
-             str(ENS_PALLAS_STEPS), "--i_img", "0", "--i_testset", "0", "--i_video", "0"]
-    pallas = ens_run(["train", *flags_d, "--is_train", "--parallel", *cad_d])
+    # (d) through the trunk kernels: serial, then --parallel
+    flags_ds = cli_flags(datadir, os.path.join(tmp, "pallas_serial"), "ens", "--trunk_impl",
+                         "pallas") + n
+    pallas_serial = ens_run(["train", *flags_ds, "--is_train", *ENS_CADENCES])
+    args_ds = cli_ensemble.parser().parse_args(flags_ds)
+    pallas_serial_rate = ens_train_checks(
+        "serial pallas", pallas_serial, ens_records(args_ds.basedir), ENS_MEMBERS, ENS_STEPS,
+        parallel=False, trunk_kernels=True)
+    flags_d = cli_flags(datadir, os.path.join(tmp, "pallas"), "ens", "--trunk_impl",
+                        "pallas") + n
+    pallas = ens_run(["train", *flags_d, "--is_train", "--parallel", *ENS_CADENCES])
     args_d = cli_ensemble.parser().parse_args(flags_d)
     pallas_rate = ens_train_checks("parallel pallas", pallas, ens_records(args_d.basedir),
-                                   ENS_PALLAS_MEMBERS, ENS_PALLAS_STEPS, parallel=True,
-                                   trunk_kernels=True)
+                                   ENS_MEMBERS, ENS_STEPS, parallel=True, trunk_kernels=True)
     rundir_d = ckpt.run_dir(args_d.basedir, args_d.dataname, args_d.type_flows, "ens")
-    check(all(os.path.exists(os.path.join(rundir_d, f"{ENS_PALLAS_STEPS:06d}_{m:02d}",
-                                          ckpt.STATE_FILE))
-              for m in range(1, ENS_PALLAS_MEMBERS + 1)), "(d)'s member checkpoints")
+    rundir_ds = ckpt.run_dir(args_ds.basedir, args_ds.dataname, args_ds.type_flows, "ens")
+    pallas_errs = {}
+    for m in range(1, ENS_MEMBERS + 1):
+        name = f"{ENS_STEPS:06d}_{m:02d}"
+        err, n_tensors = ens_checkpoint_err(os.path.join(rundir_d, name),
+                                            os.path.join(rundir_ds, name))
+        pallas_errs[f"m{m:02d}"] = {"max_rel_err": err, "tensors": n_tensors}
+        check(err <= ENS_CKPT_RTOL,
+              f"member {m}'s --parallel pallas checkpoint vs its serial one: relative max {err}")
+    RATES["ensemble_serial_pallas"] = pallas_serial_rate
     RATES["ensemble_parallel_pallas"] = pallas_rate
-    runs.append(pallas)
 
     emit("ensemble", nvidia_smi=nvidia_smi_line(), members=ENS_MEMBERS, steps=ENS_STEPS,
          rays_per_step=N_RAND + N_DEPTH, n_val=n_val,
@@ -4234,12 +4436,20 @@ def phase_ensemble(tmp):
                    "train_psnr_max_abs_diff_vs_serial": psnr_diff,
                    "eval": parallel_eval,
                    "iter_time_ms": [1e3 * r["iter_time"] for r in parallel_records]},
-         parallel_pallas={"members": ENS_PALLAS_MEMBERS, "steps": ENS_PALLAS_STEPS,
-                          "seconds": pallas["seconds"], "launches": pallas["launches"],
-                          "loop_rays_per_s": pallas_rate},
+         serial_pallas={"seconds": pallas_serial["seconds"],
+                        "launches": pallas_serial["launches"],
+                        "loop_rays_per_s": pallas_serial_rate},
+         parallel_pallas={"seconds": pallas["seconds"], "launches": pallas["launches"],
+                          "loop_rays_per_s": pallas_rate,
+                          "rate_vs_serial": pallas_rate / pallas_serial_rate,
+                          "checkpoints_vs_serial": pallas_errs},
+         dispatches={"parallel": ENS_STEPS, "parallel_pallas": ENS_STEPS},
          phase_s=time.perf_counter() - t_phase,
          gates={"checkpoint_rel_err": ENS_CKPT_RTOL, "parallel_rate_floor": ENS_RATE_FLOOR})
-    return {c.__name__: sum(r["launches"][c.__name__] for r in runs) for c in ENS_COUNTERS}
+    by_path = {"ensemble_serial": [serial, pallas_serial], "ensemble_eval": eval_runs,
+               "ensemble_parallel": [parallel, pallas]}
+    return {path: {c.__name__: sum(r["launches"][c.__name__] for r in part)
+                   for c in ENS_COUNTERS} for path, part in by_path.items()}
 
 
 # the mesh phase: the port's several-device paths on one card.  (a) a one-rank NCCL group through cli.train's mesh path
@@ -4615,7 +4825,7 @@ def kernel_entry(name, source, replaces, launches_by_path, stats):
                   "fwd_plus_bwd_ms", "bf16_matmul_autograd_ms",
                   "bf16_matmul_autograd_reduced_ms", "fwd_save_max_abs_err", "fwd_save_ms",
                   "fwd_save_plain_ms", "fwd_save_bound_ms", "fwd_save_bound_by",
-                  "fwd_save_timed_at"):
+                  "fwd_save_timed_at", "members"):
         if extra in stats:
             entry[extra] = stats[extra]
     return entry
@@ -4649,6 +4859,10 @@ def main() -> int:
     phase_trunk_wgrad_checks()
     trunk_bwd_stats, trunk_save_stats = phase_trunk_bwd_time(phase_trunk_bwd_checks())
     trunk_stats.update(trunk_save_stats)
+    members = phase_member_kernels()
+    for stats, name in ((fwd_stats, "render_core_fwd"), (bwd_stats, "render_core_bwd"),
+                        (trunk_stats, "trunk_fwd"), (trunk_bwd_stats, "trunk_bwd")):
+        stats["members"] = members[name]
     serve_launches, unfused_launches = phase_serve()
     phase_golden()
     train = phase_train()
@@ -4722,10 +4936,17 @@ def main() -> int:
     # step and a forward a val batch, a test-set view, a spiral frame and an
     # evaluated view (a trunk forward beside each with pallas, a trunk
     # backward a step); cli_render_only: a forward a spiral frame; entry: one;
-    # ensemble: a render-core forward and backward a member step, a forward
-    # a member's val batch and a member's evaluated view, a trunk forward and
-    # backward beside them in its pallas run, no flow stack; mesh: the same
-    # per rank on each of its paths, summed over the ranks (phase_mesh)
+    # ensemble_serial: a render-core forward and backward a member step, a
+    # forward a member's val batch, a trunk forward and backward beside them
+    # in its pallas run; ensemble_parallel: the member-batched step, one
+    # render-core forward and backward (and with pallas one trunk forward and
+    # backward) a dispatch for all members, and a forward a member's val
+    # batch; ensemble_eval: a forward a member's evaluated view; no flow
+    # stack; mesh: the same per rank on each of its paths, summed over the
+    # ranks (phase_mesh)
+    def ens_paths(name):
+        return {path: counts[name] for path, counts in ens.items()}
+
     fwd_name, bwd_name = (render_core.fused_flow_composite.__name__,
                           render_core.fused_flow_composite_bwd.__name__)
     print(json.dumps({"kernels": [
@@ -4742,7 +4963,7 @@ def main() -> int:
                       "cli_train": cli_launches("cli_train", fwd_name),
                       "cli_train_pallas": cli_launches("cli_train_pallas", fwd_name),
                       "cli_render_only": render_only_launches, "entry": entry_launches,
-                      **slice7_core, "ensemble": ens[fwd_name], "mesh": mesh[fwd_name]},
+                      **slice7_core, **ens_paths(fwd_name), "mesh": mesh[fwd_name]},
                      fwd_stats),
         kernel_entry("render_core_bwd", render_core.SOURCE_BWD, render_core.REPLACES_BWD,
                      {"train": train["fused_flow_composite_bwd"],
@@ -4755,7 +4976,7 @@ def main() -> int:
                       "cli_train_pallas": cli_launches("cli_train_pallas", bwd_name),
                       "families_train": fam(fam_train, "fused_flow_composite_bwd"),
                       "cli_families": fam(cli_fam, "fused_flow_composite_bwd"),
-                      "ensemble": ens[bwd_name], "mesh": mesh[bwd_name]},
+                      **ens_paths(bwd_name), "mesh": mesh[bwd_name]},
                      bwd_stats),
         kernel_entry("flow_stack_fwd", flow_stack.SOURCE, flow_stack.REPLACES,
                      {"hier_serve": hier_serve_launches,
@@ -4769,13 +4990,13 @@ def main() -> int:
                       "families_serve": fam(fam_serve, "fused_flow_stack"),
                       "families_train": fam(fam_train, "fused_flow_stack"),
                       "cli_families": fam(cli_fam, "fused_flow_stack"),
-                      "ensemble": ens["fused_flow_stack"], "mesh": mesh["fused_flow_stack"]},
+                      **ens_paths("fused_flow_stack"), "mesh": mesh["fused_flow_stack"]},
                      flow_stats["fwd"]),
         kernel_entry("flow_stack_bwd", flow_stack.SOURCE_BWD, flow_stack.REPLACES_BWD,
                      {"hier_train": hier_train["fused_flow_stack_bwd"],
                       "trunk_hier_train": trunk_hier_train["fused_flow_stack_bwd"],
                       "jpeg_train": jpeg_train["fused_flow_stack_bwd"],
-                      "ensemble": ens["fused_flow_stack_bwd"],
+                      **ens_paths("fused_flow_stack_bwd"),
                       "mesh": mesh["fused_flow_stack_bwd"]},
                      flow_stats["bwd"]),
         kernel_entry("trunk_fwd", trunk.SOURCE, trunk.REPLACES,
@@ -4788,7 +5009,7 @@ def main() -> int:
                       "families_serve": fam(fam_serve, "trunk_encode"),
                       "families_train": fam(fam_train, "trunk_encode"),
                       "cli_families": fam(cli_fam, "trunk_encode"),
-                      "ensemble": ens["trunk_encode"], "mesh": mesh["trunk_encode"]},
+                      **ens_paths("trunk_encode"), "mesh": mesh["trunk_encode"]},
                      trunk_stats),
         kernel_entry("trunk_bwd", trunk.SOURCE_BWD, ", ".join(trunk.REPLACES_BWD),
                      {"trunk_train": trunk_train["trunk_encode_bwd"],
@@ -4797,7 +5018,7 @@ def main() -> int:
                       "jpeg_train": jpeg_train["trunk_encode_bwd"],
                       "families_train": fam(fam_train, "trunk_encode_bwd"),
                       "cli_families": fam(cli_fam, "trunk_encode_bwd"),
-                      "ensemble": ens["trunk_encode_bwd"], "mesh": mesh["trunk_encode_bwd"]},
+                      **ens_paths("trunk_encode_bwd"), "mesh": mesh["trunk_encode_bwd"]},
                      trunk_bwd_stats),
     ]}), flush=True)
     emit("wall", seconds=time.perf_counter() - t_start)
