@@ -8,10 +8,10 @@ The reference has ensembles only as checkpoint-name indices
           trains members 1..N one after another (member m: seed
           args.seed + 1000*m, checkpoint index m); with --parallel all
           members advance together, each dispatch one call of the ensemble
-          step (parallel/ensemble.py: for the flagship triangular model the
-          member-batched step, JAX's vmapped one, its trunk and render-core
-          kernels launched once for all members), on the same per-member
-          streams
+          step (parallel/ensemble.py: for the triangular model, fused or
+          unfused, placed or not, the member-batched step, JAX's vmapped
+          one, its trunk and render-core or flow-stack kernels launched
+          once for all members), on the same per-member streams
   eval:   python -m cfnerf_torch.cli.ensemble eval --n_members 3 <flags...>
           renders each member's K draws of every held-out view and scores
           the MIXTURE: the mean and std over the M*K draws, PSNR, SSIM, the
@@ -71,7 +71,10 @@ def train_ensemble_parallel(args, n_members: int, device: DeviceLike = None) -> 
 
     Covers the batching and single-image paths, COLMAP depth, --k_schedule
     stages and the occ stage (each member's proposal distilled at the
-    boundary from its own generator).  --N_importance and --render_only
+    boundary from its own field, drawing from its training generator as
+    its serial run does, so that with --n_inner 1 the stage's trajectory is
+    the serial one too; JAX's parallel CLI seeds a key of its own there,
+    which torch cannot reproduce anyway).  --N_importance and --render_only
     raise, as in JAX; the render cadences (i_img / i_video / i_testset) are
     left to the serial path, eval_ensemble renders.
 
@@ -99,7 +102,11 @@ def train_ensemble_parallel(args, n_members: int, device: DeviceLike = None) -> 
         shard_members,
     )
     from cfnerf_torch.parallel.mesh import gcd_split, is_writer, mean_over, replicate, shard_batch
-    from cfnerf_torch.render.renderer import make_render_rays, prepare_rays
+    from cfnerf_torch.render.renderer import (
+        make_render_rays,
+        prepare_rays,
+        render_members_test,
+    )
     from cfnerf_torch.train import checkpoint as ckpt
     from cfnerf_torch.train.logging import MetricsLogger
     from cfnerf_torch.train.loop import (
@@ -115,7 +122,12 @@ def train_ensemble_parallel(args, n_members: int, device: DeviceLike = None) -> 
         parse_k_schedule,
     )
     from cfnerf_torch.train.loss import kde_nll
-    from cfnerf_torch.train.step import OccTrainConfig, TrainConfig, make_optimizer
+    from cfnerf_torch.train.step import (
+        OccTrainConfig,
+        TrainConfig,
+        batched_step_refusal,
+        make_optimizer,
+    )
     from cfnerf_torch.utils.config import warn_ignored_flags
 
     if args.N_importance > 0:
@@ -227,8 +239,12 @@ def train_ensemble_parallel(args, n_members: int, device: DeviceLike = None) -> 
     # the held-out internal-val stream: every member renders the SAME val
     # batch in test mode, a paired comparison that feeds the --gate_metric
     # val_psnr / val_nll gates; it draws nothing from the training
-    # generators, so the members' trajectories do not depend on it
+    # generators, so the members' trajectories do not depend on it.  Members
+    # the batched step takes render it together, as JAX's vmapped val_fn
+    # does (one render-core, or flow-stack a chain, and trunk launch for
+    # all); the others each through its own render
     val_batcher, render_val = None, []
+    val_batched = batched_step_refusal(models, render_config, tc) is None
     if use_batching and args.i_print > 0 and len(scene["i_val_internal"]) > 0:
         rays_rgb_val = precompute_rays(scene["images"], scene["poses"], focal,
                                        scene["i_val_internal"], seed=args.seed + 1)
@@ -236,6 +252,14 @@ def train_ensemble_parallel(args, n_members: int, device: DeviceLike = None) -> 
             val_batcher = RayBatcher(rays_rgb_val, args.N_rand, seed=args.seed + 1,
                                      mesh_divisor=n_data)
             render_val = [make_render_rays(m, render_config) for m in models]
+
+    def val_renders(ro, rd, vd, near_v, far_v):
+        """Each member's test-mode rgb_map of the val rays."""
+        if not val_batched:
+            return [rr(ro, rd, vd, near_v, far_v, None, is_test=True)["rgb_map"]
+                    for rr in render_val]
+        return [out["rgb_map"] for out in render_members_test(
+            models, render_config, ro, rd, vd, near_v, far_v)]
 
     def val_fn(batch):
         """Each member's test-mode mse, psnr and KDE NLL of one val batch
@@ -248,8 +272,7 @@ def train_ensemble_parallel(args, n_members: int, device: DeviceLike = None) -> 
                 b["rays_o"], b["rays_d"], H=H, W=W, focal=focal, ndc=tc.ndc,
                 use_viewdirs=args.use_viewdirs, near=scene["near"], far=scene["far"])
             out = []
-            for rr in render_val:
-                rgb = rr(ro, rd, vd, near_v, far_v, None, is_test=True)["rgb_map"]
+            for rgb in val_renders(ro, rd, vd, near_v, far_v):
                 mse = img2mse(rgb.mean(-1), b["target"])
                 nll = kde_nll(rgb, b["target"], args.K_samples)
                 if mesh is not None:
@@ -353,17 +376,17 @@ def train_ensemble_parallel(args, n_members: int, device: DeviceLike = None) -> 
                 print(f"occ stage ended at step {i + 1}: dense cooldown")
             if occ_on and not occ_installed:
                 # each member's proposal distilled from ITS OWN current
-                # field, from a generator of its own, not its training stream
+                # field, drawing from its training generator as its serial
+                # run does (train/loop.py)
                 from cfnerf_torch.ops.occupancy import distill_proposal, make_density_fn
 
                 t_d = time.time()
                 lo = torch.tensor(occ_cfg.lo, device=dev)
                 hi = torch.tensor(occ_cfg.hi, device=dev)
                 props = []
-                for m, model in zip(mine, models):
+                for model, gen in zip(models, generators):
                     prop, _ = distill_proposal(
-                        make_density_fn(model, render_config), lo, hi,
-                        torch.Generator(device=dev).manual_seed(args.seed + 1000 * m + 77),
+                        make_density_fn(model, render_config), lo, hi, gen,
                         width=occ_cfg.prop_width, depth=occ_cfg.prop_depth,
                         multires=occ_cfg.prop_multires, n_points=1 << 18, epochs=2,
                     )

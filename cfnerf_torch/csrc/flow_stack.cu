@@ -15,6 +15,12 @@
 // expand is never materialised: 604 MB at the hierarchical serving tile),
 // K*Z when z0 is a contiguous (B, K, Z) tensor.
 //
+// A member axis: with `members` M > 1 the B points are M member-major
+// blocks of B / M (ensemble members, as the vmap of JAX's ensemble step
+// batches the Pallas kernel), and z0 is a contiguous (M, K, Z) tensor:
+// point p reads block p / (B / M).  Each (point, draw) does the arithmetic
+// of a launch of its member alone, so one launch gives every member's bits.
+//
 // What bounds it on an H100.  By chip_smoke.py's bound, bytes: per point it
 // reads 2 Z^2 F + Z F parameters (84 floats for the rgb chain at F=4) and
 // writes K (Z + 1) outputs (128 floats at K=32): at the hierarchical serving
@@ -57,6 +63,7 @@ constexpr int kThreads = 256;
 template <int Z, int FC, bool CLD>
 __global__ void __launch_bounds__(kThreads)
 flow_stack_fwd_kernel(const float* __restrict__ z0, long long z0_stride,
+                      long long per_member,
                       const float* __restrict__ r1,
                       const float* __restrict__ r2,
                       const float* __restrict__ b,
@@ -67,18 +74,21 @@ flow_stack_fwd_kernel(const float* __restrict__ z0, long long z0_stride,
   const int F = FC > 0 ? FC : F_rt;
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
-  long long p;
+  long long p, z0_off;
   int k;
   if (n <= 0x7fffffffLL) {  // uniform: 32-bit arithmetic
     const unsigned pu = (unsigned)i / (unsigned)K;
     p = pu;
     k = (int)((unsigned)i - pu * (unsigned)K);
+    // per_member is 0 without a member axis (uniform)
+    z0_off = per_member ? (long long)(pu / (unsigned)per_member) * (K * Z) : p * z0_stride;
   } else {
     p = i / K;
     k = (int)(i - p * K);
+    z0_off = per_member ? (p / per_member) * (K * Z) : p * z0_stride;
   }
 
-  const float* src = z0 + p * z0_stride + k * Z;
+  const float* src = z0 + z0_off + k * Z;
   float z[Z], t[Z];
 #pragma unroll
   for (int c = 0; c < Z; ++c) z[c] = __ldg(src + c);
@@ -98,48 +108,58 @@ flow_stack_fwd_kernel(const float* __restrict__ z0, long long z0_stride,
 }
 
 template <int Z, int FC, bool CLD>
-cudaError_t launch_fwd(cudaStream_t st, const float* z0, int z0_stride, const float* r1,
-                       const float* r2, const float* b, float* z, float* ldj, int B,
-                       int K, int F) {
+cudaError_t launch_fwd(cudaStream_t st, const float* z0, int z0_stride, int per_member,
+                       const float* r1, const float* r2, const float* b, float* z,
+                       float* ldj, int B, int K, int F) {
   const long long n = (long long)B * K;
   const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
-  flow_stack_fwd_kernel<Z, FC, CLD><<<grid, kThreads, 0, st>>>(z0, z0_stride, r1, r2, b, z,
-                                                                ldj, n, K, F);
+  flow_stack_fwd_kernel<Z, FC, CLD><<<grid, kThreads, 0, st>>>(
+      z0, z0_stride, per_member, r1, r2, b, z, ldj, n, K, F);
   return cudaGetLastError();
 }
 
 template <int Z>
 cudaError_t launch_fwd_z(bool f4, bool cld, cudaStream_t st, const float* z0,
-                         int z0_stride, const float* r1, const float* r2, const float* b,
-                         float* z, float* ldj, int B, int K, int F) {
+                         int z0_stride, int per_member, const float* r1, const float* r2,
+                         const float* b, float* z, float* ldj, int B, int K, int F) {
   if (f4) {
-    return cld ? launch_fwd<Z, 4, true>(st, z0, z0_stride, r1, r2, b, z, ldj, B, K, F)
-               : launch_fwd<Z, 4, false>(st, z0, z0_stride, r1, r2, b, z, ldj, B, K, F);
+    return cld ? launch_fwd<Z, 4, true>(st, z0, z0_stride, per_member, r1, r2, b, z, ldj,
+                                        B, K, F)
+               : launch_fwd<Z, 4, false>(st, z0, z0_stride, per_member, r1, r2, b, z, ldj,
+                                         B, K, F);
   }
-  return cld ? launch_fwd<Z, 0, true>(st, z0, z0_stride, r1, r2, b, z, ldj, B, K, F)
-             : launch_fwd<Z, 0, false>(st, z0, z0_stride, r1, r2, b, z, ldj, B, K, F);
+  return cld ? launch_fwd<Z, 0, true>(st, z0, z0_stride, per_member, r1, r2, b, z, ldj, B,
+                                      K, F)
+             : launch_fwd<Z, 0, false>(st, z0, z0_stride, per_member, r1, r2, b, z, ldj, B,
+                                       K, F);
 }
 
 }  // namespace
 
 // C entry point (bound with ctypes).  Pointers are device pointers to f32
 // arrays: z0 read through `z0_stride` floats per point (its (K, Z) block
-// contiguous), r1, r2 (B, Z, Z, F), b (B, Z, F), z (B, K, Z) and ldj (B, K)
-// contiguous; the caller checks shapes.  F = 4 takes the compile-time
-// kernel, any other F the runtime-F one.  Launches on `stream` and returns
-// cudaGetLastError() (0 on success); it never synchronises.
+// contiguous), or with `members` M > 1 a contiguous (M, K, Z) block a
+// member (z0_stride 0; B a multiple of M, the points member-major); r1, r2
+// (B, Z, Z, F), b (B, Z, F), z (B, K, Z) and ldj (B, K) contiguous; the
+// caller checks shapes.  F = 4 takes the compile-time kernel, any other F
+// the runtime-F one.  Launches on `stream` and returns cudaGetLastError()
+// (0 on success); it never synchronises.
 extern "C" int flow_stack_fwd(const float* z0, int z0_stride, const float* r1,
                               const float* r2, const float* b, float* z,
                               float* ldj, int B, int K, int Z, int F,
-                              int compute_log_det, void* stream) {
-  if (B < 0 || K < 1 || F < 1 || z0_stride < 0 || (Z != 1 && Z != 3)) {
+                              int compute_log_det, int members, void* stream) {
+  if (B < 0 || K < 1 || F < 1 || z0_stride < 0 || (Z != 1 && Z != 3) || members < 1 ||
+      B % members != 0 || (members > 1 && z0_stride != 0)) {
     return (int)cudaErrorInvalidValue;
   }
   if (B == 0) return 0;
   const bool cld = compute_log_det != 0;
+  const int per_member = members > 1 ? B / members : 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      Z == 1 ? launch_fwd_z<1>(F == 4, cld, st, z0, z0_stride, r1, r2, b, z, ldj, B, K, F)
-             : launch_fwd_z<3>(F == 4, cld, st, z0, z0_stride, r1, r2, b, z, ldj, B, K, F);
+      Z == 1 ? launch_fwd_z<1>(F == 4, cld, st, z0, z0_stride, per_member, r1, r2, b, z, ldj,
+                               B, K, F)
+             : launch_fwd_z<3>(F == 4, cld, st, z0, z0_stride, per_member, r1, r2, b, z, ldj,
+                               B, K, F);
   return (int)err;
 }

@@ -14,6 +14,10 @@
 // g_z0 (B, K, Z) is each draw's own gradient, as _fused_bwd returns it (the
 // caller's expand sums it over the points).  The per-point parameter
 // gradients are sums over the K draws; their lower triangles are zero.
+// With `members` M > 1 (the member axis of flow_stack.cu) point p reads z0
+// from member p / (B / M)'s (K, Z) block; g_z0 stays per point, so the
+// caller sums each member's block as a launch of that member alone would
+// be summed.
 //
 // What bounds it on an H100.  By chip_smoke.py's bound, bytes: at the
 // hierarchical training fine pass (640 rays x 192 samples, K=32, rgb chain)
@@ -178,6 +182,7 @@ inline size_t bwd_smem_floats(int Z, bool trace) {
 template <int Z, bool TRACE>
 __global__ void __launch_bounds__(kThreads, 3)
 flow_stack_bwd_kernel(const float* __restrict__ z0, long long z0_stride,
+                      int per_member,
                       const float* __restrict__ r1,
                       const float* __restrict__ r2,
                       const float* __restrict__ b,
@@ -206,6 +211,9 @@ flow_stack_bwd_kernel(const float* __restrict__ z0, long long z0_stride,
   const float* q1 = r1 + p * ZZ * F;
   const float* q2 = r2 + p * ZZ * F;
   const float* qb = b + p * Z * F;
+  // per_member is 0 without a member axis (uniform)
+  const long long z0_off =
+      per_member ? (long long)((int)p / per_member) * (K * Z) : p * z0_stride;
   if constexpr (TRACE) {
     stage(prm, q1, ZZ * 4, lane);
     stage(prm + ZZ * 4, q2, ZZ * 4, lane);
@@ -219,7 +227,7 @@ flow_stack_bwd_kernel(const float* __restrict__ z0, long long z0_stride,
   for (int kb = 0; kb < K; kb += 32) {
     const int k = kb + lane;
     const bool active = k < K;
-    const float* src = z0 + p * z0_stride + (long long)(active ? k : 0) * Z;
+    const float* src = z0 + z0_off + (long long)(active ? k : 0) * Z;
     const long long pk = p * K + k;
     float x0[Z], gz[Z];
     // cotangents of this (point, draw); zero on idle lanes, so every
@@ -305,8 +313,8 @@ flow_stack_bwd_kernel(const float* __restrict__ z0, long long z0_stride,
 }
 
 template <int Z, bool TRACE>
-cudaError_t launch_bwd(cudaStream_t st, const float* z0, int z0_stride, const float* r1,
-                       const float* r2, const float* b, const float* g_z,
+cudaError_t launch_bwd(cudaStream_t st, const float* z0, int z0_stride, int per_member,
+                       const float* r1, const float* r2, const float* b, const float* g_z,
                        const float* g_ldj, float* g_z0, float* g_r1, float* g_r2,
                        float* g_b, int B, int K, int F, int compute_log_det) {
   auto kern = flow_stack_bwd_kernel<Z, TRACE>;
@@ -315,8 +323,8 @@ cudaError_t launch_bwd(cudaStream_t st, const float* z0, int z0_stride, const fl
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const unsigned grid = (unsigned)((B + kWarps - 1) / kWarps);
-  kern<<<grid, kThreads, smem, st>>>(z0, z0_stride, r1, r2, b, g_z, g_ldj, g_z0, g_r1,
-                                     g_r2, g_b, B, K, F, compute_log_det);
+  kern<<<grid, kThreads, smem, st>>>(z0, z0_stride, per_member, r1, r2, b, g_z, g_ldj,
+                                     g_z0, g_r1, g_r2, g_b, B, K, F, compute_log_det);
   return cudaGetLastError();
 }
 
@@ -324,7 +332,8 @@ cudaError_t launch_bwd(cudaStream_t st, const float* z0, int z0_stride, const fl
 
 // C entry point (bound with ctypes).  Pointers are device pointers to f32
 // arrays: z0 read through `z0_stride` floats per point (its (K, Z) block
-// contiguous); r1, r2 (B, Z, Z, F), b (B, Z, F), g_z (B, K, Z), g_ldj
+// contiguous), or with `members` M > 1 a contiguous (M, K, Z) block a
+// member (z0_stride 0; B a multiple of M, the points member-major); r1, r2 (B, Z, Z, F), b (B, Z, F), g_z (B, K, Z), g_ldj
 // (B, K) and the outputs g_z0 (B, K, Z), g_r1, g_r2 (B, Z, Z, F), g_b
 // (B, Z, F) contiguous; the caller checks shapes.  F = 4 takes the kernel
 // that keeps each step's input, any other F the generic one.  Launches on `stream` and returns
@@ -333,15 +342,17 @@ extern "C" int flow_stack_bwd(const float* z0, int z0_stride, const float* r1,
                               const float* r2, const float* b, const float* g_z,
                               const float* g_ldj, float* g_z0, float* g_r1,
                               float* g_r2, float* g_b, int B, int K, int Z,
-                              int F, int compute_log_det, void* stream) {
-  if (B < 0 || K < 1 || F < 1 || z0_stride < 0 || (Z != 1 && Z != 3)) {
+                              int F, int compute_log_det, int members, void* stream) {
+  if (B < 0 || K < 1 || F < 1 || z0_stride < 0 || (Z != 1 && Z != 3) || members < 1 ||
+      B % members != 0 || (members > 1 && z0_stride != 0)) {
     return (int)cudaErrorInvalidValue;
   }
   if (B == 0) return 0;
+  const int per_member = members > 1 ? B / members : 0;
   const bool trace = F == 4;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto launch = Z == 1 ? (trace ? &launch_bwd<1, true> : &launch_bwd<1, false>)
                              : (trace ? &launch_bwd<3, true> : &launch_bwd<3, false>);
-  return (int)launch(st, z0, z0_stride, r1, r2, b, g_z, g_ldj, g_z0, g_r1, g_r2, g_b, B,
-                     K, F, compute_log_det);
+  return (int)launch(st, z0, z0_stride, per_member, r1, r2, b, g_z, g_ldj, g_z0, g_r1,
+                     g_r2, g_b, B, K, F, compute_log_det);
 }

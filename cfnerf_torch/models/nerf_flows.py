@@ -30,6 +30,8 @@ computes them either) and take the unfused forward only.
 once: the trunk kernels and the render core launched once for all of them
 (a member axis), the xla trunk and the amortizers member by member through
 each member's own modules; forward_composited is it at one member.
+`forward_members` does the same for the unfused forward, the flow-stack
+kernel launched once a chain for all members; forward is it at one member.
 
 Test mode uses fixed eps buffers with the LAST of the K draws zeroed (the
 mean sample) and skips the log-dets.  A fresh model draws its buffers from
@@ -390,24 +392,11 @@ class NeRFFlows(nn.Module):
         flow_impl "xla" or "interpret", its plain version.
 
         Returns raw (B, K, 4): pre-sigmoid rgb then pre-softplus density,
-        and the entropy loss (0 in test mode)."""
-        h_alpha, h_rgb = self.encode(x)
-        B, K = h_alpha.shape[0], self.k_samples
-        z0_a, z0_r = self._base_draws(*self._draw_eps(is_test, generator, eps))
-        compute_ld = not is_test
-        z_alpha, ldj_alpha = self._apply_flows(
-            z0_a[None].expand(B, K, Z_ALPHA), h_alpha, "alpha", compute_ld)
-        z_rgb, ldj_rgb = self._apply_flows(
-            z0_r[None].expand(B, K, Z_RGB), h_rgb, "rgb", compute_ld)
-        raw = torch.cat([z_rgb, z_alpha], -1)
-        if is_test:
-            return raw, torch.zeros((), dtype=raw.dtype, device=raw.device)
-        # final-activation log-det corrections (models.py:261-278)
-        ldj_alpha = ldj_alpha + (z_alpha - softplus(z_alpha)).sum(-1)
-        ldj_rgb = ldj_rgb + (z_rgb - 2.0 * softplus(z_rgb)).sum(-1)
-        base_a, base_r = self._base_log_density_mean(z0_a, z0_r)
-        loss_entropy = base_a - ldj_alpha.mean() + base_r - ldj_rgb.mean()
-        return raw, loss_entropy
+        and the entropy loss (0 in test mode).  This is forward_members at
+        one member."""
+        eps = self._draw_eps(is_test, generator, eps)
+        raw, entropy = forward_members([self], x[None], [eps], is_test=is_test)
+        return raw, entropy[0]
 
     def forward_composited(
         self,
@@ -485,6 +474,84 @@ class NeRFFlows(nn.Module):
         return torch.cat([z_r, z_a], -1)
 
 
+def _member_heads(models: Sequence[NeRFFlows], x: torch.Tensor) -> list:
+    """Each member's (h_alpha, h_rgb) of x (M, B, C): a "pallas" or
+    "interpret" trunk runs the members' stacked trunks in one call of the
+    trunk kernels (pack_member_trunk_weights), an "xla" trunk (and one
+    member's trunk) each member's own encode."""
+    first = models[0]
+    if first.trunk_impl == "xla" or len(models) == 1:  # one member: its own encode
+        return [m.encode(x[i]) for i, m in enumerate(models)]
+    h_alpha, h_rgb = trunk_encode(pack_member_trunk_weights(models), x,
+                                  interpret=first.trunk_impl == "interpret")
+    return list(zip(h_alpha, h_rgb))
+
+
+def _joined(parts):
+    """Members' per-point tensors joined along the points: the kernels read
+    contiguous arrays (r2 is built from a transpose), and cat copies each
+    member's share in."""
+    return parts[0].contiguous() if len(parts) == 1 else torch.cat(parts)
+
+
+def forward_members(
+    models: Sequence[NeRFFlows],
+    x: torch.Tensor,
+    eps: Sequence[Eps],
+    *,
+    is_test: bool = False,
+) -> Tuple[torch.Tensor, list]:
+    """The unfused forward (NeRFFlows.forward) of M NeRFFlows of one shape
+    at once, the member axis first: x (M, B, input_ch [+ views]), eps each
+    member's base draws (NeRFFlows._draw_eps).  Member m's arithmetic is
+    its own forward's: the trunks as forward_composited_members runs them,
+    the amortizers member by member through each member's modules, then
+    each chain (density, rgb) of the triangular family in one
+    `fused_flow_stack` call for all members, on their stacked (M, K, Z) base
+    draws beside their joined flow parameters (the flow-stack kernel's
+    member axis); the final-activation log-det corrections and each
+    member's entropy from its own points.  Another family takes its own
+    forward, one member (its flows are eager PyTorch).  NeRFFlows.forward is
+    this at one member.  Returns raw (M * B, K, 4), the points member-major,
+    and the M entropies (0 in test mode)."""
+    first = models[0]
+    M, B = x.shape[:2]
+    K = first.k_samples
+    if first.type_flows != "triangular" and M > 1:
+        raise ValueError("forward_members batches members of the triangular family only")
+    heads = _member_heads(models, x)
+    z0 = [m._base_draws(*e) for m, e in zip(models, eps)]
+    compute_ld = not is_test
+    if first.type_flows == "triangular":
+        stack = (fused_flow_stack if first.flow_impl in ("auto", "pallas")
+                 else fused_flow_stack_plain)
+        chains = []
+        for i, which in enumerate(("flows_alpha", "flows_rgb")):
+            params = [getattr(m, which)(h[i]) for m, h in zip(models, heads)]
+            chains.append(stack(torch.stack([z[i] for z in z0]),
+                                *(_joined(t) for t in zip(*params)), compute_ld))
+        (z_alpha, ldj_alpha), (z_rgb, ldj_rgb) = chains
+    else:
+        (z0_a, z0_r), (h_alpha, h_rgb) = z0[0], heads[0]
+        z_alpha, ldj_alpha = first._apply_flows(
+            z0_a[None].expand(B, K, Z_ALPHA), h_alpha, "alpha", compute_ld)
+        z_rgb, ldj_rgb = first._apply_flows(
+            z0_r[None].expand(B, K, Z_RGB), h_rgb, "rgb", compute_ld)
+    raw = torch.cat([z_rgb, z_alpha], -1)
+    if is_test:
+        return raw, [torch.zeros((), dtype=raw.dtype, device=raw.device)] * M
+    entropy = []
+    for i, m in enumerate(models):
+        pts = slice(i * B, (i + 1) * B)
+        za, zr = z_alpha[pts], z_rgb[pts]
+        # final-activation log-det corrections (models.py:261-278)
+        ld_a = ldj_alpha[pts] + (za - softplus(za)).sum(-1)
+        ld_r = ldj_rgb[pts] + (zr - 2.0 * softplus(zr)).sum(-1)
+        base_a, base_r = m._base_log_density_mean(*z0[i])
+        entropy.append(base_a - ld_a.mean() + base_r - ld_r.mean())
+    return raw, entropy
+
+
 def forward_composited_members(
     models: Sequence[NeRFFlows],
     x: torch.Tensor,
@@ -512,23 +579,12 @@ def forward_composited_members(
     if any(m.type_flows != "triangular" for m in models):
         raise ValueError("forward_composited_members requires type_flows='triangular'")
     M, B = x.shape[:2]
-    if first.trunk_impl == "xla" or M == 1:  # one member: its own encode
-        heads = [m.encode(x[i]) for i, m in enumerate(models)]
-    else:
-        h_alpha, h_rgb = trunk_encode(pack_member_trunk_weights(models), x,
-                                      interpret=first.trunk_impl == "interpret")
-        heads = list(zip(h_alpha, h_rgb))
+    heads = _member_heads(models, x)
     z0 = [m._base_draws(*e) for m, e in zip(models, eps)]
     flows_a = [m.flows_alpha(h[0]) for m, h in zip(models, heads)]
     flows_r = [m.flows_rgb(h[1]) for m, h in zip(models, heads)]
-
-    def joined(parts):
-        # the kernel reads contiguous arrays (r2 is built from a transpose):
-        # cat copies each member's share in
-        return parts[0].contiguous() if len(parts) == 1 else torch.cat(parts)
-
-    flat = [torch.stack([z[0] for z in z0]), *(joined(t) for t in zip(*flows_a)),
-            torch.stack([z[1] for z in z0]), *(joined(t) for t in zip(*flows_r)),
+    flat = [torch.stack([z[0] for z in z0]), *(_joined(t) for t in zip(*flows_a)),
+            torch.stack([z[1] for z in z0]), *(_joined(t) for t in zip(*flows_r)),
             z_pts.reshape(-1).contiguous(), d_pts.reshape(-1).contiguous()]
     core = fused_flow_composite_plain if interpret else fused_flow_composite
     rgb_map, depth, acc, ldj = core(*flat, s_per_ray, not is_test)

@@ -377,30 +377,52 @@ def make_placed_render_rays(
     return render_rays
 
 
-def density_query(model, config, reduce: str = "mean") -> SigmaFn:
-    """fn((P, 3) pts) -> (P,) sigma >= 0 from `model`'s current weights, read
-    at each call (the co-training target, whose weights change every step):
-    the embedded points with the view direction (0, 0, 1), the model in test
-    mode (fixed eps, the mean draw last), then the mean draw's density
-    (reduce="mean") or the max over the K draws ("max"), through softplus.
-    Runs without gradient; on the card its flow stacks run through the
-    flow-stack forward kernel (NeRFFlows.forward)."""
+def density_query_members(models: Sequence, config, reduce: str = "mean") -> Callable:
+    """fn((M, P, 3) pts) -> [M (P,) sigma >= 0], each member's density at its
+    own points from its current weights, read at each call (the co-training
+    target, whose weights change every step): the embedded points with the
+    view direction (0, 0, 1), the models in test mode (fixed eps, the mean
+    draw last), then the mean draw's density (reduce="mean") or the max
+    over the K draws ("max"), through softplus, each member's on its own
+    points.  M members of one shape run through
+    models/nerf_flows.py:forward_members (one flow-stack launch a chain for
+    all on the card, the trunk as the training step runs it); one member
+    through its own forward (any model).  Runs without gradient."""
+    from cfnerf_torch.models.nerf_flows import forward_members
+
     if reduce not in ("mean", "max"):
         raise ValueError(f"reduce must be 'mean' or 'max', got {reduce!r}")
     embedder, embedder_dirs = config.embedders()
 
-    def density_fn(pts: torch.Tensor) -> torch.Tensor:
+    def density_fn(pts: torch.Tensor) -> list:
         with torch.no_grad():
             emb = embedder(pts)
             if config.use_viewdirs and embedder_dirs is not None:
                 zero_dirs = torch.zeros_like(pts)
                 zero_dirs[..., 2] = 1.0
                 emb = torch.cat([emb, embedder_dirs(zero_dirs)], -1)
-            raw, _ = model(emb, is_test=True)
-            sig = raw[..., -1, 3] if reduce == "mean" else raw[..., 3].max(-1).values
-            return softplus(sig)
+            if len(models) == 1:
+                raw = models[0](emb[0], is_test=True)[0]
+            else:
+                eps = [m._draw_eps(True, None, None) for m in models]
+                raw = forward_members(models, emb, eps, is_test=True)[0]
+            P = pts.shape[1]
+            out = []
+            for i in range(len(models)):
+                r = raw[i * P:(i + 1) * P]
+                sig = r[..., -1, 3] if reduce == "mean" else r[..., 3].max(-1).values
+                out.append(softplus(sig))
+            return out
 
     return density_fn
+
+
+def density_query(model, config, reduce: str = "mean") -> SigmaFn:
+    """fn((P, 3) pts) -> (P,) sigma >= 0 from `model`'s current weights:
+    density_query_members at one member.  On the card its flow stacks run
+    through the flow-stack forward kernel (NeRFFlows.forward)."""
+    members = density_query_members([model], config, reduce)
+    return lambda pts: members(pts[None])[0]
 
 
 def make_density_fn(model, config, reduce: str = "mean") -> SigmaFn:

@@ -10,29 +10,34 @@ each member keeps its own nets, Adam, schedule, generator and checkpoint
 format, and the ensemble step is one of two, chosen once when it is built
 (printed, and kept as step.batched):
 
-  * the member-batched step, JAX's vmap written out, for the flagship
-    triangular NeRFFlows on the fused render (no occ stage, no fine pass,
-    no remat; train/step.py:batched_step_refusal), its loss
-    train/step.py:make_batched_loss, which is also the one-member step of
-    these configurations: each member's draws from its own generator in
-    its serial step's order (the jitter, then the base draws); the rays' preparation,
-    the positional encoding, the sample intervals and the composite's
-    finishing once over all M members' rays; the trunk ("pallas" and
+  * the member-batched step, JAX's vmap written out, for the triangular
+    NeRFFlows on the fused or the unfused render, placed (the occ stage) or
+    not (no fine pass, no remat; train/step.py:batched_step_refusal), its
+    loss train/step.py:make_batched_loss, which is also the one-member step
+    of these configurations: each member's draws from its own generator in
+    its serial step's order (the placement's u or the jitter, the base
+    draws, the density noise); each member's placement on its own rays and
+    proposal; the rays' preparation, the positional encoding and the
+    sample intervals once over all M members' rays; the trunk ("pallas" and
     "interpret": the members' stacked trunks through the trunk kernels, one
-    launch forward and one backward) and the render core (one launch
-    forward, one backward, the z0 gradients per member) with a member axis;
-    the "xla" trunk's and the amortizers' products member by member through
-    each member's own modules, which keeps their bits; each member's loss
-    scored on its own rays, one backward on their sum, then each member's
-    own update (its Adam and schedule; under a mesh its gradient's
-    all-reduce over its data ranks first).  Member m's parameters get the
+    launch forward and one backward), the render core (one launch forward,
+    one backward, the z0 gradients per member) or, unfused, the flow stack
+    (one launch a chain each way, each member's z0 gradient summed over its
+    own points) with a member axis; the "xla" trunk's and the amortizers'
+    products, and the unfused composite, member by member, which keeps
+    their bits; each member's loss scored on its own rays, one backward on
+    their sum, then each member's own update (its Adam and schedule; under a
+    mesh its gradient's all-reduce over its data ranks first); in the occ
+    stage then one density query of the M updated fields (the flow stack
+    one launch a chain) and each member's proposal's own Adam step
+    (train/step.py:make_batched_cotrain).  Member m's parameters get the
     gradients of its serial step: on the CPU, where the kernels' plain
     versions run member by member, bitwise.  A batched launch that fails
     raises; nothing falls back to the loop;
-  * the per-member loop for every other configuration (the occ stage,
-    hierarchical sampling, the other flow families, the baselines, the
-    unfused render, remat): the M single-member steps of
-    train/step.py:make_train_step one after another inside one call.
+  * the per-member loop for every other configuration (hierarchical
+    sampling, the other flow families, the baselines, remat): the M
+    single-member steps of train/step.py:make_train_step one after another
+    inside one call.
 
   * stack_members / unstack_member: a list of (nested) state dicts to one of
     (M, ...) tensors and back, JAX's host-side stacking;
@@ -67,10 +72,12 @@ from cfnerf_torch.parallel.mesh import (
 )
 from cfnerf_torch.models.nerf_flows import NeRFFlows
 from cfnerf_torch.render.renderer import RenderConfig
+from cfnerf_torch.render.renderer import unfused
 from cfnerf_torch.train.step import (
     Metrics,
     TrainConfig,
     batched_step_refusal,
+    make_batched_cotrain,
     make_batched_loss,
     make_train_step,
 )
@@ -167,23 +174,31 @@ def _per_member(x, n_members: int, what: str) -> list:
 
 
 def _batched_step(members: Sequence[Callable], models: Sequence[NeRFFlows],
-                  render_config: RenderConfig, cfg: TrainConfig, mesh) -> Callable:
+                  render_config: RenderConfig, cfg: TrainConfig, mesh, occ) -> Callable:
     """The member-batched step (the module docstring) over the members'
-    single-member steps `members`, whose updates it calls."""
-    loss_fn = make_batched_loss(models, render_config, cfg, mesh)
+    single-member steps `members`, whose updates, proposals and proposal
+    optimizers it uses."""
+    proposals = None if occ is None else [s.proposal for s in members]
+    loss_fn = make_batched_loss(models, render_config, cfg, mesh, occ, proposals)
+    cotrain = None if occ is None else make_batched_cotrain(
+        models, render_config, occ, proposals, [s.prop_optimizer for s in members], mesh)
     M = len(models)
 
     def step(batch: Mapping, generators: Sequence[Optional[torch.Generator]], *,
-             z_vals=None, eps=None, **seams) -> Metrics:
+             z_vals=None, eps=None, place_u=None, noise=None, prop_pts=None,
+             **seams) -> Metrics:
         given = sorted(k for k, v in seams.items() if v is not None)
         if given:
             raise ValueError(f"the member-batched step has no draws for the seams {given}")
+        gens = _per_member(generators, M, "generators")
         for s in members:
             s.optimizer.zero_grad(set_to_none=True)
         eps = None if eps is None else tuple(eps)
-        scored = loss_fn(batch, _per_member(generators, M, "generators"),
-                         z_vals=[_member(z_vals, m) for m in range(M)],
-                         eps=[_member(eps, m) for m in range(M)])
+        # noise holds one tensor a render pass, and these renders have one
+        scored = loss_fn(batch, gens, z_vals=[_member(z_vals, m) for m in range(M)],
+                         eps=[_member(eps, m) for m in range(M)],
+                         place_u=[_member(place_u, m) for m in range(M)],
+                         noise=[None if noise is None else noise[0][m] for m in range(M)])
         # d(sum)/d(loss_m) is exactly 1: each member's gradients are its own step's
         torch.stack([loss for loss, _ in scored]).sum().backward()
         out = []
@@ -191,9 +206,21 @@ def _batched_step(members: Sequence[Callable], models: Sequence[NeRFFlows],
             s.update()
             metrics = {k: v.detach() for k, v in metrics.items()}
             out.append(metrics if mesh is None else s.global_metrics(metrics))
+        if cotrain is not None:
+            for metrics, prop_loss in zip(out, cotrain(
+                    gens, [_member(prop_pts, m) for m in range(M)])):
+                metrics["prop_loss"] = prop_loss
         return {k: torch.stack([o[k] for o in out]) for k in out[0]}
 
     return step
+
+
+def _batched_launches(render_config: RenderConfig, occ) -> str:
+    """What the member-batched step launches once for all members."""
+    what = ("one trunk and flow-stack launch a chain and pass" if unfused(render_config)
+            else "one trunk and render-core launch a pass")
+    return what + ("; the co-training's density query one flow-stack launch a chain"
+                   if occ is not None else "")
 
 
 def make_ensemble_train_step(
@@ -223,8 +250,9 @@ def make_ensemble_train_step(
     member m's step on batch leaves [m] ((M, R, ...) rays and targets; an
     (M,) occ_floor is each member's floor) with generators[m], and returns
     each metric stacked to (M,).  A seam, where given, has the member axis
-    first (eps: a pair of (M, K, 1) and (M, K, 3)); the member-batched step
-    takes z_vals and eps only, the draws its configurations make.  With
+    first (eps: a pair of (M, K, 1) and (M, K, 3); noise one (M, R, S, K)
+    tensor a pass); the member-batched step takes z_vals, eps, place_u,
+    noise and prop_pts, the draws its configurations make.  With
     `occ`, step.install_proposals(props) loads each member's distilled
     proposal (a ProposalMLP or its state dict) and restarts its Adam, JAX's
     _wrap_state.  step.members holds the single-member steps, whose
@@ -246,9 +274,9 @@ def make_ensemble_train_step(
                for m in range(n_members)]
     refusal = batched_step_refusal(models, render_config, cfg, model_fine, occ)
     if refusal is None:
-        step = _batched_step(members, models, render_config, cfg, mesh)
-        print(f"ensemble step: {n_members} members batched (one trunk and render-core "
-              "launch a pass for all)", flush=True)
+        step = _batched_step(members, models, render_config, cfg, mesh, occ)
+        print(f"ensemble step: {n_members} members batched "
+              f"({_batched_launches(render_config, occ)} for all)", flush=True)
     else:
         def step(batch: Mapping, generators: Sequence[Optional[torch.Generator]],
                  **seams) -> Metrics:

@@ -15,11 +15,13 @@ is the fused path's oracle.  The reference's never-applied raw noise is kept
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, ContextManager, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from cfnerf_torch.models.nerf_flows import forward_composited_members, forward_members
 from cfnerf_torch.ops.compositing import LAST_DIST, finalize_k_maps, raw2outputs
 from cfnerf_torch.ops.embed import Embedder
 from cfnerf_torch.ops.rays import get_rays, ndc_rays
@@ -108,6 +110,93 @@ def point_intervals(z_vals: torch.Tensor, rays_d: torch.Tensor) -> torch.Tensor:
     return dists * torch.linalg.norm(rays_d.float(), dim=-1, keepdim=True)
 
 
+def unfused(config: RenderConfig) -> bool:
+    """Whether a render takes the unfused path: RenderConfig.fused 'off',
+    hierarchical sampling, or applied density noise (as JAX routes it,
+    cfnerf_tpu/render/renderer.py:188-199)."""
+    noisy = config.apply_noise and config.raw_noise_std > 0
+    return config.fused == "off" or config.n_importance > 0 or noisy
+
+
+def render_members(
+    models: Sequence,
+    config: RenderConfig,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    viewdirs: Optional[torch.Tensor],
+    z_vals: torch.Tensor,
+    draws: Sequence,
+    *,
+    is_test: bool,
+    generators: Optional[Sequence[Optional[torch.Generator]]] = None,
+    noise: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    rows: Optional[Callable[[int], ContextManager]] = None,
+) -> List[Dict[str, torch.Tensor]]:
+    """The render of M NeRFFlows of one shape (an ensemble's members, or one
+    net) at given depths, JAX's vmapped render_rays: rays_o, rays_d,
+    viewdirs (M * R, 3) and z_vals (M * R, S), the rays member-major;
+    `draws` each member's base draws (NeRFFlows._draw_eps).  The positional
+    encoding and the sample intervals run once over all members' rays.  The
+    fused path (not `unfused(config)`; no fine pass) takes
+    forward_composited_members, the render core and the trunk kernels one
+    launch for all members; the unfused one forward_members, the flow-stack
+    kernel one launch a chain for all, then raw2outputs member by member on
+    each member's rays, as its own render composites them (on the CPU a
+    call over more rays may round log1p and sigmoid elsewhere), its density
+    noise (apply_noise) `noise[m]` or drawn from `generators[m]` in train
+    mode, inside `rows(m)` where given (a data-parallel rank's rows).
+    Returns a dict a member: rgb_map, disp_map, depth_map, acc_map,
+    loss_entropy, and unfused in train mode the weights."""
+    M = len(models)
+    n_rays, S = z_vals.shape[0] // M, z_vals.shape[1]
+    emb = embed_samples(config, config.embedders(), z_vals, rays_o, rays_d, viewdirs)
+    emb = emb.view(M, n_rays * S, -1)
+    out = []
+    if not unfused(config):
+        rgb, depth, acc, entropy = forward_composited_members(
+            models, emb, z_vals.view(M, -1), point_intervals(z_vals, rays_d).view(M, -1), S,
+            draws, is_test=is_test, interpret=config.fused == "interpret")
+        rgb, disp = finalize_k_maps(rgb, depth, acc, config.white_bkgd)
+        for m in range(M):
+            ray = slice(m * n_rays, (m + 1) * n_rays)
+            out.append(dict(rgb_map=rgb[ray], disp_map=disp[ray], depth_map=depth[ray],
+                            acc_map=acc[ray], loss_entropy=entropy[m]))
+        return out
+    raw, entropy = forward_members(models, emb, draws, is_test=is_test)
+    for m in range(M):
+        ray = slice(m * n_rays, (m + 1) * n_rays)
+        with rows(m) if rows is not None else contextlib.nullcontext():
+            rgb, disp, acc, weights, depth = raw2outputs(
+                raw[m * n_rays * S:(m + 1) * n_rays * S].reshape(n_rays, S, -1, 4),
+                z_vals[ray], rays_d[ray], raw_noise_std=config.raw_noise_std,
+                white_bkgd=config.white_bkgd, apply_noise=config.apply_noise,
+                generator=None if is_test or generators is None else generators[m],
+                noise=None if noise is None else noise[m])
+        maps = dict(rgb_map=rgb, disp_map=disp, depth_map=depth, acc_map=acc,
+                    loss_entropy=entropy[m])
+        if not is_test:
+            maps["weights"] = weights
+        out.append(maps)
+    return out
+
+
+def render_members_test(models: Sequence, config: RenderConfig, rays_o: torch.Tensor,
+                        rays_d: torch.Tensor, viewdirs: Optional[torch.Tensor],
+                        near: torch.Tensor, far: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
+    """One test-mode render of the same R rays by each of M NeRFFlows of
+    one shape at once, JAX's vmapped val_fn: the rays repeated member-major,
+    the schedule's depths, each member's fixed test draws, render_members.
+    Returns a dict a member, each bitwise its own make_render_rays
+    render's."""
+    M = len(models)
+    rays_o, rays_d, near, far = (t.repeat(M, 1) for t in (rays_o, rays_d, near, far))
+    viewdirs = None if viewdirs is None else viewdirs.repeat(M, 1)
+    z_vals = schedule_z_vals(config, near, far, None, is_test=True).contiguous()
+    draws = [m._draw_eps(True, None, None) for m in models]
+    return render_members(models, config, rays_o, rays_d, viewdirs, z_vals, draws,
+                          is_test=True)
+
+
 def make_render_rays(model, config: RenderConfig, model_fine=None) -> RenderRays:
     """Build the per-batch renderer around a NeRFFlows `model`.
 
@@ -139,8 +228,7 @@ def make_render_rays(model, config: RenderConfig, model_fine=None) -> RenderRays
         raise ValueError(f"RenderConfig.fused must be one of {FUSED_MODES}, "
                          f"got {config.fused!r}")
     embedders = config.embedders()
-    noisy = config.apply_noise and config.raw_noise_std > 0
-    unfused = config.fused == "off" or config.n_importance > 0 or noisy
+    unfused_path = unfused(config)
 
     def _embed(z_vals, rays_o, rays_d, viewdirs):
         return embed_samples(config, embedders, z_vals, rays_o, rays_d, viewdirs)
@@ -178,7 +266,7 @@ def make_render_rays(model, config: RenderConfig, model_fine=None) -> RenderRays
             z_vals = schedule_z_vals(config, near, far, generator, is_test)
         S = z_vals.shape[1]
 
-        if not unfused:
+        if not unfused_path:
             d_pts = point_intervals(z_vals, rays_d)
             rgb_map, depth_map, acc_map, loss_entropy = model.forward_composited(
                 _embed(z_vals, rays_o, rays_d, viewdirs), z_vals.reshape(-1),

@@ -6,12 +6,14 @@ lr = lrate * 0.1^(step / (lrate_decay*1000)) (:1072-1077)).
   * the COLMAP depth rays are concatenated to the rgb rays before the render
     and split after, as in the reference (:1011, :1020-1024);
   * the render is the fused train-mode path (the render core's forward
-    kernel on the card, its backward kernel through autograd; for the
-    flagship triangular NeRFFlows without remat the member-batched loss,
-    make_batched_loss, at one member, which the ensemble step runs at M)
-    or, with N_importance > 0, the hierarchical coarse + fine render, whose flow
-    stacks run through the flow-stack kernels; its coarse loss is added as
-    in cfnerf_tpu/train/step.py:290-304;
+    kernel on the card, its backward kernel through autograd), the unfused
+    one (--fused_render off, applied density noise: the flow-stack kernels)
+    or, with N_importance > 0, the hierarchical coarse + fine render, whose
+    flow stacks run through the flow-stack kernels; its coarse loss is added
+    as in cfnerf_tpu/train/step.py:290-304.  For the triangular NeRFFlows
+    without a fine pass or remat, fused or unfused, placed or not, the step
+    is the member-batched loss, make_batched_loss, at one member, which the
+    ensemble step runs at M;
   * a trunk_impl="pallas" net's trunk runs through the trunk kernels, its
     backward kernel through autograd, as the JAX step differentiates
     pallas_encode's custom VJP;
@@ -42,22 +44,20 @@ import torch.distributed as dist
 from torch.optim.lr_scheduler import LambdaLR
 from torch.utils.checkpoint import checkpoint
 
-from cfnerf_torch.models.nerf_flows import NeRFFlows, forward_composited_members
-from cfnerf_torch.ops.compositing import finalize_k_maps
+from cfnerf_torch.models.nerf_flows import NeRFFlows
 from cfnerf_torch.ops.metrics import img2mse, mse2psnr
 from cfnerf_torch.ops.occupancy import (
     ProposalMLP,
-    density_query,
+    density_query_members,
     make_proposal_sigma_fn,
     place_from_sigma,
 )
 from cfnerf_torch.ops.sampling import ray_rows
 from cfnerf_torch.render.renderer import (
     RenderConfig,
-    embed_samples,
     make_render_rays,
-    point_intervals,
     prepare_rays,
+    render_members,
     schedule_z_vals,
 )
 from cfnerf_torch.train.loss import kde_nll, total_loss
@@ -194,16 +194,12 @@ def batch_rays(batch: Mapping, cfg: TrainConfig, render_config: RenderConfig, de
 def batched_step_refusal(models: Sequence[torch.nn.Module], render_config: RenderConfig,
                          cfg: TrainConfig, model_fine=None, occ=None) -> Optional[str]:
     """None where make_batched_loss takes these nets (one, or an ensemble's
-    members), else what leaves them to the render of make_render_rays (an
-    ensemble: to its members' steps in turn)."""
-    if occ is not None:
-        return "the occ stage"
+    members): triangular NeRFFlows of one configuration, the fused or the
+    unfused render (applied noise included), placed (`occ`) or not; else
+    what leaves them to the render of make_render_rays (an ensemble: to its
+    members' steps in turn)."""
     if render_config.n_importance > 0 or any(f is not None for f in model_fine or ()):
         return "hierarchical sampling"
-    if render_config.fused == "off":
-        return "the unfused render"
-    if render_config.apply_noise and render_config.raw_noise_std > 0:
-        return "applied density noise"
     if cfg.remat:
         return "remat"
     if not all(isinstance(m, NeRFFlows) for m in models):
@@ -211,73 +207,155 @@ def batched_step_refusal(models: Sequence[torch.nn.Module], render_config: Rende
     families = sorted({m.type_flows for m in models})
     if families != ["triangular"]:
         return f"the {'/'.join(families)} flow family"
-    shapes = {(m.trunk_impl, m.compute_dtype, m.k_samples, m.net_depth, m.net_width,
-               m.input_ch, m.input_ch_views, m.skips, m.use_viewdirs, m.n_flows,
+    shapes = {(m.trunk_impl, m.flow_impl, m.compute_dtype, m.k_samples, m.net_depth,
+               m.net_width, m.input_ch, m.input_ch_views, m.skips, m.use_viewdirs, m.n_flows,
                m.h_alpha_linear.out_features, m.h_rgb_linear.out_features) for m in models}
     if len(shapes) > 1:
         return "members of different configurations"
     return None
 
 
+def _floor_of(b: Mapping, m: int, occ: "OccTrainConfig"):
+    """Member m's placement floor: its entry of batch["occ_floor"] (M,) when
+    the batch has one (the annealed floor), else occ.floor."""
+    return b["occ_floor"][m] if "occ_floor" in b else occ.floor
+
+
 def make_batched_loss(models: Sequence[NeRFFlows], render_config: RenderConfig,
-                      cfg: TrainConfig, mesh=None) -> Callable:
-    """The fused train-mode render and loss of M nets at once (members of an
+                      cfg: TrainConfig, mesh=None, occ=None,
+                      proposals: Optional[Sequence[ProposalMLP]] = None) -> Callable:
+    """The train-mode render and loss of M nets at once (members of an
     ensemble; batched_step_refusal says which configurations), JAX's
-    vmapped loss written out: loss(batch, generators, *, z_vals, eps) ->
-    [(loss, metrics)], a pair a member.  The batch's leaves have the member
-    axis first ((M, R, 3) rays, ...); generators, z_vals and eps are lists
-    of each member's (a seam None is drawn).  Member m's draws come from
-    generators[m] in its single step's order (the jitter, then the base
-    draws); the rays' preparation, the encoding, the intervals and the
-    composite's finish run once over all members' rays, member-major; the
-    nets run through forward_composited_members (the trunk kernels and the
-    render core with a member axis); each member's loss is scored on its
-    own rays.  make_train_step runs it at one member, the ensemble step
+    vmapped loss written out: loss(batch, generators, *, z_vals, eps,
+    place_u, noise) -> [(loss, metrics)], a pair a member.  The batch's
+    leaves have the member axis first ((M, R, 3) rays, an (M,) occ_floor,
+    ...); generators and the seams are lists of each member's (a seam None
+    is drawn; noise a member's (R, S, K) density noise).  Member m's draws
+    come from generators[m] in its single step's order: with `occ` (its
+    proposal proposals[m]) the placement's stratified u, else the jitter;
+    then the base draws, then (unfused, applied noise) the density noise.
+    Placement runs member by member on each member's rays and proposal, as
+    its own step places them; the rays' preparation runs once over all
+    members' rays, member-major, and the render is render_members (the
+    render core, or the flow stack a chain, and the trunk kernels, one
+    launch for all members); each member's loss is scored on its own rays.
+    make_train_step runs it at one member, the ensemble step
     (parallel/ensemble.py) at M.  Under a mesh each per-ray draw is made at
-    the whole batch's shape and cut to this rank's rows, and a z_vals seam
-    holds the whole batch's, as in make_train_step."""
+    the whole batch's shape and cut to this rank's rows, and the seams
+    z_vals, place_u and noise hold the whole batch's, as in
+    make_train_step."""
     rc = render_config
-    embedders = rc.embedders()
     dev = next(models[0].parameters()).device
+    if occ is not None:
+        lo = torch.tensor(occ.lo, dtype=torch.float32, device=dev)
+        hi = torch.tensor(occ.hi, dtype=torch.float32, device=dev)
+        sigma_fns = [make_proposal_sigma_fn(p, lo, hi) for p in proposals]
 
     def loss(batch: Mapping, generators: Sequence[Optional[torch.Generator]], *,
-             z_vals: Sequence, eps: Sequence) -> List[Tuple[torch.Tensor, Metrics]]:
+             z_vals: Sequence, eps: Sequence, place_u: Optional[Sequence] = None,
+             noise: Optional[Sequence] = None) -> List[Tuple[torch.Tensor, Metrics]]:
         M = len(models)
+        place_u = [None] * M if place_u is None else place_u
+        noise = [None] * M if noise is None else noise
         b, (rays_o, rays_d, viewdirs, near_v, far_v) = batch_rays(batch, cfg, rc, dev)
         n_rgb, n_rays = b["rays_o"].shape[1], rays_o.shape[0] // M
         if mesh is not None:
             rows, n_global = mesh_rows(mesh, n_rgb, n_rays - n_rgb, dev)
+
+        def as_seam(x):
+            """A seam of the whole batch's rays as a tensor, this rank's rows."""
+            if x is None:
+                return None
+            x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+            return x if mesh is None else x[rows]
+
+        def member_rows(m):
+            if mesh is None:
+                return contextlib.nullcontext()
+            gen = generators[m]
+            return ray_rows(rows.to(dev if gen is None else gen.device), n_global)
+
         zs, draws = [], []
         for m, (net, gen) in enumerate(zip(models, generators)):
             ray = slice(m * n_rays, (m + 1) * n_rays)
-            z_m = (None if z_vals[m] is None
-                   else torch.as_tensor(z_vals[m], dtype=torch.float32, device=dev))
-            draw_rows = contextlib.nullcontext()
-            if mesh is not None:
-                draw_rows = ray_rows(rows.to(dev if gen is None else gen.device), n_global)
-                z_m = None if z_m is None else z_m[rows]
-            with draw_rows:
+            z_m = as_seam(z_vals[m])
+            with member_rows(m):
+                if z_m is None and occ is not None:
+                    with torch.no_grad():
+                        z_m = place_from_sigma(
+                            sigma_fns[m], rays_o[ray], rays_d[ray], near_v[ray], far_v[ray],
+                            rc.n_samples, n_candidates=occ.n_candidates,
+                            floor=_floor_of(b, m, occ), generator=gen,
+                            u=as_seam(place_u[m]))
                 if z_m is None:
                     z_m = schedule_z_vals(rc, near_v[ray], far_v[ray], gen, is_test=False)
                 zs.append(z_m)
                 draws.append(net.train_eps(None, gen, eps[m]))
-        z_all = torch.stack(zs).reshape(M * n_rays, -1)
-        S = z_all.shape[1]
-        d_pts = point_intervals(z_all, rays_d)
-        emb = embed_samples(rc, embedders, z_all, rays_o, rays_d, viewdirs)
-        rgb, depth, acc, entropy = forward_composited_members(
-            models, emb.view(M, n_rays * S, -1), z_all.view(M, -1), d_pts.view(M, -1), S,
-            draws, interpret=rc.fused == "interpret")
-        rgb, _ = finalize_k_maps(rgb, depth, acc, rc.white_bkgd)
-        scored = []
-        for m in range(M):
-            ray = slice(m * n_rays, (m + 1) * n_rays)
-            render = dict(rgb_map=rgb[ray], depth_map=depth[ray], loss_entropy=entropy[m])
-            scored.append(score_render(render, {k: v[m] for k, v in b.items()}, n_rgb, cfg,
-                                       dev))
-        return scored
+        renders = render_members(
+            models, rc, rays_o, rays_d, viewdirs, torch.stack(zs).reshape(M * n_rays, -1),
+            draws, is_test=False, generators=generators,
+            noise=[as_seam(n) for n in noise], rows=member_rows)
+        return [score_render(out, {k: v[m] for k, v in b.items()}, n_rgb, cfg, dev)
+                for m, out in enumerate(renders)]
 
     return loss
+
+
+def _check_replicated(grads, mesh) -> None:
+    """Raise unless `grads` are equal on every data rank of `mesh`: the
+    proposal's co-training runs on replicated points and an updated field
+    that the all-reduce made equal, so it must not need a reduction."""
+    from cfnerf_torch.parallel.mesh import DATA_AXIS
+
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    first = flat.clone()
+    dist.broadcast(first, src=mesh.ranks(DATA_AXIS)[0], group=mesh.group(DATA_AXIS))
+    if not torch.equal(first, flat):
+        raise RuntimeError("the proposal's co-training gradient differs between the "
+                           "data ranks; the field or the points are not replicated")
+
+
+def make_batched_cotrain(models: Sequence[torch.nn.Module], render_config: RenderConfig,
+                         occ: "OccTrainConfig", proposals: Sequence[ProposalMLP],
+                         prop_optimizers: Sequence[torch.optim.Adam],
+                         mesh=None) -> Callable:
+    """The occ stage's co-training of M members after their fields' updates
+    (cfnerf_tpu/train/step.py:326-345 under JAX's vmap): cotrain(generators,
+    prop_pts) -> [prop_loss], a loss a member before its step.  Member m's
+    occ.cotrain_points unit-cube points are prop_pts[m] or drawn from
+    generators[m] (after its step's other draws); one density query of the
+    M updated fields at each member's own points (density_query_members:
+    one flow-stack launch a chain for all); then each member's proposal
+    fits log1p of its field's density with one step of its own Adam.
+    Under a mesh each member's gradient must be equal on every data
+    rank."""
+    dev = next(models[0].parameters()).device
+    lo = torch.tensor(occ.lo, dtype=torch.float32, device=dev)
+    hi = torch.tensor(occ.hi, dtype=torch.float32, device=dev)
+    density = density_query_members(models, render_config)
+
+    def cotrain(generators: Sequence[Optional[torch.Generator]],
+                prop_pts: Sequence) -> List[torch.Tensor]:
+        units = []
+        for gen, pts in zip(generators, prop_pts):
+            if pts is None:
+                pts = torch.rand((occ.cotrain_points, 3), generator=gen, device=gen.device)
+            units.append(torch.as_tensor(pts, dtype=torch.float32).to(dev))
+        sigmas = density(torch.stack([lo + u * (hi - lo) for u in units]))
+        losses = []
+        for prop, opt, unit, sigma in zip(proposals, prop_optimizers, units, sigmas):
+            target = torch.log1p(sigma)
+            opt.zero_grad(set_to_none=True)
+            prop_loss = torch.mean((torch.log1p(prop(unit)) - target) ** 2)
+            prop_loss.backward()
+            if mesh is not None:
+                _check_replicated([p.grad for p in prop.parameters() if p.grad is not None],
+                                  mesh)
+            opt.step()
+            losses.append(prop_loss.detach())
+        return losses
+
+    return cotrain
 
 
 class _Remat:
@@ -404,11 +482,6 @@ def make_train_step(
         model_fine=None if model_fine is None else wrap(model_fine))
 
     dev = next(model.parameters()).device
-    # the flagship's fused step is the ensemble's member-batched loss at one
-    # member: one code path for both
-    batched = (make_batched_loss([model], render_config, cfg, mesh)
-               if batched_step_refusal([model], render_config, cfg, model_fine, occ) is None
-               else None)
     if occ is not None:
         if proposal is None:
             net = ProposalMLP(occ.prop_width, occ.prop_depth, occ.prop_multires, device=dev)
@@ -418,7 +491,15 @@ def make_train_step(
         occ_lo = torch.tensor(occ.lo, dtype=torch.float32, device=dev)
         occ_hi = torch.tensor(occ.hi, dtype=torch.float32, device=dev)
         sigma_fn = make_proposal_sigma_fn(proposal, occ_lo, occ_hi)
-        density_fn = density_query(model, render_config)
+        # the ensemble's member-batched co-training at one member
+        batched_cotrain = make_batched_cotrain([model], render_config, occ, [proposal],
+                                               [prop_optimizer], mesh)
+    # the triangular NeRFFlows' step (fused or unfused, placed or not) is the
+    # ensemble's member-batched loss at one member: one code path for both
+    batched = (make_batched_loss([model], render_config, cfg, mesh, occ,
+                                 None if occ is None else [proposal])
+               if batched_step_refusal([model], render_config, cfg, model_fine, occ) is None
+               else None)
 
     if mesh is not None:
         from cfnerf_torch.parallel.mesh import DATA_AXIS, mean_over
@@ -445,9 +526,10 @@ def make_train_step(
     def loss_fn(batch: Mapping, generator: Optional[torch.Generator] = None, *,
                 z_vals=None, eps=None, eps_fine=None, pdf_u=None,
                 noise=None, place_u=None) -> Tuple[torch.Tensor, Metrics]:
-        if batched is not None:  # this configuration draws none of the other seams
+        if batched is not None:  # no fine pass: no eps_fine or pdf_u to draw
             one = {k: torch.as_tensor(v)[None] for k, v in batch.items()}
-            return batched(one, [generator], z_vals=[z_vals], eps=[eps])[0]
+            return batched(one, [generator], z_vals=[z_vals], eps=[eps], place_u=[place_u],
+                           noise=[None if noise is None else noise[0]])[0]
         if mesh is None:
             return _loss(batch, generator, z_vals=z_vals, eps=eps, eps_fine=eps_fine,
                          pdf_u=pdf_u, noise=noise, place_u=place_u)
@@ -495,29 +577,7 @@ def make_train_step(
     def cotrain(generator: Optional[torch.Generator], *, prop_pts=None) -> torch.Tensor:
         """One Adam step of the proposal towards log1p of the field's current
         density; returns the loss before it."""
-        if prop_pts is None:
-            prop_pts = torch.rand((occ.cotrain_points, 3), generator=generator,
-                                  device=generator.device)
-        pts_unit = torch.as_tensor(prop_pts, dtype=torch.float32).to(dev)
-        target = torch.log1p(density_fn(occ_lo + pts_unit * (occ_hi - occ_lo)))
-        prop_optimizer.zero_grad(set_to_none=True)
-        prop_loss = torch.mean((torch.log1p(proposal(pts_unit)) - target) ** 2)
-        prop_loss.backward()
-        if mesh is not None:
-            check_replicated([p.grad for p in proposal.parameters() if p.grad is not None])
-        prop_optimizer.step()
-        return prop_loss.detach()
-
-    def check_replicated(grads) -> None:
-        """Raise unless `grads` are equal on every data rank: the proposal's
-        co-training runs on replicated points and an updated field that the
-        all-reduce made equal, so it must not need a reduction."""
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        first = flat.clone()
-        dist.broadcast(first, src=mesh.ranks(DATA_AXIS)[0], group=data_group)
-        if not torch.equal(first, flat):
-            raise RuntimeError("the proposal's co-training gradient differs between the "
-                               "data ranks; the field or the points are not replicated")
+        return batched_cotrain([generator], [prop_pts])[0]
 
     def train_step(batch: Mapping, generator: Optional[torch.Generator], *,
                    z_vals=None, eps=None, eps_fine=None, pdf_u=None,

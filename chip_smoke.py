@@ -45,12 +45,15 @@ final line):
                    alone at 64 x 64 x 64 and the flat step's matrix shapes
                    against a float64 product; the member axis
                    (kernel_members): the render core forward and backward at
-                   3 members' flagship train tiles and trunk_fwd,
+                   3 members' flagship train tiles, trunk_fwd,
                    trunk_fwd_save and trunk_bwd at 2 members' flat training
-                   steps, one launch for all, against the plain versions and
-                   bitwise against one launch a member (outputs, z0
-                   gradients, saved activations, dW and db), each timed
-                   beside those M launches
+                   steps, the flow stack forward at 3 members' co-training
+                   density queries and both ways at 3 members' unfused
+                   flagship steps (both chains), one launch for all,
+                   against the plain versions and bitwise against one
+                   launch a member (outputs, z0 gradients, saved
+                   activations, dW and db), each timed beside those M
+                   launches
   4. kernel_time   each kernel's ms, plain ms, bytes, operations and bound
                    (train-tile launches rotate over inputs larger than L2;
                    the render-core backward also at F=12; every flow-stack
@@ -206,11 +209,15 @@ final line):
                    against its serial one (relative 1e-5 a tensor, 0
                    expected), the tagged scalars, its mixture eval, its loop
                    rate against (a)'s, peak memory; (d) --trunk_impl pallas,
-                   2 members, 20 steps, serially and --parallel, each
-                   --parallel checkpoint against its serial one; --parallel
-                   is the member-batched step: one render-core forward and
-                   backward (and trunk forward and backward) a dispatch for
-                   all members; launches exact
+                   (e) --occ_train 12 --occ_train_from 50, 3 members x 100
+                   steps each, and (f) --fused_render off, 3 x 30 steps,
+                   serially and --parallel, each --parallel checkpoint
+                   against its serial one; --parallel is the member-batched
+                   step: one render-core forward and backward (and trunk
+                   forward and backward), or unfused two flow-stack
+                   launches each way, a dispatch for all members, one
+                   co-training density query for all in the occ stage, one
+                   val batch render for all; launches exact
  34. mesh          the several-device paths (cfnerf_torch/parallel/mesh.py)
                    on the one card: (a) a one-rank NCCL group through
                    cli.train's mesh path (10 steps of train_NF.sh's flags on
@@ -227,10 +234,10 @@ final line):
  35. rates         every path's rays/s of this run, side by side
  36. kernels       per-kernel launches, error, time, plain time and bound;
                    trunk_fwd's entry also the training variant's
-                   (fwd_save_*, at the flat training step); the render core's
-                   and the trunk's entries their member-batched launch's
-                   (members); launches_by_path splits the ensemble phase into
-                   its serial runs, its evals and its --parallel runs
+                   (fwd_save_*, at the flat training step); every entry its
+                   member-batched launch's (members); launches_by_path
+                   splits the ensemble phase into its serial runs, its
+                   evals and its --parallel runs, (e) and (f) apart
 
 then the script's wall time, the `nvidia-smi` name/power line and, last, the
 `ok` line.
@@ -1648,11 +1655,13 @@ def phase_trunk_bwd_time(flat_err):
 
 # the member-batched launches at the batched ensemble step's shapes: the
 # render core at three members' flagship train tiles, the trunk kernels at
-# two members' flat training steps.  Each against its
-# plain version at the one-member checks' tolerances, and bitwise against
-# one launch per member: a member's arithmetic is that of a launch of it
-# alone (the same z0 reduction order, the same trunk row ranges)
-MEMBER_CORE_M, MEMBER_TRUNK_M = 3, 2
+# two members' flat training steps, the flow stack (slice 11) at three
+# members' co-training density queries and unfused flagship steps.  Each
+# against its plain version at the one-member checks' tolerances, and
+# bitwise against one launch per member: a member's arithmetic is that of a
+# launch of it alone (the same z0 reduction order, the same trunk row
+# ranges, each (point, draw) reading its member's draws)
+MEMBER_CORE_M, MEMBER_TRUNK_M, MEMBER_FLOW_M = 3, 2, 3
 
 
 def member_core_inputs(M, R, S, K, F, seed):
@@ -1668,6 +1677,104 @@ def member_bound(work, M, *args, ops_per_s=F32_OPS_PER_S):
     operations (each member's weights, inputs and outputs its own)."""
     nbytes, ops = work(*args)
     return bound_ms(M * nbytes, M * ops, ops_per_s)
+
+
+def member_flow_inputs(M, B, K, Z, F, seed):
+    """M members' flow-stack inputs (each its shared draws expanded over its
+    B points, as the model hands them over) and the batched call's: z0
+    stacked (M, K, Z), the points joined."""
+    per = [flow_stack_inputs(B, K, Z, F, seed=seed + m) for m in range(M)]
+    return per, [torch.stack([p[0][0] for p in per])] + [
+        torch.cat([p[i] for p in per]) for i in (1, 2, 3)]
+
+
+def member_flow_checks(out):
+    """The flow stack with a member axis: the occ stage's co-training
+    density query (3 x 8,192 points, test mode) and the unfused flagship
+    step's chains (3 x 81,920 points, train mode, forward and backward),
+    both chains each, against the plain version at the `kernel` phase's
+    tolerances and bitwise against one launch per member (z, ldj; the
+    per-point g_z0 and the parameter gradients; through autograd each
+    member's z0 gradient, summed over its own points), timed beside M
+    launches.  Adds the stats of the unfused step's rgb chain to `out`."""
+    M, K, F = MEMBER_FLOW_M, FLAGSHIP["K_samples"], FLAGSHIP["n_flows"]
+    for label, B, cld in (("co-training density query", OCC_COTRAIN_POINTS, False),
+                          ("unfused flagship step", TRAIN_FLAT_PTS, True)):
+        for Z in (1, 3):
+            case = f"{label}: M={M} x B={B} K={K} Z={Z} F={F}"
+            per, x = member_flow_inputs(M, B, K, Z, F, seed=2400 + 10 * Z + B % 7)
+            with torch.inference_mode():
+                got = flow_stack.fused_flow_stack(*x, cld)
+                ref = flow_stack.fused_flow_stack_plain(*x, cld)
+                alone = [flow_stack.fused_flow_stack(*p, cld) for p in per]
+            torch.cuda.synchronize()
+            errs = compare_flow(got, ref)
+            same = all(torch.equal(got[i][m * B:(m + 1) * B], alone[m][i])
+                       for m in range(M) for i in range(2))
+            check(same, f"member-batched flow-stack forward vs one launch per member "
+                        f"({case}): bitwise")
+            with torch.inference_mode():
+                ms = cuda_ms(lambda: flow_stack.fused_flow_stack(*x, cld), 21)
+                single_ms = cuda_ms(lambda: [flow_stack.fused_flow_stack(*p, cld)
+                                             for p in per], 21)
+                plain_ms = cuda_ms(lambda: flow_stack.fused_flow_stack_plain(*x, cld), 3)
+            b_ms, b_by = member_bound(flow_stack_work, M, B, K, Z, F, cld)
+            stats = dict(case=case, max_abs_err=max(e["max_abs"] for e in errs.values()),
+                         ms=ms, single_launches_ms=single_ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, bitwise_vs_one_launch_a_member=same)
+            emit("kernel_members", kernel="flow_stack_fwd", errors=errs,
+                 tolerance={"rtol": FLOW_RTOL, "atol": FLOW_ATOL}, **stats)
+            if cld and Z == 3:
+                out["flow_stack_fwd"] = stats
+            del got, ref, alone
+            if not cld:
+                continue
+            g = torch.Generator(device="cuda").manual_seed(2500 + Z)
+            # the ldj cotangent scaled by 1e-2, as in the `kernel` phase
+            cots_per = [[torch.randn(B, K, Z, generator=g, device="cuda"),
+                         torch.randn(B, K, generator=g, device="cuda") * 1e-2]
+                        for _ in range(M)]
+            cots = [torch.cat([c[i] for c in cots_per]) for i in range(2)]
+            got = flow_stack.fused_flow_stack_bwd(x, cots, cld)
+            ref = flow_stack.fused_flow_stack_bwd_plain(x, cots, cld)
+            alone = [flow_stack.fused_flow_stack_bwd(p, c, cld) for p, c in zip(per, cots_per)]
+            torch.cuda.synchronize()
+            errs, bad = compare_flow_grads(got, ref)
+            check(not bad, f"member-batched flow_stack_bwd vs plain ({case}): {bad} past "
+                           "the tolerance")
+            same = all(torch.equal(got[i][m * B:(m + 1) * B], alone[m][i])
+                       for m in range(M) for i in range(4))
+            # through autograd (`_FlowStack`): each member's z0 gradient summed
+            # over its own points as its own call's expand sums it
+            z0 = x[0].clone().requires_grad_()
+            z, ldj = flow_stack.fused_flow_stack(z0, *x[1:], cld)
+            torch.autograd.backward([z, ldj], cots)
+            summed = []
+            for m, p in enumerate(per):
+                z0_m = p[0][0].clone().requires_grad_()
+                z, ldj = flow_stack.fused_flow_stack(z0_m[None].expand(B, K, Z), *p[1:], cld)
+                torch.autograd.backward([z, ldj], cots_per[m])
+                summed.append(torch.equal(z0.grad[m], z0_m.grad))
+            check(same and all(summed),
+                  f"member-batched flow-stack backward vs one launch per member ({case}): "
+                  f"bitwise (per point {same}, z0 sums {summed})")
+            ms = cuda_ms(lambda: flow_stack.fused_flow_stack_bwd(x, cots, cld), 21)
+            single_ms = cuda_ms(lambda: [flow_stack.fused_flow_stack_bwd(p, c, cld)
+                                         for p, c in zip(per, cots_per)], 21)
+            plain_ms = cuda_ms(lambda: flow_stack.fused_flow_stack_bwd_plain(x, cots, cld), 3)
+            b_ms, b_by = member_bound(flow_stack_bwd_work, M, B, K, Z, F, cld)
+            stats = dict(case=case, max_abs_err=max(e["max_abs"] for e in errs.values()),
+                         ms=ms, single_launches_ms=single_ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by,
+                         bitwise_vs_one_launch_a_member=same and all(summed))
+            emit("kernel_members", kernel="flow_stack_bwd", errors=errs,
+                 tolerance={"rtol": BWD_RTOL, "atol": BWD_ATOL, "z0_rel_to_max": Z0_REL},
+                 **stats)
+            if Z == 3:
+                out["flow_stack_bwd"] = stats
+            del got, ref, alone, cots, cots_per, z0
+        del per, x
+    torch.cuda.empty_cache()
 
 
 def phase_member_kernels():
@@ -1729,6 +1836,7 @@ def phase_member_kernels():
          tolerance={"rtol": BWD_RTOL, "atol": BWD_ATOL, "z0_rel_to_max": Z0_REL},
          **{k: v for k, v in out["render_core_bwd"].items() if k != "case"})
     del per, x, cots, cots_per, got, ref, alone
+    member_flow_checks(out)
 
     M, B, D, Wd = MEMBER_TRUNK_M, TRAIN_FLAT_PTS, 8, 512
     case = f"M={M} x B={B} D{D}/W{Wd}"
@@ -4230,10 +4338,12 @@ def ens_run(argv):
                 launches={c.__name__: c.launches for c in ENS_COUNTERS})
 
 
-def ens_want(fwd=0, bwd=0, trunk_kernels=False):
+def ens_want(fwd=0, bwd=0, trunk_kernels=False, flow_fwd=0, flow_bwd=0):
     counts = dict.fromkeys((c.__name__ for c in ENS_COUNTERS), 0)
     counts[render_core.fused_flow_composite.__name__] = fwd
     counts[render_core.fused_flow_composite_bwd.__name__] = bwd
+    counts[flow_stack.fused_flow_stack.__name__] = flow_fwd
+    counts[flow_stack.fused_flow_stack_bwd.__name__] = flow_bwd
     if trunk_kernels:  # a trunk forward beside every render-core one
         counts[trunk.trunk_encode.__name__] = fwd
         counts[trunk.trunk_encode_bwd.__name__] = bwd
@@ -4245,16 +4355,20 @@ def ens_records(basedir, expname="ens"):
         return [json.loads(line) for line in f]
 
 
-def ens_train_checks(label, run, records, n_members, steps, parallel, trunk_kernels=False):
+def ens_train_checks(label, run, records, n_members, steps, parallel, trunk_kernels=False,
+                     want=None):
     """A training run's gates: launches exact from the cadences (serial: a
-    render-core forward and backward a member step; --parallel: one of each
-    a dispatch for all members, the member-batched step; both: a forward a
-    member's val batch), the records at every i_print, finite; returns the
-    loop's rays/s over the records' clock (first to last i_print, every
-    member)."""
+    render-core forward and backward a member step, a forward a member's
+    val batch; --parallel: one of each a dispatch for all members, the
+    member-batched step, and a forward a val batch for all members, the
+    batched val render), or `want` where given; the records at every
+    i_print, finite; returns the loop's rays/s over the records' clock
+    (first to last i_print, every member)."""
     prints = list(range(ENS_PRINT, steps + 1, ENS_PRINT))
-    steps_launches = steps if parallel else n_members * steps
-    want = ens_want(steps_launches + n_members * len(prints), steps_launches, trunk_kernels)
+    if want is None:
+        steps_launches = steps if parallel else n_members * steps
+        val_launches = len(prints) if parallel else n_members * len(prints)
+        want = ens_want(steps_launches + val_launches, steps_launches, trunk_kernels)
     check(run["launches"] == want, f"ensemble {label}: launched {run['launches']}, want {want}")
     if parallel:
         check(f"ensemble step: {n_members} members batched" in run["text"],
@@ -4329,6 +4443,63 @@ def ens_checkpoint_err(path_a, path_b, steps=ENS_STEPS):
     return max(errs), len(errs)
 
 
+# (e): the occ stage from step 50 of 100 (N12 placed samples from 128
+# candidates): each member's proposal distilled at the boundary (2^18
+# points, four density queries of 65,536, two flow-stack launches each),
+# then a co-training density query a step (two launches; --parallel: one
+# query for all members); (f): the unfused render, 30 steps, two flow-stack
+# launches each way a step (--parallel: a dispatch), two a val batch
+ENS_OCC_FLAGS = ["--occ_train", "12", "--occ_train_from", "50"]
+ENS_OCC_FROM = 50
+ENS_DISTILL_QUERIES = (1 << 18) // DENSITY_CHUNK
+ENS_UNFUSED_FLAGS = ["--fused_render", "off"]
+ENS_UNFUSED_STEPS = 30
+
+
+def ens_cadences(steps):
+    return ["--n_iters", str(steps), "--i_print", str(ENS_PRINT), "--i_weights", str(steps),
+            "--i_img", "0", "--i_testset", "0", "--i_video", "0"]
+
+
+def ens_serial_parallel(datadir, tmp, tag, extra, steps, trunk_kernels=False,
+                        wants=(None, None)):
+    """A serial and a --parallel run of ENS_MEMBERS members x `steps` at
+    scripts/train_NF.sh's flags plus `extra`, each gated by
+    ens_train_checks (launches `wants`: serial, parallel, or the cadences'
+    render-core counts), every --parallel checkpoint tensor against its
+    serial one at ENS_CKPT_RTOL.  Returns (report, serial run, parallel
+    run)."""
+    n = ["--n_members", str(ENS_MEMBERS)]
+    runs, rates, rundirs = [], [], []
+    for parallel, want in zip((False, True), wants):
+        label = f"{'parallel' if parallel else 'serial'} {tag}"
+        flags = cli_flags(datadir, os.path.join(tmp, label.replace(" ", "_")), "ens",
+                          *extra) + n
+        run = ens_run(["train", *flags, "--is_train", *(["--parallel"] if parallel else []),
+                       *ens_cadences(steps)])
+        args = cli_ensemble.parser().parse_args(flags)
+        rates.append(ens_train_checks(label, run, ens_records(args.basedir), ENS_MEMBERS,
+                                      steps, parallel=parallel, trunk_kernels=trunk_kernels,
+                                      want=want))
+        runs.append(run)
+        rundirs.append(ckpt.run_dir(args.basedir, args.dataname, args.type_flows, "ens"))
+    errs = {}
+    for m in range(1, ENS_MEMBERS + 1):
+        name = f"{steps:06d}_{m:02d}"
+        err, n_tensors = ens_checkpoint_err(os.path.join(rundirs[1], name),
+                                            os.path.join(rundirs[0], name), steps)
+        errs[f"m{m:02d}"] = {"max_rel_err": err, "tensors": n_tensors}
+        check(err <= ENS_CKPT_RTOL,
+              f"member {m}'s --parallel {tag} checkpoint vs its serial one: relative max {err}")
+    report = dict(steps=steps, flags=list(extra),
+                  serial={"seconds": runs[0]["seconds"], "launches": runs[0]["launches"],
+                          "loop_rays_per_s": rates[0]},
+                  parallel={"seconds": runs[1]["seconds"], "launches": runs[1]["launches"],
+                            "loop_rays_per_s": rates[1], "rate_vs_serial": rates[1] / rates[0],
+                            "checkpoints_vs_serial": errs})
+    return report, runs[0], runs[1]
+
+
 def phase_ensemble(tmp):
     """cfnerf_torch.cli.ensemble on a copy of the capture at
     scripts/train_NF.sh's flags: (a) serial training of 3 members, 100
@@ -4338,11 +4509,16 @@ def phase_ensemble(tmp):
     checkpoint against its serial one, the tagged scalars, its mixture
     eval, its loop rate against (a)'s, its peak memory; (d) --trunk_impl
     pallas, 3 members, 100 steps, serial and --parallel, each --parallel
-    checkpoint against its serial one, both loops' rates.  --parallel runs the member-batched
-    step: one render-core forward and backward (and, with pallas, one trunk
-    forward and backward) a dispatch for all members.  Launches exact
-    everywhere.  Returns each kernel's launches by path: its serial runs,
-    the mixture evals, the --parallel runs."""
+    checkpoint against its serial one, both loops' rates; (e) the occ
+    stage (ENS_OCC_FLAGS), 3 members x 100 steps, and (f) the unfused
+    render (ENS_UNFUSED_FLAGS), 3 members x 30 steps, both serial and
+    --parallel, checkpoints and rates as (d).  --parallel runs the
+    member-batched step: one render-core forward and backward (and, with
+    pallas, one trunk forward and backward) a dispatch for all members, or
+    unfused two flow-stack launches each way; in the occ stage one
+    co-training density query for all; one val batch render for all.
+    Launches exact everywhere.  Returns each kernel's launches by path: its
+    serial runs, the mixture evals, the --parallel runs."""
     t_phase = time.perf_counter()
     datadir = shutil.copytree(CAPTURE, os.path.join(tmp, "minicapture"))
     n = ["--n_members", str(ENS_MEMBERS)]
@@ -4397,31 +4573,36 @@ def phase_ensemble(tmp):
     eval_runs.append(run)
 
     # (d) through the trunk kernels: serial, then --parallel
-    flags_ds = cli_flags(datadir, os.path.join(tmp, "pallas_serial"), "ens", "--trunk_impl",
-                         "pallas") + n
-    pallas_serial = ens_run(["train", *flags_ds, "--is_train", *ENS_CADENCES])
-    args_ds = cli_ensemble.parser().parse_args(flags_ds)
-    pallas_serial_rate = ens_train_checks(
-        "serial pallas", pallas_serial, ens_records(args_ds.basedir), ENS_MEMBERS, ENS_STEPS,
-        parallel=False, trunk_kernels=True)
-    flags_d = cli_flags(datadir, os.path.join(tmp, "pallas"), "ens", "--trunk_impl",
-                        "pallas") + n
-    pallas = ens_run(["train", *flags_d, "--is_train", "--parallel", *ENS_CADENCES])
-    args_d = cli_ensemble.parser().parse_args(flags_d)
-    pallas_rate = ens_train_checks("parallel pallas", pallas, ens_records(args_d.basedir),
-                                   ENS_MEMBERS, ENS_STEPS, parallel=True, trunk_kernels=True)
-    rundir_d = ckpt.run_dir(args_d.basedir, args_d.dataname, args_d.type_flows, "ens")
-    rundir_ds = ckpt.run_dir(args_ds.basedir, args_ds.dataname, args_ds.type_flows, "ens")
-    pallas_errs = {}
-    for m in range(1, ENS_MEMBERS + 1):
-        name = f"{ENS_STEPS:06d}_{m:02d}"
-        err, n_tensors = ens_checkpoint_err(os.path.join(rundir_d, name),
-                                            os.path.join(rundir_ds, name))
-        pallas_errs[f"m{m:02d}"] = {"max_rel_err": err, "tensors": n_tensors}
-        check(err <= ENS_CKPT_RTOL,
-              f"member {m}'s --parallel pallas checkpoint vs its serial one: relative max {err}")
-    RATES["ensemble_serial_pallas"] = pallas_serial_rate
-    RATES["ensemble_parallel_pallas"] = pallas_rate
+    pallas_report, pallas_serial, pallas = ens_serial_parallel(
+        datadir, tmp, "pallas", ["--trunk_impl", "pallas"], ENS_STEPS, trunk_kernels=True)
+    RATES["ensemble_serial_pallas"] = pallas_report["serial"]["loop_rays_per_s"]
+    RATES["ensemble_parallel_pallas"] = pallas_report["parallel"]["loop_rays_per_s"]
+
+    # (e) the occ stage: serial, then --parallel
+    M, prints = ENS_MEMBERS, ENS_STEPS // ENS_PRINT
+    occ_steps = ENS_STEPS - ENS_OCC_FROM + 1
+    distill = 2 * ENS_DISTILL_QUERIES  # a member's distillation's flow-stack launches
+    occ_report, occ_serial, occ_parallel = ens_serial_parallel(
+        datadir, tmp, "occ", ENS_OCC_FLAGS, ENS_STEPS,
+        wants=(ens_want(M * (ENS_STEPS + prints), M * ENS_STEPS,
+                        flow_fwd=M * (distill + 2 * occ_steps)),
+               ens_want(ENS_STEPS + prints, ENS_STEPS, flow_fwd=M * distill + 2 * occ_steps)))
+    check("ensemble step: 3 members batched" in occ_parallel["text"]
+          and "density query" in occ_parallel["text"],
+          "ensemble occ: the member-batched occ step ran")
+    RATES["ensemble_serial_occ"] = occ_report["serial"]["loop_rays_per_s"]
+    RATES["ensemble_parallel_occ"] = occ_report["parallel"]["loop_rays_per_s"]
+
+    # (f) the unfused render: serial, then --parallel
+    steps_f, prints_f = ENS_UNFUSED_STEPS, ENS_UNFUSED_STEPS // ENS_PRINT
+    unfused_report, unfused_serial, unfused_parallel = ens_serial_parallel(
+        datadir, tmp, "unfused", ENS_UNFUSED_FLAGS, steps_f,
+        wants=(ens_want(flow_fwd=M * 2 * (steps_f + prints_f), flow_bwd=M * 2 * steps_f),
+               ens_want(flow_fwd=2 * (steps_f + prints_f), flow_bwd=2 * steps_f)))
+    check("flow-stack launch a chain" in unfused_parallel["text"],
+          "ensemble unfused: the member-batched unfused step ran")
+    RATES["ensemble_serial_unfused"] = unfused_report["serial"]["loop_rays_per_s"]
+    RATES["ensemble_parallel_unfused"] = unfused_report["parallel"]["loop_rays_per_s"]
 
     emit("ensemble", nvidia_smi=nvidia_smi_line(), members=ENS_MEMBERS, steps=ENS_STEPS,
          rays_per_step=N_RAND + N_DEPTH, n_val=n_val,
@@ -4436,18 +4617,16 @@ def phase_ensemble(tmp):
                    "train_psnr_max_abs_diff_vs_serial": psnr_diff,
                    "eval": parallel_eval,
                    "iter_time_ms": [1e3 * r["iter_time"] for r in parallel_records]},
-         serial_pallas={"seconds": pallas_serial["seconds"],
-                        "launches": pallas_serial["launches"],
-                        "loop_rays_per_s": pallas_serial_rate},
-         parallel_pallas={"seconds": pallas["seconds"], "launches": pallas["launches"],
-                          "loop_rays_per_s": pallas_rate,
-                          "rate_vs_serial": pallas_rate / pallas_serial_rate,
-                          "checkpoints_vs_serial": pallas_errs},
-         dispatches={"parallel": ENS_STEPS, "parallel_pallas": ENS_STEPS},
+         pallas=pallas_report, occ=occ_report, unfused=unfused_report,
+         dispatches={"parallel": ENS_STEPS, "parallel_pallas": ENS_STEPS,
+                     "parallel_occ": ENS_STEPS, "parallel_unfused": ENS_UNFUSED_STEPS},
          phase_s=time.perf_counter() - t_phase,
          gates={"checkpoint_rel_err": ENS_CKPT_RTOL, "parallel_rate_floor": ENS_RATE_FLOOR})
     by_path = {"ensemble_serial": [serial, pallas_serial], "ensemble_eval": eval_runs,
-               "ensemble_parallel": [parallel, pallas]}
+               "ensemble_parallel": [parallel, pallas],
+               "ensemble_occ_serial": [occ_serial], "ensemble_occ_parallel": [occ_parallel],
+               "ensemble_unfused_serial": [unfused_serial],
+               "ensemble_unfused_parallel": [unfused_parallel]}
     return {path: {c.__name__: sum(r["launches"][c.__name__] for r in part)
                    for c in ENS_COUNTERS} for path, part in by_path.items()}
 
@@ -4861,6 +5040,8 @@ def main() -> int:
     trunk_stats.update(trunk_save_stats)
     members = phase_member_kernels()
     for stats, name in ((fwd_stats, "render_core_fwd"), (bwd_stats, "render_core_bwd"),
+                        (flow_stats["fwd"], "flow_stack_fwd"),
+                        (flow_stats["bwd"], "flow_stack_bwd"),
                         (trunk_stats, "trunk_fwd"), (trunk_bwd_stats, "trunk_bwd")):
         stats["members"] = members[name]
     serve_launches, unfused_launches = phase_serve()
@@ -4940,10 +5121,15 @@ def main() -> int:
     # forward a member's val batch, a trunk forward and backward beside them
     # in its pallas run; ensemble_parallel: the member-batched step, one
     # render-core forward and backward (and with pallas one trunk forward and
-    # backward) a dispatch for all members, and a forward a member's val
-    # batch; ensemble_eval: a forward a member's evaluated view; no flow
-    # stack; mesh: the same per rank on each of its paths, summed over the
-    # ranks (phase_mesh)
+    # backward) a dispatch for all members, and a forward a val batch for
+    # all members; ensemble_eval: a forward a member's evaluated view;
+    # ensemble_occ_*: as ensemble_* on the dense steps and the placed ones,
+    # the flow stack two launches a density query (a member's distillation,
+    # serial: a member's co-training step, --parallel: a dispatch's);
+    # ensemble_unfused_*: no render core, the flow stack two launches each
+    # way a member step (--parallel: a dispatch), two a val batch (serial: a
+    # member's); mesh: the same per rank on each of its paths, summed over
+    # the ranks (phase_mesh)
     def ens_paths(name):
         return {path: counts[name] for path, counts in ens.items()}
 

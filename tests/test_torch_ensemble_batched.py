@@ -491,29 +491,48 @@ def test_batched_step_is_the_per_member_steps_bitwise(impl):
 
 
 def test_the_step_batches_only_the_flagship_fused_path(capsys):
-    """The choice, made once and printed: the per-member loop for the occ
-    stage, hierarchical sampling, other families, the unfused render and
-    remat; the batched step refuses seams it has no draws for."""
+    """The choice, made once and printed: the member-batched step for the
+    triangular NeRFFlows, fused or unfused (applied noise included), placed
+    (the occ stage) or not; the per-member loop for hierarchical sampling,
+    the other families, remat and members of different configurations; the
+    batched step refuses seams it has no draws for."""
     models = [port_nerf_flows(CFG, p, e) for p, e in
               (jax_nerf_flows(CFG, seed=m)[1:] for m in range(M))]
     rc, tc = RenderConfig(n_samples=8), TrainConfig(**TRAIN_KW)
     occ = OccTrainConfig(lo=(-1.0,) * 3, hi=(1.0,) * 3)
     assert batched_step_refusal(models, rc, tc) is None
-    assert batched_step_refusal(models, rc, tc, occ=occ) == "the occ stage"
+    assert batched_step_refusal(models, rc, tc, occ=occ) is None
+    assert batched_step_refusal(models, RenderConfig(n_samples=8, fused="off"), tc) is None
+    assert batched_step_refusal(models, RenderConfig(n_samples=8, fused="off"), tc,
+                                occ=occ) is None
+    assert batched_step_refusal(models, RenderConfig(n_samples=8, apply_noise=True,
+                                                     raw_noise_std=1.0), tc) is None
     assert batched_step_refusal(models, RenderConfig(n_samples=8, n_importance=4),
                                 tc) == "hierarchical sampling"
-    assert batched_step_refusal(models, RenderConfig(n_samples=8, fused="off"),
-                                tc) == "the unfused render"
+    assert batched_step_refusal(models, rc, tc, model_fine=models) == "hierarchical sampling"
     assert batched_step_refusal(models, rc, TrainConfig(**TRAIN_KW, remat=True)) == "remat"
+    assert batched_step_refusal(models, rc, TrainConfig(**TRAIN_KW, remat=True),
+                                occ=occ) == "remat"
     planar = [NeRFFlows(net_depth=2, net_width=32, type_flows="planar", k_samples=8)
               for _ in range(M)]
     assert batched_step_refusal(planar, rc, tc) == "the planar flow family"
     assert batched_step_refusal([models[0], planar[0]], rc, tc) == \
         "the planar/triangular flow family"
+    plain_flows = port_nerf_flows(CFG, *jax_nerf_flows(CFG, seed=2)[1:])
+    plain_flows.flow_impl = "xla"
+    assert batched_step_refusal([models[0], plain_flows], rc, tc) == \
+        "members of different configurations"
 
-    step, _ = make_ensemble_train_step(models, RenderConfig(n_samples=8, fused="off"), tc, M)
+    step, _ = make_ensemble_train_step(models, RenderConfig(n_samples=8, n_importance=4),
+                                       tc, M)
     assert not step.batched
-    assert "2 members one after another (the unfused render)" in capsys.readouterr().out
+    assert "2 members one after another (hierarchical sampling)" in capsys.readouterr().out
+    step, _ = make_ensemble_train_step(models, RenderConfig(n_samples=8, fused="off"), tc, M)
+    assert step.batched
+    assert ("2 members batched (one trunk and flow-stack launch a chain and pass for all)"
+            in capsys.readouterr().out)
+    step, _ = make_ensemble_train_step(models, rc, tc, M, occ=occ)
+    assert step.batched and "density query" in capsys.readouterr().out
     step, _ = make_ensemble_train_step(models, rc, tc, M)
     assert step.batched and "2 members batched" in capsys.readouterr().out
     batch = _stacked([make_batch(*RAYS, seed=m) for m in range(M)])
