@@ -28,3 +28,26 @@ The package imports torch and never jax or cfnerf_tpu.  Entry points run on
 the CUDA device unless the caller passes device="cpu"; on the CPU every
 kernel wrapper runs its plain PyTorch version.
 """
+
+import torch as _torch
+
+
+def _warm_cpu_vector_math() -> None:
+    """Run ATen's CPU vector-math library once, single-threaded.
+
+    On the CPU, torch.sin, cos, exp, log, tanh and others call MKL's vector
+    math (VML) over each OpenMP thread's share of the tensor.  The first
+    such call of a process, when several threads enter it at once, can
+    compute one thread's share with the wrong arithmetic: ~1e-4 relative
+    error in sin, for every element of that share, in about 2% of fresh
+    processes (any of those functions, whichever comes first; later calls
+    are right).  A call on 8 elements runs on the calling thread alone
+    (below ATen's parallel grain), so the library is set up before any
+    parallel call.  The proposal's positional encoding, cast to bf16 and
+    inverted through a CDF, turned that into placed depths that changed
+    from process to process."""
+    _torch.sin(_torch.zeros(8))
+
+
+_warm_cpu_vector_math()
+

@@ -30,8 +30,10 @@ computes them either) and take the unfused forward only.
 once: the trunk kernels and the render core launched once for all of them
 (a member axis), the xla trunk and the amortizers member by member through
 each member's own modules; forward_composited is it at one member.
-`forward_members` does the same for the unfused forward, the flow-stack
-kernel launched once a chain for all members; forward is it at one member.
+`forward_members` does the same for the unfused forward of any family:
+the triangular flow-stack kernel launched once a chain for all members, the
+other families' eager flows once on the members' joined points (IAF's
+through each member's own MADE layers); forward is it at one member.
 
 Test mode uses fixed eps buffers with the LAST of the K draws zeroed (the
 mean sample) and skips the log-dets.  A fresh model draws its buffers from
@@ -129,6 +131,34 @@ def fixed_eps(k_samples: int, seed: int) -> Eps:
     eps_a[-1] = 0.0
     eps_r[-1] = 0.0
     return eps_a, eps_r
+
+
+def flow_chain(type_flows: str, n_flows: int, z0: torch.Tensor, params: Sequence,
+               compute_log_det: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The eager flow stack of the householder, orthogonal and planar
+    families (and no_flow's identity) on (B, K, Z) latents, given their
+    amortizer's per-point parameters (B, ...) (the flow steps of
+    cfnerf_tpu/models/nerf_flows.py:316-346).  Every operation is per point
+    (the sums run over the tiny Z axis), so the points may be several
+    members' joined.  Returns (z, log-det (B, K))."""
+    zeros = torch.zeros(z0.shape[:-1], dtype=z0.dtype, device=z0.device)
+    if type_flows == "no_flow":
+        return z0, zeros
+    z, ldj = z0, zeros
+    if type_flows == "planar":
+        u, w, b = params
+        for k in range(n_flows):
+            z, ld = planar_step(z, u[..., k], w[..., k], b[..., k])
+            ldj = ldj + ld
+        return z, (ldj if compute_log_det else zeros)
+    if type_flows not in ("householder", "orthogonal"):
+        raise ValueError(f"flow_chain has no {type_flows!r} flows")
+    r1, r2, q, b = params
+    for k in range(n_flows):
+        z, ld = general_sylvester_step(z, r1[..., k], r2[..., k], q[..., k], b[..., k],
+                                       compute_log_det=compute_log_det)
+        ldj = ldj + ld
+    return z, ldj
 
 
 class NeRFFlows(nn.Module):
@@ -351,28 +381,15 @@ class NeRFFlows(nn.Module):
         flow-stack kernels on the card) or, with flow_impl "xla" or
         "interpret", its plain version; it gets z0 as given (an expanded z0
         is read through a zero point stride) and its parameters contiguous
-        (r2 is built from a transpose)."""
-        zeros = torch.zeros(z0.shape[:-1], dtype=z0.dtype, device=z0.device)
+        (r2 is built from a transpose).  The other families' flows are
+        flow_chain's, IAF's its module's."""
         if self.type_flows == "no_flow":
-            return z0, zeros
+            return flow_chain("no_flow", 0, z0, (), compute_log_det)
         amor = self.flows_alpha if which == "alpha" else self.flows_rgb
         if self.type_flows == "IAF":
             return amor(z0, h, compute_log_det)
-        if self.type_flows == "planar":
-            u, w, b = amor(h)
-            z, ldj = z0, zeros
-            for k in range(self.n_flows):
-                z, ld = planar_step(z, u[..., k], w[..., k], b[..., k])
-                ldj = ldj + ld
-            return z, (ldj if compute_log_det else zeros)
-        if self.type_flows in ("householder", "orthogonal"):
-            r1, r2, q, b = amor(h)
-            z, ldj = z0, zeros
-            for k in range(self.n_flows):
-                z, ld = general_sylvester_step(z, r1[..., k], r2[..., k], q[..., k],
-                                               b[..., k], compute_log_det=compute_log_det)
-                ldj = ldj + ld
-            return z, ldj
+        if self.type_flows != "triangular":
+            return flow_chain(self.type_flows, self.n_flows, z0, amor(h), compute_log_det)
         stack = (fused_flow_stack if self.flow_impl in ("auto", "pallas")
                  else fused_flow_stack_plain)
         return stack(z0, *(t.contiguous() for t in amor(h)), compute_log_det)
@@ -494,6 +511,45 @@ def _joined(parts):
     return parts[0].contiguous() if len(parts) == 1 else torch.cat(parts)
 
 
+def _cat(parts):
+    """Members' per-point tensors joined along the points; one member's as
+    it is (an expanded z0 stays a view)."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _member_chain(models: Sequence[NeRFFlows], heads: list, z0: list, i: int, B: int,
+                  compute_ld: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chain i (0: density, 1: rgb) of M NeRFFlows of one family on their
+    points, member-major: each member's (K, Z) base draws expanded over its
+    own B points.  The triangular family's stack is one `fused_flow_stack`
+    call for all members, its (M, K, Z) base draws beside their joined flow
+    parameters (the flow-stack kernel's member axis); the householder,
+    orthogonal and planar families' eager flows run once on the joined
+    points and parameters (flow_chain); IAF's MADE layers hold each
+    member's weights, so each member's chain runs through its own module.
+    The amortizers run member by member.  Returns (z (M * B, K, Z), log-det
+    (M * B, K))."""
+    first = models[0]
+    family = first.type_flows
+    which = ("flows_alpha", "flows_rgb")[i]
+    if family == "triangular":
+        stack = (fused_flow_stack if first.flow_impl in ("auto", "pallas")
+                 else fused_flow_stack_plain)
+        params = [getattr(m, which)(h[i]) for m, h in zip(models, heads)]
+        return stack(torch.stack([z[i] for z in z0]), *(_joined(t) for t in zip(*params)),
+                     compute_ld)
+    K = first.k_samples
+    draws = [z[i][None].expand(B, K, z[i].shape[-1]) for z in z0]
+    if family == "IAF":
+        chains = [getattr(m, which)(d, h[i], compute_ld)
+                  for m, h, d in zip(models, heads, draws)]
+        return tuple(_cat(t) for t in zip(*chains))
+    params = ([] if family == "no_flow" else
+              [getattr(m, which)(h[i]) for m, h in zip(models, heads)])
+    return flow_chain(family, first.n_flows, _cat(draws), [_cat(t) for t in zip(*params)],
+                      compute_ld)
+
+
 def forward_members(
     models: Sequence[NeRFFlows],
     x: torch.Tensor,
@@ -501,42 +557,24 @@ def forward_members(
     *,
     is_test: bool = False,
 ) -> Tuple[torch.Tensor, list]:
-    """The unfused forward (NeRFFlows.forward) of M NeRFFlows of one shape
-    at once, the member axis first: x (M, B, input_ch [+ views]), eps each
-    member's base draws (NeRFFlows._draw_eps).  Member m's arithmetic is
-    its own forward's: the trunks as forward_composited_members runs them,
-    the amortizers member by member through each member's modules, then
-    each chain (density, rgb) of the triangular family in one
-    `fused_flow_stack` call for all members, on their stacked (M, K, Z) base
-    draws beside their joined flow parameters (the flow-stack kernel's
-    member axis); the final-activation log-det corrections and each
-    member's entropy from its own points.  Another family takes its own
-    forward, one member (its flows are eager PyTorch).  NeRFFlows.forward is
-    this at one member.  Returns raw (M * B, K, 4), the points member-major,
-    and the M entropies (0 in test mode)."""
-    first = models[0]
+    """The unfused forward (NeRFFlows.forward) of M NeRFFlows of one
+    family and shape at once, the member axis first: x (M, B, input_ch [+
+    views]), eps each member's base draws (NeRFFlows._draw_eps).  Member
+    m's arithmetic is its own forward's: the trunks as
+    forward_composited_members runs them, then each chain (density, rgb)
+    for all members as _member_chain runs it (one flow-stack launch a chain
+    for the triangular family), then the final-activation log-det
+    corrections and each member's entropy from its own points.
+    NeRFFlows.forward is this at one member.  Returns raw (M * B, K, 4),
+    the points member-major, and the M entropies (0 in test mode)."""
     M, B = x.shape[:2]
-    K = first.k_samples
-    if first.type_flows != "triangular" and M > 1:
-        raise ValueError("forward_members batches members of the triangular family only")
+    if len({m.type_flows for m in models}) > 1:
+        raise ValueError("forward_members takes members of one flow family")
     heads = _member_heads(models, x)
     z0 = [m._base_draws(*e) for m, e in zip(models, eps)]
     compute_ld = not is_test
-    if first.type_flows == "triangular":
-        stack = (fused_flow_stack if first.flow_impl in ("auto", "pallas")
-                 else fused_flow_stack_plain)
-        chains = []
-        for i, which in enumerate(("flows_alpha", "flows_rgb")):
-            params = [getattr(m, which)(h[i]) for m, h in zip(models, heads)]
-            chains.append(stack(torch.stack([z[i] for z in z0]),
-                                *(_joined(t) for t in zip(*params)), compute_ld))
-        (z_alpha, ldj_alpha), (z_rgb, ldj_rgb) = chains
-    else:
-        (z0_a, z0_r), (h_alpha, h_rgb) = z0[0], heads[0]
-        z_alpha, ldj_alpha = first._apply_flows(
-            z0_a[None].expand(B, K, Z_ALPHA), h_alpha, "alpha", compute_ld)
-        z_rgb, ldj_rgb = first._apply_flows(
-            z0_r[None].expand(B, K, Z_RGB), h_rgb, "rgb", compute_ld)
+    z_alpha, ldj_alpha = _member_chain(models, heads, z0, 0, B, compute_ld)
+    z_rgb, ldj_rgb = _member_chain(models, heads, z0, 1, B, compute_ld)
     raw = torch.cat([z_rgb, z_alpha], -1)
     if is_test:
         return raw, [torch.zeros((), dtype=raw.dtype, device=raw.device)] * M

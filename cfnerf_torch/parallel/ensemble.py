@@ -10,10 +10,11 @@ each member keeps its own nets, Adam, schedule, generator and checkpoint
 format, and the ensemble step is one of two, chosen once when it is built
 (printed, and kept as step.batched):
 
-  * the member-batched step, JAX's vmap written out, for the triangular
-    NeRFFlows on the fused or the unfused render, placed (the occ stage) or
-    not (no fine pass, no remat; train/step.py:batched_step_refusal), its
-    loss train/step.py:make_batched_loss, which is also the one-member step
+  * the member-batched step, JAX's vmap written out, for NeRFFlows of any
+    flow family on the fused (triangular) or the unfused render, placed (the
+    occ stage) or not, with or without remat (no fine pass, no baseline;
+    train/step.py:batched_step_refusal), its loss
+    train/step.py:make_batched_loss, which is also the one-member step
     of these configurations: each member's draws from its own generator in
     its serial step's order (the placement's u or the jitter, the base
     draws, the density noise); each member's placement on its own rays and
@@ -23,10 +24,12 @@ format, and the ensemble step is one of two, chosen once when it is built
     launch forward and one backward), the render core (one launch forward,
     one backward, the z0 gradients per member) or, unfused, the flow stack
     (one launch a chain each way, each member's z0 gradient summed over its
-    own points) with a member axis; the "xla" trunk's and the amortizers'
-    products, and the unfused composite, member by member, which keeps
-    their bits; each member's loss scored on its own rays, one backward on
-    their sum, then each member's own update (its Adam and schedule; under a
+    own points) with a member axis; the householder, orthogonal and planar
+    flows once on the members' joined points; the "xla" trunk's and the
+    amortizers' products, IAF's MADE layers and the unfused composite,
+    member by member, which keeps their bits; with remat the members'
+    forward under one activation checkpoint; each member's loss scored on
+    its own rays, one backward on their sum, then each member's own update (its Adam and schedule; under a
     mesh its gradient's all-reduce over its data ranks first); in the occ
     stage then one density query of the M updated fields (the flow stack
     one launch a chain) and each member's proposal's own Adam step
@@ -35,7 +38,7 @@ format, and the ensemble step is one of two, chosen once when it is built
     versions run member by member, bitwise.  A batched launch that fails
     raises; nothing falls back to the loop;
   * the per-member loop for every other configuration (hierarchical
-    sampling, the other flow families, the baselines, remat): the M
+    sampling, the baselines, members that differ): the M
     single-member steps of train/step.py:make_train_step one after another
     inside one call.
 
@@ -215,10 +218,18 @@ def _batched_step(members: Sequence[Callable], models: Sequence[NeRFFlows],
     return step
 
 
-def _batched_launches(render_config: RenderConfig, occ) -> str:
-    """What the member-batched step launches once for all members."""
-    what = ("one trunk and flow-stack launch a chain and pass" if unfused(render_config)
-            else "one trunk and render-core launch a pass")
+def _batched_launches(render_config: RenderConfig, occ, family: str, remat: bool) -> str:
+    """What the member-batched step runs once for all members."""
+    if family == "IAF":  # the MADE layers are each member's own
+        what = "the IAF flows member by member; one trunk launch a pass"
+    elif family != "triangular":
+        what = f"the {family} flows once on the joined points; one trunk launch a pass"
+    elif unfused(render_config):
+        what = "one trunk and flow-stack launch a chain and pass"
+    else:
+        what = "one trunk and render-core launch a pass"
+    if remat:
+        what = "remat, the forward recomputed in the backward; " + what
     return what + ("; the co-training's density query one flow-stack launch a chain"
                    if occ is not None else "")
 
@@ -275,8 +286,8 @@ def make_ensemble_train_step(
     refusal = batched_step_refusal(models, render_config, cfg, model_fine, occ)
     if refusal is None:
         step = _batched_step(members, models, render_config, cfg, mesh, occ)
-        print(f"ensemble step: {n_members} members batched "
-              f"({_batched_launches(render_config, occ)} for all)", flush=True)
+        launches = _batched_launches(render_config, occ, models[0].type_flows, cfg.remat)
+        print(f"ensemble step: {n_members} members batched ({launches} for all)", flush=True)
     else:
         def step(batch: Mapping, generators: Sequence[Optional[torch.Generator]],
                  **seams) -> Metrics:

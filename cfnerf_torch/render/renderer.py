@@ -20,6 +20,7 @@ import dataclasses
 from typing import Callable, ContextManager, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from cfnerf_torch.models.nerf_flows import forward_composited_members, forward_members
 from cfnerf_torch.ops.compositing import LAST_DIST, finalize_k_maps, raw2outputs
@@ -118,6 +119,14 @@ def unfused(config: RenderConfig) -> bool:
     return config.fused == "off" or config.n_importance > 0 or noisy
 
 
+def _checkpointed(remat: bool, forward: Callable) -> Callable:
+    """`forward`, or with `remat` `forward` under a non-reentrant activation
+    checkpoint (torch.utils.checkpoint, JAX's jax.checkpoint)."""
+    if not remat:
+        return forward
+    return lambda *args, **kwargs: checkpoint(forward, *args, use_reentrant=False, **kwargs)
+
+
 def render_members(
     models: Sequence,
     config: RenderConfig,
@@ -131,29 +140,35 @@ def render_members(
     generators: Optional[Sequence[Optional[torch.Generator]]] = None,
     noise: Optional[Sequence[Optional[torch.Tensor]]] = None,
     rows: Optional[Callable[[int], ContextManager]] = None,
+    remat: bool = False,
 ) -> List[Dict[str, torch.Tensor]]:
-    """The render of M NeRFFlows of one shape (an ensemble's members, or one
-    net) at given depths, JAX's vmapped render_rays: rays_o, rays_d,
-    viewdirs (M * R, 3) and z_vals (M * R, S), the rays member-major;
-    `draws` each member's base draws (NeRFFlows._draw_eps).  The positional
-    encoding and the sample intervals run once over all members' rays.  The
-    fused path (not `unfused(config)`; no fine pass) takes
-    forward_composited_members, the render core and the trunk kernels one
-    launch for all members; the unfused one forward_members, the flow-stack
-    kernel one launch a chain for all, then raw2outputs member by member on
-    each member's rays, as its own render composites them (on the CPU a
-    call over more rays may round log1p and sigmoid elsewhere), its density
-    noise (apply_noise) `noise[m]` or drawn from `generators[m]` in train
-    mode, inside `rows(m)` where given (a data-parallel rank's rows).
-    Returns a dict a member: rgb_map, disp_map, depth_map, acc_map,
+    """The render of M NeRFFlows of one family and shape (an ensemble's
+    members, or one net) at given depths, JAX's vmapped render_rays:
+    rays_o, rays_d, viewdirs (M * R, 3) and z_vals (M * R, S), the rays
+    member-major; `draws` each member's base draws (NeRFFlows._draw_eps).
+    The positional encoding and the sample intervals run once over all
+    members' rays.  The fused path (not `unfused(config)`; no fine pass;
+    the triangular family) takes forward_composited_members, the render
+    core and the trunk kernels one launch for all members; the unfused one
+    forward_members (the triangular flow-stack kernel one launch a chain
+    for all, the other families' eager flows once on the joined points),
+    then raw2outputs member by member on each member's rays, as its own
+    render composites them (on the CPU a call over more rays may round
+    log1p and sigmoid elsewhere), its density noise (apply_noise)
+    `noise[m]` or drawn from `generators[m]` in train mode, inside `rows(m)`
+    where given (a data-parallel rank's rows).  With
+    `remat` (train mode) the members' forward, fused or unfused, runs under
+    one activation checkpoint: recomputed in the backward on the same
+    draws.  Returns a dict a member: rgb_map, disp_map, depth_map, acc_map,
     loss_entropy, and unfused in train mode the weights."""
     M = len(models)
     n_rays, S = z_vals.shape[0] // M, z_vals.shape[1]
     emb = embed_samples(config, config.embedders(), z_vals, rays_o, rays_d, viewdirs)
     emb = emb.view(M, n_rays * S, -1)
     out = []
+    remat = remat and not is_test
     if not unfused(config):
-        rgb, depth, acc, entropy = forward_composited_members(
+        rgb, depth, acc, entropy = _checkpointed(remat, forward_composited_members)(
             models, emb, z_vals.view(M, -1), point_intervals(z_vals, rays_d).view(M, -1), S,
             draws, is_test=is_test, interpret=config.fused == "interpret")
         rgb, disp = finalize_k_maps(rgb, depth, acc, config.white_bkgd)
@@ -162,7 +177,7 @@ def render_members(
             out.append(dict(rgb_map=rgb[ray], disp_map=disp[ray], depth_map=depth[ray],
                             acc_map=acc[ray], loss_entropy=entropy[m]))
         return out
-    raw, entropy = forward_members(models, emb, draws, is_test=is_test)
+    raw, entropy = _checkpointed(remat, forward_members)(models, emb, draws, is_test=is_test)
     for m in range(M):
         ray = slice(m * n_rays, (m + 1) * n_rays)
         with rows(m) if rows is not None else contextlib.nullcontext():
@@ -184,8 +199,9 @@ def render_members_test(models: Sequence, config: RenderConfig, rays_o: torch.Te
                         rays_d: torch.Tensor, viewdirs: Optional[torch.Tensor],
                         near: torch.Tensor, far: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
     """One test-mode render of the same R rays by each of M NeRFFlows of
-    one shape at once, JAX's vmapped val_fn: the rays repeated member-major,
-    the schedule's depths, each member's fixed test draws, render_members.
+    one family and shape at once, JAX's vmapped val_fn: the rays repeated
+    member-major, the schedule's depths, each member's fixed test draws,
+    render_members.
     Returns a dict a member, each bitwise its own make_render_rays
     render's."""
     M = len(models)

@@ -10,17 +10,18 @@ lr = lrate * 0.1^(step / (lrate_decay*1000)) (:1072-1077)).
     one (--fused_render off, applied density noise: the flow-stack kernels)
     or, with N_importance > 0, the hierarchical coarse + fine render, whose
     flow stacks run through the flow-stack kernels; its coarse loss is added
-    as in cfnerf_tpu/train/step.py:290-304.  For the triangular NeRFFlows
-    without a fine pass or remat, fused or unfused, placed or not, the step
-    is the member-batched loss, make_batched_loss, at one member, which the
-    ensemble step runs at M;
+    as in cfnerf_tpu/train/step.py:290-304.  For NeRFFlows of any family
+    without a fine pass, fused or unfused, placed or not, with or without
+    remat, the step is the member-batched loss, make_batched_loss, at one
+    member, which the ensemble step runs at M;
   * a trunk_impl="pallas" net's trunk runs through the trunk kernels, its
     backward kernel through autograd, as the JAX step differentiates
     pallas_encode's custom VJP;
   * Adam (0.9, 0.999, eps 1e-8) with the JAX step's schedule, offset by
     `start_step` (cfnerf_tpu/train/step.py:92-105);
   * `remat` recomputes the train-mode model forward in the backward
-    (torch.utils.checkpoint, the counterpart of jax.checkpoint);
+    (torch.utils.checkpoint, the counterpart of jax.checkpoint): the
+    batched loss's checkpoint, or _Remat's for a baseline or a fine pass;
   * with `occ` (OccTrainConfig) the step trains on proposal-placed depths and
     co-trains the proposal after the field's update
     (cfnerf_tpu/train/step.py:36-60, :193-248, :318-354);
@@ -194,22 +195,20 @@ def batch_rays(batch: Mapping, cfg: TrainConfig, render_config: RenderConfig, de
 def batched_step_refusal(models: Sequence[torch.nn.Module], render_config: RenderConfig,
                          cfg: TrainConfig, model_fine=None, occ=None) -> Optional[str]:
     """None where make_batched_loss takes these nets (one, or an ensemble's
-    members): triangular NeRFFlows of one configuration, the fused or the
-    unfused render (applied noise included), placed (`occ`) or not; else
-    what leaves them to the render of make_render_rays (an ensemble: to its
-    members' steps in turn)."""
+    members): NeRFFlows of one configuration, any flow family, the fused
+    (triangular) or the unfused render (applied noise included), placed
+    (`occ`) or not, with or without remat; else what leaves them to the
+    render of make_render_rays (an ensemble: to its members' steps in
+    turn): hierarchical sampling (JAX's --parallel refuses it too), a
+    baseline, or members that differ."""
     if render_config.n_importance > 0 or any(f is not None for f in model_fine or ()):
         return "hierarchical sampling"
-    if cfg.remat:
-        return "remat"
     if not all(isinstance(m, NeRFFlows) for m in models):
         return "a baseline model"
-    families = sorted({m.type_flows for m in models})
-    if families != ["triangular"]:
-        return f"the {'/'.join(families)} flow family"
-    shapes = {(m.trunk_impl, m.flow_impl, m.compute_dtype, m.k_samples, m.net_depth,
-               m.net_width, m.input_ch, m.input_ch_views, m.skips, m.use_viewdirs, m.n_flows,
-               m.h_alpha_linear.out_features, m.h_rgb_linear.out_features) for m in models}
+    shapes = {(m.type_flows, m.trunk_impl, m.flow_impl, m.compute_dtype, m.k_samples,
+               m.net_depth, m.net_width, m.input_ch, m.input_ch_views, m.skips,
+               m.use_viewdirs, m.n_flows, m.h_alpha_linear.out_features,
+               m.h_rgb_linear.out_features) for m in models}
     if len(shapes) > 1:
         return "members of different configurations"
     return None
@@ -238,9 +237,13 @@ def make_batched_loss(models: Sequence[NeRFFlows], render_config: RenderConfig,
     its own step places them; the rays' preparation runs once over all
     members' rays, member-major, and the render is render_members (the
     render core, or the flow stack a chain, and the trunk kernels, one
-    launch for all members); each member's loss is scored on its own rays.
-    make_train_step runs it at one member, the ensemble step
-    (parallel/ensemble.py) at M.  Under a mesh each per-ray draw is made at
+    launch for all members; the other families' eager flows once on the
+    joined points); each member's loss is scored on its own rays.  With
+    cfg.remat the members' train-mode forward (trunks, amortizers, flows and
+    the render core, or the unfused raw tensor) runs under one activation
+    checkpoint and is recomputed in the backward, its draws made before it,
+    as _Remat makes a single net's.  make_train_step runs it at one member,
+    the ensemble step (parallel/ensemble.py) at M.  Under a mesh each per-ray draw is made at
     the whole batch's shape and cut to this rank's rows, and the seams
     z_vals, place_u and noise hold the whole batch's, as in
     make_train_step."""
@@ -294,7 +297,7 @@ def make_batched_loss(models: Sequence[NeRFFlows], render_config: RenderConfig,
         renders = render_members(
             models, rc, rays_o, rays_d, viewdirs, torch.stack(zs).reshape(M * n_rays, -1),
             draws, is_test=False, generators=generators,
-            noise=[as_seam(n) for n in noise], rows=member_rows)
+            noise=[as_seam(n) for n in noise], rows=member_rows, remat=cfg.remat)
         return [score_render(out, {k: v[m] for k, v in b.items()}, n_rgb, cfg, dev)
                 for m, out in enumerate(renders)]
 
@@ -359,9 +362,10 @@ def make_batched_cotrain(models: Sequence[torch.nn.Module], render_config: Rende
 
 
 class _Remat:
-    """The model's train-mode forwards, fused and unfused, under activation
-    checkpointing.  The draws (base eps, or a baseline's masks or eps) are
-    made before the checkpoint (model.train_eps), so the recompute in the
+    """A net's train-mode unfused forward under activation checkpointing,
+    for the renders make_render_rays runs (a baseline, a hierarchical
+    pass).  The draws (base eps, or a baseline's masks or eps) are made
+    before the checkpoint (model.train_eps), so the recompute in the
     backward sees the same ones (checkpoint restores the default generators'
     state, not an explicit torch.Generator's)."""
 
@@ -373,15 +377,6 @@ class _Remat:
             return self.model(x, is_test=True, eps=eps)
         eps = self.model.train_eps(x, generator, eps)
         return checkpoint(self.model, x, is_test=False, eps=eps, use_reentrant=False)
-
-    def forward_composited(self, x, z_pts, d_pts, s_per_ray, *, is_test,
-                           generator=None, eps=None, interpret=False):
-        if is_test:
-            return self.model.forward_composited(x, z_pts, d_pts, s_per_ray,
-                                                 is_test=True, eps=eps, interpret=interpret)
-        eps = self.model._draw_eps(False, generator, eps)
-        return checkpoint(self.model.forward_composited, x, z_pts, d_pts, s_per_ray,
-                          is_test=False, eps=eps, use_reentrant=False, interpret=interpret)
 
 
 def make_train_step(
@@ -494,8 +489,9 @@ def make_train_step(
         # the ensemble's member-batched co-training at one member
         batched_cotrain = make_batched_cotrain([model], render_config, occ, [proposal],
                                                [prop_optimizer], mesh)
-    # the triangular NeRFFlows' step (fused or unfused, placed or not) is the
-    # ensemble's member-batched loss at one member: one code path for both
+    # a NeRFFlows step without a fine pass (any family, fused or unfused,
+    # placed or not, remat or not) is the ensemble's member-batched loss at
+    # one member: one code path for both
     batched = (make_batched_loss([model], render_config, cfg, mesh, occ,
                                  None if occ is None else [proposal])
                if batched_step_refusal([model], render_config, cfg, model_fine, occ) is None

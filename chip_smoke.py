@@ -125,7 +125,8 @@ final line):
  19. occ_prop_serve  the same with --occ_impl proposal (the distillation,
                    2^20 points, 4 epochs, 32 flow-stack launches), 64 rays'
                    placed depths against the CPU's placement with the same
-                   proposal
+                   proposal, and bitwise against the same placement on the
+                   card in a fresh process
  20. occ_train     --occ_train 12 (128 candidates, floor 0.3, co-training at
                    8192 points): the proposal distilled from the initial
                    field, then 1 + 10 + 10 steps (a render-core forward and
@@ -202,14 +203,14 @@ final line):
                    --type_flows (the parser's no_flow); each evaluated at
                    step 100: finite metrics, launches exact
  33. ensemble      cfnerf_torch.cli.ensemble on the capture at train_NF.sh's
-                   flags: (a) 3 members trained serially, 100 steps each;
+                   flags: (a) 3 members trained serially, 50 steps each;
                    (b) the mixture eval of all three, of 1 and 3, of each
                    alone, --members auto under train_psnr and val_nll; (c)
                    --parallel in a fresh run dir, each member's checkpoint
                    against its serial one (relative 1e-5 a tensor, 0
                    expected), the tagged scalars, its mixture eval, its loop
                    rate against (a)'s, peak memory; (d) --trunk_impl pallas,
-                   (e) --occ_train 12 --occ_train_from 50, 3 members x 100
+                   (e) --occ_train 12 --occ_train_from 25, 3 members x 50
                    steps each, and (f) --fused_render off, 3 x 30 steps,
                    serially and --parallel, each --parallel checkpoint
                    against its serial one; --parallel is the member-batched
@@ -217,7 +218,16 @@ final line):
                    forward and backward), or unfused two flow-stack
                    launches each way, a dispatch for all members, one
                    co-training density query for all in the occ stage, one
-                   val batch render for all; launches exact
+                   val batch render for all; (g) --type_flows householder
+                   --trunk_impl pallas and (h) --type_flows IAF, 3 x 30
+                   steps, serially and --parallel (one trunk forward and
+                   backward a dispatch, the flows eager); (i) remat on the
+                   fused render, 3 x 30 steps through the library's steps
+                   (make_train_step in turn, make_ensemble_train_step), the
+                   recompute's render-core launch counted; each --parallel
+                   run's weights and Adam state against its serial one, both
+                   loops' rays/s (--parallel >= 0.95x) and peak memory;
+                   launches exact
  34. mesh          the several-device paths (cfnerf_torch/parallel/mesh.py)
                    on the one card: (a) a one-rank NCCL group through
                    cli.train's mesh path (10 steps of train_NF.sh's flags on
@@ -237,7 +247,7 @@ final line):
                    (fwd_save_*, at the flat training step); every entry its
                    member-batched launch's (members); launches_by_path
                    splits the ensemble phase into its serial runs, its
-                   evals and its --parallel runs, (e) and (f) apart
+                   evals and its --parallel runs, (e)-(i) apart
 
 then the script's wall time, the `nvidia-smi` name/power line and, last, the
 `ok` line.
@@ -316,6 +326,7 @@ from cfnerf_torch.cli import train as cli_train
 from cfnerf_torch.entry import entry
 from cfnerf_torch.train.loop import _snapshot_args, load_dataset
 from cfnerf_torch.train.step import OccTrainConfig, TrainConfig, make_train_step
+from cfnerf_torch.parallel.ensemble import make_ensemble_train_step, member_generators
 from cfnerf_torch.utils.config import parse_args
 
 ROOT = Path(__file__).resolve().parent
@@ -2143,15 +2154,17 @@ def synthetic_scene(seed, n_images=4, n_points=2000):
     return images, poses, depth_gts
 
 
-def flagship_batches():
+def flagship_batches(seed=0):
     """next_batch() -> one flagship training batch: N_RAND rgb rays from
     RayBatcher and N_DEPTH depth rays from DepthRayBatcher over the
-    synthetic scene."""
+    synthetic scene, both streams shuffled from `seed`."""
     images, poses, depth_gts = synthetic_scene(seed=0)
     i_train = list(range(len(images)))
-    rays = RayBatcher(precompute_rays(images, poses, FOCAL, i_train, seed=0), N_RAND, seed=0)
+    rays = RayBatcher(precompute_rays(images, poses, FOCAL, i_train, seed=seed), N_RAND,
+                      seed=seed)
     depth_rays = DepthRayBatcher(
-        precompute_depth_rays(depth_gts, poses, H, W, FOCAL, i_train, seed=0), N_DEPTH, seed=0)
+        precompute_depth_rays(depth_gts, poses, H, W, FOCAL, i_train, seed=seed), N_DEPTH,
+        seed=seed)
 
     def next_batch():
         batch = rays.next()
@@ -3022,9 +3035,41 @@ def phase_occ_serve():
     return {"bake": bake, "view": launches}
 
 
+PLACE_IN_CHILD = """
+import sys
+import torch
+from cfnerf_torch.ops.occupancy import ProposalMLP, make_proposal_sigma_fn, place_from_sigma
+d = torch.load(sys.argv[1], weights_only=True)
+prop = ProposalMLP(d["width"], d["depth"], d["multires"], device="cuda")
+prop.load_state_dict(d["state"])
+with torch.inference_mode():
+    z = place_from_sigma(make_proposal_sigma_fn(prop, d["lo"].cuda(), d["hi"].cuda()),
+                         *(t.cuda() for t in d["rays"]), d["n_samples"],
+                         n_candidates=d["n_candidates"], floor=d["floor"])
+torch.save(z.cpu(), sys.argv[2])
+"""
+
+
+def place_in_child(prop, lo, hi, rays, n_samples, kw):
+    """The proposal's placement of `rays` (ro, rd, near, far) on the card in
+    a fresh Python process: the proposal's weights, the aabb and the rays
+    pass through a file; returns the child's depths on the CPU."""
+    with tempfile.TemporaryDirectory(prefix="cfnerf_place_") as tmp:
+        inputs, out = os.path.join(tmp, "inputs.pt"), os.path.join(tmp, "z.pt")
+        torch.save(dict(state={k: v.cpu() for k, v in prop.state_dict().items()},
+                        width=prop.width, depth=prop.depth, multires=prop.multires,
+                        lo=lo.cpu(), hi=hi.cpu(), rays=[t.cpu() for t in rays],
+                        n_samples=n_samples, n_candidates=int(kw["n_candidates"]),
+                        floor=float(kw["floor"])), inputs)
+        subprocess.run([sys.executable, "-c", PLACE_IN_CHILD, inputs, out], cwd=str(ROOT),
+                       check=True, timeout=300)
+        return torch.load(out, weights_only=True)
+
+
 def phase_occ_prop_serve():
     """--occ_impl proposal: the distillation, the view, and the placed depths
-    of 64 rays against the CPU's plain placement with the same proposal."""
+    of 64 rays against the CPU's plain placement with the same proposal and
+    bitwise against the same placement in a fresh process on the card."""
     render_rays, model, rc, distill, launches, info, rays = occ_view("proposal",
                                                                      "occ_prop_serve")
     placement = render_rays.placement
@@ -3041,8 +3086,16 @@ def phase_occ_prop_serve():
                                  ro.cpu(), rd.cpu(), nv.cpu(), fv.cpu(), rc.n_samples, **kw)
     z_err = float((z.cpu() - z_cpu).abs().max())
     check(z_err <= PROP_Z_ATOL, f"occ_prop_serve: placed z card vs CPU {z_err}")
+    # the same placement in a fresh process on the card: bitwise
+    z_child = place_in_child(prop, lo, hi, (ro, rd, nv, fv), rc.n_samples, kw)
+    across = "bitwise equal" if torch.equal(z.cpu(), z_child) else (
+        f"different (max abs {float((z.cpu() - z_child).abs().max())})")
+    print(f"occ_prop_serve: the card's placed depths of 64 rays, this process vs a fresh "
+          f"one: {across}", flush=True)
+    check(across == "bitwise equal", f"occ_prop_serve: placement across processes {across}")
     emit("occ_prop_serve", distill_loss=placement["final_loss"], **info,
-         placed_z_card_vs_cpu_64_rays=z_err, tolerance={"atol": PROP_Z_ATOL})
+         placed_z_card_vs_cpu_64_rays=z_err, tolerance={"atol": PROP_Z_ATOL},
+         placed_z_across_processes=across)
     return {"distill": distill, "view": launches}
 
 
@@ -4298,7 +4351,9 @@ def phase_cli_families(tmp):
 # ---------------------------------------------------------------------- #
 
 ENS_MEMBERS = 3
-ENS_STEPS, ENS_PRINT = 100, 10
+# 50 steps a member: (a)-(e) were cut from 100 to keep the script within its
+# time when the phase grew (g)-(i)
+ENS_STEPS, ENS_PRINT = 50, 10
 # no image, video or test-set cadence: the val batch at each i_print and the
 # checkpoints at the last step
 ENS_CADENCES = ["--n_iters", str(ENS_STEPS), "--i_print", str(ENS_PRINT),
@@ -4338,12 +4393,15 @@ def ens_run(argv):
                 launches={c.__name__: c.launches for c in ENS_COUNTERS})
 
 
-def ens_want(fwd=0, bwd=0, trunk_kernels=False, flow_fwd=0, flow_bwd=0):
+def ens_want(fwd=0, bwd=0, trunk_kernels=False, flow_fwd=0, flow_bwd=0, trunk_fwd=0,
+             trunk_bwd=0):
     counts = dict.fromkeys((c.__name__ for c in ENS_COUNTERS), 0)
     counts[render_core.fused_flow_composite.__name__] = fwd
     counts[render_core.fused_flow_composite_bwd.__name__] = bwd
     counts[flow_stack.fused_flow_stack.__name__] = flow_fwd
     counts[flow_stack.fused_flow_stack_bwd.__name__] = flow_bwd
+    counts[trunk.trunk_encode.__name__] = trunk_fwd
+    counts[trunk.trunk_encode_bwd.__name__] = trunk_bwd
     if trunk_kernels:  # a trunk forward beside every render-core one
         counts[trunk.trunk_encode.__name__] = fwd
         counts[trunk.trunk_encode_bwd.__name__] = bwd
@@ -4421,36 +4479,47 @@ def ens_checkpoint_err(path_a, path_b, steps=ENS_STEPS):
     (weights, eps buffers, Adam's moments), both at step `steps`."""
     a, b = (torch.load(os.path.join(p, ckpt.STATE_FILE), map_location="cpu",
                        weights_only=True) for p in (path_a, path_b))
+    check(a["global_step"] == b["global_step"] == steps,
+          f"checkpoint steps {a['global_step']} / {b['global_step']}")
+    return ens_state_err((a["params"], a["opt_state"]), (b["params"], b["opt_state"]))
+
+
+def ens_state_err(a, b):
+    """Largest per-tensor |a - b| / max|b| over two states (nested mappings
+    and sequences of tensors: a module's state_dict(), an optimizer's
+    state, a checkpoint's), and the number of tensors; every other value
+    equal."""
     errs = []
 
     def walk(x, y, where):
         if isinstance(x, dict):
-            check(set(x) == set(y), f"checkpoint keys at {where}")
+            check(set(x) == set(y), f"state keys at {where}")
             for k in x:
                 walk(x[k], y[k], f"{where}/{k}")
+        elif isinstance(x, (tuple, list)):
+            check(len(x) == len(y), f"state length at {where}")
+            for i, (u, v) in enumerate(zip(x, y)):
+                walk(u, v, f"{where}/{i}")
         elif isinstance(x, torch.Tensor):
-            check(x.shape == y.shape, f"checkpoint shape at {where}")
+            check(x.shape == y.shape, f"state shape at {where}")
             scale = float(y.abs().max()) if y.numel() else 0.0
             diff = float((x - y).abs().max()) if x.numel() else 0.0
             errs.append(diff / scale if scale > 0 else diff)
         else:
-            check(x == y, f"checkpoint value at {where}: {x} vs {y}")
+            check(x == y, f"state value at {where}: {x} vs {y}")
 
-    walk(a["params"], b["params"], "params")
-    walk(a["opt_state"], b["opt_state"], "opt_state")
-    check(a["global_step"] == b["global_step"] == steps,
-          f"checkpoint steps {a['global_step']} / {b['global_step']}")
+    walk(a, b, "")
     return max(errs), len(errs)
 
 
-# (e): the occ stage from step 50 of 100 (N12 placed samples from 128
+# (e): the occ stage from step 25 of 50 (N12 placed samples from 128
 # candidates): each member's proposal distilled at the boundary (2^18
 # points, four density queries of 65,536, two flow-stack launches each),
 # then a co-training density query a step (two launches; --parallel: one
 # query for all members); (f): the unfused render, 30 steps, two flow-stack
 # launches each way a step (--parallel: a dispatch), two a val batch
-ENS_OCC_FLAGS = ["--occ_train", "12", "--occ_train_from", "50"]
-ENS_OCC_FROM = 50
+ENS_OCC_FROM = 25
+ENS_OCC_FLAGS = ["--occ_train", "12", "--occ_train_from", str(ENS_OCC_FROM)]
 ENS_DISTILL_QUERIES = (1 << 18) // DENSITY_CHUNK
 ENS_UNFUSED_FLAGS = ["--fused_render", "off"]
 ENS_UNFUSED_STEPS = 30
@@ -4475,8 +4544,10 @@ def ens_serial_parallel(datadir, tmp, tag, extra, steps, trunk_kernels=False,
         label = f"{'parallel' if parallel else 'serial'} {tag}"
         flags = cli_flags(datadir, os.path.join(tmp, label.replace(" ", "_")), "ens",
                           *extra) + n
+        torch.cuda.reset_peak_memory_stats()
         run = ens_run(["train", *flags, "--is_train", *(["--parallel"] if parallel else []),
                        *ens_cadences(steps)])
+        run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         args = cli_ensemble.parser().parse_args(flags)
         rates.append(ens_train_checks(label, run, ens_records(args.basedir), ENS_MEMBERS,
                                       steps, parallel=parallel, trunk_kernels=trunk_kernels,
@@ -4491,34 +4562,135 @@ def ens_serial_parallel(datadir, tmp, tag, extra, steps, trunk_kernels=False,
         errs[f"m{m:02d}"] = {"max_rel_err": err, "tensors": n_tensors}
         check(err <= ENS_CKPT_RTOL,
               f"member {m}'s --parallel {tag} checkpoint vs its serial one: relative max {err}")
+    check(rates[1] >= ENS_RATE_FLOOR * rates[0],
+          f"--parallel {tag} loop {rates[1]} rays/s vs serial {rates[0]}")
     report = dict(steps=steps, flags=list(extra),
                   serial={"seconds": runs[0]["seconds"], "launches": runs[0]["launches"],
-                          "loop_rays_per_s": rates[0]},
+                          "loop_rays_per_s": rates[0], "peak_gb": runs[0]["peak_gb"]},
                   parallel={"seconds": runs[1]["seconds"], "launches": runs[1]["launches"],
                             "loop_rays_per_s": rates[1], "rate_vs_serial": rates[1] / rates[0],
-                            "checkpoints_vs_serial": errs})
+                            "peak_gb": runs[1]["peak_gb"], "checkpoints_vs_serial": errs})
+    print(f"ensemble {tag}: --parallel vs serial checkpoints, largest per-tensor relative "
+          f"difference {max(e['max_rel_err'] for e in errs.values())}; loops "
+          f"{rates[1]:.0f} vs {rates[0]:.0f} rays/s; peak {runs[1]['peak_gb']:.2f} vs "
+          f"{runs[0]['peak_gb']:.2f} GB", flush=True)
     return report, runs[0], runs[1]
+
+
+# (g) householder through the trunk kernels and (h) IAF on the f32 trunk,
+# each through cli.ensemble (the unfused render, the family's eager flows);
+# (i) the triangular model with remat on the fused render, through the
+# library steps the CLI builds (remat has no flag in either package's CLI:
+# TrainConfig.remat).  30 steps a member each, serially and --parallel.
+ENS_FAMILY_STEPS = 30
+ENS_HOUSEHOLDER_FLAGS = ["--type_flows", "householder", "--trunk_impl", "pallas"]
+ENS_IAF_FLAGS = ["--type_flows", "IAF"]
+
+
+def ens_remat_run():
+    """(i): ENS_MEMBERS flagship members (build_model at seed 1000 m, as
+    cli.ensemble seeds member m) trained ENS_FAMILY_STEPS steps with
+    TrainConfig(remat=True) on the fused render, on the same pre-drawn
+    flagship batches (each member its own stream of the synthetic scene)
+    and generators: serially, each member's make_train_step in turn, then
+    member-batched (make_ensemble_train_step).  Launches exact (a
+    render-core forward, its recompute in the backward and a backward a
+    member step; --parallel a dispatch); every tensor of each member's
+    weights and Adam state against its serial one at ENS_CKPT_RTOL; both
+    loops' rays/s over steps 2..N (the host clock, ending in synchronize)
+    and peak memory.  Returns (report, serial launches, parallel
+    launches)."""
+    M, steps, rays = ENS_MEMBERS, ENS_FAMILY_STEPS, N_RAND + N_DEPTH
+    seeds = [1000 * m for m in range(1, M + 1)]
+    streams = [flagship_batches(seed=m) for m in range(M)]
+    batches = [[next_batch() for next_batch in streams] for _ in range(steps)]
+    cfg = TrainConfig(H=H, W=W, focal=FOCAL, ndc=False, near=NEAR, far=FAR,
+                      k_samples=FLAGSHIP["K_samples"], remat=True, **TRAIN_CFG)
+
+    def members():
+        built = [build_model(types.SimpleNamespace(**dict(FLAGSHIP, seed=s))) for s in seeds]
+        return [b[0] for b in built], built[0][2]
+
+    def run(parallel):
+        models, rc = members()
+        check(rc.fused == "on", "ensemble remat: the fused render")
+        gens = member_generators(seeds, "cuda")
+        if parallel:
+            step, optimizers = make_ensemble_train_step(models, rc, cfg, M)
+            check(step.batched, "ensemble remat: the member-batched step")
+            calls = [lambda j: step({k: np.stack([b[k] for b in batches[j]])
+                                     for k in batches[j][0]}, gens)]
+        else:
+            singles = [make_train_step(model, rc, cfg) for model in models]
+            optimizers = [opt for _, opt in singles]
+            calls = [lambda j, m=m: singles[m][0](batches[j][m], gens[m]) for m in range(M)]
+        for c in ENS_COUNTERS:
+            c.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        seconds, metrics = 0.0, []
+        for j in range(steps):
+            t0 = time.perf_counter()
+            metrics += [call(j) for call in calls]
+            torch.cuda.synchronize()
+            if j > 0:
+                seconds += time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launches = {c.__name__: c.launches for c in ENS_COUNTERS}
+        check(all(bool(torch.isfinite(v).all()) for m in metrics for v in m.values()),
+              "ensemble remat: finite metrics")
+        states = [(model.state_dict(), opt.state_dict()["state"])
+                  for model, opt in zip(models, optimizers)]
+        return dict(launches=launches, peak_gb=peak,
+                    loop_rays_per_s=(steps - 1) * M * rays / seconds), states
+
+    serial, serial_states = run(False)
+    parallel, parallel_states = run(True)
+    check(serial["launches"] == ens_want(2 * M * steps, M * steps),
+          f"ensemble remat serial: launched {serial['launches']}")
+    check(parallel["launches"] == ens_want(2 * steps, steps),
+          f"ensemble remat --parallel: launched {parallel['launches']}")
+    errs = {}
+    for m, (a, b) in enumerate(zip(parallel_states, serial_states), 1):
+        err, n = ens_state_err(a, b)
+        errs[f"m{m:02d}"] = {"max_rel_err": err, "tensors": n}
+        check(err <= ENS_CKPT_RTOL, f"member {m}'s --parallel remat state vs serial: {err}")
+    check(parallel["loop_rays_per_s"] >= ENS_RATE_FLOOR * serial["loop_rays_per_s"],
+          f"--parallel remat {parallel['loop_rays_per_s']} rays/s vs serial "
+          f"{serial['loop_rays_per_s']}")
+    parallel["rate_vs_serial"] = parallel["loop_rays_per_s"] / serial["loop_rays_per_s"]
+    parallel["checkpoints_vs_serial"] = errs
+    print(f"ensemble remat: --parallel vs serial weights and Adam, largest per-tensor "
+          f"relative difference {max(e['max_rel_err'] for e in errs.values())}; loops "
+          f"{parallel['loop_rays_per_s']:.0f} vs {serial['loop_rays_per_s']:.0f} rays/s; "
+          f"peak {parallel['peak_gb']:.2f} vs {serial['peak_gb']:.2f} GB", flush=True)
+    report = dict(steps=steps, remat=True, serial=serial, parallel=parallel)
+    return report, {"launches": serial["launches"]}, {"launches": parallel["launches"]}
 
 
 def phase_ensemble(tmp):
     """cfnerf_torch.cli.ensemble on a copy of the capture at
-    scripts/train_NF.sh's flags: (a) serial training of 3 members, 100
+    scripts/train_NF.sh's flags: (a) serial training of 3 members, 50
     steps each; (b) the mixture eval of all three, of members 1 and 3, of
     each alone and of --members auto under train_psnr and val_nll; (c)
     --parallel training of 3 members in a fresh run dir, each member's
     checkpoint against its serial one, the tagged scalars, its mixture
     eval, its loop rate against (a)'s, its peak memory; (d) --trunk_impl
-    pallas, 3 members, 100 steps, serial and --parallel, each --parallel
+    pallas, 3 members, 50 steps, serial and --parallel, each --parallel
     checkpoint against its serial one, both loops' rates; (e) the occ
-    stage (ENS_OCC_FLAGS), 3 members x 100 steps, and (f) the unfused
+    stage (ENS_OCC_FLAGS), 3 members x 50 steps, and (f) the unfused
     render (ENS_UNFUSED_FLAGS), 3 members x 30 steps, both serial and
-    --parallel, checkpoints and rates as (d).  --parallel runs the
-    member-batched step: one render-core forward and backward (and, with
-    pallas, one trunk forward and backward) a dispatch for all members, or
-    unfused two flow-stack launches each way; in the occ stage one
-    co-training density query for all; one val batch render for all.
-    Launches exact everywhere.  Returns each kernel's launches by path: its
-    serial runs, the mixture evals, the --parallel runs."""
+    --parallel, checkpoints and rates as (d); (g) householder with the
+    trunk kernels and (h) IAF, 3 members x 30 steps through the CLI, and
+    (i) remat on the fused render through the library's steps
+    (ens_remat_run), each serial and --parallel, checkpoints, rates and
+    peak memory as (d).  --parallel runs the member-batched step: one
+    render-core forward and backward (and, with pallas, one trunk forward
+    and backward) a dispatch for all members, or unfused two flow-stack
+    launches each way; in the occ stage one co-training density query for
+    all; one val batch render for all.  Launches exact everywhere.
+    Returns each kernel's launches by path: its serial runs, the mixture
+    evals, the --parallel runs."""
     t_phase = time.perf_counter()
     datadir = shutil.copytree(CAPTURE, os.path.join(tmp, "minicapture"))
     n = ["--n_members", str(ENS_MEMBERS)]
@@ -4604,6 +4776,27 @@ def phase_ensemble(tmp):
     RATES["ensemble_serial_unfused"] = unfused_report["serial"]["loop_rays_per_s"]
     RATES["ensemble_parallel_unfused"] = unfused_report["parallel"]["loop_rays_per_s"]
 
+    # (g) householder through the trunk kernels, (h) IAF: serial, then
+    # --parallel; the flows eager (no render core, no flow stack), a trunk
+    # forward a step and a val batch with pallas, a backward a step
+    steps_g, prints_g = ENS_FAMILY_STEPS, ENS_FAMILY_STEPS // ENS_PRINT
+    hh_report, hh_serial, hh_parallel = ens_serial_parallel(
+        datadir, tmp, "householder_pallas", ENS_HOUSEHOLDER_FLAGS, steps_g,
+        wants=(ens_want(trunk_fwd=M * (steps_g + prints_g), trunk_bwd=M * steps_g),
+               ens_want(trunk_fwd=steps_g + prints_g, trunk_bwd=steps_g)))
+    check("the householder flows once on the joined points" in hh_parallel["text"],
+          "ensemble householder: the member-batched step ran")
+    iaf_report, iaf_serial, iaf_parallel = ens_serial_parallel(
+        datadir, tmp, "IAF", ENS_IAF_FLAGS, steps_g, wants=(ens_want(), ens_want()))
+    check("the IAF flows member by member" in iaf_parallel["text"],
+          "ensemble IAF: the member-batched step ran")
+    # (i) remat on the fused render, through the library's steps
+    remat_report, remat_serial, remat_parallel = ens_remat_run()
+    for tag, rep in (("householder_pallas", hh_report), ("iaf", iaf_report),
+                     ("remat", remat_report)):
+        RATES[f"ensemble_serial_{tag}"] = rep["serial"]["loop_rays_per_s"]
+        RATES[f"ensemble_parallel_{tag}"] = rep["parallel"]["loop_rays_per_s"]
+
     emit("ensemble", nvidia_smi=nvidia_smi_line(), members=ENS_MEMBERS, steps=ENS_STEPS,
          rays_per_step=N_RAND + N_DEPTH, n_val=n_val,
          serial={"seconds": serial["seconds"], "launches": serial["launches"],
@@ -4618,15 +4811,23 @@ def phase_ensemble(tmp):
                    "eval": parallel_eval,
                    "iter_time_ms": [1e3 * r["iter_time"] for r in parallel_records]},
          pallas=pallas_report, occ=occ_report, unfused=unfused_report,
+         householder_pallas=hh_report, iaf=iaf_report, remat=remat_report,
          dispatches={"parallel": ENS_STEPS, "parallel_pallas": ENS_STEPS,
-                     "parallel_occ": ENS_STEPS, "parallel_unfused": ENS_UNFUSED_STEPS},
+                     "parallel_occ": ENS_STEPS, "parallel_unfused": ENS_UNFUSED_STEPS,
+                     "parallel_householder_pallas": ENS_FAMILY_STEPS,
+                     "parallel_iaf": ENS_FAMILY_STEPS, "parallel_remat": ENS_FAMILY_STEPS},
          phase_s=time.perf_counter() - t_phase,
          gates={"checkpoint_rel_err": ENS_CKPT_RTOL, "parallel_rate_floor": ENS_RATE_FLOOR})
     by_path = {"ensemble_serial": [serial, pallas_serial], "ensemble_eval": eval_runs,
                "ensemble_parallel": [parallel, pallas],
                "ensemble_occ_serial": [occ_serial], "ensemble_occ_parallel": [occ_parallel],
                "ensemble_unfused_serial": [unfused_serial],
-               "ensemble_unfused_parallel": [unfused_parallel]}
+               "ensemble_unfused_parallel": [unfused_parallel],
+               "ensemble_householder_serial": [hh_serial],
+               "ensemble_householder_parallel": [hh_parallel],
+               "ensemble_iaf_serial": [iaf_serial], "ensemble_iaf_parallel": [iaf_parallel],
+               "ensemble_remat_serial": [remat_serial],
+               "ensemble_remat_parallel": [remat_parallel]}
     return {path: {c.__name__: sum(r["launches"][c.__name__] for r in part)
                    for c in ENS_COUNTERS} for path, part in by_path.items()}
 
@@ -5128,8 +5329,12 @@ def main() -> int:
     # serial: a member's co-training step, --parallel: a dispatch's);
     # ensemble_unfused_*: no render core, the flow stack two launches each
     # way a member step (--parallel: a dispatch), two a val batch (serial: a
-    # member's); mesh: the same per rank on each of its paths, summed over
-    # the ranks (phase_mesh)
+    # member's); ensemble_householder_*: a trunk forward a member step and a
+    # member's val batch and a backward a member step (--parallel: a
+    # dispatch, a val batch for all); ensemble_iaf_*: none; ensemble_remat_*:
+    # a render-core forward, its recompute and a backward a member step
+    # (--parallel: a dispatch); mesh: the same per rank on each of its paths,
+    # summed over the ranks (phase_mesh)
     def ens_paths(name):
         return {path: counts[name] for path, counts in ens.items()}
 

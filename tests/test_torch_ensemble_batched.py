@@ -54,6 +54,7 @@ from cfnerf_tpu.parallel import ensemble as jpar
 from cfnerf_tpu.render import renderer as jrender
 from cfnerf_tpu.train import step as jstep
 from cfnerf_torch.cli import ensemble as tens
+from cfnerf_torch.models.baseline_adapter import KSampleBaseline
 from cfnerf_torch.models.nerf_flows import NeRFFlows
 from cfnerf_torch.ops.kernels import _build, render_core, trunk
 from cfnerf_torch.ops.kernels.render_core import (
@@ -491,10 +492,12 @@ def test_batched_step_is_the_per_member_steps_bitwise(impl):
 
 
 def test_the_step_batches_only_the_flagship_fused_path(capsys):
-    """The choice, made once and printed: the member-batched step for the
-    triangular NeRFFlows, fused or unfused (applied noise included), placed
-    (the occ stage) or not; the per-member loop for hierarchical sampling,
-    the other families, remat and members of different configurations; the
+    """The choice, made once and printed: the member-batched step for
+    NeRFFlows of any flow family (planar here; tests/test_torch_ensemble_
+    families.py steps every family), fused or unfused (applied noise
+    included), placed (the occ stage) or not, with or without remat; the
+    per-member loop for hierarchical sampling, a baseline and members of
+    different configurations (another family, another flow_impl); the
     batched step refuses seams it has no draws for."""
     models = [port_nerf_flows(CFG, p, e) for p, e in
               (jax_nerf_flows(CFG, seed=m)[1:] for m in range(M))]
@@ -510,19 +513,32 @@ def test_the_step_batches_only_the_flagship_fused_path(capsys):
     assert batched_step_refusal(models, RenderConfig(n_samples=8, n_importance=4),
                                 tc) == "hierarchical sampling"
     assert batched_step_refusal(models, rc, tc, model_fine=models) == "hierarchical sampling"
-    assert batched_step_refusal(models, rc, TrainConfig(**TRAIN_KW, remat=True)) == "remat"
+    assert batched_step_refusal(models, rc, TrainConfig(**TRAIN_KW, remat=True)) is None
     assert batched_step_refusal(models, rc, TrainConfig(**TRAIN_KW, remat=True),
-                                occ=occ) == "remat"
+                                occ=occ) is None
     planar = [NeRFFlows(net_depth=2, net_width=32, type_flows="planar", k_samples=8)
               for _ in range(M)]
-    assert batched_step_refusal(planar, rc, tc) == "the planar flow family"
+    assert batched_step_refusal(planar, RenderConfig(n_samples=8, fused="off"), tc) is None
     assert batched_step_refusal([models[0], planar[0]], rc, tc) == \
-        "the planar/triangular flow family"
+        "members of different configurations"
+    baselines = [KSampleBaseline("nerf", 8, net_depth=2, net_width=32) for _ in range(M)]
+    assert batched_step_refusal(baselines, RenderConfig(n_samples=8, fused="off"),
+                                tc) == "a baseline model"
     plain_flows = port_nerf_flows(CFG, *jax_nerf_flows(CFG, seed=2)[1:])
     plain_flows.flow_impl = "xla"
     assert batched_step_refusal([models[0], plain_flows], rc, tc) == \
         "members of different configurations"
 
+    step, _ = make_ensemble_train_step(baselines, RenderConfig(n_samples=8, fused="off"),
+                                       TrainConfig(**TRAIN_KW, loss_mode="mse"), M)
+    assert not step.batched
+    assert "2 members one after another (a baseline model)" in capsys.readouterr().out
+    step, _ = make_ensemble_train_step(planar, RenderConfig(n_samples=8, fused="off"),
+                                       TrainConfig(**TRAIN_KW, remat=True), M)
+    assert step.batched
+    assert ("2 members batched (remat, the forward recomputed in the backward; the planar "
+            "flows once on the joined points; one trunk launch a pass for all)"
+            in capsys.readouterr().out)
     step, _ = make_ensemble_train_step(models, RenderConfig(n_samples=8, n_importance=4),
                                        tc, M)
     assert not step.batched

@@ -69,7 +69,7 @@ from cfnerf_torch.render.renderer import (
 )
 from cfnerf_torch.train.loss import kde_nll
 from cfnerf_torch.train.step import OccTrainConfig, TrainConfig, make_train_step
-from tests.test_torch_common import jax_nerf_flows, port_nerf_flows, to_np
+from tests.test_torch_common import Tiny, jax_nerf_flows, port_nerf_flows, to_np
 from tests.test_torch_ensemble_parallel import _assert_trees_equal, _load, _stacked
 from tests.test_torch_flow_stack import (
     FWD_TOL,
@@ -87,10 +87,14 @@ from tests.test_torch_flow_stack import (
 from tests.test_torch_occ_train import (
     N_PLACED,
     OCC,
+    OCC_SIZES,
+    PLACE_ATOL,
     _jax_proposal_params,
     assert_grads_rms_close,
     assert_proposal_close,
     jax_occ_draws,
+    port_placement,
+    recorded_jax_depths,
 )
 from tests.test_torch_train import (
     ADAM_G_MIN,
@@ -260,11 +264,11 @@ FLOORS = (0.3, 0.6, 0.45)
 NOISE = dict(apply_noise=True, raw_noise_std=1.0)
 
 
-def _step_members():
+def _step_members(cfg: Tiny = CFG):
     """Each member's JAX params and test eps, the JAX model, the port's."""
-    made = [jax_nerf_flows(CFG, seed=m) for m in range(M)]
+    made = [jax_nerf_flows(cfg, seed=m) for m in range(M)]
     return ([(p, e) for _, p, e in made], made[0][0],
-            [port_nerf_flows(CFG, p, e) for _, p, e in made])
+            [port_nerf_flows(cfg, p, e) for _, p, e in made])
 
 
 def _member_tree(tree, m):
@@ -357,6 +361,65 @@ def test_batched_occ_step_matches_jax_vmapped_occ_step():
         assert_grads_rms_close(grads, _port_names(_member_tree(jstate[0][0], m)))
         assert_params_after_update_close(model, _port_names(_member_tree(jp, m)), grads,
                                          TRAIN_KW["lrate"])
+        prop_grads = {n: to_np(q.grad) for n, q in step.proposals[m].named_parameters()}
+        assert_proposal_close(step.proposals[m],
+                              proposal_state_dict_from_jax(_member_tree(jstate[1], m)),
+                              prop_grads)
+
+
+@pytest.mark.parametrize("size", list(OCC_SIZES))
+def test_batched_occ_step_on_jax_depths_matches_jax(size):
+    """The batched occ step on JAX's own depths: JAX's vmapped occ step
+    (jitted; its placement, recorded per member as it runs, is whatever its
+    rounding of the proposal gives) hands each member's depths to the port
+    through z_vals, so every member is held at the unfused step's gates
+    (gradients rtol 1e-4 / atol 1e-6, the weights after Adam as
+    test_batched_unfused_step_matches_jax_vmapped_step holds them), at
+    D2/W32 and D4/W64; each member's own placement apart, at PLACE_ATOL;
+    the co-training as test_batched_occ_step_matches_jax_vmapped_occ_step
+    holds it."""
+    members, jm, models = _step_members(OCC_SIZES[size])
+    props = [_jax_proposal_params(seed=80 + m) for m in range(M)]
+    batches = [make_batch(*RAYS, seed=190 + m) for m in range(M)]
+    keys = jpar.member_keys([jax.random.PRNGKey(500 + m) for m in range(M)])
+    rc = jrender.RenderConfig(n_samples=N_PLACED, perturb=True, use_viewdirs=True,
+                              fused="off")
+    with _grads_in_opt_state():
+        estep, tx = jpar.make_ensemble_train_step(jm, rc, jstep.TrainConfig(**TRAIN_KW), None,
+                                                  occ=jstep.OccTrainConfig(**OCC))
+    p = jax.tree_util.tree_map(jnp.asarray, jpar.stack_members([q for q, _ in members]))
+    wrapped = estep._wrap_state(jax.vmap(tx.init)(p), jax.tree_util.tree_map(
+        jnp.asarray, jpar.stack_members(props)))
+    b = {k: jnp.asarray(v) for k, v in _stacked(batches).items()}
+    b["occ_floor"] = jnp.asarray(FLOORS, jnp.float32)
+    with recorded_jax_depths() as seen:
+        jp, jstate, jmetrics = estep(p, wrapped, b, keys)
+        jax.block_until_ready(jp)
+    assert len(seen) == M
+    z_jax = np.stack(seen)
+
+    step, _ = make_ensemble_train_step(models, RenderConfig(n_samples=N_PLACED),
+                                       TrainConfig(**TRAIN_KW), M, occ=OccTrainConfig(**OCC))
+    assert step.batched
+    step.install_proposals([proposal_state_dict_from_jax(q) for q in props])
+    draws = [jax_occ_draws(keys[m], sum(RAYS)) for m in range(M)]
+    for m in range(M):
+        z_port = port_placement(step.proposals[m], batches[m], draws[m]["place_u"], FLOORS[m])
+        assert np.abs(z_port - z_jax[m]).max() <= PLACE_ATOL, m
+    metrics = step(dict(_stacked(batches), occ_floor=np.asarray(FLOORS, np.float32)),
+                   [None] * M, z_vals=T(z_jax),
+                   eps=tuple(T(np.stack([d["eps"][i] for d in draws])) for i in range(2)),
+                   prop_pts=T(np.stack([d["prop_pts"] for d in draws])))
+    for m, model in enumerate(models):
+        for k in jmetrics:
+            np.testing.assert_allclose(float(metrics[k][m]), float(jmetrics[k][m]),
+                                       rtol=1e-4 if k == "prop_loss" else LOSS_RTOL, err_msg=k)
+        jg = _port_names(_member_tree(jstate[0][0], m))
+        got = {n: to_np(q.grad) for n, q in model.named_parameters()}
+        assert set(got) == set(jg)
+        for n in jg:
+            np.testing.assert_allclose(got[n], jg[n], err_msg=n, **GRAD_TOL)
+        _assert_after_adam(model, _port_names(_member_tree(jp, m)), jg, TRAIN_KW["lrate"])
         prop_grads = {n: to_np(q.grad) for n, q in step.proposals[m].named_parameters()}
         assert_proposal_close(step.proposals[m],
                               proposal_state_dict_from_jax(_member_tree(jstate[1], m)),

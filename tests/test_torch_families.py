@@ -79,15 +79,16 @@ SMALL = Tiny()  # D4/W64, K8, F2, h 16/16
 STEP = Tiny(depth=2, width=32, k=8, flows=2, h_alpha=16, h_rgb=16)
 
 
-def jax_family(type_flows, cfg=SMALL, seed=0):
+def jax_family(type_flows, cfg=SMALL, seed=0, **kw):
     """(JAX NeRFFlows of the family, params as nested numpy dicts, test eps);
     the base parameters moved off their 0/1 init, as
-    tests/test_torch_common.py:jax_nerf_flows does."""
+    tests/test_torch_common.py:jax_nerf_flows does.  `kw` goes to the model
+    (trunk_impl, flow_impl)."""
     model = JaxNeRFFlows(
         net_depth=cfg.depth, net_width=cfg.width, input_ch=63,
         input_ch_views=cfg.views_ch, skips=(cfg.depth // 2,), h_alpha_size=cfg.h_alpha,
         h_rgb_size=cfg.h_rgb, n_flows=cfg.flows, k_samples=cfg.k,
-        use_viewdirs=cfg.use_viewdirs, type_flows=type_flows)
+        use_viewdirs=cfg.use_viewdirs, type_flows=type_flows, **kw)
     x = jnp.zeros((2, 63 + cfg.views_ch), jnp.float32)
     params = model.init(jax.random.PRNGKey(seed), x, is_test=True)["params"]
     params = jax.tree_util.tree_map(lambda a: np.array(a, np.float32), dict(params))

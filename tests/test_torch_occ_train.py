@@ -38,6 +38,9 @@ Regenerate the golden after an intended change with
     JAX_PLATFORMS=cpu python -m tests.test_torch_occ_train
 (test_occ_golden_is_current fails while the committed file is stale).
 """
+import contextlib
+import subprocess
+import sys
 from pathlib import Path
 
 import jax
@@ -60,6 +63,7 @@ from tests.test_torch_common import Tiny, jax_nerf_flows, port_nerf_flows, to_np
 from tests.test_torch_train import (
     ADAM_ATOL,
     ADAM_G_MIN,
+    GRAD_TOL,
     LOSS_RTOL,
     TRAIN_KW,
     _flatten,
@@ -85,14 +89,14 @@ def _jax_proposal_params(seed=1):
     return jax.tree_util.tree_map(np.asarray, prop.init(jax.random.PRNGKey(seed)))
 
 
-def jax_occ_steps(params, prop_params, batches, keys):
+def jax_occ_steps(params, prop_params, batches, keys, cfg=CFG):
     """cfnerf_tpu's occ step, once per batch, op by op (the step's `_update`
     without its jit: under jit XLA may skip the bf16 roundings of the
     proposal's hidden layers, xla_allow_excess_precision, which moves the
     placed depths by ~4e-5).  Returns per step: metrics,
     the field's gradients, the field's and the proposal's weights after it,
     the field's under the port's names."""
-    jm, _, _ = jax_nerf_flows(CFG)
+    jm, _, _ = jax_nerf_flows(cfg)
     cfg = jstep.TrainConfig(**TRAIN_KW)
     rc = jrender.RenderConfig(n_samples=N_PLACED, perturb=True, use_viewdirs=True,
                               fused="off")
@@ -128,11 +132,13 @@ def port_occ_step(model, prop_params):
     return step
 
 
-def port_step_once(step, model, batch, draws):
-    """One port occ step split as the JAX step runs it; returns (metrics,
-    the field's gradients)."""
+def port_step_once(step, model, batch, draws, z_vals=None):
+    """One port occ step split as the JAX step runs it, placed from
+    draws["place_u"] or at `z_vals` where given; returns (metrics, the
+    field's gradients)."""
     model.zero_grad(set_to_none=True)
-    loss, metrics = step.loss_fn(batch, None, eps=draws["eps"], place_u=T(draws["place_u"]))
+    loss, metrics = step.loss_fn(batch, None, eps=draws["eps"], place_u=T(draws["place_u"]),
+                                 z_vals=None if z_vals is None else T(z_vals))
     loss.backward()
     grads = {n: to_np(p.grad) for n, p in model.named_parameters()}
     step.update()
@@ -214,6 +220,110 @@ def test_occ_steps_match_jax(n_steps):
             assert_updates_close(model.state_dict(), jafter, nerf_flows_state_dict_from_jax(params))
             assert_updates_close(step.proposal.state_dict(), jprop,
                                  proposal_state_dict_from_jax(prop_params))
+
+
+# the occ step on JAX's own depths, at the size of the tests above and at
+# D4/W64: JAX's placement, recorded as its step runs, is handed to the port
+# through z_vals, so the step is held at the unfused step's gates (gradients
+# rtol 1e-4 / atol 1e-6, tests/test_torch_train.py) and the placement apart
+# at its own atol, 1e-3 (PERF.md section 2: 0.8% of a candidate bin).  The
+# inputs are those that spread most (model seed 0, proposal seed 80, batch
+# seed 190, key 500): placed by each side, a first-layer gradient of the
+# D4/W64 step reads ~1.4e-2 relative RMS from JAX's, as a ReLU input within
+# rounding of 0 switches.
+OCC_SIZES = {"D2W32": CFG, "D4W64": Tiny(depth=4, width=64, k=8, flows=2, h_alpha=16,
+                                           h_rgb=16)}
+PLACE_ATOL = 1e-3
+
+
+@contextlib.contextmanager
+def recorded_jax_depths():
+    """JAX's placed depths, each call's (per member under jax.vmap) appended
+    to the yielded list as its step places them."""
+    seen, real = [], jocc.place_from_sigma
+
+    def spy(*args, **kwargs):
+        z = real(*args, **kwargs)
+        jax.debug.callback(lambda v: seen.append(np.asarray(v)), z)
+        return z
+
+    jocc.place_from_sigma = spy
+    try:
+        yield seen
+    finally:
+        jocc.place_from_sigma = real
+
+
+def port_placement(proposal, batch, place_u, floor=OCC["floor"]):
+    """The port's placed depths of the batch's rays through `proposal`, at
+    the stratified draws place_u."""
+    from cfnerf_torch.train.step import batch_rays
+
+    _, (ro, rd, _, near, far) = batch_rays(batch, TrainConfig(**TRAIN_KW),
+                                           RenderConfig(n_samples=N_PLACED), "cpu")
+    sigma_fn = tocc.make_proposal_sigma_fn(proposal, T(OCC["lo"]), T(OCC["hi"]))
+    with torch.no_grad():
+        return to_np(tocc.place_from_sigma(sigma_fn, ro, rd, near, far, N_PLACED,
+                                           n_candidates=N_CAND, floor=floor, u=T(place_u)))
+
+
+@pytest.mark.parametrize("size", list(OCC_SIZES))
+def test_occ_step_on_jax_depths_matches_jax(size):
+    cfg = OCC_SIZES[size]
+    _, params, test_eps = jax_nerf_flows(cfg)
+    prop_params = _jax_proposal_params(seed=80)
+    batch = make_batch(*RAYS, seed=190)
+    key = jax.random.PRNGKey(500)
+    with recorded_jax_depths() as seen:
+        (jm, jg, jafter, jprop), = jax_occ_steps(params, prop_params, [batch], [key], cfg)
+    (z_jax,) = seen
+    draws = jax_occ_draws(key, sum(RAYS))
+
+    model = port_nerf_flows(cfg, params, test_eps)
+    step = port_occ_step(model, prop_params)
+    z_port = port_placement(step.proposal, batch, draws["place_u"])
+    assert np.abs(z_port - z_jax).max() <= PLACE_ATOL
+    metrics, grads = port_step_once(step, model, batch, draws, z_vals=z_jax)
+    for k in METRICS:
+        np.testing.assert_allclose(metrics[k], jm[k], rtol=1e-4 if k == "prop_loss" else
+                                   LOSS_RTOL, err_msg=k)
+    assert set(grads) == set(jg)
+    for name, want in jg.items():
+        np.testing.assert_allclose(grads[name], want, err_msg=name, **GRAD_TOL)
+    assert_params_after_update_close(model, jafter, grads, TRAIN_KW["lrate"])
+    assert_proposal_close(step.proposal, jprop, _prop_grads(step))
+
+
+PLACEMENT_SCRIPT = """
+import hashlib, sys
+import numpy as np, torch
+from cfnerf_torch.ops import occupancy as tocc
+g = torch.Generator().manual_seed(80)
+prop = tocc.ProposalMLP(generator=g)
+rng = np.random.RandomState(0)
+R, C, N = 640, 128, 12
+ro = torch.as_tensor(rng.randn(R, 3).astype(np.float32) * 0.3 + [0.0, 0.0, 4.0]).float()
+rd = torch.as_tensor(-ro.numpy() + rng.randn(R, 3).astype(np.float32) * 0.2)
+u = torch.as_tensor(rng.rand(R, N).astype(np.float32))
+sigma_fn = tocc.make_proposal_sigma_fn(prop, torch.tensor([-1.5, -1.5, -2.0]),
+                                       torch.tensor([1.5, 1.5, 5.0]))
+with torch.no_grad():
+    z = tocc.place_from_sigma(sigma_fn, ro, rd, 2.0, 6.0, N, n_candidates=C, floor=0.3, u=u)
+print(hashlib.sha256(z.numpy().tobytes()).hexdigest())
+"""
+
+
+def test_placement_repeats_across_processes():
+    """The proposal's placement of 640 rays x 128 candidates (ATen's CPU
+    parallel loops split it over the threads) gives the same bytes in three
+    fresh processes: the first call of ATen's vector math in a process no
+    longer races (cfnerf_torch/__init__.py)."""
+    root = str(Path(__file__).resolve().parents[1])
+    procs = [subprocess.Popen([sys.executable, "-c", PLACEMENT_SCRIPT], cwd=root,
+                              stdout=subprocess.PIPE, text=True) for _ in range(3)]
+    digests = [p.communicate(timeout=120)[0].strip() for p in procs]
+    assert all(p.returncode == 0 for p in procs)
+    assert len(digests[0]) == 64 and digests == digests[:1] * 3, digests
 
 
 def test_floor_is_read_from_the_batch(monkeypatch):
