@@ -9,11 +9,12 @@ The reference has ensembles only as checkpoint-name indices
           args.seed + 1000*m, checkpoint index m); with --parallel all
           members advance together, each dispatch one call of the ensemble
           step (parallel/ensemble.py: for NeRFFlows of any flow family,
-          fused or unfused, placed or not, with or without --remat, the
-          member-batched step, JAX's vmapped one, its trunk and
+          fused or unfused, and for the baselines (--model nerf |
+          nerf_dropout | nerf_wild), placed or not, with or without remat,
+          the member-batched step, JAX's vmapped one, its trunk and
           render-core or flow-stack kernels launched once for all
-          members; a baseline's members in turn), on the same per-member
-          streams
+          members, the baselines' nets member by member; hierarchical
+          sampling's members in turn), on the same per-member streams
   eval:   python -m cfnerf_torch.cli.ensemble eval --n_members 3 <flags...>
           renders each member's K draws of every held-out view and scores
           the MIXTURE: the mean and std over the M*K draws, PSNR, SSIM, the
@@ -244,8 +245,9 @@ def train_ensemble_parallel(args, n_members: int, device: DeviceLike = None) -> 
     # generators, so the members' trajectories do not depend on it.  Members
     # the batched step takes render it together, as JAX's vmapped val_fn
     # does (one render-core, or flow-stack a chain, and trunk launch for
-    # all; the other families' flows once on the joined rays); the others
-    # each through its own render
+    # all; the other families' flows once on the joined rays; the
+    # baselines' nets member by member); the others each through its own
+    # render
     val_batcher, render_val = None, []
     val_batched = batched_step_refusal(models, render_config, tc) is None
     if use_batching and args.i_print > 0 and len(scene["i_val_internal"]) > 0:

@@ -25,13 +25,17 @@ triangular flows' kernel):
                   mean sample last), which the converter fills with JAX's
                   draws; trained with the KDE NLL.
 
+baseline_forward_members runs M members of one kind and shape at once (an
+ensemble's member-batched step, JAX's vmap of the adapter), each member's
+base net on its own points; forward is it at one member.
+
 JAX's dropout masks and eps come from its PRNG, which torch cannot
 reproduce: the seams (`eps`, the buffer) carry JAX's draws in tests.
 """
 from __future__ import annotations
 
 import copy
-from typing import Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -92,59 +96,126 @@ class KSampleBaseline(nn.Module):
             view.test_eps = wild_test_eps(k, self.test_eps_seed).to(self.test_eps.device)
         return view
 
-    def train_eps(self, x: torch.Tensor, generator: Optional[torch.Generator], eps):
-        """The draws of a training forward on x, made ahead of it (the step's
-        activation checkpointing replays them): nerf_dropout's K mask lists,
-        nerf_wild's (K, 3) eps, nothing for nerf."""
-        if eps is not None or self.kind == "nerf":
+    def _draws(self, is_test: bool, n_points: int, generator: Optional[torch.Generator],
+               eps):
+        """The draws of a forward on n_points points: injected `eps`
+        (nerf_wild's (K, 3), test mode with its last draw zeroed; nerf_
+        dropout's K mask lists), the fixed test draws, or fresh training
+        draws from `generator` (nerf_dropout's K mask lists, each in
+        NeRFDropout.mask_shapes order, as its forward consumes them;
+        nerf_wild's (K, 3) eps); None for nerf."""
+        dev = self.base.trunk.pts_linears[0].weight.device
+        if self.kind == "nerf":
+            return None
+        if eps is not None:
+            if self.kind == "nerf_dropout":
+                return [[torch.as_tensor(m, dtype=torch.bool).to(dev) for m in masks]
+                        for masks in eps]
+            eps = torch.as_tensor(eps, dtype=torch.float32).to(dev)
+            if is_test:  # the mean sample last, as the flows do
+                eps = eps.clone()
+                eps[-1] = 0.0
             return eps
-        self._need_generator(False, generator)
-        if self.kind == "nerf_dropout":
-            return [self.base.draw_masks(x.shape[0], generator) for _ in range(self.k_samples)]
-        return torch.randn(self.k_samples, 3, generator=generator, device=generator.device)
-
-    def _need_generator(self, is_test, generator) -> None:
-        if not is_test and generator is None:
+        if is_test:
+            if self.kind == "nerf_dropout":
+                return _FixedMasks(self.base, self.k_samples, n_points, self.test_eps_seed, dev)
+            return self.test_eps
+        if generator is None:
             # a stochastic model trained without draws would freeze its masks
             # or eps into a fixed ensemble
             raise ValueError(f"a training forward of {self.kind} needs a torch.Generator")
+        if self.kind == "nerf_dropout":
+            return [self.base.draw_masks(n_points, generator) for _ in range(self.k_samples)]
+        return torch.randn(self.k_samples, 3, generator=generator,
+                           device=generator.device).to(dev)
+
+    def train_eps(self, n_points: int, generator: Optional[torch.Generator], eps):
+        """The draws of a training forward on n_points points, made ahead of
+        it (the step's activation checkpointing replays them; the batched
+        loss draws before it embeds the points)."""
+        return self._draws(False, n_points, generator, eps)
+
+    def test_draws(self, n_points: int):
+        """The test-mode draws of a forward on n_points points: nerf_wild's
+        test_eps, nerf_dropout's fixed masks (drawn anew from
+        torch.Generator(test_eps_seed) on each pass over them), None for
+        nerf; the counterpart of NeRFFlows.test_draws."""
+        return self._draws(True, n_points, None, None)
 
     def forward(self, x: torch.Tensor, *, is_test: bool = False,
                 generator: Optional[torch.Generator] = None,
                 eps=None) -> Tuple[torch.Tensor, torch.Tensor]:
-        B, K = x.shape[0], self.k_samples
-        zero = torch.zeros((), dtype=torch.float32, device=x.device)
-        if self.kind == "nerf":
-            return self.base(x)[:, None, :].expand(B, K, 4), zero
-        if eps is None:
-            self._need_generator(is_test, generator)
+        """raw (B, K, 4) and the entropy 0: baseline_forward_members at one
+        member."""
+        draws = self._draws(is_test, x.shape[0], generator, eps)
+        raw, entropy = baseline_forward_members([self], x[None], [draws], is_test=is_test)
+        return raw, entropy[0]
 
-        if self.kind == "nerf_dropout":
-            if eps is None and is_test:  # fixed masks: the same on every call
-                generator = torch.Generator(device=x.device).manual_seed(self.test_eps_seed)
-            replay = torch.is_grad_enabled() and not is_test
-            draws = []
-            for k in range(K):
-                masks = eps[k] if eps is not None else self.base.draw_masks(B, generator)
+
+class _FixedMasks:
+    """nerf_dropout's test-mode draws: K mask lists from a generator seeded
+    test_eps_seed on the device, drawn anew on each pass, one draw's masks
+    at a time (a serving tile's K draws' masks would not fit at once)."""
+
+    def __init__(self, base: NeRFDropout, k: int, n_points: int, seed: int, device):
+        self.base, self.k, self.n_points, self.seed, self.device = (
+            base, k, n_points, seed, device)
+
+    def __iter__(self) -> Iterator[List[torch.Tensor]]:
+        generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        for _ in range(self.k):
+            yield self.base.draw_masks(self.n_points, generator)
+
+
+def _cat(parts: List[torch.Tensor]) -> torch.Tensor:
+    """Members' per-point tensors joined along the points; one member's as
+    it is."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def baseline_forward_members(models: Sequence[KSampleBaseline], x: torch.Tensor,
+                             draws: Sequence, *, is_test: bool = False
+                             ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """The forward of M baselines of one kind and shape at once, the member
+    axis first: x (M, B, input_ch [+ views]), draws each member's
+    (KSampleBaseline.train_eps / test_draws).  Each member's base net runs
+    on its own points through its own nn.Linear layers, and so does
+    nerf_wild's f32 tail (softplus of the std head, mu + std * eps with the
+    member's (K, 3) eps): member m's arithmetic is its own forward's.
+      * nerf: the prediction expanded over K (the members' predictions
+        joined, then expanded: a stride-0 view, as one member's);
+      * nerf_dropout: each member's K draws on its own masks, each draw
+        checkpointed in a training forward (its activations recomputed in
+        the backward from its masks: the K draws' would not fit);
+      * nerf_wild: mu + std * eps over the K draws, the density expanded.
+    KSampleBaseline.forward is this at one member.  Returns raw (M * B, K,
+    4), the points member-major, and the M entropies, 0."""
+    first = models[0]
+    if len({m.kind for m in models}) > 1:
+        raise ValueError("baseline_forward_members takes members of one kind")
+    M, B = x.shape[:2]
+    K = first.k_samples
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if first.kind == "nerf":
+        pred = _cat([m.base(x[i]) for i, m in enumerate(models)])
+        return pred[:, None, :].expand(M * B, K, 4), [zero] * M
+    raws = []
+    if first.kind == "nerf_dropout":
+        replay = torch.is_grad_enabled() and not is_test
+        for i, (m, masks_k) in enumerate(zip(models, draws)):
+            out = []
+            for masks in masks_k:
                 if replay:
                     # the backward recomputes one draw's trunk at a time from
                     # its masks: the K draws' activations are never all held
-                    draws.append(checkpoint(self.base, x, masks=masks, use_reentrant=False))
+                    out.append(checkpoint(m.base, x[i], masks=masks, use_reentrant=False))
                 else:
-                    draws.append(self.base(x, masks=masks))
-            return torch.stack(draws, 1), zero
-
-        out = self.base(x)  # rgb (3), raw std (1), density (1)
+                    out.append(m.base(x[i], masks=masks))
+            raws.append(torch.stack(out, 1))
+        return _cat(raws), [zero] * M
+    for i, (m, eps_r) in enumerate(zip(models, draws)):
+        out = m.base(x[i])  # rgb (3), raw std (1), density (1)
         std = softplus(out[..., 3:4]) + 1e-4  # (B, 1)
-        if eps is not None:
-            eps_r = torch.as_tensor(eps, dtype=torch.float32).to(x.device)
-            if is_test:  # the mean sample last, as the flows do
-                eps_r = eps_r.clone()
-                eps_r[-1] = 0.0
-        elif is_test:
-            eps_r = self.test_eps
-        else:
-            eps_r = torch.randn(K, 3, generator=generator, device=generator.device).to(x.device)
         rgb_k = out[:, None, :3] + std[:, None, :] * eps_r[None]  # (B, K, 3)
-        raw = torch.cat([rgb_k, out[:, None, 4:5].expand(B, K, 1)], -1)
-        return raw, zero
+        raws.append(torch.cat([rgb_k, out[:, None, 4:5].expand(B, K, 1)], -1))
+    return _cat(raws), [zero] * M

@@ -342,11 +342,17 @@ class NeRFFlows(nn.Module):
         eps_r = torch.randn(K, Z_RGB, generator=generator, device=generator.device)
         return eps_a.to(dev), eps_r.to(dev)
 
-    def train_eps(self, x: torch.Tensor, generator: Optional[torch.Generator],
+    def train_eps(self, n_points: int, generator: Optional[torch.Generator],
                   eps: Optional[Eps]) -> Eps:
-        """The draws of a training forward on x, made ahead of it (the step's
-        activation checkpointing replays them)."""
+        """The draws of a training forward (on any number of points: they
+        are shared over them), made ahead of it (the step's activation
+        checkpointing replays them)."""
         return self._draw_eps(False, generator, eps)
+
+    def test_draws(self, n_points: int) -> Eps:
+        """The test-mode draws of a forward (on any number of points): the
+        fixed buffers, the mean draw last."""
+        return self._draw_eps(True, None, None)
 
     def at_k(self, k: int) -> "NeRFFlows":
         """This net drawing k samples: a shallow copy that shares every

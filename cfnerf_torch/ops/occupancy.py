@@ -43,7 +43,7 @@ from cfnerf_torch.ops.compositing import softplus
 from cfnerf_torch.ops.embed import positional_encoding
 from cfnerf_torch.ops.rays import get_rays
 from cfnerf_torch.ops.sampling import per_ray
-from cfnerf_torch.render.renderer import prepare_rays
+from cfnerf_torch.render.renderer import prepare_rays, unfused_forward_members
 from cfnerf_torch.utils.device import DeviceLike, resolve_device
 
 SigmaFn = Callable[[torch.Tensor], torch.Tensor]
@@ -381,15 +381,15 @@ def density_query_members(models: Sequence, config, reduce: str = "mean") -> Cal
     """fn((M, P, 3) pts) -> [M (P,) sigma >= 0], each member's density at its
     own points from its current weights, read at each call (the co-training
     target, whose weights change every step): the embedded points with the
-    view direction (0, 0, 1), the models in test mode (fixed eps, the mean
-    draw last), then the mean draw's density (reduce="mean") or the max
-    over the K draws ("max"), through softplus, each member's on its own
-    points.  M members of one shape run through
-    models/nerf_flows.py:forward_members (one flow-stack launch a chain for
-    all on the card, the trunk as the training step runs it); one member
-    through its own forward (any model).  Runs without gradient."""
-    from cfnerf_torch.models.nerf_flows import forward_members
-
+    view direction (0, 0, 1), the models in test mode (their fixed draws,
+    test_draws; the mean draw last), then the mean draw's density
+    (reduce="mean") or the max over the K draws ("max"), through softplus,
+    each member's on its own points.  The M members of one model and shape
+    (one member: any model) run through
+    render/renderer.py:unfused_forward_members (NeRFFlows: one flow-stack
+    launch a chain for all on the card, the trunk as the training step runs
+    it; baselines: each member's net on its own points).  Runs without
+    gradient."""
     if reduce not in ("mean", "max"):
         raise ValueError(f"reduce must be 'mean' or 'max', got {reduce!r}")
     embedder, embedder_dirs = config.embedders()
@@ -401,12 +401,9 @@ def density_query_members(models: Sequence, config, reduce: str = "mean") -> Cal
                 zero_dirs = torch.zeros_like(pts)
                 zero_dirs[..., 2] = 1.0
                 emb = torch.cat([emb, embedder_dirs(zero_dirs)], -1)
-            if len(models) == 1:
-                raw = models[0](emb[0], is_test=True)[0]
-            else:
-                eps = [m._draw_eps(True, None, None) for m in models]
-                raw = forward_members(models, emb, eps, is_test=True)[0]
             P = pts.shape[1]
+            draws = [m.test_draws(P) for m in models]
+            raw = unfused_forward_members(models, emb, draws, is_test=True)[0]
             out = []
             for i in range(len(models)):
                 r = raw[i * P:(i + 1) * P]

@@ -11,8 +11,9 @@ format, and the ensemble step is one of two, chosen once when it is built
 (printed, and kept as step.batched):
 
   * the member-batched step, JAX's vmap written out, for NeRFFlows of any
-    flow family on the fused (triangular) or the unfused render, placed (the
-    occ stage) or not, with or without remat (no fine pass, no baseline;
+    flow family on the fused (triangular) or the unfused render, and for
+    the baselines (nerf, nerf_dropout, nerf_wild; unfused), placed (the occ
+    stage) or not, with or without remat (no fine pass;
     train/step.py:batched_step_refusal), its loss
     train/step.py:make_batched_loss, which is also the one-member step
     of these configurations: each member's draws from its own generator in
@@ -26,8 +27,9 @@ format, and the ensemble step is one of two, chosen once when it is built
     (one launch a chain each way, each member's z0 gradient summed over its
     own points) with a member axis; the householder, orthogonal and planar
     flows once on the members' joined points; the "xla" trunk's and the
-    amortizers' products, IAF's MADE layers and the unfused composite,
-    member by member, which keeps their bits; with remat the members'
+    amortizers' products, IAF's MADE layers, the baselines' nets (no
+    kernel: nerf_dropout's K draws each on the member's own masks) and the
+    unfused composite, member by member, which keeps their bits; with remat the members'
     forward under one activation checkpoint; each member's loss scored on
     its own rays, one backward on their sum, then each member's own update (its Adam and schedule; under a
     mesh its gradient's all-reduce over its data ranks first); in the occ
@@ -38,7 +40,7 @@ format, and the ensemble step is one of two, chosen once when it is built
     versions run member by member, bitwise.  A batched launch that fails
     raises; nothing falls back to the loop;
   * the per-member loop for every other configuration (hierarchical
-    sampling, the baselines, members that differ): the M
+    sampling, members that differ): the M
     single-member steps of train/step.py:make_train_step one after another
     inside one call.
 
@@ -73,7 +75,7 @@ from cfnerf_torch.parallel.mesh import (
     block,
     gcd_split,
 )
-from cfnerf_torch.models.nerf_flows import NeRFFlows
+from cfnerf_torch.models.baseline_adapter import KSampleBaseline
 from cfnerf_torch.render.renderer import RenderConfig
 from cfnerf_torch.render.renderer import unfused
 from cfnerf_torch.train.step import (
@@ -156,14 +158,15 @@ def member_generators(seeds: Sequence[int], device: DeviceLike = None) -> List[t
 
 
 def _member(x, m: int):
-    """Member m's slice of a batch leaf or a seam: x[m]; a tuple (eps) or a
+    """Member m's slice of a batch leaf or a seam: x[m]; a tuple or a list
+    (NeRFFlows' eps pair, nerf_dropout's mask lists, noise's passes) or a
     dict (a batch) slices each entry."""
     if x is None:
         return None
     if isinstance(x, Mapping):
         return {k: _member(v, m) for k, v in x.items()}
-    if isinstance(x, tuple):
-        return tuple(_member(v, m) for v in x)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_member(v, m) for v in x)
     return x[m]
 
 
@@ -176,7 +179,7 @@ def _per_member(x, n_members: int, what: str) -> list:
     return x
 
 
-def _batched_step(members: Sequence[Callable], models: Sequence[NeRFFlows],
+def _batched_step(members: Sequence[Callable], models: Sequence[torch.nn.Module],
                   render_config: RenderConfig, cfg: TrainConfig, mesh, occ) -> Callable:
     """The member-batched step (the module docstring) over the members'
     single-member steps `members`, whose updates, proposals and proposal
@@ -196,7 +199,6 @@ def _batched_step(members: Sequence[Callable], models: Sequence[NeRFFlows],
         gens = _per_member(generators, M, "generators")
         for s in members:
             s.optimizer.zero_grad(set_to_none=True)
-        eps = None if eps is None else tuple(eps)
         # noise holds one tensor a render pass, and these renders have one
         scored = loss_fn(batch, gens, z_vals=[_member(z_vals, m) for m in range(M)],
                          eps=[_member(eps, m) for m in range(M)],
@@ -218,20 +220,28 @@ def _batched_step(members: Sequence[Callable], models: Sequence[NeRFFlows],
     return step
 
 
-def _batched_launches(render_config: RenderConfig, occ, family: str, remat: bool) -> str:
-    """What the member-batched step runs once for all members."""
-    if family == "IAF":  # the MADE layers are each member's own
-        what = "the IAF flows member by member; one trunk launch a pass"
-    elif family != "triangular":
-        what = f"the {family} flows once on the joined points; one trunk launch a pass"
+def _batched_launches(render_config: RenderConfig, occ, model: torch.nn.Module,
+                      remat: bool) -> str:
+    """What the member-batched step runs, and how much of it once for all
+    members."""
+    baseline = isinstance(model, KSampleBaseline)
+    if baseline:  # plain nn.Linear nets, each member's own
+        what = f"the {model.kind} nets member by member, no kernel"
+    elif model.type_flows == "IAF":  # the MADE layers are each member's own
+        what = "the IAF flows member by member; one trunk launch a pass for all"
+    elif model.type_flows != "triangular":
+        what = (f"the {model.type_flows} flows once on the joined points; one trunk launch "
+                "a pass for all")
     elif unfused(render_config):
-        what = "one trunk and flow-stack launch a chain and pass"
+        what = "one trunk and flow-stack launch a chain and pass for all"
     else:
-        what = "one trunk and render-core launch a pass"
+        what = "one trunk and render-core launch a pass for all"
     if remat:
         what = "remat, the forward recomputed in the backward; " + what
-    return what + ("; the co-training's density query one flow-stack launch a chain"
-                   if occ is not None else "")
+    if occ is not None:
+        what += ("; the co-training's density query so too" if baseline else
+                 "; the co-training's density query one flow-stack launch a chain for all")
+    return what
 
 
 def make_ensemble_train_step(
@@ -261,8 +271,10 @@ def make_ensemble_train_step(
     member m's step on batch leaves [m] ((M, R, ...) rays and targets; an
     (M,) occ_floor is each member's floor) with generators[m], and returns
     each metric stacked to (M,).  A seam, where given, has the member axis
-    first (eps: a pair of (M, K, 1) and (M, K, 3); noise one (M, R, S, K)
-    tensor a pass); the member-batched step takes z_vals, eps, place_u,
+    first (eps: NeRFFlows' pair of (M, K, 1) and (M, K, 3), nerf_wild's
+    (M, K, 3), nerf_dropout's K lists of (M, n_points, width) masks in
+    NeRFDropout.mask_shapes order; noise one (M, R, S, K) tensor a pass);
+    the member-batched step takes z_vals, eps, place_u,
     noise and prop_pts, the draws its configurations make.  With
     `occ`, step.install_proposals(props) loads each member's distilled
     proposal (a ProposalMLP or its state dict) and restarts its Adam, JAX's
@@ -286,8 +298,8 @@ def make_ensemble_train_step(
     refusal = batched_step_refusal(models, render_config, cfg, model_fine, occ)
     if refusal is None:
         step = _batched_step(members, models, render_config, cfg, mesh, occ)
-        launches = _batched_launches(render_config, occ, models[0].type_flows, cfg.remat)
-        print(f"ensemble step: {n_members} members batched ({launches} for all)", flush=True)
+        launches = _batched_launches(render_config, occ, models[0], cfg.remat)
+        print(f"ensemble step: {n_members} members batched ({launches})", flush=True)
     else:
         def step(batch: Mapping, generators: Sequence[Optional[torch.Generator]],
                  **seams) -> Metrics:

@@ -22,6 +22,7 @@ from typing import Callable, ContextManager, Dict, List, Optional, Sequence, Tup
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from cfnerf_torch.models.baseline_adapter import KSampleBaseline, baseline_forward_members
 from cfnerf_torch.models.nerf_flows import forward_composited_members, forward_members
 from cfnerf_torch.ops.compositing import LAST_DIST, finalize_k_maps, raw2outputs
 from cfnerf_torch.ops.embed import Embedder
@@ -127,6 +128,17 @@ def _checkpointed(remat: bool, forward: Callable) -> Callable:
     return lambda *args, **kwargs: checkpoint(forward, *args, use_reentrant=False, **kwargs)
 
 
+def unfused_forward_members(models: Sequence, x: torch.Tensor, draws: Sequence, *,
+                            is_test: bool) -> Tuple[torch.Tensor, list]:
+    """The unfused forward of M members of one model (x (M, B, C), draws
+    each member's train_eps / test_draws): NeRFFlows' forward_members or
+    the baselines' baseline_forward_members.  Returns raw (M * B, K, 4),
+    the points member-major, and the M entropies."""
+    if isinstance(models[0], KSampleBaseline):
+        return baseline_forward_members(models, x, draws, is_test=is_test)
+    return forward_members(models, x, draws, is_test=is_test)
+
+
 def render_members(
     models: Sequence,
     config: RenderConfig,
@@ -142,17 +154,18 @@ def render_members(
     rows: Optional[Callable[[int], ContextManager]] = None,
     remat: bool = False,
 ) -> List[Dict[str, torch.Tensor]]:
-    """The render of M NeRFFlows of one family and shape (an ensemble's
-    members, or one net) at given depths, JAX's vmapped render_rays:
-    rays_o, rays_d, viewdirs (M * R, 3) and z_vals (M * R, S), the rays
-    member-major; `draws` each member's base draws (NeRFFlows._draw_eps).
-    The positional encoding and the sample intervals run once over all
-    members' rays.  The fused path (not `unfused(config)`; no fine pass;
-    the triangular family) takes forward_composited_members, the render
-    core and the trunk kernels one launch for all members; the unfused one
-    forward_members (the triangular flow-stack kernel one launch a chain
-    for all, the other families' eager flows once on the joined points),
-    then raw2outputs member by member on each member's rays, as its own
+    """The render of M members of one model and shape (an ensemble's
+    members, or one net: NeRFFlows of one family, or baselines of one kind)
+    at given depths, JAX's vmapped render_rays: rays_o, rays_d, viewdirs
+    (M * R, 3) and z_vals (M * R, S), the rays member-major; `draws` each
+    member's draws (train_eps / test_draws).  The positional encoding and
+    the sample intervals run once over all members' rays.  The fused path
+    (not `unfused(config)`; no fine pass; the triangular family) takes
+    forward_composited_members, the render core and the trunk kernels one
+    launch for all members; the unfused one unfused_forward_members
+    (NeRFFlows: the triangular flow-stack kernel one launch a chain for
+    all, the other families' eager flows once on the joined points; the
+    baselines' nets member by member), then raw2outputs member by member on each member's rays, as its own
     render composites them (on the CPU a call over more rays may round
     log1p and sigmoid elsewhere), its density noise (apply_noise)
     `noise[m]` or drawn from `generators[m]` in train mode, inside `rows(m)`
@@ -167,6 +180,8 @@ def render_members(
     emb = emb.view(M, n_rays * S, -1)
     out = []
     remat = remat and not is_test
+    if isinstance(models[0], KSampleBaseline) and not unfused(config):
+        raise ValueError("a baseline has no fused render: RenderConfig.fused must be 'off'")
     if not unfused(config):
         rgb, depth, acc, entropy = _checkpointed(remat, forward_composited_members)(
             models, emb, z_vals.view(M, -1), point_intervals(z_vals, rays_d).view(M, -1), S,
@@ -177,7 +192,8 @@ def render_members(
             out.append(dict(rgb_map=rgb[ray], disp_map=disp[ray], depth_map=depth[ray],
                             acc_map=acc[ray], loss_entropy=entropy[m]))
         return out
-    raw, entropy = _checkpointed(remat, forward_members)(models, emb, draws, is_test=is_test)
+    raw, entropy = _checkpointed(remat, unfused_forward_members)(models, emb, draws,
+                                                                 is_test=is_test)
     for m in range(M):
         ray = slice(m * n_rays, (m + 1) * n_rays)
         with rows(m) if rows is not None else contextlib.nullcontext():
@@ -198,9 +214,10 @@ def render_members(
 def render_members_test(models: Sequence, config: RenderConfig, rays_o: torch.Tensor,
                         rays_d: torch.Tensor, viewdirs: Optional[torch.Tensor],
                         near: torch.Tensor, far: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
-    """One test-mode render of the same R rays by each of M NeRFFlows of
-    one family and shape at once, JAX's vmapped val_fn: the rays repeated
-    member-major, the schedule's depths, each member's fixed test draws,
+    """One test-mode render of the same R rays by each of M members of one
+    model and shape at once (NeRFFlows of one family, or baselines of one
+    kind), JAX's vmapped val_fn: the rays repeated member-major, the
+    schedule's depths, each member's fixed test draws (test_draws),
     render_members.
     Returns a dict a member, each bitwise its own make_render_rays
     render's."""
@@ -208,7 +225,8 @@ def render_members_test(models: Sequence, config: RenderConfig, rays_o: torch.Te
     rays_o, rays_d, near, far = (t.repeat(M, 1) for t in (rays_o, rays_d, near, far))
     viewdirs = None if viewdirs is None else viewdirs.repeat(M, 1)
     z_vals = schedule_z_vals(config, near, far, None, is_test=True).contiguous()
-    draws = [m._draw_eps(True, None, None) for m in models]
+    n_points = z_vals.numel() // M
+    draws = [m.test_draws(n_points) for m in models]
     return render_members(models, config, rays_o, rays_d, viewdirs, z_vals, draws,
                           is_test=True)
 

@@ -7,13 +7,14 @@ lr = lrate * 0.1^(step / (lrate_decay*1000)) (:1072-1077)).
     and split after, as in the reference (:1011, :1020-1024);
   * the render is the fused train-mode path (the render core's forward
     kernel on the card, its backward kernel through autograd), the unfused
-    one (--fused_render off, applied density noise: the flow-stack kernels)
-    or, with N_importance > 0, the hierarchical coarse + fine render, whose
-    flow stacks run through the flow-stack kernels; its coarse loss is added
-    as in cfnerf_tpu/train/step.py:290-304.  For NeRFFlows of any family
-    without a fine pass, fused or unfused, placed or not, with or without
-    remat, the step is the member-batched loss, make_batched_loss, at one
-    member, which the ensemble step runs at M;
+    one (--fused_render off, applied density noise: the flow-stack kernels;
+    the baselines' only render) or, with N_importance > 0, the hierarchical
+    coarse + fine render, whose flow stacks run through the flow-stack
+    kernels; its coarse loss is added as in cfnerf_tpu/train/step.py:290-
+    304.  For NeRFFlows of any family and for the baselines, without a fine
+    pass, fused or unfused, placed or not, with or without remat, the step
+    is the member-batched loss, make_batched_loss, at one member, which the
+    ensemble step runs at M;
   * a trunk_impl="pallas" net's trunk runs through the trunk kernels, its
     backward kernel through autograd, as the JAX step differentiates
     pallas_encode's custom VJP;
@@ -21,7 +22,7 @@ lr = lrate * 0.1^(step / (lrate_decay*1000)) (:1072-1077)).
     `start_step` (cfnerf_tpu/train/step.py:92-105);
   * `remat` recomputes the train-mode model forward in the backward
     (torch.utils.checkpoint, the counterpart of jax.checkpoint): the
-    batched loss's checkpoint, or _Remat's for a baseline or a fine pass;
+    batched loss's checkpoint, or _Remat's for a hierarchical render;
   * with `occ` (OccTrainConfig) the step trains on proposal-placed depths and
     co-trains the proposal after the field's update
     (cfnerf_tpu/train/step.py:36-60, :193-248, :318-354);
@@ -45,7 +46,7 @@ import torch.distributed as dist
 from torch.optim.lr_scheduler import LambdaLR
 from torch.utils.checkpoint import checkpoint
 
-from cfnerf_torch.models.nerf_flows import NeRFFlows
+from cfnerf_torch.models.baseline_adapter import KSampleBaseline
 from cfnerf_torch.ops.metrics import img2mse, mse2psnr
 from cfnerf_torch.ops.occupancy import (
     ProposalMLP,
@@ -192,24 +193,34 @@ def batch_rays(batch: Mapping, cfg: TrainConfig, render_config: RenderConfig, de
                            use_viewdirs=render_config.use_viewdirs, near=cfg.near, far=cfg.far)
 
 
+def _shape_key(m: torch.nn.Module) -> tuple:
+    """What members batched together must share: a baseline's kind and
+    base net, or a NeRFFlows' family, implementations and widths (a
+    member's test-mode seed is its own)."""
+    if isinstance(m, KSampleBaseline):
+        b = m.base
+        return ("baseline", m.kind, m.k_samples, b.depth, b.width, b.input_ch,
+                b.input_ch_views, b.trunk.skips, b.use_viewdirs,
+                getattr(b, "dropout_rate", None), b.compute_dtype)
+    return ("flows", m.type_flows, m.trunk_impl, m.flow_impl, m.compute_dtype, m.k_samples,
+            m.net_depth, m.net_width, m.input_ch, m.input_ch_views, m.skips,
+            m.use_viewdirs, m.n_flows, m.h_alpha_linear.out_features,
+            m.h_rgb_linear.out_features)
+
+
 def batched_step_refusal(models: Sequence[torch.nn.Module], render_config: RenderConfig,
                          cfg: TrainConfig, model_fine=None, occ=None) -> Optional[str]:
     """None where make_batched_loss takes these nets (one, or an ensemble's
     members): NeRFFlows of one configuration, any flow family, the fused
-    (triangular) or the unfused render (applied noise included), placed
-    (`occ`) or not, with or without remat; else what leaves them to the
-    render of make_render_rays (an ensemble: to its members' steps in
-    turn): hierarchical sampling (JAX's --parallel refuses it too), a
-    baseline, or members that differ."""
+    (triangular) or the unfused render (applied noise included), or
+    baselines of one kind and configuration (unfused), placed (`occ`) or
+    not, with or without remat; else what leaves them to the render of
+    make_render_rays (an ensemble: to its members' steps in turn):
+    hierarchical sampling (JAX's --parallel refuses it too), or members
+    that differ."""
     if render_config.n_importance > 0 or any(f is not None for f in model_fine or ()):
         return "hierarchical sampling"
-    if not all(isinstance(m, NeRFFlows) for m in models):
-        return "a baseline model"
-    shapes = {(m.type_flows, m.trunk_impl, m.flow_impl, m.compute_dtype, m.k_samples,
-               m.net_depth, m.net_width, m.input_ch, m.input_ch_views, m.skips,
-               m.use_viewdirs, m.n_flows, m.h_alpha_linear.out_features,
-               m.h_rgb_linear.out_features) for m in models}
-    if len(shapes) > 1:
+    if len({_shape_key(m) for m in models}) > 1:
         return "members of different configurations"
     return None
 
@@ -220,7 +231,7 @@ def _floor_of(b: Mapping, m: int, occ: "OccTrainConfig"):
     return b["occ_floor"][m] if "occ_floor" in b else occ.floor
 
 
-def make_batched_loss(models: Sequence[NeRFFlows], render_config: RenderConfig,
+def make_batched_loss(models: Sequence[torch.nn.Module], render_config: RenderConfig,
                       cfg: TrainConfig, mesh=None, occ=None,
                       proposals: Optional[Sequence[ProposalMLP]] = None) -> Callable:
     """The train-mode render and loss of M nets at once (members of an
@@ -229,16 +240,20 @@ def make_batched_loss(models: Sequence[NeRFFlows], render_config: RenderConfig,
     place_u, noise) -> [(loss, metrics)], a pair a member.  The batch's
     leaves have the member axis first ((M, R, 3) rays, an (M,) occ_floor,
     ...); generators and the seams are lists of each member's (a seam None
-    is drawn; noise a member's (R, S, K) density noise).  Member m's draws
-    come from generators[m] in its single step's order: with `occ` (its
-    proposal proposals[m]) the placement's stratified u, else the jitter;
-    then the base draws, then (unfused, applied noise) the density noise.
+    is drawn; eps a member's train_eps seam: NeRFFlows' base draws, nerf_
+    dropout's K mask lists, nerf_wild's (K, 3) eps; noise a member's (R, S,
+    K) density noise).  Member m's draws come from generators[m] in its
+    single step's order: with `occ` (its proposal proposals[m]) the
+    placement's stratified u, else the jitter; then the base draws (a
+    baseline's masks or eps), then (unfused, applied noise) the density
+    noise.
     Placement runs member by member on each member's rays and proposal, as
     its own step places them; the rays' preparation runs once over all
     members' rays, member-major, and the render is render_members (the
     render core, or the flow stack a chain, and the trunk kernels, one
     launch for all members; the other families' eager flows once on the
-    joined points); each member's loss is scored on its own rays.  With
+    joined points; the baselines' nets member by member); each member's
+    loss is scored on its own rays, in cfg.loss_mode.  With
     cfg.remat the members' train-mode forward (trunks, amortizers, flows and
     the render core, or the unfused raw tensor) runs under one activation
     checkpoint and is recomputed in the backward, its draws made before it,
@@ -293,7 +308,7 @@ def make_batched_loss(models: Sequence[NeRFFlows], render_config: RenderConfig,
                 if z_m is None:
                     z_m = schedule_z_vals(rc, near_v[ray], far_v[ray], gen, is_test=False)
                 zs.append(z_m)
-                draws.append(net.train_eps(None, gen, eps[m]))
+                draws.append(net.train_eps(z_m.numel(), gen, eps[m]))
         renders = render_members(
             models, rc, rays_o, rays_d, viewdirs, torch.stack(zs).reshape(M * n_rays, -1),
             draws, is_test=False, generators=generators,
@@ -363,8 +378,8 @@ def make_batched_cotrain(models: Sequence[torch.nn.Module], render_config: Rende
 
 class _Remat:
     """A net's train-mode unfused forward under activation checkpointing,
-    for the renders make_render_rays runs (a baseline, a hierarchical
-    pass).  The draws (base eps, or a baseline's masks or eps) are made
+    for the renders make_render_rays runs (a hierarchical render's coarse
+    and fine passes).  The draws (base eps, or a baseline's masks or eps) are made
     before the checkpoint (model.train_eps), so the recompute in the
     backward sees the same ones (checkpoint restores the default generators'
     state, not an explicit torch.Generator's)."""
@@ -375,7 +390,7 @@ class _Remat:
     def __call__(self, x, *, is_test, generator=None, eps=None):
         if is_test:
             return self.model(x, is_test=True, eps=eps)
-        eps = self.model.train_eps(x, generator, eps)
+        eps = self.model.train_eps(x.shape[0], generator, eps)
         return checkpoint(self.model, x, is_test=False, eps=eps, use_reentrant=False)
 
 
@@ -489,9 +504,9 @@ def make_train_step(
         # the ensemble's member-batched co-training at one member
         batched_cotrain = make_batched_cotrain([model], render_config, occ, [proposal],
                                                [prop_optimizer], mesh)
-    # a NeRFFlows step without a fine pass (any family, fused or unfused,
-    # placed or not, remat or not) is the ensemble's member-batched loss at
-    # one member: one code path for both
+    # a step without a fine pass (NeRFFlows of any family, fused or
+    # unfused, or a baseline; placed or not, remat or not) is the
+    # ensemble's member-batched loss at one member: one code path for both
     batched = (make_batched_loss([model], render_config, cfg, mesh, occ,
                                  None if occ is None else [proposal])
                if batched_step_refusal([model], render_config, cfg, model_fine, occ) is None

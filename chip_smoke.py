@@ -203,15 +203,15 @@ final line):
                    --type_flows (the parser's no_flow); each evaluated at
                    step 100: finite metrics, launches exact
  33. ensemble      cfnerf_torch.cli.ensemble on the capture at train_NF.sh's
-                   flags: (a) 3 members trained serially, 50 steps each;
+                   flags: (a) 3 members trained serially, 20 steps each;
                    (b) the mixture eval of all three, of 1 and 3, of each
                    alone, --members auto under train_psnr and val_nll; (c)
                    --parallel in a fresh run dir, each member's checkpoint
                    against its serial one (relative 1e-5 a tensor, 0
                    expected), the tagged scalars, its mixture eval, its loop
                    rate against (a)'s, peak memory; (d) --trunk_impl pallas,
-                   (e) --occ_train 12 --occ_train_from 25, 3 members x 50
-                   steps each, and (f) --fused_render off, 3 x 30 steps,
+                   (e) --occ_train 12 --occ_train_from 10, 3 members x 20
+                   steps each, and (f) --fused_render off, 3 x 20 steps,
                    serially and --parallel, each --parallel checkpoint
                    against its serial one; --parallel is the member-batched
                    step: one render-core forward and backward (and trunk
@@ -219,12 +219,16 @@ final line):
                    launches each way, a dispatch for all members, one
                    co-training density query for all in the occ stage, one
                    val batch render for all; (g) --type_flows householder
-                   --trunk_impl pallas and (h) --type_flows IAF, 3 x 30
+                   --trunk_impl pallas and (h) --type_flows IAF, 3 x 20
                    steps, serially and --parallel (one trunk forward and
                    backward a dispatch, the flows eager); (i) remat on the
-                   fused render, 3 x 30 steps through the library's steps
+                   fused render, 3 x 10 steps through the library's steps
                    (make_train_step in turn, make_ensemble_train_step), the
-                   recompute's render-core launch counted; each --parallel
+                   recompute's render-core launch counted; the baselines,
+                   no kernel on their path: (j) --model nerf_wild, 3 x 30
+                   steps through the CLI (its val batch one render for all
+                   members), (k) nerf_dropout, 3 x 3, and (l) nerf, 3 x 10,
+                   through the library's steps; each --parallel
                    run's weights and Adam state against its serial one, both
                    loops' rays/s (--parallel >= 0.95x) and peak memory;
                    launches exact
@@ -4351,9 +4355,9 @@ def phase_cli_families(tmp):
 # ---------------------------------------------------------------------- #
 
 ENS_MEMBERS = 3
-# 50 steps a member: (a)-(e) were cut from 100 to keep the script within its
-# time when the phase grew (g)-(i)
-ENS_STEPS, ENS_PRINT = 50, 10
+# 20 steps a member: (a)-(e) were cut from 100 to 50 to keep the script
+# within its time when the phase grew (g)-(i), and to 20 for (j)-(l)
+ENS_STEPS, ENS_PRINT = 20, 10
 # no image, video or test-set cadence: the val batch at each i_print and the
 # checkpoints at the last step
 ENS_CADENCES = ["--n_iters", str(ENS_STEPS), "--i_print", str(ENS_PRINT),
@@ -4512,17 +4516,17 @@ def ens_state_err(a, b):
     return max(errs), len(errs)
 
 
-# (e): the occ stage from step 25 of 50 (N12 placed samples from 128
+# (e): the occ stage from step 10 of 20 (N12 placed samples from 128
 # candidates): each member's proposal distilled at the boundary (2^18
 # points, four density queries of 65,536, two flow-stack launches each),
 # then a co-training density query a step (two launches; --parallel: one
-# query for all members); (f): the unfused render, 30 steps, two flow-stack
+# query for all members); (f): the unfused render, 20 steps, two flow-stack
 # launches each way a step (--parallel: a dispatch), two a val batch
-ENS_OCC_FROM = 25
+ENS_OCC_FROM = 10
 ENS_OCC_FLAGS = ["--occ_train", "12", "--occ_train_from", str(ENS_OCC_FROM)]
 ENS_DISTILL_QUERIES = (1 << 18) // DENSITY_CHUNK
 ENS_UNFUSED_FLAGS = ["--fused_render", "off"]
-ENS_UNFUSED_STEPS = 30
+ENS_UNFUSED_STEPS = 20
 
 
 def ens_cadences(steps):
@@ -4581,43 +4585,57 @@ def ens_serial_parallel(datadir, tmp, tag, extra, steps, trunk_kernels=False,
 # each through cli.ensemble (the unfused render, the family's eager flows);
 # (i) the triangular model with remat on the fused render, through the
 # library steps the CLI builds (remat has no flag in either package's CLI:
-# TrainConfig.remat).  30 steps a member each, serially and --parallel.
-ENS_FAMILY_STEPS = 30
+# TrainConfig.remat).  20 steps a member each ((i) 10; all 30 until the
+# baselines' sub-runs came), serially and --parallel.  The baselines (unfused, no
+# kernel): (j) nerf_wild through cli.ensemble, 30 steps, its KDE NLL and
+# one val render for all members; (k) nerf_dropout (32 trunk passes a
+# step, ~1.45 s) and (l) nerf, MSE both, through the library's steps, 3
+# and 10 steps.
+ENS_FAMILY_STEPS = 20
 ENS_HOUSEHOLDER_FLAGS = ["--type_flows", "householder", "--trunk_impl", "pallas"]
 ENS_IAF_FLAGS = ["--type_flows", "IAF"]
+ENS_WILD_FLAGS = ["--model", "nerf_wild"]
+ENS_REMAT_STEPS = 10
+ENS_WILD_STEPS, ENS_DROPOUT_STEPS, ENS_NERF_STEPS = 30, 3, 10
 
 
-def ens_remat_run():
-    """(i): ENS_MEMBERS flagship members (build_model at seed 1000 m, as
-    cli.ensemble seeds member m) trained ENS_FAMILY_STEPS steps with
-    TrainConfig(remat=True) on the fused render, on the same pre-drawn
-    flagship batches (each member its own stream of the synthetic scene)
-    and generators: serially, each member's make_train_step in turn, then
-    member-batched (make_ensemble_train_step).  Launches exact (a
-    render-core forward, its recompute in the backward and a backward a
-    member step; --parallel a dispatch); every tensor of each member's
-    weights and Adam state against its serial one at ENS_CKPT_RTOL; both
-    loops' rays/s over steps 2..N (the host clock, ending in synchronize)
-    and peak memory.  Returns (report, serial launches, parallel
-    launches)."""
-    M, steps, rays = ENS_MEMBERS, ENS_FAMILY_STEPS, N_RAND + N_DEPTH
+def ens_library_batches(steps):
+    """`steps` flagship batches of each member (member m's stream of the
+    synthetic scene shuffled from seed m): batches[j][m]."""
+    streams = [flagship_batches(seed=m) for m in range(ENS_MEMBERS)]
+    return [[next_batch() for next_batch in streams] for _ in range(steps)]
+
+
+def ens_library_run(tag, over, batches, fused, wants, remat=False):
+    """ENS_MEMBERS flagship members (build_model at FLAGSHIP's flags and
+    `over`, seed 1000 m, as cli.ensemble seeds member m) trained a step a
+    batch of `batches` (ens_library_batches, drawn once for every library
+    run: a stream's build precomputes the scene's rays) in the model's
+    loss mode, with TrainConfig(remat=remat), from the same generators:
+    serially, each member's make_train_step in turn, then member-batched
+    (make_ensemble_train_step).  Launches exact (`wants`: serial, then
+    --parallel); every tensor of each member's weights and Adam state
+    against its serial one at ENS_CKPT_RTOL; both loops' rays/s over steps
+    2..N (the host clock, ending in synchronize) and peak memory.  Returns
+    (report, serial launches, parallel launches)."""
+    M, rays, steps = ENS_MEMBERS, N_RAND + N_DEPTH, len(batches)
     seeds = [1000 * m for m in range(1, M + 1)]
-    streams = [flagship_batches(seed=m) for m in range(M)]
-    batches = [[next_batch() for next_batch in streams] for _ in range(steps)]
     cfg = TrainConfig(H=H, W=W, focal=FOCAL, ndc=False, near=NEAR, far=FAR,
-                      k_samples=FLAGSHIP["K_samples"], remat=True, **TRAIN_CFG)
+                      k_samples=FLAGSHIP["K_samples"], remat=remat,
+                      loss_mode=loss_mode_for_model(over.get("model")), **TRAIN_CFG)
 
     def members():
-        built = [build_model(types.SimpleNamespace(**dict(FLAGSHIP, seed=s))) for s in seeds]
+        built = [build_model(types.SimpleNamespace(**dict(FLAGSHIP, **over, seed=s)))
+                 for s in seeds]
         return [b[0] for b in built], built[0][2]
 
     def run(parallel):
         models, rc = members()
-        check(rc.fused == "on", "ensemble remat: the fused render")
+        check(rc.fused == fused, f"ensemble {tag}: the render {rc.fused}, want {fused}")
         gens = member_generators(seeds, "cuda")
         if parallel:
             step, optimizers = make_ensemble_train_step(models, rc, cfg, M)
-            check(step.batched, "ensemble remat: the member-batched step")
+            check(step.batched, f"ensemble {tag}: the member-batched step")
             calls = [lambda j: step({k: np.stack([b[k] for b in batches[j]])
                                      for k in batches[j][0]}, gens)]
         else:
@@ -4638,7 +4656,7 @@ def ens_remat_run():
         peak = torch.cuda.max_memory_allocated() / 1e9
         launches = {c.__name__: c.launches for c in ENS_COUNTERS}
         check(all(bool(torch.isfinite(v).all()) for m in metrics for v in m.values()),
-              "ensemble remat: finite metrics")
+              f"ensemble {tag}: finite metrics")
         states = [(model.state_dict(), opt.state_dict()["state"])
                   for model, opt in zip(models, optimizers)]
         return dict(launches=launches, peak_gb=peak,
@@ -4646,45 +4664,49 @@ def ens_remat_run():
 
     serial, serial_states = run(False)
     parallel, parallel_states = run(True)
-    check(serial["launches"] == ens_want(2 * M * steps, M * steps),
-          f"ensemble remat serial: launched {serial['launches']}")
-    check(parallel["launches"] == ens_want(2 * steps, steps),
-          f"ensemble remat --parallel: launched {parallel['launches']}")
+    check(serial["launches"] == wants[0], f"ensemble {tag} serial: launched "
+          f"{serial['launches']}, want {wants[0]}")
+    check(parallel["launches"] == wants[1], f"ensemble {tag} --parallel: launched "
+          f"{parallel['launches']}, want {wants[1]}")
     errs = {}
     for m, (a, b) in enumerate(zip(parallel_states, serial_states), 1):
         err, n = ens_state_err(a, b)
         errs[f"m{m:02d}"] = {"max_rel_err": err, "tensors": n}
-        check(err <= ENS_CKPT_RTOL, f"member {m}'s --parallel remat state vs serial: {err}")
+        check(err <= ENS_CKPT_RTOL, f"member {m}'s --parallel {tag} state vs serial: {err}")
     check(parallel["loop_rays_per_s"] >= ENS_RATE_FLOOR * serial["loop_rays_per_s"],
-          f"--parallel remat {parallel['loop_rays_per_s']} rays/s vs serial "
+          f"--parallel {tag} {parallel['loop_rays_per_s']} rays/s vs serial "
           f"{serial['loop_rays_per_s']}")
     parallel["rate_vs_serial"] = parallel["loop_rays_per_s"] / serial["loop_rays_per_s"]
     parallel["checkpoints_vs_serial"] = errs
-    print(f"ensemble remat: --parallel vs serial weights and Adam, largest per-tensor "
+    print(f"ensemble {tag}: --parallel vs serial weights and Adam, largest per-tensor "
           f"relative difference {max(e['max_rel_err'] for e in errs.values())}; loops "
           f"{parallel['loop_rays_per_s']:.0f} vs {serial['loop_rays_per_s']:.0f} rays/s; "
           f"peak {parallel['peak_gb']:.2f} vs {serial['peak_gb']:.2f} GB", flush=True)
-    report = dict(steps=steps, remat=True, serial=serial, parallel=parallel)
+    report = dict(steps=steps, remat=remat, flags=over, serial=serial, parallel=parallel)
     return report, {"launches": serial["launches"]}, {"launches": parallel["launches"]}
 
 
 def phase_ensemble(tmp):
     """cfnerf_torch.cli.ensemble on a copy of the capture at
-    scripts/train_NF.sh's flags: (a) serial training of 3 members, 50
+    scripts/train_NF.sh's flags: (a) serial training of 3 members, 20
     steps each; (b) the mixture eval of all three, of members 1 and 3, of
     each alone and of --members auto under train_psnr and val_nll; (c)
     --parallel training of 3 members in a fresh run dir, each member's
     checkpoint against its serial one, the tagged scalars, its mixture
     eval, its loop rate against (a)'s, its peak memory; (d) --trunk_impl
-    pallas, 3 members, 50 steps, serial and --parallel, each --parallel
+    pallas, 3 members, 20 steps, serial and --parallel, each --parallel
     checkpoint against its serial one, both loops' rates; (e) the occ
-    stage (ENS_OCC_FLAGS), 3 members x 50 steps, and (f) the unfused
-    render (ENS_UNFUSED_FLAGS), 3 members x 30 steps, both serial and
+    stage (ENS_OCC_FLAGS), 3 members x 20 steps, and (f) the unfused
+    render (ENS_UNFUSED_FLAGS), 3 members x 20 steps, both serial and
     --parallel, checkpoints and rates as (d); (g) householder with the
-    trunk kernels and (h) IAF, 3 members x 30 steps through the CLI, and
-    (i) remat on the fused render through the library's steps
-    (ens_remat_run), each serial and --parallel, checkpoints, rates and
-    peak memory as (d).  --parallel runs the member-batched step: one
+    trunk kernels and (h) IAF, 3 members x 20 steps through the CLI, and
+    (i) remat on the fused render, 3 members x 10 steps through the
+    library's steps
+    (ens_library_run), each serial and --parallel, checkpoints, rates and
+    peak memory as (d); the baselines, no kernel on their path: (j)
+    nerf_wild, 3 members x 30 steps through the CLI, (k) nerf_dropout x 3
+    and (l) nerf x 10 through the library's steps, each serial and
+    --parallel, as (d).  --parallel runs the member-batched step: one
     render-core forward and backward (and, with pallas, one trunk forward
     and backward) a dispatch for all members, or unfused two flow-stack
     launches each way; in the occ stage one co-training density query for
@@ -4791,9 +4813,26 @@ def phase_ensemble(tmp):
     check("the IAF flows member by member" in iaf_parallel["text"],
           "ensemble IAF: the member-batched step ran")
     # (i) remat on the fused render, through the library's steps
-    remat_report, remat_serial, remat_parallel = ens_remat_run()
+    steps_i = ENS_REMAT_STEPS
+    batches = ens_library_batches(max(steps_i, ENS_DROPOUT_STEPS, ENS_NERF_STEPS))
+    remat_report, remat_serial, remat_parallel = ens_library_run(
+        "remat", {}, batches[:steps_i], "on",
+        (ens_want(2 * M * steps_i, M * steps_i), ens_want(2 * steps_i, steps_i)), remat=True)
+    # (j) nerf_wild through the CLI, (k) nerf_dropout and (l) nerf through
+    # the library's steps: the baselines' nets member by member, no kernel
+    wild_report, wild_serial, wild_parallel = ens_serial_parallel(
+        datadir, tmp, "nerf_wild", ENS_WILD_FLAGS, ENS_WILD_STEPS,
+        wants=(ens_want(), ens_want()))
+    check("the nerf_wild nets member by member" in wild_parallel["text"],
+          "ensemble nerf_wild: the member-batched step ran")
+    dropout_report, dropout_serial, dropout_parallel = ens_library_run(
+        "nerf_dropout", {"model": "nerf_dropout"}, batches[:ENS_DROPOUT_STEPS], "off",
+        (ens_want(), ens_want()))
+    nerf_report, nerf_serial, nerf_parallel = ens_library_run(
+        "nerf", {"model": "nerf"}, batches[:ENS_NERF_STEPS], "off", (ens_want(), ens_want()))
     for tag, rep in (("householder_pallas", hh_report), ("iaf", iaf_report),
-                     ("remat", remat_report)):
+                     ("remat", remat_report), ("nerf_wild", wild_report),
+                     ("nerf_dropout", dropout_report), ("nerf", nerf_report)):
         RATES[f"ensemble_serial_{tag}"] = rep["serial"]["loop_rays_per_s"]
         RATES[f"ensemble_parallel_{tag}"] = rep["parallel"]["loop_rays_per_s"]
 
@@ -4812,10 +4851,14 @@ def phase_ensemble(tmp):
                    "iter_time_ms": [1e3 * r["iter_time"] for r in parallel_records]},
          pallas=pallas_report, occ=occ_report, unfused=unfused_report,
          householder_pallas=hh_report, iaf=iaf_report, remat=remat_report,
+         nerf_wild=wild_report, nerf_dropout=dropout_report, nerf=nerf_report,
          dispatches={"parallel": ENS_STEPS, "parallel_pallas": ENS_STEPS,
                      "parallel_occ": ENS_STEPS, "parallel_unfused": ENS_UNFUSED_STEPS,
                      "parallel_householder_pallas": ENS_FAMILY_STEPS,
-                     "parallel_iaf": ENS_FAMILY_STEPS, "parallel_remat": ENS_FAMILY_STEPS},
+                     "parallel_iaf": ENS_FAMILY_STEPS, "parallel_remat": ENS_REMAT_STEPS,
+                     "parallel_nerf_wild": ENS_WILD_STEPS,
+                     "parallel_nerf_dropout": ENS_DROPOUT_STEPS,
+                     "parallel_nerf": ENS_NERF_STEPS},
          phase_s=time.perf_counter() - t_phase,
          gates={"checkpoint_rel_err": ENS_CKPT_RTOL, "parallel_rate_floor": ENS_RATE_FLOOR})
     by_path = {"ensemble_serial": [serial, pallas_serial], "ensemble_eval": eval_runs,
@@ -4827,7 +4870,12 @@ def phase_ensemble(tmp):
                "ensemble_householder_parallel": [hh_parallel],
                "ensemble_iaf_serial": [iaf_serial], "ensemble_iaf_parallel": [iaf_parallel],
                "ensemble_remat_serial": [remat_serial],
-               "ensemble_remat_parallel": [remat_parallel]}
+               "ensemble_remat_parallel": [remat_parallel],
+               "ensemble_nerf_wild_serial": [wild_serial],
+               "ensemble_nerf_wild_parallel": [wild_parallel],
+               "ensemble_nerf_dropout_serial": [dropout_serial],
+               "ensemble_nerf_dropout_parallel": [dropout_parallel],
+               "ensemble_nerf_serial": [nerf_serial], "ensemble_nerf_parallel": [nerf_parallel]}
     return {path: {c.__name__: sum(r["launches"][c.__name__] for r in part)
                    for c in ENS_COUNTERS} for path, part in by_path.items()}
 
@@ -5333,7 +5381,9 @@ def main() -> int:
     # member's val batch and a backward a member step (--parallel: a
     # dispatch, a val batch for all); ensemble_iaf_*: none; ensemble_remat_*:
     # a render-core forward, its recompute and a backward a member step
-    # (--parallel: a dispatch); mesh: the same per rank on each of its paths,
+    # (--parallel: a dispatch); ensemble_nerf_wild_*, ensemble_nerf_dropout_*,
+    # ensemble_nerf_*: none (the baselines' nets, no kernel); mesh: the same
+    # per rank on each of its paths,
     # summed over the ranks (phase_mesh)
     def ens_paths(name):
         return {path: counts[name] for path, counts in ens.items()}

@@ -495,10 +495,12 @@ def test_the_step_batches_only_the_flagship_fused_path(capsys):
     """The choice, made once and printed: the member-batched step for
     NeRFFlows of any flow family (planar here; tests/test_torch_ensemble_
     families.py steps every family), fused or unfused (applied noise
-    included), placed (the occ stage) or not, with or without remat; the
-    per-member loop for hierarchical sampling, a baseline and members of
-    different configurations (another family, another flow_impl); the
-    batched step refuses seams it has no draws for."""
+    included), placed (the occ stage) or not, with or without remat, and
+    for baselines of one kind (tests/test_torch_ensemble_baselines.py steps
+    them); the per-member loop for hierarchical sampling and members of
+    different configurations (another family, another flow_impl, a
+    NeRFFlows beside a baseline, two baseline kinds, another dropout rate);
+    the batched step refuses seams it has no draws for."""
     models = [port_nerf_flows(CFG, p, e) for p, e in
               (jax_nerf_flows(CFG, seed=m)[1:] for m in range(M))]
     rc, tc = RenderConfig(n_samples=8), TrainConfig(**TRAIN_KW)
@@ -522,17 +524,35 @@ def test_the_step_batches_only_the_flagship_fused_path(capsys):
     assert batched_step_refusal([models[0], planar[0]], rc, tc) == \
         "members of different configurations"
     baselines = [KSampleBaseline("nerf", 8, net_depth=2, net_width=32) for _ in range(M)]
-    assert batched_step_refusal(baselines, RenderConfig(n_samples=8, fused="off"),
-                                tc) == "a baseline model"
+    unfused_rc = RenderConfig(n_samples=8, fused="off")
+    assert batched_step_refusal(baselines, unfused_rc, tc) is None
+    assert batched_step_refusal(baselines, unfused_rc, tc, occ=occ) is None
+    assert batched_step_refusal(baselines, unfused_rc, TrainConfig(**TRAIN_KW, remat=True)) \
+        is None
+    assert batched_step_refusal(baselines, RenderConfig(n_samples=8, n_importance=4,
+                                                        fused="off"),
+                                tc) == "hierarchical sampling"
+    assert batched_step_refusal([planar[0], baselines[0]], unfused_rc, tc) == \
+        "members of different configurations"
+    wild = KSampleBaseline("nerf_wild", 8, net_depth=2, net_width=32, test_eps_seed=3)
+    assert batched_step_refusal([baselines[0], wild], unfused_rc, tc) == \
+        "members of different configurations"
+    dropouts = [KSampleBaseline("nerf_dropout", 8, net_depth=2, net_width=32,
+                                dropout_rate=rate, test_eps_seed=m)
+                for m, rate in enumerate((0.2, 0.2, 0.5))]
+    assert batched_step_refusal(dropouts[:2], unfused_rc, tc) is None  # own test seeds
+    assert batched_step_refusal(dropouts[1:], unfused_rc, tc) == \
+        "members of different configurations"
     plain_flows = port_nerf_flows(CFG, *jax_nerf_flows(CFG, seed=2)[1:])
     plain_flows.flow_impl = "xla"
     assert batched_step_refusal([models[0], plain_flows], rc, tc) == \
         "members of different configurations"
 
-    step, _ = make_ensemble_train_step(baselines, RenderConfig(n_samples=8, fused="off"),
+    step, _ = make_ensemble_train_step(baselines, unfused_rc,
                                        TrainConfig(**TRAIN_KW, loss_mode="mse"), M)
-    assert not step.batched
-    assert "2 members one after another (a baseline model)" in capsys.readouterr().out
+    assert step.batched
+    assert ("2 members batched (the nerf nets member by member, no kernel)"
+            in capsys.readouterr().out)
     step, _ = make_ensemble_train_step(planar, RenderConfig(n_samples=8, fused="off"),
                                        TrainConfig(**TRAIN_KW, remat=True), M)
     assert step.batched

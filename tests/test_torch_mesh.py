@@ -16,7 +16,8 @@ fixtures), each launch with a deadline and a file store of its own.
     leaves JAX's shard_params_tp puts on the model axis (through
     cfnerf_torch/convert.py's names), and its refusal of the trunk kernels;
   * each member's step on the (2, 2) and (1, 4) ensemble meshes against its
-    serial step.
+    serial step, and a nerf_dropout member set's on the (2, 2) mesh (its
+    masks drawn at the whole batch's shape, cut to each rank's rows).
 """
 import jax
 import jax.numpy as jnp
@@ -180,12 +181,15 @@ def test_tp_refuses_the_trunk_kernels(ranks):
     tmesh.check_tensor_parallel(1, "pallas")
 
 
-@pytest.mark.parametrize("n_members,shape", [(2, {"ensemble": 2, "data": 2}),
-                                             (3, {"ensemble": 1, "data": 4})])
-def test_ensemble_members_match_their_serial_steps(ranks, n_members, shape):
-    run = ranks["ensemble"][n_members]
+@pytest.mark.parametrize("members,shape", [(2, {"ensemble": 2, "data": 2}),
+                                           (3, {"ensemble": 1, "data": 4}),
+                                           ("nerf_dropout", {"ensemble": 2, "data": 2})])
+def test_ensemble_members_match_their_serial_steps(ranks, members, shape):
+    """`members`: the count of tiny NeRFFlows members, or two nerf_dropout
+    ones."""
+    run = ranks["ensemble"][members]
     assert dict(run["shape"]) == shape
-    assert sorted(run["mesh"]) == sorted(run["serial"]) == list(range(n_members))
+    assert sorted(run["mesh"]) == sorted(run["serial"]) == list(range(run["n"]))
     for m, (metrics, params) in run["serial"].items():
         got_metrics, got_params = run["mesh"][m]
         for k in metrics:

@@ -2,12 +2,16 @@
 ranks are spawned processes that import this module by name, so it imports
 torch and the port only, never JAX: the tests compute JAX's numbers in
 their own process and hand them over as numpy arrays."""
+import dataclasses
+
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from cfnerf_torch.convert import nerf_flows_state_dict_from_jax
 from cfnerf_torch.entry import _tiny
+from cfnerf_torch.models.baseline_adapter import KSampleBaseline
+from cfnerf_torch.models.factory import init_params
 from cfnerf_torch.models.nerf_flows import NeRFFlows
 from cfnerf_torch.parallel import ensemble as pens
 from cfnerf_torch.parallel import mesh as pmesh
@@ -63,14 +67,21 @@ def _jax_dp_step(mesh, jax_in):
             {k: _np(p) for k, p in model.named_parameters()})
 
 
-def _ensemble_vs_serial(n_members, batch, rc, cfg):
+def _dropout(seed):
+    """A nerf_dropout member at the file's narrowest widths (D2/W32, K4)."""
+    return init_params(KSampleBaseline("nerf_dropout", 4, net_depth=2, net_width=32,
+                                       skips=(1,), test_eps_seed=seed), seed=seed)
+
+
+def _ensemble_vs_serial(n_members, batch, rc, cfg, make=lambda seed: _tiny(seed=seed)[0]):
     """Each member's step on create_ensemble_mesh(M, 4) (its block of members
     on each rank) and, on rank 0, its serial one-device step: {member:
-    (metrics, params)} for both, gathered to every rank."""
+    (metrics, params)} for both, gathered to every rank.  make(seed) builds
+    member `seed`'s net (default: the tiny NeRFFlows)."""
     mesh = pens.create_ensemble_mesh(n_members, 4)
     members = np.arange(n_members)
     mine = [int(m) for m in pens.shard_members(mesh, members)]
-    models = [pmesh.replicate(mesh, _tiny(seed=m)[0]) for m in mine]
+    models = [pmesh.replicate(mesh, make(m)) for m in mine]
     step, opts = pens.make_ensemble_train_step(models, rc, cfg, len(mine), mesh=mesh)
     stacked = {k: np.stack([v] * n_members) for k, v in batch.items()}
     met = step(pens.shard_member_batch(mesh, stacked),
@@ -84,11 +95,11 @@ def _ensemble_vs_serial(n_members, batch, rc, cfg):
     serial = {}
     if dist.get_rank() == 0:
         for m in members:
-            s, _ = make_train_step(_tiny(seed=int(m))[0], rc, cfg)
+            s, _ = make_train_step(make(int(m)), rc, cfg)
             got = s(batch, torch.Generator().manual_seed(20 + int(m)))
             serial[int(m)] = ({k: float(v) for k, v in got.items()},
                               [_np(p) for p in s.optimizer.param_groups[0]["params"]])
-    return {"shape": mesh.shape, "mesh": on_mesh, "serial": serial}
+    return {"shape": mesh.shape, "mesh": on_mesh, "serial": serial, "n": n_members}
 
 
 def checks(rank, jax_in, ens_batch):
@@ -102,4 +113,8 @@ def checks(rank, jax_in, ens_batch):
     cfg = TrainConfig(H=8, W=8, focal=10.0, ndc=False, near=0.5, far=4.0, k_samples=4,
                       beta1=0.01)
     out["ensemble"] = {m: _ensemble_vs_serial(m, ens_batch, rc, cfg) for m in (2, 3)}
+    # nerf_dropout's masks drawn at the whole batch's shape, cut to a rank's rows
+    out["ensemble"]["nerf_dropout"] = _ensemble_vs_serial(
+        2, ens_batch, dataclasses.replace(rc, fused="off"),
+        dataclasses.replace(cfg, loss_mode="mse"), make=_dropout)
     return out
