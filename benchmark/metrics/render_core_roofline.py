@@ -1,0 +1,8 @@
+"""render_core_roofline.*: the render core's launches' least time (forward,
+and backward in training; the yardstick's operations and bytes at the
+H100's peaks) over their device time in the traced window."""
+from benchmark import readers
+
+
+def read(run):
+    return readers.kernel_roofline(run, "render_core")
