@@ -11,6 +11,11 @@ consumer's current stream wait on that event (on the device, the host does
 not block) and marks the batch's tensors as used on the consumer's stream,
 so the caching allocator does not hand their memory back to the worker's
 stream while the step still reads it.
+
+Spans (utils/trace.py, while a profile records): cfnerf.feed.make around a
+batch's make_batch on the worker thread ("cfnerf.feed"), cfnerf.feed.next
+around next() on the consumer's, each with its step; the counter feed.empty
+counts the next() calls that found no batch ready.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from typing import Any, Callable, Tuple
 import torch
 
 from cfnerf_torch.utils.device import DeviceLike, resolve_device
+from cfnerf_torch.utils.trace import count, span
 
 
 def _cuda_tensors(tree):
@@ -54,19 +60,21 @@ class BatchPrefetcher:
         self._stop = threading.Event()
         self._error = None
         self._start_step = start_step
+        self._next_step = start_step + 1  # the step next() hands out next
         dev = resolve_device(device)
         self._stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
-        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread = threading.Thread(target=self._worker, name="cfnerf.feed", daemon=True)
         self._thread.start()
 
     def _produce(self, step: int):
-        if self._stream is None:
-            return step, self._make(step), None
-        with torch.cuda.stream(self._stream):
-            batch = self._make(step)
-            copied = torch.cuda.Event()
-            copied.record(self._stream)
-        return step, batch, copied
+        with span("cfnerf.feed.make", step):
+            if self._stream is None:
+                return step, self._make(step), None
+            with torch.cuda.stream(self._stream):
+                batch = self._make(step)
+                copied = torch.cuda.Event()
+                copied.record(self._stream)
+            return step, batch, copied
 
     def _worker(self):
         step = self._start_step
@@ -84,21 +92,25 @@ class BatchPrefetcher:
             self._error = e
 
     def next(self) -> Tuple[int, Any]:
-        while True:
-            if self._error is not None:
-                raise self._error
-            try:
-                step, batch, copied = self._q.get(timeout=0.5)
-            except queue.Empty:
-                if not self._thread.is_alive() and self._error is None:
-                    raise RuntimeError("prefetch worker exited unexpectedly")
-                continue
-            if copied is not None:
-                consumer = torch.cuda.current_stream(self._stream.device)
-                consumer.wait_event(copied)
-                for t in _cuda_tensors(batch):
-                    t.record_stream(consumer)
-            return step, batch
+        with span("cfnerf.feed.next", self._next_step):
+            if self._q.empty():
+                count("feed.empty")  # the step will wait for its batch
+            while True:
+                if self._error is not None:
+                    raise self._error
+                try:
+                    step, batch, copied = self._q.get(timeout=0.5)
+                except queue.Empty:
+                    if not self._thread.is_alive() and self._error is None:
+                        raise RuntimeError("prefetch worker exited unexpectedly")
+                    continue
+                if copied is not None:
+                    consumer = torch.cuda.current_stream(self._stream.device)
+                    consumer.wait_event(copied)
+                    for t in _cuda_tensors(batch):
+                        t.record_stream(consumer)
+                self._next_step = step + 1
+                return step, batch
 
     def close(self):
         self._stop.set()

@@ -19,6 +19,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from cfnerf_torch.ops.rays import get_rays_by_coord_np, get_rays_np
+from cfnerf_torch.utils.trace import span
 
 N_DEPTH = 128  # depth rays per step (reference :855)
 
@@ -132,21 +133,22 @@ class RayBatcher:
         self._order = np.arange(rays_rgb.shape[0])
 
     def next(self) -> Dict[str, np.ndarray]:
-        idx = self._order[self.i : self.i + self.batch_size]
-        if idx.shape[0] < self.batch_size:
-            # epoch boundary: reshuffle and take a full fresh batch (the
-            # reference's post-increment wraparound)
-            self._rng.shuffle(self._order)
-            self.i = 0
-            self.epoch += 1
-            idx = self._order[: self.batch_size]
-        b = self.data[idx]  # before the shuffle below mutates idx's base
-        self.i += self.batch_size
-        if self.i >= self.data.shape[0]:
-            self._rng.shuffle(self._order)
-            self.i = 0
-            self.epoch += 1
-        return {"rays_o": b[:, 0], "rays_d": b[:, 1], "target": b[:, 2]}
+        with span("cfnerf.feed.sample"):
+            idx = self._order[self.i : self.i + self.batch_size]
+            if idx.shape[0] < self.batch_size:
+                # epoch boundary: reshuffle and take a full fresh batch (the
+                # reference's post-increment wraparound)
+                self._rng.shuffle(self._order)
+                self.i = 0
+                self.epoch += 1
+                idx = self._order[: self.batch_size]
+            b = self.data[idx]  # before the shuffle below mutates idx's base
+            self.i += self.batch_size
+            if self.i >= self.data.shape[0]:
+                self._rng.shuffle(self._order)
+                self.i = 0
+                self.epoch += 1
+            return {"rays_o": b[:, 0], "rays_d": b[:, 1], "target": b[:, 2]}
 
 
 class SingleImageSampler:
@@ -185,29 +187,30 @@ class SingleImageSampler:
         return self._ray_cache[img_i]
 
     def next(self, step: int) -> Dict[str, np.ndarray]:
-        img_i = self._rng.choice(self.i_train)
-        rays_o, rays_d = self._rays_for(img_i)
-        H, W = self.H, self.W
-        if step < self.precrop_iters:
-            dH = int(H // 2 * self.precrop_frac)
-            dW = int(W // 2 * self.precrop_frac)
-            ys = np.arange(H // 2 - dH, H // 2 + dH)
-            xs = np.arange(W // 2 - dW, W // 2 + dW)
-        else:
-            ys = np.arange(H)
-            xs = np.arange(W)
-        yy, xx = np.meshgrid(ys, xs, indexing="ij")
-        coords = np.stack([yy.reshape(-1), xx.reshape(-1)], -1)
-        sel = self._rng.choice(
-            coords.shape[0], size=self.batch_size,
-            replace=coords.shape[0] < self.batch_size,
-        )
-        c = coords[sel]
-        return {
-            "rays_o": rays_o[c[:, 0], c[:, 1]].astype(np.float32),
-            "rays_d": rays_d[c[:, 0], c[:, 1]].astype(np.float32),
-            "target": self.images[img_i][c[:, 0], c[:, 1]].astype(np.float32),
-        }
+        with span("cfnerf.feed.sample"):
+            img_i = self._rng.choice(self.i_train)
+            rays_o, rays_d = self._rays_for(img_i)
+            H, W = self.H, self.W
+            if step < self.precrop_iters:
+                dH = int(H // 2 * self.precrop_frac)
+                dW = int(W // 2 * self.precrop_frac)
+                ys = np.arange(H // 2 - dH, H // 2 + dH)
+                xs = np.arange(W // 2 - dW, W // 2 + dW)
+            else:
+                ys = np.arange(H)
+                xs = np.arange(W)
+            yy, xx = np.meshgrid(ys, xs, indexing="ij")
+            coords = np.stack([yy.reshape(-1), xx.reshape(-1)], -1)
+            sel = self._rng.choice(
+                coords.shape[0], size=self.batch_size,
+                replace=coords.shape[0] < self.batch_size,
+            )
+            c = coords[sel]
+            return {
+                "rays_o": rays_o[c[:, 0], c[:, 1]].astype(np.float32),
+                "rays_d": rays_d[c[:, 0], c[:, 1]].astype(np.float32),
+                "target": self.images[img_i][c[:, 0], c[:, 1]].astype(np.float32),
+            }
 
 
 class DepthRayBatcher:
@@ -223,19 +226,20 @@ class DepthRayBatcher:
         self._order = np.arange(rays_depth.shape[0])
 
     def next(self) -> Dict[str, np.ndarray]:
-        idx = self._order[self.i : self.i + self.batch_size]
-        if idx.shape[0] < self.batch_size:
-            self._rng.shuffle(self._order)
-            self.i = 0
-            idx = self._order[: self.batch_size]
-        b = self.data[idx]  # before the shuffle below mutates idx's base
-        self.i += self.batch_size
-        if self.i >= self.data.shape[0]:
-            self._rng.shuffle(self._order)
-            self.i = 0
-        return {
-            "depth_rays_o": b[:, 0],
-            "depth_rays_d": b[:, 1],
-            "target_depth": b[:, 2, 0],
-            "ray_weights": b[:, 3, 0],
-        }
+        with span("cfnerf.feed.sample"):
+            idx = self._order[self.i : self.i + self.batch_size]
+            if idx.shape[0] < self.batch_size:
+                self._rng.shuffle(self._order)
+                self.i = 0
+                idx = self._order[: self.batch_size]
+            b = self.data[idx]  # before the shuffle below mutates idx's base
+            self.i += self.batch_size
+            if self.i >= self.data.shape[0]:
+                self._rng.shuffle(self._order)
+                self.i = 0
+            return {
+                "depth_rays_o": b[:, 0],
+                "depth_rays_d": b[:, 1],
+                "target_depth": b[:, 2, 0],
+                "ray_weights": b[:, 3, 0],
+            }

@@ -29,6 +29,7 @@ from cfnerf_torch.ops.embed import Embedder
 from cfnerf_torch.ops.rays import get_rays, ndc_rays
 from cfnerf_torch.ops.sampling import sample_pdf, sample_z_vals, stratified_perturb
 from cfnerf_torch.utils.device import DeviceLike, resolve_device
+from cfnerf_torch.utils.trace import span
 
 
 FUSED_MODES = ("on", "off", "interpret")
@@ -397,7 +398,11 @@ def render_image(
     the data ranks: each renders its part and the parts are all-gathered,
     so every rank returns the whole image (JAX's mesh render,
     cfnerf_tpu/render/renderer.py:327-395).  A tensor-parallel net's model
-    ranks render the same part together."""
+    ranks render the same part together.
+
+    Spans (utils/trace.py, while a profile records): cfnerf.render.rays
+    (rays, prepared and padded), cfnerf.render.tile (one a tile) and
+    cfnerf.render.gather (the maps put together)."""
     dev = resolve_device(device)
     part, lo = tile, 0
     if mesh is not None:
@@ -408,38 +413,41 @@ def render_image(
         part = tile // n_data
         lo = mesh.index(DATA_AXIS) * part
     with torch.inference_mode():
-        c2w = torch.as_tensor(c2w, dtype=torch.float32, device=dev)
-        rays_o, rays_d = get_rays(H, W, focal, c2w)
-        rays_o, rays_d, viewdirs, near_v, far_v = prepare_rays(
-            rays_o, rays_d, H=H, W=W, focal=focal, ndc=ndc,
-            use_viewdirs=use_viewdirs, near=near, far=far,
-        )
-        n = rays_o.shape[0]
-        n_pad = (-n) % tile
+        with span("cfnerf.render.rays"):
+            c2w = torch.as_tensor(c2w, dtype=torch.float32, device=dev)
+            rays_o, rays_d = get_rays(H, W, focal, c2w)
+            rays_o, rays_d, viewdirs, near_v, far_v = prepare_rays(
+                rays_o, rays_d, H=H, W=W, focal=focal, ndc=ndc,
+                use_viewdirs=use_viewdirs, near=near, far=far,
+            )
+            n = rays_o.shape[0]
+            n_pad = (-n) % tile
 
-        def pad(x):
-            return torch.cat([x, x[-1:].expand(n_pad, *x.shape[1:])], 0)
+            def pad(x):
+                return torch.cat([x, x[-1:].expand(n_pad, *x.shape[1:])], 0)
 
-        rays_o, rays_d, near_v, far_v = map(pad, (rays_o, rays_d, near_v, far_v))
-        if viewdirs is not None:
-            viewdirs = pad(viewdirs)
+            rays_o, rays_d, near_v, far_v = map(pad, (rays_o, rays_d, near_v, far_v))
+            if viewdirs is not None:
+                viewdirs = pad(viewdirs)
 
         pieces: Dict[str, list] = {}
         for start in range(0, n + n_pad, tile):
-            sl = slice(start + lo, start + lo + part)
-            out = render_rays_fn(
-                rays_o[sl], rays_d[sl],
-                viewdirs[sl] if viewdirs is not None else None,
-                near_v[sl], far_v[sl], None, is_test=True,
-            )
-            for key, v in out.items():
-                # per-ray outputs only; scalars (loss_entropy) are dropped
-                if v.ndim >= 1 and v.shape[0] == part:
-                    if mesh is not None:
-                        v = all_gather(v, mesh.group(DATA_AXIS))
-                    pieces.setdefault(key, []).append(v)
-        result = {}
-        for key, vs in pieces.items():
-            v = torch.cat(vs, 0)[:n]
-            result[key] = v.reshape(H, W, *v.shape[1:])
+            with span("cfnerf.render.tile"):
+                sl = slice(start + lo, start + lo + part)
+                out = render_rays_fn(
+                    rays_o[sl], rays_d[sl],
+                    viewdirs[sl] if viewdirs is not None else None,
+                    near_v[sl], far_v[sl], None, is_test=True,
+                )
+                for key, v in out.items():
+                    # per-ray outputs only; scalars (loss_entropy) are dropped
+                    if v.ndim >= 1 and v.shape[0] == part:
+                        if mesh is not None:
+                            v = all_gather(v, mesh.group(DATA_AXIS))
+                        pieces.setdefault(key, []).append(v)
+        with span("cfnerf.render.gather"):
+            result = {}
+            for key, vs in pieces.items():
+                v = torch.cat(vs, 0)[:n]
+                result[key] = v.reshape(H, W, *v.shape[1:])
         return result

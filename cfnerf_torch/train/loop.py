@@ -19,7 +19,8 @@ checkpoints, test-set renders and videos.
   * the step's metrics stay on the device and are read at i_print only, as
     the JAX loop's device_get, so the loop adds no synchronisation a step;
   * --profile_dir / --profile_start / --profile_steps: a torch.profiler
-    window, its Chrome trace written into profile_dir;
+    window, its Chrome trace written into profile_dir, with the cfnerf.*
+    spans of every thread (utils/trace.py);
   * --debug_nans / --debug_infs: FloatingPointError at the first step whose
     loss or gradients hold a NaN / an inf, inner steps of --n_inner
     included (a host read each step, under those flags only);
@@ -676,7 +677,12 @@ def train(args, device: DeviceLike = None) -> None:
                     activities = [torch.profiler.ProfilerActivity.CPU]
                     if dev.type == "cuda":
                         activities.append(torch.profiler.ProfilerActivity.CUDA)
-                    profiler = torch.profiler.profile(activities=activities)
+                    # every thread's spans, the prefetcher's worker's too
+                    # (utils/trace.py)
+                    profiler = torch.profiler.profile(
+                        activities=activities,
+                        experimental_config=torch.profiler._ExperimentalConfig(
+                            profile_all_threads=True))
                     profiler.start()
                     prof_state = 1
                 elif prof_state == 1 and i >= start + args.profile_start + args.profile_steps:

@@ -30,7 +30,10 @@ lr = lrate * 0.1^(step / (lrate_decay*1000)) (:1072-1077)).
     ray axis (the caller shards it, as in JAX): the step draws what the
     one-device step draws over the whole batch and keeps its rows
     (ops/sampling.py:per_ray), all-reduces the mean gradient over the data
-    axis once a step and returns the global mean metrics.
+    axis once a step and returns the global mean metrics;
+  * while a profile records (utils/trace.py) the step's phases are spans:
+    cfnerf.train.zero_grad, .forward (the loss), .backward, .update (a
+    mesh's all-reduce, Adam, the schedule) and, with `occ`, .cotrain.
 
 PyTorch runs eagerly: there is no jit, and `make_train_loop` is a Python
 loop where the JAX package scans on the device.
@@ -63,6 +66,7 @@ from cfnerf_torch.render.renderer import (
     schedule_z_vals,
 )
 from cfnerf_torch.train.loss import kde_nll, total_loss
+from cfnerf_torch.utils.trace import span
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -593,17 +597,24 @@ def make_train_step(
     def train_step(batch: Mapping, generator: Optional[torch.Generator], *,
                    z_vals=None, eps=None, eps_fine=None, pdf_u=None,
                    noise=None, place_u=None, prop_pts=None) -> Metrics:
-        optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(batch, generator, z_vals=z_vals, eps=eps,
-                                eps_fine=eps_fine, pdf_u=pdf_u, noise=noise,
-                                place_u=place_u)
-        loss.backward()
-        update()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        if mesh is not None:
-            metrics = global_metrics(metrics)
+        # the phases' spans (utils/trace.py), with none around the whole
+        # step: each is then the outermost host event of its part of it
+        with span("cfnerf.train.zero_grad"):
+            optimizer.zero_grad(set_to_none=True)
+        with span("cfnerf.train.forward"):
+            loss, metrics = loss_fn(batch, generator, z_vals=z_vals, eps=eps,
+                                    eps_fine=eps_fine, pdf_u=pdf_u, noise=noise,
+                                    place_u=place_u)
+        with span("cfnerf.train.backward"):
+            loss.backward()
+        with span("cfnerf.train.update"):
+            update()
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            if mesh is not None:
+                metrics = global_metrics(metrics)
         if occ is not None:
-            metrics["prop_loss"] = cotrain(generator, prop_pts=prop_pts)
+            with span("cfnerf.train.cotrain"):
+                metrics["prop_loss"] = cotrain(generator, prop_pts=prop_pts)
         return metrics
 
     train_step.loss_fn = loss_fn

@@ -285,7 +285,12 @@ def test_n_inner_steps_take_the_same_trajectory(tmp_path):
                     device="cpu")
         states.append(torch.load(os.path.join(_rundir(tmp_path / name), "000004_01",
                                               "state.pt"), weights_only=True))
-        assert os.path.exists(tmp_path / name / "trace" / "trace.json")
+        with open(tmp_path / name / "trace" / "trace.json") as f:
+            names = {e.get("name") for e in json.load(f)["traceEvents"]}
+        # the step's phases; the prefetcher's worker's spans where it runs
+        # (one step a call: not under --n_inner 2)
+        assert {"cfnerf.train.forward", "cfnerf.train.backward"} <= names
+        assert ("cfnerf.feed.make" in names) == (not extra)
     for k, v in states[0]["params"]["coarse"].items():
         torch.testing.assert_close(states[1]["params"]["coarse"][k], v, rtol=0, atol=0, msg=k)
 
