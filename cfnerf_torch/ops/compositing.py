@@ -35,10 +35,36 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
 
 
+class _CumProd(torch.autograd.Function):
+    """torch.cumprod(x, dim), its backward written out as the one torch
+    takes for an input without zeros (FunctionsManual.cpp:cumprod_backward:
+    the reversed cumsum of output * grad, over the input).  torch first reads
+    back from the device whether the input holds a zero, a host read that
+    a CUDA graph cannot capture (train/graph.py); the composite's input,
+    1 - alpha + 1e-10, holds none, so the gradient is torch's, bit for
+    bit."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, dim: int) -> torch.Tensor:
+        out = torch.cumprod(x, dim)
+        ctx.save_for_backward(x, out)
+        ctx.dim = dim
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad: torch.Tensor):
+        x, out = ctx.saved_tensors
+        dim = ctx.dim
+        if x.numel() <= 1 or x.shape[dim] == 1:
+            return grad, None
+        return (out * grad).flip(dim).cumsum(dim).flip(dim).div(x), None
+
+
 def composite_weights(alpha: torch.Tensor) -> torch.Tensor:
     """weights_i = alpha_i * prod_{j<i}(1 - alpha_j + 1e-10) over the sample
     axis (-2), K trailing."""
-    trans = torch.cumprod(1.0 - alpha + TRANS_EPS, dim=-2)
+    trans = _CumProd.apply(1.0 - alpha + TRANS_EPS, -2)
     trans = torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], dim=-2)
     return alpha * trans
 

@@ -7,6 +7,7 @@ gamma(x) concatenates the raw input with [sin(x * f), cos(x * f)] for f in
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -30,11 +31,7 @@ def positional_encoding(
         return x if include_input else x[..., :0]
     if max_freq_log2 is None:
         max_freq_log2 = num_freqs - 1
-    if log_sampling:
-        freqs = 2.0 ** np.linspace(0.0, max_freq_log2, num_freqs)
-    else:
-        freqs = np.linspace(2.0 ** 0.0, 2.0 ** max_freq_log2, num_freqs)
-    freqs = torch.as_tensor(freqs, dtype=x.dtype, device=x.device)  # (F,)
+    freqs = _freqs(num_freqs, float(max_freq_log2), log_sampling, x.dtype, x.device)  # (F,)
 
     xf = x[..., None, :] * freqs[:, None]              # (..., F, d)
     enc = torch.stack([torch.sin(xf), torch.cos(xf)], dim=-2)  # (..., F, 2, d)
@@ -42,6 +39,21 @@ def positional_encoding(
     if include_input:
         return torch.cat([x, enc], dim=-1)
     return enc
+
+
+@functools.lru_cache(maxsize=None)
+def _freqs(num_freqs: int, max_freq_log2: float, log_sampling: bool, dtype: torch.dtype,
+           device: torch.device) -> torch.Tensor:
+    """The encoding's frequencies on `device`, made once a configuration,
+    dtype and device: the copy from the host is then never part of a step,
+    nor of the step's CUDA graph (train/graph.py), which cannot capture one.
+    Read only; never an inference tensor."""
+    if log_sampling:
+        freqs = 2.0 ** np.linspace(0.0, max_freq_log2, num_freqs)
+    else:
+        freqs = np.linspace(2.0 ** 0.0, 2.0 ** max_freq_log2, num_freqs)
+    with torch.inference_mode(False):
+        return torch.as_tensor(freqs, dtype=dtype, device=device)
 
 
 @dataclasses.dataclass(frozen=True)

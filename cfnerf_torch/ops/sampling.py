@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
@@ -71,6 +72,16 @@ def cf_nerf_t_vals(
     return torch.as_tensor(t, dtype=dtype, device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def _device_t_vals(n_samples: int, device: torch.device) -> torch.Tensor:
+    """cf_nerf_t_vals on `device`, made once a sample count and device: the
+    copy from the host is then never part of a step, nor of the step's CUDA
+    graph (train/graph.py), which cannot capture one.  Read only; never an
+    inference tensor."""
+    with torch.inference_mode(False):
+        return cf_nerf_t_vals(n_samples, device=device)
+
+
 def sample_z_vals(
     near: torch.Tensor,
     far: torch.Tensor,
@@ -84,7 +95,7 @@ def sample_z_vals(
     if uniform:
         t_vals = torch.linspace(0.0, 1.0, n_samples, device=near.device)
     else:
-        t_vals = cf_nerf_t_vals(n_samples, device=near.device)
+        t_vals = _device_t_vals(n_samples, near.device)
     if not lindisp:
         return near * (1.0 - t_vals) + far * t_vals
     return 1.0 / (1.0 / near * (1.0 - t_vals) + 1.0 / far * t_vals)

@@ -38,7 +38,10 @@ format, and the ensemble step is one of two, chosen once when it is built
     (train/step.py:make_batched_cotrain).  Member m's parameters get the
     gradients of its serial step: on the CPU, where the kernels' plain
     versions run member by member, bitwise.  A batched launch that fails
-    raises; nothing falls back to the loop;
+    raises; nothing falls back to the loop.  On a CUDA device, without a
+    mesh, occ or remat, for NeRFFlows members, the whole step (forward,
+    backward and every member's Adam) is one CUDA graph (train/graph.py),
+    as each member's own step would be;
   * the per-member loop for every other configuration (hierarchical
     sampling, members that differ): the M
     single-member steps of train/step.py:make_train_step one after another
@@ -78,6 +81,7 @@ from cfnerf_torch.parallel.mesh import (
 from cfnerf_torch.models.baseline_adapter import KSampleBaseline
 from cfnerf_torch.render.renderer import RenderConfig
 from cfnerf_torch.render.renderer import unfused
+from cfnerf_torch.train.graph import StepGraph
 from cfnerf_torch.train.step import (
     Metrics,
     TrainConfig,
@@ -87,6 +91,7 @@ from cfnerf_torch.train.step import (
     make_train_step,
 )
 from cfnerf_torch.utils.device import DeviceLike, resolve_device
+from cfnerf_torch.utils.trace import count, span
 
 
 def create_ensemble_mesh(n_members: int, n_devices: Optional[int] = None) -> Mesh:
@@ -182,13 +187,40 @@ def _per_member(x, n_members: int, what: str) -> list:
 def _batched_step(members: Sequence[Callable], models: Sequence[torch.nn.Module],
                   render_config: RenderConfig, cfg: TrainConfig, mesh, occ) -> Callable:
     """The member-batched step (the module docstring) over the members'
-    single-member steps `members`, whose updates, proposals and proposal
-    optimizers it uses."""
+    single-member steps `members`, whose updates, schedules, proposals and
+    proposal optimizers it uses.  Where every member's own step would be a
+    CUDA graph (train/step.py:graph_refusal; no mesh, no occ), the batched
+    step is one too (train/graph.py), over every member's Adam: its call
+    with the captured shapes and generators a replay, another eager."""
     proposals = None if occ is None else [s.proposal for s in members]
     loss_fn = make_batched_loss(models, render_config, cfg, mesh, occ, proposals)
     cotrain = None if occ is None else make_batched_cotrain(
         models, render_config, occ, proposals, [s.prop_optimizer for s in members], mesh)
     M = len(models)
+
+    def forward(batch: Mapping, gens: Sequence[Optional[torch.Generator]], z_vals=None,
+                eps=None, place_u=None, noise=None) -> Tuple[torch.Tensor, List[Metrics]]:
+        """The members' losses summed, and each member's metrics."""
+        # noise holds one tensor a render pass, and these renders have one
+        scored = loss_fn(batch, gens, z_vals=[_member(z_vals, m) for m in range(M)],
+                         eps=[_member(eps, m) for m in range(M)],
+                         place_u=[_member(place_u, m) for m in range(M)],
+                         noise=[None if noise is None else noise[0][m] for m in range(M)])
+        # d(sum)/d(loss_m) is exactly 1: each member's gradients are its own step's
+        return (torch.stack([loss for loss, _ in scored]).sum(),
+                [{k: v.detach() for k, v in metrics.items()} for _, metrics in scored])
+
+    def stacked(out: List[Metrics]) -> Metrics:
+        return {k: torch.stack([o[k] for o in out]) for k in out[0]}
+
+    graph = None
+    if mesh is None and occ is None and all(s.graph_refusal is None for s in members):
+        def graphed_loss(batch, gens, seams):
+            loss, out = forward(batch, list(gens), **seams)
+            return loss, stacked(out)
+
+        graph = StepGraph(graphed_loss, [s.optimizer for s in members],
+                          next(models[0].parameters()).device)
 
     def step(batch: Mapping, generators: Sequence[Optional[torch.Generator]], *,
              z_vals=None, eps=None, place_u=None, noise=None, prop_pts=None,
@@ -197,26 +229,32 @@ def _batched_step(members: Sequence[Callable], models: Sequence[torch.nn.Module]
         if given:
             raise ValueError(f"the member-batched step has no draws for the seams {given}")
         gens = _per_member(generators, M, "generators")
+        if graph is not None:
+            with span("cfnerf.train.stage"):
+                staged = graph.stage(batch, gens, dict(z_vals=z_vals, eps=eps, noise=noise))
+            if staged:
+                with span("cfnerf.train.replay"):
+                    metrics = graph.replay()
+                with span("cfnerf.train.update"):
+                    for s in members:
+                        s.scheduler.step()
+                return metrics
+            count("train.graph_eager")  # another call than the captured one
         for s in members:
             s.optimizer.zero_grad(set_to_none=True)
-        # noise holds one tensor a render pass, and these renders have one
-        scored = loss_fn(batch, gens, z_vals=[_member(z_vals, m) for m in range(M)],
-                         eps=[_member(eps, m) for m in range(M)],
-                         place_u=[_member(place_u, m) for m in range(M)],
-                         noise=[None if noise is None else noise[0][m] for m in range(M)])
-        # d(sum)/d(loss_m) is exactly 1: each member's gradients are its own step's
-        torch.stack([loss for loss, _ in scored]).sum().backward()
+        loss, scored = forward(batch, gens, z_vals, eps, place_u, noise)
+        loss.backward()
         out = []
-        for s, (_, metrics) in zip(members, scored):
+        for s, metrics in zip(members, scored):
             s.update()
-            metrics = {k: v.detach() for k, v in metrics.items()}
             out.append(metrics if mesh is None else s.global_metrics(metrics))
         if cotrain is not None:
             for metrics, prop_loss in zip(out, cotrain(
                     gens, [_member(prop_pts, m) for m in range(M)])):
                 metrics["prop_loss"] = prop_loss
-        return {k: torch.stack([o[k] for o in out]) for k in out[0]}
+        return stacked(out)
 
+    step.graphed = graph is not None
     return step
 
 
@@ -299,6 +337,8 @@ def make_ensemble_train_step(
     if refusal is None:
         step = _batched_step(members, models, render_config, cfg, mesh, occ)
         launches = _batched_launches(render_config, occ, models[0], cfg.remat)
+        if step.graphed:
+            launches += "; one CUDA graph a step"
         print(f"ensemble step: {n_members} members batched ({launches})", flush=True)
     else:
         def step(batch: Mapping, generators: Sequence[Optional[torch.Generator]],

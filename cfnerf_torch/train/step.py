@@ -31,9 +31,15 @@ lr = lrate * 0.1^(step / (lrate_decay*1000)) (:1072-1077)).
     one-device step draws over the whole batch and keeps its rows
     (ops/sampling.py:per_ray), all-reduces the mean gradient over the data
     axis once a step and returns the global mean metrics;
+  * on a CUDA device, where graph_refusal says so, the step is one CUDA
+    graph (train/graph.py): forward, backward and Adam replay at once, the
+    draws made inside it from the generator the graph registers;
   * while a profile records (utils/trace.py) the step's phases are spans:
     cfnerf.train.zero_grad, .forward (the loss), .backward, .update (a
-    mesh's all-reduce, Adam, the schedule) and, with `occ`, .cotrain.
+    mesh's all-reduce, Adam, the schedule) and, with `occ`, .cotrain; a
+    graphed step's are cfnerf.train.stage (the inputs copied), .replay and
+    .update (the schedule), and the counter
+    train.graph_eager counts its calls that ran eagerly.
 
 PyTorch runs eagerly: there is no jit, and `make_train_loop` is a Python
 loop where the JAX package scans on the device.
@@ -50,6 +56,7 @@ from torch.optim.lr_scheduler import LambdaLR
 from torch.utils.checkpoint import checkpoint
 
 from cfnerf_torch.models.baseline_adapter import KSampleBaseline
+from cfnerf_torch.models.nerf_flows import NeRFFlows
 from cfnerf_torch.ops.metrics import img2mse, mse2psnr
 from cfnerf_torch.ops.occupancy import (
     ProposalMLP,
@@ -65,8 +72,9 @@ from cfnerf_torch.render.renderer import (
     render_members,
     schedule_z_vals,
 )
+from cfnerf_torch.train.graph import StepGraph
 from cfnerf_torch.train.loss import kde_nll, total_loss
-from cfnerf_torch.utils.trace import span
+from cfnerf_torch.utils.trace import count, span
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -120,9 +128,26 @@ class TrainConfig:
 def make_optimizer(params: Iterable, cfg: TrainConfig) -> Tuple[torch.optim.Adam, LambdaLR]:
     """Adam (0.9, 0.999, eps 1e-8) and its schedule: update t (from 0) runs at
     lrate * 0.1^((start_step + t) / (lrate_decay * 1000)), as optax's
-    exponential_decay counts.  Step the scheduler after each optimizer step."""
+    exponential_decay counts.  Step the scheduler after each optimizer step.
+    On a CUDA device Adam is fused and capturable, its step counts and lr on
+    the device (an f32 tensor the schedule fills in place), so that the
+    step's CUDA graph replays the update; eager steps run the same Adam.
+    Fused, because the capturable multi-tensor Adam takes its bias
+    corrections in f32 on the device (1 - 0.999 is 5e-5 off at the first
+    update), where the fused one stays as close to an f64 Adam as the
+    default on the host."""
+    params = list(params)
     decay_steps = cfg.lrate_decay * 1000
-    optimizer = torch.optim.Adam(params, lr=cfg.lrate, betas=(0.9, 0.999), eps=1e-8)
+    on_cuda = bool(params) and params[0].is_cuda
+    lr = (torch.tensor(cfg.lrate, dtype=torch.float32, device=params[0].device)
+          if on_cuda else cfg.lrate)
+    optimizer = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                 capturable=on_cuda, fused=on_cuda or None)
+    if on_cuda:
+        for group in optimizer.param_groups:
+            # the schedule's base a float: a tensor's would be read back from
+            # the device at every step of the schedule
+            group["initial_lr"] = cfg.lrate
     scheduler = LambdaLR(
         optimizer, lambda t: 0.1 ** ((cfg.start_step + t) / decay_steps))
     return optimizer, scheduler
@@ -226,6 +251,25 @@ def batched_step_refusal(models: Sequence[torch.nn.Module], render_config: Rende
         return "hierarchical sampling"
     if len({_shape_key(m) for m in models}) > 1:
         return "members of different configurations"
+    return None
+
+
+def graph_refusal(model, model_fine, render_config: RenderConfig, cfg: TrainConfig,
+                  mesh=None, occ=None) -> Optional[str]:
+    """None where make_train_step runs as one CUDA graph (train/graph.py):
+    NeRFFlows of any family (and its fine net), fused or unfused, flat or
+    hierarchical, either trunk_impl or compute dtype, on a CUDA device;
+    else what keeps the step eager."""
+    if mesh is not None:
+        return "a mesh: the step all-reduces over the data axis"
+    if occ is not None:
+        return "occ: the step places its samples and co-trains the proposal with its own Adam"
+    if cfg.remat:
+        return "remat: the step recomputes its forward under activation checkpoints"
+    if not all(isinstance(net, NeRFFlows) for net in (model, model_fine) if net is not None):
+        return "a baseline: nerf_dropout checkpoints each draw, the baselines stay eager"
+    if next(model.parameters()).device.type != "cuda":
+        return "not on a CUDA device"
     return None
 
 
@@ -457,6 +501,16 @@ def make_train_step(
     train_step.prop_optimizer): JAX's opt_state holds the proposal too, so
     it survives a K boundary inside the occ stage.
 
+    On a CUDA device, where graph_refusal says so and Adam is capturable
+    (make_optimizer's, carried or not), train_step is one CUDA graph
+    (train/graph.py), captured at its first call (a warm-up forward and
+    backward first, no update) and replayed at every call whose batch and
+    seams have the captured shapes and whose generator is the captured one;
+    another call runs eagerly on the same Adam.  The draws that no seam
+    hands in are made inside the graph from the generator, which the graph
+    registers: a replay draws what the eager step draws from it, in the
+    same order, and advances it as far.
+
     `mesh` (parallel/mesh.py: a (data, model) mesh, or an (ensemble, data)
     one for a member's step) makes the step one rank's share of a data-
     parallel step: batch holds this rank's rows (parallel.mesh.shard_batch)
@@ -564,6 +618,13 @@ def make_train_step(
             return _loss(batch, generator, z_vals=mine(z_vals), eps=eps, eps_fine=eps_fine,
                          pdf_u=mine(pdf_u), noise=mine(noise), place_u=mine(place_u))
 
+    refusal = graph_refusal(model, model_fine, render_config, cfg, mesh, occ)
+    if refusal is None and not all(g.get("capturable") and torch.is_tensor(g["lr"])
+                                   for g in optimizer.param_groups):
+        refusal = "Adam is not capturable with a device lr"
+    graph = None if refusal is not None else StepGraph(
+        lambda batch, gens, seams: loss_fn(batch, gens[0], **seams), [optimizer], dev)
+
     def reduce_grads() -> None:
         """The mean gradient over the data axis, in place, one all-reduce."""
         grads = [p.grad for p in params if p.grad is not None]
@@ -599,6 +660,17 @@ def make_train_step(
                    noise=None, place_u=None, prop_pts=None) -> Metrics:
         # the phases' spans (utils/trace.py), with none around the whole
         # step: each is then the outermost host event of its part of it
+        if graph is not None:
+            with span("cfnerf.train.stage"):
+                staged = graph.stage(batch, (generator,), dict(
+                    z_vals=z_vals, eps=eps, eps_fine=eps_fine, pdf_u=pdf_u, noise=noise))
+            if staged:
+                with span("cfnerf.train.replay"):
+                    metrics = graph.replay()
+                with span("cfnerf.train.update"):
+                    scheduler.step()
+                return metrics
+            count("train.graph_eager")  # another call than the captured one
         with span("cfnerf.train.zero_grad"):
             optimizer.zero_grad(set_to_none=True)
         with span("cfnerf.train.forward"):
@@ -619,6 +691,7 @@ def make_train_step(
 
     train_step.loss_fn = loss_fn
     train_step.update = update
+    train_step.graph_refusal = refusal
     if mesh is not None:
         train_step.global_metrics = global_metrics
     train_step.optimizer = optimizer

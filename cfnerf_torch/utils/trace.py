@@ -34,7 +34,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.autograd.profiler as _profiler
@@ -115,16 +115,22 @@ def _stats(s: List[int]) -> Dict[str, int]:
     return {"calls": s[0], "total_ns": s[1], "self_ns": s[2], "max_ns": s[3]}
 
 
-def _launches() -> Dict[str, int]:
-    """The hand-written kernels' launch counters, by kernel."""
+def launch_counters() -> Dict[str, Callable]:
+    """The hand-written kernels' entry functions, by kernel; each counts its
+    launches in its `launches` attribute."""
     from cfnerf_torch.ops.kernels import flow_stack, render_core, trunk
 
-    return {"render_core_fwd": render_core.fused_flow_composite.launches,
-            "render_core_bwd": render_core.fused_flow_composite_bwd.launches,
-            "flow_stack_fwd": flow_stack.fused_flow_stack.launches,
-            "flow_stack_bwd": flow_stack.fused_flow_stack_bwd.launches,
-            "trunk_fwd": trunk.trunk_encode.launches,
-            "trunk_bwd": trunk.trunk_encode_bwd.launches}
+    return {"render_core_fwd": render_core.fused_flow_composite,
+            "render_core_bwd": render_core.fused_flow_composite_bwd,
+            "flow_stack_fwd": flow_stack.fused_flow_stack,
+            "flow_stack_bwd": flow_stack.fused_flow_stack_bwd,
+            "trunk_fwd": trunk.trunk_encode,
+            "trunk_bwd": trunk.trunk_encode_bwd}
+
+
+def _launches() -> Dict[str, int]:
+    """The hand-written kernels' launch counters, by kernel."""
+    return {name: fn.launches for name, fn in launch_counters().items()}
 
 
 def snapshot() -> Dict[str, Dict]:

@@ -92,48 +92,61 @@ final line):
  11. hier_train    flagship hierarchical training steps (512 + 128 rays):
                    launch counts, finite metrics, both nets move, the loss
                    falls on a fixed batch, step time, rays/s, a profiled step
- 12. trunk_serve   both views again with trunk_impl="pallas": the flat one
+ 12. graph_step    make_train_step's CUDA graph (train/graph.py) against its
+                   eager step, two objects from the same weights: the
+                   flagship and the hierarchical pair (5 steps each, the
+                   draws made in the graph from a registered generator of
+                   the eager one's seed, and handed in as seams), a
+                   flagship call with half the rays between replays (run
+                   eagerly, counted), then the trunk kernels, bf16, the
+                   unfused render with applied noise and each other flow
+                   family (3 steps): metrics, parameters and Adam's state
+                   bitwise, launches equal, a profiled replay's kernels
+                   against the launch counters, ms a step both ways; the
+                   composite's cumprod bitwise torch.cumprod, forward and
+                   gradient
+ 13. trunk_serve   both views again with trunk_impl="pallas": the flat one
                    (20 trunk + 20 render-core launches) and the hierarchical
                    pair (40 trunk + 80 flow-stack launches); output checks,
                    64 rays against trunk_impl="interpret" on the card (and
                    the f32 trunk, reported), one timed render, a profiled tile
- 13. trunk_golden  the card's trunk kernel against JAX's pallas_encode on a
+ 14. trunk_golden  the card's trunk kernel against JAX's pallas_encode on a
                    D4/W256 trunk (tests/fixtures)
- 14. trunk_train   flagship training steps with trunk_impl="pallas" nets,
+ 15. trunk_train   flagship training steps with trunk_impl="pallas" nets,
      trunk_hier_train  flat and hierarchical: launch counts (trunk forward
                    and backward kernels beside the render-core or flow-stack
                    ones), finite metrics, every parameter moves, the loss
                    falls on a fixed batch, step time, rays/s, peak memory, a
                    profiled step, one step's gradients against the same
                    step through trunk_impl="interpret"
- 15. trunk_grad_golden  the card's trunk backward kernels against JAX's
+ 16. trunk_grad_golden  the card's trunk backward kernels against JAX's
                    _trunk_bwd gradients on the D4/W256 trunk (tests/fixtures)
- 16. bf16_serve    the flagship view with --compute_dtype bfloat16 on the xla
+ 17. bf16_serve    the flagship view with --compute_dtype bfloat16 on the xla
      bf16_train    trunk (20 render-core launches), its first tile against
                    the f32 trunk (reported), a profiled tile; 1 + 10 + 10
                    flagship steps (a render-core forward and backward
                    each), the parameters f32
- 17. bf16_golden   a tiny bf16 model's JAX render and encode (tests/fixtures)
+ 18. bf16_golden   a tiny bf16 model's JAX render and encode (tests/fixtures)
                    against the card's bf16 path; the same weights on the f32
                    trunk as the control that the encode gate must refuse
- 18. occ_serve     --occ_eval 16 (32 candidates, floor 0.3) through
+ 19. occ_serve     --occ_eval 16 (32 candidates, floor 0.3) through
                    wrap_renderer_for_serving: --occ_impl auto, the grid on the
                    card (a 128^3 bake of the field through the flow-stack
                    kernel, 64 launches; 64 baked cells against the CPU's
                    density query), the view (20 render-core launches), 64
                    rays against the CPU's plain path, a profiled tile
- 19. occ_prop_serve  the same with --occ_impl proposal (the distillation,
+ 20. occ_prop_serve  the same with --occ_impl proposal (the distillation,
                    2^20 points, 4 epochs, 32 flow-stack launches), 64 rays'
                    placed depths against the CPU's placement with the same
                    proposal, and bitwise against the same placement on the
                    card in a fresh process
- 20. occ_train     --occ_train 12 (128 candidates, floor 0.3, co-training at
+ 21. occ_train     --occ_train 12 (128 candidates, floor 0.3, co-training at
                    8192 points): the proposal distilled from the initial
                    field, then 1 + 10 + 10 steps (a render-core forward and
                    backward and two flow-stack forwards each), a profiled step
- 21. occ_golden    one JAX occ step of a tiny model (tests/fixtures, with its
+ 22. occ_golden    one JAX occ step of a tiny model (tests/fixtures, with its
                    draws) through the card's occ step
- 22. data_train    the path from disk: scripts/train_NF.sh's flags through the
+ 23. data_train    the path from disk: scripts/train_NF.sh's flags through the
                    port's parse_args on a copy of the checked-in LLFF + COLMAP
                    capture (tests/fixtures/minicapture), load_dataset (the
                    minify to 48x64 and COLMAP depth on the card's own
@@ -146,7 +159,7 @@ final line):
                    Adam at the decayed lr, one more step), and a Blender
                    scene written by imwrite_png and read back, half_res
                    against a 2x2 block mean
- 23. jpeg          JPEG captures with imageio, Pillow and cv2 blocked:
+ 24. jpeg          JPEG captures with imageio, Pillow and cv2 blocked:
                    every checked-in JPEG fixture (tests/fixtures/jpeg: the
                    subsampling x progression matrix, grayscale, restarts,
                    optimized and 16-bit tables, RGB, EXIF, a 1 MP photo)
@@ -159,7 +172,7 @@ final line):
                    depth, 10 flagship steps, the checkpoint, the held-out
                    view, launches exact; the photo's decode time (median of
                    3; seconds, us a pixel, MB/s of entropy-coded bytes)
- 24. cli_train     the loop through the CLI on a copy of the capture:
+ 25. cli_train     the loop through the CLI on a copy of the capture:
                    cfnerf_torch.cli.eval.evaluate at step 0 (random
                    weights), cli.train.main with train_NF.sh's flags and
                    500 steps (the val stream at each i_print, a checkpoint,
@@ -168,41 +181,41 @@ final line):
                    rise by 3 dB and its NLL fall; the files of each; render-
                    core launches exact, predicted from the cadences; the
                    loop's rays/s beside the train phase's
- 25. cli_train_pallas  the same with --trunk_impl pallas in a fresh run dir
+ 26. cli_train_pallas  the same with --trunk_impl pallas in a fresh run dir
                    (trunk launches exact too); both trunks again at seeds 1
                    and 2, each run held to cli_train's gates, and the
                    quality side by side with its seed-to-seed spread and
                    the per-seed pallas - f32 difference (cli_quality)
- 26. cli_render_only  the CLI without --is_train on the f32 run: resumes at
+ 27. cli_render_only  the CLI without --is_train on the f32 run: resumes at
                    step 500, renders the spiral (30 launches), its frames
                    bitwise the step-500 video's
- 27. entry         cfnerf_torch.entry.entry() on the card against the same
+ 28. entry         cfnerf_torch.entry.entry() on the card against the same
                    fn on the CPU (rtol = atol = 1e-4)
- 28. families_golden  each flow family (no_flow, householder, orthogonal,
+ 29. families_golden  each flow family (no_flow, householder, orthogonal,
                    planar, IAF) and baseline (nerf, nerf_dropout on JAX's
                    masks, nerf_wild, and nerf_wild in bf16) of a tiny JAX
                    model (D4/W64, K8, F2; tests/fixtures): a test render and
                    one training step's loss and gradients through the card's
                    unfused path, no kernel of the port launched
- 29. families_serve  one 8192-ray tile of the view (N128, K32) for each family
+ 30. families_serve  one 8192-ray tile of the view (N128, K32) for each family
                    and baseline at the flagship's widths, householder and IAF
                    also with the trunk kernel: launches exact (render core
                    and flow stack 0, trunk 1 a pallas tile), rays/s, peak
                    memory, 64 rays against the CPU's plain path, a profiled
                    householder tile
- 30. families_train  the same cells, 10 steps (nerf_dropout 3) of 512 + 128
+ 31. families_train  the same cells, 10 steps (nerf_dropout 3) of 512 + 128
                    rays in each model's loss mode: launches exact (a trunk
                    forward and backward a pallas step, else none), finite
                    metrics, rays/s, peak memory
- 31. sample_interp NeRFFlows.sample on 2^20 points and interpolation (K = 21)
+ 32. sample_interp NeRFFlows.sample on 2^20 points and interpolation (K = 21)
                    on 2^18 through the flagship net: 1 and 2 flow-stack
                    launches, each against the flow stack's plain version
- 32. cli_families  the CLI (cli.train.main, scripts/train_NF.sh's flags on the
+ 33. cli_families  the CLI (cli.train.main, scripts/train_NF.sh's flags on the
                    capture, 100 steps) with --model nerf_wild, with
                    --type_flows householder --trunk_impl pallas, and without
                    --type_flows (the parser's no_flow); each evaluated at
                    step 100: finite metrics, launches exact
- 33. ensemble      cfnerf_torch.cli.ensemble on the capture at train_NF.sh's
+ 34. ensemble      cfnerf_torch.cli.ensemble on the capture at train_NF.sh's
                    flags: (a) 3 members trained serially, 20 steps each;
                    (b) the mixture eval of all three, of 1 and 3, of each
                    alone, --members auto under train_psnr and val_nll; (c)
@@ -232,7 +245,7 @@ final line):
                    run's weights and Adam state against its serial one, both
                    loops' rays/s (--parallel >= 0.95x) and peak memory;
                    launches exact
- 34. mesh          the several-device paths (cfnerf_torch/parallel/mesh.py)
+ 35. mesh          the several-device paths (cfnerf_torch/parallel/mesh.py)
                    on the one card: (a) a one-rank NCCL group through
                    cli.train's mesh path (10 steps of train_NF.sh's flags on
                    the capture) and a mesh render of one view, against the
@@ -245,8 +258,8 @@ final line):
                    (data 1, model 2) tensor-parallel step in f32, each
                    against one process (the first step's gradients, the
                    parameters' change); launches exact on every rank
- 35. rates         every path's rays/s of this run, side by side
- 36. kernels       per-kernel launches, error, time, plain time and bound;
+ 36. rates         every path's rays/s of this run, side by side
+ 37. kernels       per-kernel launches, error, time, plain time and bound;
                    trunk_fwd's entry also the training variant's
                    (fwd_save_*, at the flat training step); every entry its
                    member-batched launch's (members); launches_by_path
@@ -300,7 +313,7 @@ from cfnerf_torch.data.sampler import (
 from cfnerf_torch.models.baseline_adapter import KSampleBaseline
 from cfnerf_torch.models.factory import build_model, create_nerf, loss_mode_for_model
 from cfnerf_torch.models.nerf_flows import NeRFFlows
-from cfnerf_torch.ops.compositing import LAST_DIST
+from cfnerf_torch.ops.compositing import LAST_DIST, TRANS_EPS, _CumProd
 from cfnerf_torch.ops.kernels import _build
 from cfnerf_torch.ops.kernels import flow_stack, render_core, trunk
 from cfnerf_torch.ops.kernels.trunk import pack_member_trunk_weights, pack_trunk_weights
@@ -322,6 +335,7 @@ from cfnerf_torch.render.renderer import (
     make_render_rays,
     prepare_rays,
     render_image,
+    schedule_z_vals,
 )
 from cfnerf_torch.train import checkpoint as ckpt
 from cfnerf_torch.cli import ensemble as cli_ensemble
@@ -332,6 +346,8 @@ from cfnerf_torch.train.loop import _snapshot_args, load_dataset
 from cfnerf_torch.train.step import OccTrainConfig, TrainConfig, make_train_step
 from cfnerf_torch.parallel.ensemble import make_ensemble_train_step, member_generators
 from cfnerf_torch.utils.config import parse_args
+from cfnerf_torch.utils import trace
+from cfnerf_torch.utils.trace import launch_counters
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "fixtures" / "torch_port_golden.npz"
@@ -2584,6 +2600,230 @@ def phase_hier_train():
 
 
 # ---------------------------------------------------------------------- #
+# the training step as one CUDA graph (cfnerf_torch/train/graph.py)
+# ---------------------------------------------------------------------- #
+
+GRAPH_STEPS = 5
+GRAPH_FAMILY_STEPS = 3
+
+
+def graph_seams(model, fine, rc, batch, gen):
+    """Every draw of a step on `batch` from `gen`, as the seams the
+    benchmark hands in: the jittered depths, the base draws and, with a
+    fine pass, the resample's uniforms and the fine net's base draws."""
+    n = len(batch["rays_o"]) + len(batch["depth_rays_o"])
+    near, far = (torch.full((n, 1), v, device="cuda") for v in (NEAR, FAR))
+    z_vals = schedule_z_vals(rc, near, far, gen, is_test=False)
+    seams = dict(z_vals=z_vals, eps=model.train_eps(z_vals.numel(), gen, None))
+    if fine is not None:
+        seams["pdf_u"] = torch.rand((n, rc.n_importance), generator=gen, device="cuda")
+        seams["eps_fine"] = fine.train_eps(n * (z_vals.shape[-1] + rc.n_importance), gen, None)
+    return seams
+
+
+def graph_kernel_events(prof):
+    """The hand-written kernels' device kernels in a profile's events, by
+    launch counter: each kernel's name carries its counter's (a launch may
+    run more than one, as render_core_bwd's reduction)."""
+    seen = dict.fromkeys(launch_counters(), 0)
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == torch.autograd.DeviceType.CUDA:
+            name = evt.name().lower()
+            for k in seen:
+                seen[k] += k in name
+    return seen
+
+
+def graph_pair(config, label, batches, trunk_impl="xla", noise=False, handed=False,
+               fallback=False):
+    """Two step objects of `config` from the same weights: A runs
+    train_step, a CUDA graph (captured at its first call, then replayed), B
+    the eager step through its halves (zero_grad, loss_fn, backward,
+    update: train_step's eager path) on the same kind of Adam; a step each
+    a batch of `batches`.  The draws come from two generators of one seed,
+    which A's graph registers and draws from (the CLI's path), or with
+    `handed` from seams made once (graph_seams) and handed to both (the
+    benchmark's path).  With `fallback` the third batch has half the rgb
+    rays: A runs it eagerly (train.graph_eager counts 1), then replays
+    again.  Checks, bitwise: every step's metrics, the parameters and Adam's
+    moments and step count after the last; the launch counters a step equal
+    (the graph's warm-up and capture count as no step's); then two more
+    steps of each, the second profiled: the replay's device events hold each
+    hand-written kernel as often as the eager step's, and the counters,
+    which count a replay's launches from its capture, say as much as the
+    eager step's real ones.  Returns the times."""
+    args = types.SimpleNamespace(**config, trunk_impl=trunk_impl)
+    model_a, fine_a, rc = build_model(args)
+    if noise:
+        rc = dataclasses.replace(rc, apply_noise=True, raw_noise_std=1.0)
+    model_b, fine_b = copy.deepcopy(model_a), copy.deepcopy(fine_a)
+    cfg = TrainConfig(H=H, W=W, focal=FOCAL, ndc=False, near=NEAR, far=FAR,
+                      k_samples=config["K_samples"], **TRAIN_CFG)
+    step_a, opt_a = make_train_step(model_a, rc, cfg, model_fine=fine_a)
+    step_b, opt_b = make_train_step(model_b, rc, cfg, model_fine=fine_b)
+    check(step_a.graph_refusal is None, f"graph_step {label}: refused: {step_a.graph_refusal}")
+    gen_a, gen_b, gen_s = (torch.Generator(device="cuda").manual_seed(s) for s in (7, 7, 11))
+    counters = launch_counters()
+    if fallback:
+        half = {k: v[:len(v) // 2] for k, v in batches[0].items()
+                if k in ("rays_o", "rays_d", "target")}
+        batches = [*batches[:2], {**batches[0], **half}, *batches[2:]]
+
+    def run(one):
+        out, launched, times = [], [], []
+        for batch in batches:
+            before = {k: fn.launches for k, fn in counters.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out.append({k: v.clone() for k, v in one(batch).items()})
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            launched.append({k: fn.launches - before[k] for k, fn in counters.items()})
+        return out, launched, times
+
+    def graphed(batch):
+        if handed:
+            return step_a(batch, None, **graph_seams(model_b, fine_b, rc, batch, gen_s))
+        return step_a(batch, gen_a)
+
+    def eager(batch):
+        opt_b.zero_grad(set_to_none=True)
+        if handed:
+            loss, metrics = step_b.loss_fn(batch, None,
+                                           **graph_seams(model_b, fine_b, rc, batch, gen_s))
+        else:
+            loss, metrics = step_b.loss_fn(batch, gen_b)
+        loss.backward()
+        step_b.update()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    start = {n: p.detach().clone() for n, p in model_a.named_parameters(prefix="coarse")}
+    if fine_a is not None:
+        start.update((n, p.detach().clone()) for n, p in fine_a.named_parameters(prefix="fine"))
+    what = f"graph_step {label} ({'handed-in seams' if handed else 'generator'})"
+    gen_s.manual_seed(11)
+    if fallback:  # the graph's counters, recorded while a profile records
+        from torch.profiler import ProfilerActivity, profile
+
+        trace.reset()
+        with profile(activities=[ProfilerActivity.CPU]):
+            got_a, launched_a, ms_a = run(graphed)
+        calls = trace.snapshot()["counters"]
+        trace.reset()
+        want = {"train.graph_capture": 1, "train.graph_replay": len(batches) - 1,
+                "train.graph_eager": 1}
+        check({k: calls.get(k, 0) for k in want} == want,
+              f"{what}: graph counters {calls}, want {want}")
+    else:
+        got_a, launched_a, ms_a = run(graphed)
+    gen_s.manual_seed(11)
+    got_b, launched_b, ms_b = run(eager)
+    check(all(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+              for a, b in zip(got_a, got_b)), f"{what}: metrics not bitwise")
+    named_a = dict(model_a.named_parameters(prefix="coarse"))
+    named_b = dict(model_b.named_parameters(prefix="coarse"))
+    if fine_a is not None:
+        named_a.update(fine_a.named_parameters(prefix="fine"))
+        named_b.update(fine_b.named_parameters(prefix="fine"))
+    differ = [n for n in named_a if not torch.equal(named_a[n], named_b[n])]
+    check(not differ, f"{what}: parameters not bitwise: {differ[:5]}")
+    state_differ = []
+    for n in named_a:
+        sa, sb = opt_a.state.get(named_a[n], {}), opt_b.state.get(named_b[n], {})
+        if sa.keys() != sb.keys() or any(not torch.equal(sa[k], sb[k]) for k in sa):
+            state_differ.append(n)
+    check(not state_differ, f"{what}: Adam's state not bitwise: {state_differ[:5]}")
+    check(launched_a == launched_b, f"{what}: launches {launched_a} against eager {launched_b}")
+    moved = sum(not torch.equal(p, start[n]) for n, p in named_a.items())
+    check(moved > 0, f"{what}: no parameter moved")
+    # two more steps each, the second profiled: the replay's device kernels
+    # against the eager step's, whose counters count real launches (a launch
+    # may run more than one kernel), and the counters alike; the first step
+    # is the profiler's warm-up (the kernels of a profile's first moments
+    # can go unrecorded)
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def profiled(one):
+        seen = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: seen.append(graph_kernel_events(p))) as prof:
+            one(batches[-1])
+            torch.cuda.synchronize()
+            prof.step()
+            before = {k: fn.launches for k, fn in counters.items()}
+            one(batches[-1])
+            torch.cuda.synchronize()
+            prof.step()
+        check(len(seen) == 1, f"{what}: {len(seen)} profiled steps, want 1")
+        return {k: fn.launches - before[k] for k, fn in counters.items()}, seen[0]
+
+    (counted, seen), (counted_b, seen_b) = profiled(graphed), profiled(eager)
+    check(seen == seen_b and counted == counted_b,
+          f"{what}: a profiled replay ran the kernels {seen} and counted {counted}, "
+          f"the eager step {seen_b} and {counted_b}")
+    del step_a, step_b, opt_a, opt_b, model_a, model_b, fine_a, fine_b
+    torch.cuda.empty_cache()
+    steady = [ms for i, ms in enumerate(ms_a[1:], 1) if not (fallback and i == 2)]
+    return dict(steps=len(batches), graphed_ms=ms_a, eager_ms=ms_b,
+                graphed_step_ms=statistics.median(steady),
+                eager_step_ms=statistics.median(ms_b[1:]), capture_step_ms=ms_a[0],
+                launches_a_step=launched_b[-1], replay_kernel_events=seen,
+                eager_kernel_events=seen_b,
+                parameters_moved=f"{moved}/{len(named_a)}",
+                last_loss=float(got_a[-1]["loss"]))
+
+
+def phase_graph_step():
+    """make_train_step's CUDA graph against its eager step (graph_pair): the
+    flagship (D8/W512, 512 + 128 rays, N128, K32, the fused render core)
+    and the hierarchical pair (64 + 128 samples, two D8/W512 nets, the
+    flow-stack kernels), each through the generator and through handed-in
+    seams, 5 steps; the flagship's eager fallback (3 steps and a call with
+    half the rgb rays); then 3 steps of every other graphed way at the
+    flagship's widths (the trunk kernels, bf16, the unfused render with
+    applied noise, each other flow family) through the generator."""
+    # the composite's cumprod (its backward written out so that a graph
+    # captures it) against torch.cumprod on the card, at the hierarchical
+    # fine pass's shape: forward and gradient bitwise
+    g = torch.Generator(device="cuda").manual_seed(3)
+    alpha = torch.rand((N_RAND + N_DEPTH, HIER["N_samples"] + HIER["N_importance"],
+                        HIER["K_samples"]), generator=g, device="cuda")
+    cot = torch.randn(alpha.shape, generator=g, device="cuda")
+    got = []
+    for cumprod in (torch.cumprod, _CumProd.apply):
+        a = alpha.clone().requires_grad_()
+        y = cumprod(1.0 - a + TRANS_EPS, -2)
+        (y * cot)[:, :-1].sum().backward()
+        got.append((y.detach(), a.grad))
+    check(torch.equal(got[0][0], got[1][0]) and torch.equal(got[0][1], got[1][1]),
+          "graph_step: the composite's cumprod is not torch.cumprod's bit for bit")
+    next_batch = flagship_batches()
+    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in next_batch().items()}
+               for _ in range(GRAPH_STEPS)]
+    # beside the flagship and hierarchical pairs, at the flagship's widths:
+    # every other way make_train_step graphs (label, flags, trunk_impl,
+    # applied density noise)
+    more = ([("trunk pallas", {}, "pallas", False),
+             ("bf16", dict(compute_dtype="bfloat16"), "xla", False),
+             ("unfused noise", {}, "xla", True)]
+            + [(f, dict(type_flows=f), "xla", False) for f in FAMILY_NAMES])
+    out = {}
+    for label, config in (("flagship", FLAGSHIP), ("hierarchical", HIER)):
+        for handed in (False, True):
+            out[f"{label} {'handed' if handed else 'generator'}"] = graph_pair(
+                config, label, batches, handed=handed)
+    # a call with other shapes on a graphed object: eager, then replays again
+    out["flagship eager fallback"] = graph_pair(FLAGSHIP, "flagship eager fallback",
+                                                batches[:GRAPH_FAMILY_STEPS], fallback=True)
+    for label, over, impl, noise in more:
+        out[label] = graph_pair(dict(FLAGSHIP, **over), label, batches[:GRAPH_FAMILY_STEPS],
+                                trunk_impl=impl, noise=noise)
+    emit("graph_step", nvidia_smi=nvidia_smi_line(), rays_per_step=N_RAND + N_DEPTH, cells=out)
+    return out
+
+
+# ---------------------------------------------------------------------- #
 # serving through the trunk kernel (trunk_impl="pallas")
 # ---------------------------------------------------------------------- #
 
@@ -3342,9 +3582,9 @@ def phase_data_train():
                           for k in first),
                   "the first prefetched batch is the host batch, bitwise")
             # warm-up: forward and backward without an update, so that the
-            # timed steps are global steps 1-10
-            loss, _ = train_step.loss_fn(first, gen)
-            loss.backward()
+            # timed steps are global steps 1-10; nothing of its autograd
+            # graph kept, so that the step's first call captures its graph
+            train_step.loss_fn(first, gen)[0].backward()
             optimizer.zero_grad(set_to_none=True)
             torch.cuda.synchronize()
 
@@ -3420,10 +3660,11 @@ def phase_data_train():
               f"the restored model's view vs the trained one's: {view_err}")
 
         step2, opt2 = make_train_step(model2, rc2, dataclasses.replace(cfg, start_step=start2))
-        lr = opt2.param_groups[0]["lr"]
-        want_lr = args.lrate * 0.1 ** (start2 / (args.lrate_decay * 1000))
-        check(not opt2.state and abs(lr - want_lr) <= 1e-12 * want_lr,
-              f"a fresh Adam at lr {lr}, want {want_lr}")
+        # on the card Adam's lr is an f32 tensor (make_optimizer): the
+        # schedule's value rounded to f32
+        lr = float(opt2.param_groups[0]["lr"])
+        want_lr = float(np.float32(args.lrate * 0.1 ** (start2 / (args.lrate_decay * 1000))))
+        check(not opt2.state and lr == want_lr, f"a fresh Adam at lr {lr}, want {want_lr}")
         fwd.launches = bwd.launches = 0
         batch = make_batch(global_step + 1)
         m2 = step2(batch, gen)
@@ -5300,6 +5541,7 @@ def main() -> int:
     hier_serve_launches = phase_hier_serve()
     phase_hier_golden()
     hier_train = phase_hier_train()
+    phase_graph_step()
     trunk_flat, trunk_hier = phase_trunk_serve()
     trunk_flat_launches = trunk_flat[trunk.trunk_encode.__name__]
     trunk_flat_core = trunk_flat[render_core.fused_flow_composite.__name__]
