@@ -69,6 +69,7 @@ from cfnerf_torch.ops.kernels.trunk import (
     trunk_encode,
 )
 from cfnerf_torch.ops.kernels.trunk import supported as trunk_supported
+from cfnerf_torch.utils.trace import count, span
 
 Z_ALPHA = 1  # density latent dim
 Z_RGB = 3    # rgb latent dim
@@ -290,9 +291,13 @@ class NeRFFlows(nn.Module):
         versions on any device, as JAX's interpret mode runs the Pallas
         kernels' arithmetic without the kernels.  "pallas" and "interpret"
         ignore compute_dtype, as JAX's pallas_encode does.  Every path
-        differentiates as JAX's does."""
+        differentiates as JAX's does.  Their packing of the weights is the
+        span cfnerf.trunk.pack and the counter trunk.packs (utils/trace.py,
+        while a profile records)."""
         if self.trunk_impl != "xla":
-            packed = pack_trunk_weights(self)
+            with span("cfnerf.trunk.pack"):
+                packed = pack_trunk_weights(self)
+            count("trunk.packs")
             lead = x.shape[:-1]
             x2 = x.reshape(-1, x.shape[-1])
             h_alpha, h_rgb = trunk_encode(packed, x2,

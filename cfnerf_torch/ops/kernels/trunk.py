@@ -38,6 +38,13 @@ runs each member's B rows through its own trunk, as the vmap of JAX's
 ensemble step batches pallas_encode.  On the card one launch of each kernel
 covers every member (grids with a member axis); the plain versions run
 member by member.  Outputs and gradients keep the member axis first.
+
+Spans and counters (utils/trace.py, while a profile records):
+cfnerf.trunk.launch, the wrappers' host work for a kernel launch (the
+checks, the bf16 weights, the outputs and workspaces, the tensor maps'
+encoding and the enqueue); trunk.rows, the rows through `trunk_encode`
+(every member's).  NeRFFlows.encode adds cfnerf.trunk.pack and
+trunk.packs around `pack_trunk_weights`.
 """
 from __future__ import annotations
 
@@ -50,6 +57,7 @@ import torch.nn.functional as F
 
 from cfnerf_torch.ops.kernels import _build
 from cfnerf_torch.ops.kernels.render_core import _on_device
+from cfnerf_torch.utils.trace import count, span
 
 NAME = "trunk"
 SOURCE = "cfnerf_torch/csrc/trunk.cu"
@@ -395,7 +403,7 @@ def trunk_encode(packed: TrunkWeights, x: torch.Tensor, *, interpret: bool = Fal
     raises.  Where a gradient is required the call goes through `_Trunk`,
     whose backward is the backward kernel or, on the plain route,
     `trunk_encode_bwd_plain`."""
-    _check_x(packed, x)
+    count("trunk.rows", _check_x(packed, x) * packed.members)
     args = (x, packed.w, packed.b)
     plain = _devices("trunk", args) == "cpu" or interpret
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
@@ -493,21 +501,22 @@ def _launch(packed: TrunkWeights, x: torch.Tensor, save: bool = False,
     """The forward kernel: (h_alpha, h_rgb); with `save` the training
     variant, which also writes every bf16 activation into a new workspace:
     (h_alpha, h_rgb, workspace).  `w16`: the weights already cast."""
-    B, row_stride = _kernel_args(packed, x, "trunk kernel")
-    w16 = packed.w.to(torch.bfloat16) if w16 is None else w16
-    M, lead = packed.members, x.shape[:-2]
-    h_alpha = x.new_empty((*lead, B, packed.h_alpha))
-    h_rgb = x.new_empty((*lead, B, packed.h_rgb))
-    shape = packed._shape()
-    if save:
-        fn, workspace_bytes = _entry_save()
-        acts = x.new_empty((M * workspace_bytes(B, *shape[:4]),), dtype=torch.uint8)
-        extra = (acts.data_ptr(), acts.numel())
-    else:
-        fn, extra = _entry(), ()
-    with _on_device(x.device) as stream:
-        err = fn(x.data_ptr(), row_stride, w16.data_ptr(), packed.b.data_ptr(),
-                 h_alpha.data_ptr(), h_rgb.data_ptr(), *extra, B, *shape, M, stream)
+    with span("cfnerf.trunk.launch"):
+        B, row_stride = _kernel_args(packed, x, "trunk kernel")
+        w16 = packed.w.to(torch.bfloat16) if w16 is None else w16
+        M, lead = packed.members, x.shape[:-2]
+        h_alpha = x.new_empty((*lead, B, packed.h_alpha))
+        h_rgb = x.new_empty((*lead, B, packed.h_rgb))
+        shape = packed._shape()
+        if save:
+            fn, workspace_bytes = _entry_save()
+            acts = x.new_empty((M * workspace_bytes(B, *shape[:4]),), dtype=torch.uint8)
+            extra = (acts.data_ptr(), acts.numel())
+        else:
+            fn, extra = _entry(), ()
+        with _on_device(x.device) as stream:
+            err = fn(x.data_ptr(), row_stride, w16.data_ptr(), packed.b.data_ptr(),
+                     h_alpha.data_ptr(), h_rgb.data_ptr(), *extra, B, *shape, M, stream)
     if err != 0:
         raise RuntimeError(f"trunk_fwd{'_save' if save else ''} launch failed: CUDA error "
                            f"{err} (B={B}, members={M}, shape {shape})")
@@ -542,17 +551,18 @@ def _launch_bwd(shape, w16: torch.Tensor, acts: torch.Tensor, B: int,
     each.  Returns (dw, db) in f32, (M, ...) for stacked members."""
     members = w16.shape[0] if w16.dim() == 2 else None
     M = members or 1
-    g_ha, g_hr = _cotangents(shape, B, members, acts, g_h_alpha, g_h_rgb)
-    fn, workspace_bytes = _entry_bwd()
-    workspace = acts.new_empty((M * workspace_bytes(B, *shape),))
-    mats, biases = _layout(*shape)
-    lead = w16.shape[:-1]
-    dw = acts.new_empty((*lead, sum(r * c for _, r, c in mats)), dtype=torch.float32)
-    db = acts.new_empty((*lead, sum(n for _, n in biases)), dtype=torch.float32)
-    with _on_device(acts.device) as stream:
-        err = fn(acts.data_ptr(), acts.numel(), w16.data_ptr(), g_ha.data_ptr(),
-                 g_hr.data_ptr(), dw.data_ptr(), db.data_ptr(), workspace.data_ptr(),
-                 workspace.numel(), B, *shape, M, stream)
+    with span("cfnerf.trunk.launch"):
+        g_ha, g_hr = _cotangents(shape, B, members, acts, g_h_alpha, g_h_rgb)
+        fn, workspace_bytes = _entry_bwd()
+        workspace = acts.new_empty((M * workspace_bytes(B, *shape),))
+        mats, biases = _layout(*shape)
+        lead = w16.shape[:-1]
+        dw = acts.new_empty((*lead, sum(r * c for _, r, c in mats)), dtype=torch.float32)
+        db = acts.new_empty((*lead, sum(n for _, n in biases)), dtype=torch.float32)
+        with _on_device(acts.device) as stream:
+            err = fn(acts.data_ptr(), acts.numel(), w16.data_ptr(), g_ha.data_ptr(),
+                     g_hr.data_ptr(), dw.data_ptr(), db.data_ptr(), workspace.data_ptr(),
+                     workspace.numel(), B, *shape, M, stream)
     if err != 0:
         raise RuntimeError(
             f"trunk_bwd launch failed: CUDA error {err} (B={B}, members={M}, shape {shape})"
